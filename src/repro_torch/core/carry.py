@@ -1,0 +1,92 @@
+"""What crosses from the JAX reference into the port: config and state.
+
+The system has no weights. A test carries the solver configuration (the
+``dataclasses.asdict`` of a reference ``SolverConfig``) and solver state
+(numpy arrays: multipliers, histograms, finalize carries) into the port;
+the instance crosses as numpy bytes through ``host_array_source``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .types import SolverConfig
+
+# Reference fields the port does not carry: their reference defaults, and
+# the ROADMAP item that ports them. Any other value raises.
+_UNPORTED = {
+    "chunk_size": (None, "A2 (chunked resident map)"),
+    "dd_lr": (1e-3, "A2 (DD)"),
+    "partial_fraction": (1.0, "A8 (straggler mask)"),
+    "checkpoint_keep": (3, "A4 (checkpoint retention)"),
+    "fetch_backoff": (0.05, "A4 (fault layer)"),
+    "fetch_backoff_growth": (2.0, "A4 (fault layer)"),
+    "fetch_backoff_cap": (2.0, "A4 (fault layer)"),
+    "fetch_jitter": (0.25, "A4 (fault layer)"),
+    "fetch_timeout": (0.0, "A4 (fault layer)"),
+    "verify_refetch": (False, "A4 (fault layer)"),
+    "screening_floor": (0.5, "A5 (screening)"),
+}
+_DTYPES = {"float32": torch.float32}
+
+
+def config_from_reference(fields: dict) -> SolverConfig:
+    """A port ``SolverConfig`` from ``dataclasses.asdict`` of a reference one.
+
+    ``dtype`` maps by name; ``use_kernels`` is dropped (the device picks
+    the implementation). Fields the port does not carry must hold the
+    reference's default, and ported fields a supported value; otherwise
+    this raises (``NotImplementedError`` naming the ROADMAP item for an
+    unported option).
+    """
+    ported = {f.name for f in dataclasses.fields(SolverConfig)}
+    kw = {}
+    for name, value in fields.items():
+        if name == "use_kernels":
+            continue
+        if name == "dtype":
+            dname = np.dtype(getattr(value, "dtype", value)).name
+            if dname not in _DTYPES:
+                raise ValueError(f"dtype {dname} is not supported")
+            kw["dtype"] = _DTYPES[dname]
+        elif name in ported:
+            kw[name] = value
+        elif name in _UNPORTED:
+            default, item = _UNPORTED[name]
+            if value != default:
+                raise NotImplementedError(
+                    f"{name}={value!r} is not ported yet: ROADMAP {item}")
+        else:
+            raise ValueError(f"unknown reference SolverConfig field {name!r}")
+    return SolverConfig(**kw)
+
+
+class SolverState(NamedTuple):
+    """Solver state on a device; every field may be None."""
+
+    lam: Optional[torch.Tensor]
+    dprev: Optional[torch.Tensor]
+    hist: Optional[torch.Tensor]
+    top: Optional[torch.Tensor]
+    fin: Optional[tuple]
+
+
+def state_from_reference(device, lam=None, dprev=None, hist=None, top=None,
+                         fin=None) -> SolverState:
+    """Reference numpy state as float32 tensors on ``device``.
+
+    ``lam``/``dprev`` (K,), ``hist`` (K, E+1), ``top`` (K,), ``fin`` the
+    finalize carry (r, primal, dual_sum, lo, hi[, cons_hist, gain_hist]).
+    Start the port's finalize from a converged ``lam`` with
+    ``solve_streaming_host(src, cfg.replace(max_iters=0), lam0=state.lam)``.
+    """
+    def put(a):
+        if a is None:
+            return None
+        return torch.tensor(np.array(a, np.float32)).to(device)
+
+    fin_t = None if fin is None else tuple(put(a) for a in fin)
+    return SolverState(put(lam), put(dprev), put(hist), put(top), fin_t)

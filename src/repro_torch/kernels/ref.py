@@ -1,0 +1,250 @@
+"""Plain PyTorch versions of the two kernels in ``csrc/scd_fused.cu``.
+
+They have the kernels' structure, so that they reproduce the kernels'
+float additions one for one:
+
+* the rows are cut into tiles of ``tile_n`` (the ragged tail padded with
+  inert p = b = 0 rows, which the kernels get from masked loads);
+* each tile reduces into its own partial: every histogram bin, and every
+  scalar sum, is a sum over the tile's rows in row order, starting from
+  0.0 (a one-hot contraction written out row by row);
+* the partials are folded onto the carried seed (``*_init``) in tile
+  order, ``init + part[0] + part[1] + ...``; max and min fold exactly.
+
+Per-row sums over the K items (``pt``, ``gain``) run left to right.
+Both facts make a chunked accumulation (chunk size a multiple of the
+tile) bitwise equal to one call over all rows, on the CPU as on the card.
+
+Each function's partials and seeds share one packed float32 layout with
+its kernel; ``fused_layout`` and ``finalize_layout`` define it.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = float("-inf")
+
+
+# --------------------------------------------------------------------------
+# Packed layouts shared with the CUDA wrappers.
+# --------------------------------------------------------------------------
+
+def fused_layout(k, e):
+    """(length, n_sum) of a packed scd_fused_hist record:
+    [hist (K*(E+1)) | top (K)]. Slots below n_sum fold by +, the rest by max."""
+    return k * (e + 1) + k, k * (e + 1)
+
+
+def finalize_layout(k, e, with_hist):
+    """(length, n_sum) of a packed scd_finalize_hist record:
+    [cons_hist (K*(E+1)) | gain_hist (E+1) |] r (K) | primal | dual | hi | -lo."""
+    hist = k * (e + 1) + (e + 1) if with_hist else 0
+    return hist + k + 4, hist + k + 2
+
+
+def pack_fused_init(k, e, hist_init, top_init, device):
+    """Seed record of scd_fused_hist: zeros / -inf where no seed is given."""
+    hist = (torch.zeros((k * (e + 1),), dtype=torch.float32, device=device)
+            if hist_init is None else hist_init.reshape(-1).to(torch.float32))
+    top = (torch.full((k,), NEG_INF, dtype=torch.float32, device=device)
+           if top_init is None else top_init.reshape(-1).to(torch.float32))
+    return torch.cat([hist, top])
+
+
+def unpack_fused(rec, k, e):
+    """Packed record -> (hist (K, E+1), top (K,))."""
+    nb = e + 1
+    return rec[:k * nb].view(k, nb), rec[k * nb:k * nb + k]
+
+
+def pack_finalize_init(k, e, with_hist, device, cons_hist_init=None,
+                       gain_hist_init=None, r_init=None, sums_init=None,
+                       maxs_init=None):
+    """Seed record of scd_finalize_hist. ``maxs_init`` is (hi, -lo)."""
+    def seed(x, n, fill):
+        if x is None:
+            return torch.full((n,), fill, dtype=torch.float32, device=device)
+        return x.reshape(-1).to(torch.float32)
+
+    parts = []
+    if with_hist:
+        parts += [seed(cons_hist_init, k * (e + 1), 0.0),
+                  seed(gain_hist_init, e + 1, 0.0)]
+    parts += [seed(r_init, k, 0.0), seed(sums_init, 2, 0.0),
+              seed(maxs_init, 2, NEG_INF)]
+    return torch.cat(parts)
+
+
+def unpack_finalize(rec, k, e, with_hist):
+    """Packed record -> (cons_hist, gain_hist, r, primal, dual, lo, hi);
+    the histograms are None without ``with_hist``."""
+    nb = e + 1
+    ch = gh = None
+    o = 0
+    if with_hist:
+        ch = rec[:k * nb].view(k, nb)
+        gh = rec[k * nb:k * nb + nb]
+        o = k * nb + nb
+    r = rec[o:o + k]
+    return ch, gh, r, rec[o + k], rec[o + k + 1], -rec[o + k + 3], rec[o + k + 2]
+
+
+def fold_partials(part, init, n_sum):
+    """The ordered fold: ``init + part[0] + part[1] + ...`` on the slots
+    below ``n_sum``, a running max on the rest. part: (T, L); init: (L,)."""
+    acc = init.clone()
+    for t in range(part.shape[0]):
+        acc = torch.cat([acc[:n_sum] + part[t, :n_sum],
+                         torch.maximum(acc[n_sum:], part[t, n_sum:])])
+    return acc
+
+
+# --------------------------------------------------------------------------
+# Per-row semantics (Alg 5 candidates, the top-Q greedy mask).
+# --------------------------------------------------------------------------
+
+def _tiled(x, tile_n):
+    """(n, K) -> (T * tile_n, K) with inert zero rows appended."""
+    pad = -x.shape[0] % tile_n
+    if not pad:
+        return x
+    return torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+
+
+def _order_stats(ap, q):
+    """Q-th and (Q+1)-th largest per row, by Q+1 masked-max passes that
+    knock out the lowest index among the maxima (the kernel's loop)."""
+    n, k = ap.shape
+    idx = torch.arange(k, device=ap.device)[None, :]
+    inf = torch.full((n,), float("inf"), dtype=ap.dtype, device=ap.device)
+    q_th, q1_th = inf, inf
+    work = ap
+    for i in range(q + 1):
+        m = work.amax(dim=1)
+        if i == q - 1:
+            q_th = m
+        if i == q:
+            q1_th = m
+        pick = torch.where(work == m[:, None], idx, k).amin(dim=1)
+        work = torch.where(idx == pick[:, None], NEG_INF, work)
+    return q_th, q1_th
+
+
+def candidates_block(p, b, lam, q):
+    """Alg 5 candidates (v1, v2) of (n, K) rows; invalid -> (-1, 0)."""
+    ap = torch.clamp_min(p - lam[None, :] * b, 0.0)
+    k = p.shape[1]
+    if q >= k:
+        pbar = torch.zeros_like(ap)
+    else:
+        q_th, q1_th = _order_stats(ap, q)
+        pbar = torch.where(ap >= q_th[:, None], q1_th[:, None], q_th[:, None])
+    valid = (p > pbar) & (b > 0)
+    safe_b = torch.where(b > 0, b, torch.ones_like(b))
+    v1 = torch.where(valid, (p - pbar) / safe_b, -1.0)
+    v2 = torch.where(valid, b, 0.0)
+    return v1, v2
+
+
+def topq_mask(ap, q):
+    """Top-q strictly positive entries per row, ties to the lower index."""
+    n, k = ap.shape
+    idx = torch.arange(k, device=ap.device)[None, :]
+    x = torch.zeros_like(ap, dtype=torch.bool)
+    work = ap
+    for _ in range(q):
+        m = work.amax(dim=1, keepdim=True)
+        is_max = (work == m) & (m > 0)
+        pick = torch.where(is_max, idx, k).amin(dim=1, keepdim=True)
+        hit = idx == pick
+        x = x | hit
+        work = torch.where(hit, NEG_INF, work)
+    return x
+
+
+def row_sum(w):
+    """Left-to-right sum over the last axis, from 0.0 (the kernel's loop)."""
+    s = torch.zeros_like(w[:, 0])
+    for j in range(w.shape[1]):
+        s = s + w[:, j]
+    return s
+
+
+# --------------------------------------------------------------------------
+# The two plain versions.
+# --------------------------------------------------------------------------
+
+def scd_fused_hist_plain(p, b, lam, edges, q, tile_n=512, hist_init=None,
+                         top_init=None):
+    """Plain version of ``scd_fused_hist``: (hist (K, E+1) f32, top (K,)).
+
+    hist[k, j] is the v2 mass of the candidates with
+    edges[k, j-1] < v1 <= edges[k, j] (searchsorted-left), top the
+    running max of v1; both seeded by ``hist_init`` / ``top_init``.
+    """
+    n, k = p.shape
+    e = edges.shape[-1]
+    tile_n = min(tile_n, n)
+    v1, v2 = candidates_block(_tiled(p, tile_n), _tiled(b, tile_n), lam, q)
+    t = v1.shape[0] // tile_n
+    idx = (v1[:, :, None] > edges[None, :, :]).sum(-1).view(t, tile_n, k)
+    bins = torch.arange(e + 1, device=p.device)
+    # Row r's one-hot mass, then the row-order sum of the tile's rows.
+    mass = torch.where(idx[..., None] == bins, v2.view(t, tile_n, k, 1), 0.0)
+    hist = torch.zeros((t, k, e + 1), dtype=torch.float32, device=p.device)
+    for r in range(tile_n):
+        hist += mass[:, r]
+    top = v1.view(t, tile_n, k).amax(dim=1)
+    part = torch.cat([hist.reshape(t, -1), top], dim=1)
+    _, n_sum = fused_layout(k, e)
+    rec = fold_partials(part, pack_fused_init(k, e, hist_init, top_init,
+                                              p.device), n_sum)
+    return unpack_fused(rec, k, e)
+
+
+def scd_finalize_plain(p, b, lam, pedges, q, tile_n=512, with_hist=True,
+                       cons_hist_init=None, gain_hist_init=None, r_init=None,
+                       sums_init=None, maxs_init=None):
+    """Plain version of ``scd_finalize_hist``.
+
+    Greedy top-Q selection at lam, then r (K,), primal, dual sum and the
+    (lo, hi) range of the per-row group profit pt over rows that selected
+    anything; with ``with_hist`` also the consumption (K, E+1) and raw
+    profit (E+1,) histograms of pt binned against ``pedges`` (E,).
+    Returns (cons_hist, gain_hist, r, primal, dual, lo, hi).
+    """
+    n, k = p.shape
+    e = pedges.shape[-1] if with_hist else 0
+    tile_n = min(tile_n, n)
+    pp, bb = _tiled(p, tile_n), _tiled(b, tile_n)
+    t = pp.shape[0] // tile_n
+    ap = pp - lam[None, :] * bb
+    x = topq_mask(ap, q)
+    cons = torch.where(x, bb, 0.0)
+    gain = row_sum(torch.where(x, pp, 0.0))
+    pt = row_sum(torch.where(x, ap, 0.0))
+    sel = x.any(dim=1)
+    cons3, gain2, pt2 = cons.view(t, tile_n, k), gain.view(t, tile_n), pt.view(t, tile_n)
+    zeros = dict(dtype=torch.float32, device=p.device)
+    r_part, s_part = torch.zeros((t, k), **zeros), torch.zeros((t, 2), **zeros)
+    if with_hist:
+        pidx = (pt[:, None] > pedges[None, :]).sum(-1).view(t, tile_n)
+        bins = torch.arange(e + 1, device=p.device)
+        ch = torch.zeros((t, k, e + 1), **zeros)
+        gh = torch.zeros((t, e + 1), **zeros)
+    for r in range(tile_n):
+        r_part += cons3[:, r]
+        s_part += torch.stack([gain2[:, r], pt2[:, r]], dim=1)
+        if with_hist:
+            hit = pidx[:, r, None] == bins
+            ch += torch.where(hit[:, None, :], cons3[:, r, :, None], 0.0)
+            gh += torch.where(hit, gain2[:, r, None], 0.0)
+    sel2 = sel.view(t, tile_n)
+    hi = torch.where(sel2, pt2, NEG_INF).amax(dim=1)
+    nlo = torch.where(sel2, -pt2, NEG_INF).amax(dim=1)
+    parts = [ch.reshape(t, -1), gh] if with_hist else []
+    part = torch.cat(parts + [r_part, s_part, hi[:, None], nlo[:, None]], dim=1)
+    _, n_sum = finalize_layout(k, e, with_hist)
+    init = pack_finalize_init(k, e, with_hist, p.device, cons_hist_init,
+                              gain_hist_init, r_init, sums_init, maxs_init)
+    return unpack_finalize(fold_partials(part, init, n_sum), k, e, with_hist)

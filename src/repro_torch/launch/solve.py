@@ -1,0 +1,121 @@
+"""Solver launcher: the paper's production job, host-fed, on the card.
+
+    python -m repro_torch.launch.solve --workload table1 --scale 0.1 \\
+        --host-feed --chunk-size 65536 [--device cpu]
+
+Generates the §6 sparse workload as NumPy chunks on the host
+(``data/synth.sparse_host_chunk_source``), solves it with the host-fed
+sync-SCD bucketed driver (``core/prefetch.solve_streaming_host``) and
+prints one ``key: value`` line per metric, the keys of the reference
+launcher plus the device. ``--scale`` shrinks N, keeping the structure
+(budgets scale with N).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from ..configs.paper_kp import WORKLOADS, KPWorkload
+from ..core.prefetch import resolve_device, solve_streaming_host
+from ..core.types import SolverConfig
+from ..data.synth import sparse_host_chunk_source
+
+
+def run_streaming(workload: KPWorkload, cfg: SolverConfig, chunk: int, seed=0,
+                  double_buffer=True, device="cuda", stats=None):
+    """Host-fed solve of a §6 workload; returns the Table-1-style row dict."""
+    dev = resolve_device(device)
+    t0 = time.time()
+    src = sparse_host_chunk_source(seed, workload.n_users, workload.k, chunk,
+                                   q=workload.q, tightness=workload.tightness)
+    res = solve_streaming_host(src, cfg, q=workload.q,
+                               double_buffer=double_buffer, device=dev,
+                               stats=stats)
+    budgets = torch.as_tensor(src.budgets)
+    viol = float(torch.max((res.r - budgets) / budgets))
+    dt = time.time() - t0
+    return {
+        "n_users": workload.n_users,
+        "k": workload.k,
+        "chunk_size": chunk,
+        "iterations": int(res.iters),
+        "primal": float(res.primal),
+        "dual": float(res.dual),
+        "duality_gap": float(res.dual - res.primal),
+        "max_violation": viol,
+        "wall_s": round(dt, 2),
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+    }
+
+
+# Reference flags this slice does not port, and the ROADMAP item that does.
+_UNPORTED = {
+    "algo": ("--algo dd", "A2"),
+    "reduce": ("--reduce exact", "A2"),
+    "presolve": ("--presolve", "A2"),
+    "streaming": ("--streaming (traced generator)", "A3"),
+    "stream_finalize": ("--stream-finalize legacy", "A3"),
+    "checkpoint_dir": ("--checkpoint-dir", "A4"),
+    "checkpoint_every": ("--checkpoint-every", "A4"),
+    "resume": ("--resume", "A4"),
+    "slots": ("--slots", "A4"),
+    "screening": ("--screening", "A5"),
+}
+
+
+def main(argv=None):
+    """CLI entry point; prints one ``key: value`` line per metric."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--workload", choices=list(WORKLOADS), default="table1")
+    ap.add_argument("--scale", type=float, default=1e-4,
+                    help="shrink N by this factor (1.0 = full size)")
+    ap.add_argument("--n", type=int, default=None)
+    ap.add_argument("--k", type=int, default=None)
+    ap.add_argument("--q", type=int, default=None)
+    ap.add_argument("--max-iters", type=int, default=40)
+    ap.add_argument("--chunk-size", type=int, default=None)
+    ap.add_argument("--host-feed", action="store_true",
+                    help="host-produced NumPy chunks, double-buffered upload "
+                         "(the only solve mode ported so far)")
+    ap.add_argument("--no-double-buffer", action="store_true",
+                    help="synchronous upload and step (the baseline)")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--algo", choices=["scd", "dd"], default="scd")
+    ap.add_argument("--reduce", choices=["bucketed", "exact"], default="bucketed")
+    ap.add_argument("--presolve", type=int, default=0)
+    ap.add_argument("--streaming", action="store_true")
+    ap.add_argument("--stream-finalize", choices=["fused", "legacy"],
+                    default="fused")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--slots", type=int, default=None)
+    ap.add_argument("--screening", action="store_true")
+    args = ap.parse_args(argv)
+
+    for name, (flag, item) in _UNPORTED.items():
+        if getattr(args, name) != ap.get_default(name):
+            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP {item}")
+    if not args.host_feed:
+        raise NotImplementedError(
+            "only the host-fed solve is ported (pass --host-feed); the "
+            "resident solve is ROADMAP A2")
+    if not args.chunk_size:
+        raise SystemExit("--host-feed requires --chunk-size")
+
+    wl = WORKLOADS[args.workload]
+    n = args.n or max(int(wl.n_users * args.scale), 1024)
+    wl = KPWorkload(wl.name, n, args.k or wl.k, args.q or wl.q, wl.tightness)
+    cfg = SolverConfig(max_iters=args.max_iters)
+    out = run_streaming(wl, cfg, args.chunk_size,
+                        double_buffer=not args.no_double_buffer,
+                        device=args.device)
+    for k, v in out.items():
+        print(f"{k}: {v}")
+
+
+if __name__ == "__main__":
+    main()

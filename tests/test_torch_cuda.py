@@ -1,0 +1,105 @@
+"""The port's CUDA kernels on the card (tests marked ``cuda``).
+
+No JAX here: this file runs on a machine with the card and PyTorch only,
+``python -m pytest tests/test_torch_cuda.py -m cuda``. Kernel against plain
+version on the same CUDA tensors: bitwise on dyadic inputs; on random
+inputs allclose (rtol 1e-5, atol 1e-5) with ``top`` exact.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _torch_cuda import cuda_device  # noqa: E402,F401
+from repro_torch.core import prefetch as tpf  # noqa: E402
+from repro_torch.core.bucketing import make_edges  # noqa: E402
+from repro_torch.core.postprocess import profit_edges_fixed  # noqa: E402
+from repro_torch.core.types import SolverConfig  # noqa: E402
+from repro_torch.data.synth import sparse_host_chunk_source  # noqa: E402
+from repro_torch.kernels import ops, ref, scd_fused  # noqa: E402
+
+
+def _inst(n, k, seed, dyadic, device):
+    g = np.random.default_rng(seed)
+    if dyadic:
+        p, b = g.integers(0, 64, (n, k)) / 64.0, g.integers(1, 64, (n, k)) / 64.0
+        lam = g.integers(0, 12, (k,)) / 8.0
+    else:
+        p, b, lam = g.random((n, k)), g.uniform(0.05, 1.0, (n, k)), g.uniform(0, 1.5, k)
+    return tuple(torch.tensor(a, dtype=torch.float32, device=device)
+                 for a in (p, b, lam))
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    p = torch.zeros((8, 4))
+    lam = torch.zeros(4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        scd_fused.scd_fused_hist(p, p, lam, torch.zeros((4, 3)), 1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        scd_fused.scd_finalize_hist(p, p, lam, torch.zeros(5), 1)
+
+
+@pytest.mark.cuda
+def test_ops_never_sends_cuda_tensors_to_plain(cuda_device, monkeypatch):
+    def boom(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ref, "scd_fused_hist_plain", boom)
+    monkeypatch.setattr(ref, "scd_finalize_plain", boom)
+    p, b, lam = _inst(1024, 10, 1, False, cuda_device)
+    h, top = ops.scd_fused_hist(p, b, lam, make_edges(lam, 1e-4, 1.6, 24), 1)
+    out = ops.scd_finalize_hist(p, b, lam, profit_edges_fixed(device=cuda_device), 1)
+    torch.cuda.synchronize()
+    assert h.is_cuda and top.is_cuda and out[0].is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 3])
+@pytest.mark.parametrize("dyadic", [False, True])
+def test_kernels_match_plain_on_card(cuda_device, q, dyadic):
+    p, b, lam = _inst(4099, 10, q, dyadic, cuda_device)
+    edges = make_edges(lam, 1e-4, 1.6, 24)
+    pedges = profit_edges_fixed(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(q)
+    seeds = {"hist_init": torch.rand((10, 50), generator=g).to(cuda_device),
+             "top_init": torch.full((10,), -1.0, device=cuda_device)}
+    kh, kt = ops.scd_fused_hist(p, b, lam, edges, q, tile_n=512, **seeds)
+    ph, pt = ref.scd_fused_hist_plain(p, b, lam, edges, q, tile_n=512, **seeds)
+    kf = ops.scd_finalize_hist(p, b, lam, pedges, q, tile_n=512)
+    pf = ref.scd_finalize_plain(p, b, lam, pedges, q, tile_n=512)
+    torch.cuda.synchronize()
+    assert torch.equal(kt, pt)
+    assert float(kf[5]) == float(pf[5]) and float(kf[6]) == float(pf[6])
+    pairs = [(kh, ph)] + list(zip(kf[:5], pf[:5]))
+    for a, c in pairs:
+        if dyadic:
+            assert torch.equal(a, c)
+        else:
+            torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernels_run_to_run_bitwise(cuda_device):
+    p, b, lam = _inst(65536 - 37, 10, 5, False, cuda_device)
+    edges = make_edges(lam, 1e-4, 1.6, 24)
+    pedges = profit_edges_fixed(device=cuda_device)
+    a = ops.scd_fused_hist(p, b, lam, edges, 1)
+    c = ops.scd_fused_hist(p, b, lam, edges, 1)
+    fa = ops.scd_finalize_hist(p, b, lam, pedges, 1)
+    fc = ops.scd_finalize_hist(p, b, lam, pedges, 1)
+    for x, y in list(zip(a, c)) + list(zip(fa, fc)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_solve_matches_cpu(cuda_device):
+    src = sparse_host_chunk_source(0, 20_000, 10, 4096)
+    cfg = SolverConfig(max_iters=40, kernel_tile=512)
+    gpu = tpf.solve_streaming_host(src, cfg, q=1, device=cuda_device)
+    cpu = tpf.solve_streaming_host(src, cfg, q=1, device="cpu")
+    np.testing.assert_allclose(gpu.lam.cpu().numpy(), cpu.lam.numpy(),
+                               rtol=1e-5, atol=1e-6)
+    assert abs(gpu.iters - cpu.iters) <= 1
+    np.testing.assert_allclose(float(gpu.primal), float(cpu.primal), rtol=1e-5)
+    np.testing.assert_allclose(float(gpu.dual), float(cpu.dual), rtol=1e-5)
+    assert float(gpu.tau) == float(cpu.tau)

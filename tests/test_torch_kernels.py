@@ -1,0 +1,214 @@
+"""Plain versions of the port's kernels against the reference's Pallas
+kernels (interpret mode) on the same numpy inputs, and the port's own
+chunked == unchunked contract.
+
+Tolerances: ``top`` and, at q = 1, the finalize's lo/hi and bucket
+pattern are exact against the reference's jnp path (max is order-free and
+the per-row values are bitwise equal). The Pallas kernels in interpret
+mode let XLA contract ``p - lam*b`` into a fused multiply-add, so their
+per-row values may sit one ulp away: against them ``top`` and lo/hi are
+held to rtol 1e-6 (lo/hi with atol 1e-7, one ulp of the profits). Masses and sums are held to the reference kernels' own
+tolerance (rtol 1e-5, atol 1e-5): the Pallas kernel sums a tile as one
+contraction, the port row by row. With dyadic inputs (p, b on a 2^-6
+grid, lam on a 2^-3 grid) every value is exact, so there every output
+must match bitwise.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.bucketing import make_edges as j_make_edges  # noqa: E402
+from repro.core.chunked import _metrics_init as j_metrics_init  # noqa: E402
+from repro.core.chunked import finalize_chunk_accumulate as j_fin_acc  # noqa: E402
+from repro.core.sparse_scd import candidates_sparse as j_candidates  # noqa: E402
+from repro.core.types import SolverConfig as JCfg  # noqa: E402
+from repro.core.postprocess import profit_edges_fixed as j_pedges  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+jax.config.update("jax_platform_name", "cpu")
+
+TILE = 128
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _inst(n, k, seed, dyadic=False):
+    g = np.random.default_rng(seed)
+    if dyadic:
+        p = g.integers(0, 64, (n, k)) / 64.0
+        b = g.integers(1, 64, (n, k)) / 64.0
+        lam = g.integers(0, 12, (k,)) / 8.0
+    else:
+        p = g.random((n, k))
+        b = g.uniform(0.05, 1.0, (n, k))
+        lam = g.uniform(0.0, 1.5, (k,))
+    return p.astype(np.float32), b.astype(np.float32), lam.astype(np.float32)
+
+
+def _t(a):
+    return torch.tensor(np.array(a))
+
+
+def _fused_pair(p, b, lam, q, edges, seeds=None, tile=TILE):
+    seeds = seeds or {}
+    jh, jt = jops.scd_fused_hist(jnp.asarray(p), jnp.asarray(b), jnp.asarray(lam),
+                                 jnp.asarray(edges), q, tile_n=tile, interpret=True,
+                                 **{k: jnp.asarray(v) for k, v in seeds.items()})
+    th, tt = ops.scd_fused_hist(_t(p), _t(b), _t(lam), _t(edges), q, tile_n=tile,
+                                **{k: _t(v) for k, v in seeds.items()})
+    return (np.asarray(jh), np.asarray(jt)), (th.numpy(), tt.numpy())
+
+
+def _fin_pair(p, b, lam, q, pedges, seeds=None, tile=TILE):
+    seeds = seeds or {}
+    j = jops.scd_finalize_hist(jnp.asarray(p), jnp.asarray(b), jnp.asarray(lam),
+                               jnp.asarray(pedges), q, tile_n=tile, interpret=True,
+                               **{k: jnp.asarray(v) for k, v in seeds.items()})
+    t = ops.scd_finalize_hist(_t(p), _t(b), _t(lam), _t(pedges), q, tile_n=tile,
+                              **{k: _t(v) for k, v in seeds.items()})
+    return [np.asarray(x) for x in j], [x.numpy() for x in t]
+
+
+def _fin_seeds(k, nb, seed):
+    g = np.random.default_rng(seed)
+    return {"cons_hist_init": g.random((k, nb)).astype(np.float32),
+            "gain_hist_init": g.random((nb,)).astype(np.float32),
+            "r_init": g.random((k,)).astype(np.float32),
+            "sums_init": g.random((2,)).astype(np.float32) * 10,
+            "maxs_init": np.array([0.5, -0.25], np.float32)}
+
+
+@pytest.mark.parametrize("q", [1, 3])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_fused_hist_plain_vs_pallas(q, seeded):
+    n, k = 1021, 10                       # prime n: a ragged last tile
+    p, b, lam = _inst(n, k, seed=n + q)
+    edges = np.asarray(j_make_edges(jnp.asarray(lam), 1e-4, 1.6, 24))
+    seeds = None
+    if seeded:
+        g = np.random.default_rng(9)
+        seeds = {"hist_init": g.random((k, 50)).astype(np.float32),
+                 "top_init": g.uniform(-1, 3, (k,)).astype(np.float32)}
+    (jh, jt), (th, tt) = _fused_pair(p, b, lam, q, edges, seeds)
+    np.testing.assert_allclose(tt, jt, rtol=1e-6)
+    np.testing.assert_allclose(th, jh, **TOL)
+    v1, _ = j_candidates(jnp.asarray(p), jnp.asarray(b), jnp.asarray(lam), q)
+    top = np.asarray(jnp.max(v1, axis=0))
+    if seeded:
+        top = np.maximum(top, seeds["top_init"])
+    np.testing.assert_array_equal(tt, top)
+
+
+@pytest.mark.parametrize("q", [1, 3])
+def test_fused_hist_dyadic_bitwise(q):
+    p, b, lam = _inst(1021, 10, seed=q, dyadic=True)
+    edges = np.asarray(j_make_edges(jnp.asarray(lam), 1e-4, 1.6, 24))
+    (jh, jt), (th, tt) = _fused_pair(p, b, lam, q, edges)
+    np.testing.assert_array_equal(th, jh)
+    np.testing.assert_array_equal(tt, jt)
+
+
+def test_fused_hist_ties_on_edges_and_invalid_tiles():
+    k = 4
+    edges = np.tile(np.array([[0.5, 1.0, 1.5]], np.float32), (k, 1))
+    vals = np.array([0.5, 1.0, 1.5, 0.25, 1.75, 1.0], np.float32)
+    p = np.tile(vals[:, None], (1, k))
+    b = np.ones_like(p)
+    lam = np.zeros((k,), np.float32)
+    (jh, jt), (th, tt) = _fused_pair(p, b, lam, k, edges, tile=4)
+    np.testing.assert_array_equal(th, jh)
+    np.testing.assert_array_equal(th[0], np.array([2.0, 2.0, 1.0, 1.0]))
+    np.testing.assert_array_equal(tt, jt)
+    # All-invalid tiles: no mass, top is the -1 sentinel.
+    p0 = np.zeros((256, 8), np.float32)
+    b1 = np.ones((256, 8), np.float32)
+    lam0 = np.full((8,), 0.7, np.float32)
+    e0 = np.asarray(j_make_edges(jnp.asarray(lam0), 1e-4, 1.6, 24))
+    (jh, jt), (th, tt) = _fused_pair(p0, b1, lam0, 2, e0, tile=64)
+    assert not th.any() and not jh.any()
+    np.testing.assert_array_equal(tt, np.full(8, -1.0, np.float32))
+    np.testing.assert_array_equal(tt, jt)
+
+
+@pytest.mark.parametrize("q", [1, 3])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_finalize_plain_vs_pallas(q, seeded):
+    n, k = 1021, 10
+    p, b, lam = _inst(n, k, seed=2 * n + q)
+    pedges = np.asarray(j_pedges(512, 1e-6, 1e6, jnp.float32))
+    seeds = _fin_seeds(k, 513, 3) if seeded else None
+    j, t = _fin_pair(p, b, lam, q, pedges, seeds)
+    jch, jgh, jr, jprim, jdual, jlo, jhi = j
+    tch, tgh, tr, tprim, tdual, tlo, thi = t
+    np.testing.assert_allclose(tch, jch, **TOL)
+    np.testing.assert_allclose(tgh, jgh, **TOL)
+    np.testing.assert_allclose(tr, jr, **TOL)
+    np.testing.assert_allclose(tprim, jprim, rtol=1e-5)
+    np.testing.assert_allclose(tdual, jdual, rtol=1e-5)
+    # The reference's one-ulp FMA difference in p - lam*b is absolute
+    # (about 6e-8 at profits near 1), so small group profits need an atol.
+    np.testing.assert_allclose([tlo, thi], [jlo, jhi], rtol=1e-6, atol=1e-7)
+    if q == 1 and not seeded:
+        # One item per row: pt is exact, so lo/hi and the bin of every row
+        # equal the reference's jnp finalize bit for bit.
+        carry = j_metrics_init(k, jnp.float32) + (jnp.zeros((k, 513)),
+                                                  jnp.zeros((513,)))
+        out = j_fin_acc(jnp.asarray(p), jnp.asarray(b), jnp.asarray(lam), q,
+                        JCfg(), carry, jnp.asarray(pedges))
+        assert tlo == float(out[3]) and thi == float(out[4])
+        np.testing.assert_array_equal(tch > 0, np.asarray(out[5]) > 0)
+        np.testing.assert_allclose(tch, np.asarray(out[5]), **TOL)
+
+
+@pytest.mark.parametrize("q", [1, 3])
+def test_finalize_dyadic_bitwise(q):
+    p, b, lam = _inst(1021, 10, seed=40 + q, dyadic=True)
+    pedges = np.asarray(j_pedges(512, 1e-6, 1e6, jnp.float32))
+    j, t = _fin_pair(p, b, lam, q, pedges, _fin_seeds(10, 513, 4))
+    for a, c in zip(t, j):
+        np.testing.assert_array_equal(a, c)
+
+
+def test_finalize_metrics_only_variant():
+    p, b, lam = _inst(700, 8, seed=11)
+    j = jops.scd_finalize_hist(jnp.asarray(p), jnp.asarray(b), jnp.asarray(lam),
+                               jnp.zeros((1,)), 1, tile_n=TILE, interpret=True,
+                               with_hist=False)
+    t = ops.scd_finalize_hist(_t(p), _t(b), _t(lam), None, 1, tile_n=TILE,
+                              with_hist=False)
+    assert t[0] is None and t[1] is None
+    np.testing.assert_allclose(t[2].numpy(), np.asarray(j[2]), **TOL)
+    for a, c in zip(t[3:5], j[3:5]):
+        np.testing.assert_allclose(float(a), float(c), rtol=1e-5)
+    np.testing.assert_allclose([float(t[5]), float(t[6])],
+                               [float(j[5]), float(j[6])], rtol=1e-6)
+
+
+@pytest.mark.parametrize("q", [1, 3])
+def test_chunked_equals_unchunked_bitwise(q):
+    n, k = 1000, 10                       # ragged last chunk and tile
+    p, b, lam = (_t(a) for a in _inst(n, k, seed=77 + q))
+    edges = torch.tensor(np.asarray(j_make_edges(jnp.asarray(lam.numpy()),
+                                                 1e-4, 1.6, 24)))
+    pedges = torch.tensor(np.asarray(j_pedges(512, 1e-6, 1e6, jnp.float32)))
+    chunk = 2 * TILE
+    h1, t1 = ops.scd_fused_hist(p, b, lam, edges, q, tile_n=TILE)
+    f1 = ops.scd_finalize_hist(p, b, lam, pedges, q, tile_n=TILE)
+    h, top, f = None, None, None
+    for s in range(0, n, chunk):
+        pc, bc = p[s:s + chunk], b[s:s + chunk]
+        h, top = ops.scd_fused_hist(pc, bc, lam, edges, q, tile_n=TILE,
+                                    hist_init=h, top_init=top)
+        seeds = {} if f is None else {
+            "cons_hist_init": f[0], "gain_hist_init": f[1], "r_init": f[2],
+            "sums_init": torch.stack([f[3], f[4]]),
+            "maxs_init": torch.stack([f[6], -f[5]])}
+        f = ops.scd_finalize_hist(pc, bc, lam, pedges, q, tile_n=TILE, **seeds)
+    assert torch.equal(h, h1) and torch.equal(top, t1)
+    for a, c in zip(f, f1):
+        assert torch.equal(a, c)
+
