@@ -4,23 +4,40 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA card, nvcc and PyTorch built for CUDA. It builds the
-kernels from ``src/repro_torch/kernels/csrc`` and runs six phases, each
-printing one JSON line; any failed check raises, so the script exits
-non-zero and prints no result line:
+kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per source, side
+by side) and runs these phases, each printing one JSON line; any failed
+check raises, so the script exits non-zero and prints no result line:
 
 1. environment: the card, its power limit, torch/CUDA versions, build time;
-2. each kernel against its plain version on the card at the main path's
-   shapes (chunk 65,536 and 65,536 - 37, K = 10, q in {1, 3}, seeded
+2. the host-fed path's kernels against their plain versions on the card
+   at its shapes (chunk 65,536 and 65,536 - 37, K = 10, q in {1, 3}, seeded
    carries): bitwise on dyadic inputs, allclose (rtol 1e-5, atol 1e-5) on
    random ones with top, lo/hi and (q = 1) bucket patterns exact; times
    from CUDA events beside the byte bound and the plain version's time;
 3. determinism: repeated kernel runs bitwise; a host-fed solve at chunk
    65,536 and 131,072 (tile 512) bitwise;
 4. the same host-fed solve (n = 262,144) on the card and on the CPU;
-5. end to end: the §6 table1 shape (K = 10, Q = 1, tightness 0.5) at
-   N = 10,000,000 (``--scale 0.1``), chunk 65,536, through the launcher's
-   ``run_streaming``, with launch counts and the per-epoch split;
-6. the ``kernels`` line, the card's ``nvidia-smi`` line and, last,
+5. host-fed end to end: the §6 table1 shape (K = 10, Q = 1, tightness
+   0.5) at N = 10,000,000 (``--scale 0.1``), chunk 65,536, through the
+   launcher's ``run_streaming``, with launch counts and the per-epoch split;
+6. the resident path's kernels against their plain versions:
+   ``scd_candidates`` at N = 10^7 and 10^7 - 37, q in {1, 3}, bitwise;
+   ``bucket_hist`` at the dense shape (100,000 users x 55 candidates, K =
+   10), seeded and unseeded, bitwise on dyadic inputs and allclose (rtol
+   1e-5, atol 1e-5) on random ones; ``scd_fused_hist`` at the resident
+   shape (N = 10^7, tile 128); times beside bounds and plain versions;
+7. resident end to end: table1 at N = 10^7 through the launcher's ``run``,
+   bucketed and ``reduce="exact"``, with launches == iterations, feasible
+   and dual >= primal, and the per-iteration and final-pass times;
+8. dense end to end: ``dense_instance`` n = 100,000, M = 10, K = 10, C223,
+   mixed b, sync bucketed; ``bucket_hist`` launches == iterations, and
+   chunk 16,384 (tile 512) bitwise equal to unchunked;
+9. contracts at n = 262,144: resident chunked == unchunked bitwise and ==
+   the host-fed solve (lam, iterations); repeated exact solves bitwise;
+   the card's resident solves within tolerance of the CPU's (lam rtol
+   1e-5 / atol 1e-6, iterations within one, primal and dual 1e-5);
+10. the ``kernels`` line (launches summed over the paths run in phases 5,
+   7 and 8, with the split), the card's ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -37,9 +54,17 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 C_MAIN, K, Q_MAIN = 65536, 10, 1
-SOURCE = "src/repro_torch/kernels/csrc/scd_fused.cu"
+N_RES = 10_000_000                 # table1 at --scale 0.1
+DENSE_N, DENSE_M = 100_000, 10     # Figure 1 (C223, mixed b) at 100x its N
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCE = {"scd_fused_hist": CSRC + "scd_fused.cu",
+          "scd_finalize_hist": CSRC + "scd_fused.cu",
+          "scd_candidates": CSRC + "scd_candidates.cu",
+          "bucket_hist": CSRC + "bucket_hist.cu"}
 REPLACES = {"scd_fused_hist": "src/repro/kernels/scd_fused.py:93",
-            "scd_finalize_hist": "src/repro/kernels/scd_fused.py:279"}
+            "scd_finalize_hist": "src/repro/kernels/scd_fused.py:279",
+            "scd_candidates": "src/repro/kernels/scd_candidates.py:85",
+            "bucket_hist": "src/repro/kernels/bucket_hist.py:67"}
 
 
 class SmokeFailure(RuntimeError):
@@ -242,17 +267,17 @@ def phase_end_to_end(torch, dev):
     from repro_torch.configs.paper_kp import WORKLOADS, KPWorkload
     from repro_torch.core.prefetch import FeedStats
     from repro_torch.core.types import SolverConfig
-    from repro_torch.kernels import scd_fused
+    from repro_torch.kernels import ops
     from repro_torch.launch.solve import run_streaming
 
     wl = WORKLOADS["table1"]
     n = int(wl.n_users * 0.1)
     work = KPWorkload(wl.name, n, wl.k, wl.q, wl.tightness)
     stats = FeedStats()
-    scd_fused.reset_launches()
+    ops.reset_launches()
     row = run_streaming(work, SolverConfig(max_iters=40), C_MAIN, device=dev,
                         stats=stats)
-    launches = dict(scd_fused.LAUNCHES)
+    launches = dict(ops.LAUNCHES)
     chunks = -(-n // C_MAIN)
     iters = row["iterations"]
     check(launches["scd_fused_hist"] == iters * chunks,
@@ -277,6 +302,250 @@ def phase_end_to_end(torch, dev):
          iterate_epoch_mean=per_epoch,
          finalize_epoch={k: fin[0][k] for k in keys})
     return launches
+
+
+def same_solve(a, b):
+    import torch
+    return a.iters == b.iters and all(
+        torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+        for f in ("lam", "x", "r", "primal", "dual"))
+
+
+def close_solve(gpu, cpu):
+    """lam rtol 1e-5 / atol 1e-6, iterations within one, primal and dual 1e-5."""
+    import numpy as np
+    return (np.allclose(gpu.lam.numpy(), cpu.lam.numpy(), rtol=1e-5, atol=1e-6)
+            and abs(gpu.iters - cpu.iters) <= 1
+            and all(abs(float(getattr(gpu, f)) - float(getattr(cpu, f)))
+                    <= 1e-5 * abs(float(getattr(cpu, f))) for f in ("primal", "dual")))
+
+
+def phase_resident_kernels(torch, dev):
+    """The resident path's kernels against their plain versions, timed."""
+    from repro_torch.core.bucketing import make_edges
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev)
+    out, cases = {}, 0
+
+    def rows(n, seed):
+        gen.manual_seed(seed)
+        p = torch.rand((n, K), generator=gen, device=dev)
+        b = torch.rand((n, K), generator=gen, device=dev)
+        b[::7, 3] = 0.0                           # no candidate at b = 0
+        lam = 0.3 + torch.rand((K,), generator=gen, device=dev)
+        return p, b, lam
+
+    for n in (N_RES, N_RES - 37):
+        for q in (1, 3):
+            p, b, lam = rows(n, n % 97 + q)
+            kv = ops.scd_candidates(p, b, lam, q)
+            pv = ref.candidates_block(p, b, lam, q)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(kv, pv)),
+                  f"scd_candidates differs from its plain version (n={n}, q={q})")
+            cases += 1
+            del kv, pv
+    p, b, lam = rows(N_RES, 5)
+    out["scd_candidates"] = {
+        "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: ops.scd_candidates(p, b, lam, Q_MAIN), reps=20),
+        "plain_ms": time_ms(torch, lambda: ref.candidates_block(p, b, lam, Q_MAIN),
+                            reps=3, warmup=1),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(4 * (4 * N_RES * K + K), N_RES * K * (11 + 2 * Q_MAIN)))),
+        "library_ms": None, "n": N_RES}
+
+    # The fused kernel at the resident shape: one call over N rows.
+    edges = make_edges(lam.cpu(), 1e-4, 1.6, 24).to(dev)
+    e = edges.shape[-1]
+    tile = ops.pick_tile(N_RES)
+    kh, kt = ops.scd_fused_hist(p, b, lam, edges, Q_MAIN, tile_n=tile)
+    ph, pt = ref.scd_fused_hist_plain(p, b, lam, edges, Q_MAIN, tile_n=tile)
+    torch.cuda.synchronize()
+    check(torch.equal(kt, pt) and torch.allclose(kh, ph, rtol=1e-5, atol=1e-5),
+          "scd_fused_hist differs from its plain version at the resident shape")
+    fused_res = {
+        "n": N_RES, "tile": tile, "bitwise": torch.equal(kh, ph),
+        "max_abs_err": float((kh - ph).abs().max()),
+        "ms": time_ms(torch, lambda: ops.scd_fused_hist(p, b, lam, edges, Q_MAIN,
+                                                        tile_n=tile), reps=20),
+        "plain_ms": time_ms(torch, lambda: ref.scd_fused_hist_plain(
+            p, b, lam, edges, Q_MAIN, tile_n=tile), reps=1, warmup=0),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(4 * (2 * N_RES * K + K + K * e + 2 * (K * (e + 1) + K)),
+                         N_RES * K * (8 + e + Q_MAIN + 1))))}
+    del p, b, kh, ph
+
+    # bucket_hist at the dense shape: n * P candidate rows.
+    nrows = DENSE_N * (DENSE_M * (DENSE_M - 1) // 2 + DENSE_M)
+    err = 0.0
+    for dyadic in (False, True):
+        for seeded in (False, True):
+            gen.manual_seed(17 + 2 * dyadic + seeded)
+            v1 = lam[None, :] + (torch.rand((nrows, K), generator=gen, device=dev)
+                                 - 0.5) * 0.1
+            v2 = torch.rand((nrows, K), generator=gen, device=dev)
+            invalid = torch.rand((nrows, K), generator=gen, device=dev) < 0.3
+            if dyadic:
+                v2 = torch.round(v2 * 64) / 64
+            v1, v2 = torch.where(invalid, -1.0, v1), torch.where(invalid, 0.0, v2)
+            init = (torch.round(torch.rand((K, e + 1), generator=gen, device=dev)
+                                * 256) / 64 if seeded else None)
+            kh = ops.bucket_hist(v1, v2, edges, tile_n=512, hist_init=init)
+            ph = ref.bucket_hist_plain(v1, v2, edges, tile_n=512, hist_init=init)
+            torch.cuda.synchronize()
+            tag = f"dyadic={dyadic} seeded={seeded}"
+            if dyadic:
+                check(torch.equal(kh, ph), f"bucket_hist not bitwise ({tag})")
+            else:
+                check(torch.allclose(kh, ph, rtol=1e-5, atol=1e-5),
+                      f"bucket_hist not allclose ({tag})")
+                err = max(err, float((kh - ph).abs().max()))
+            cases += 1
+    out["bucket_hist"] = {
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: ops.bucket_hist(v1, v2, edges, tile_n=512,
+                                                     hist_init=init), reps=20),
+        "plain_ms": time_ms(torch, lambda: ref.bucket_hist_plain(
+            v1, v2, edges, tile_n=512, hist_init=init), reps=2, warmup=1),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(4 * (2 * nrows * K + K * e + 2 * K * (e + 1)),
+                         nrows * K * (e + 1)))),
+        "library_ms": None, "rows": nrows}
+    emit("resident_kernels_vs_plain", cases=cases, k=K, scd_fused_hist_resident=fused_res,
+         **out)
+    return out, fused_res
+
+
+def phase_resident_end_to_end(torch, dev):
+    """table1 at N = 10^7, solved resident, bucketed and exact."""
+    from repro_torch.configs.paper_kp import WORKLOADS, KPWorkload
+    from repro_torch.core import solver
+    from repro_torch.core.instances import sparse_instance
+    from repro_torch.core.types import SolverConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.solve import run
+
+    wl = WORKLOADS["table1"]
+    work = KPWorkload(wl.name, N_RES, wl.k, wl.q, wl.tightness)
+    paths = {}
+    for reduce, kernel in (("bucketed", "scd_fused_hist"), ("exact", "scd_candidates")):
+        cfg = SolverConfig(max_iters=40, reduce=reduce)
+        ops.reset_launches()
+        row = run(work, cfg, device=dev)
+        launches = dict(ops.LAUNCHES)
+        iters = row["iterations"]
+        check(launches[kernel] == iters,
+              f"{kernel} launched {launches[kernel]} times in the resident "
+              f"{reduce} solve, expected iterations = {iters}")
+        check(sum(launches.values()) == iters,
+              f"other kernels launched in the resident {reduce} solve: {launches}")
+        check(row["max_violation"] <= 1e-4, f"max_violation {row['max_violation']}")
+        check(row["dual"] >= row["primal"], "dual below primal")
+        paths[f"resident_{reduce}"] = launches
+
+        # Where the time goes: one iteration's map + reduce (at lam = 1,
+        # synchronised by the host read of its result), and the final
+        # metrics and exact projection (a solve with max_iters = 0).
+        kp, q = sparse_instance(0, N_RES, K, wl.q, tightness=wl.tightness, device=dev)
+        lam = torch.ones(K)
+        solver._scd_pass(kp, lam, q, cfg)
+        iter_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            solver._scd_pass(kp, lam, q, cfg)
+            iter_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve(kp, cfg.replace(max_iters=0), q=q, device=dev)
+        final_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        solver.solve(kp, cfg.replace(max_iters=1), q=q, device=dev)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        del kp
+        emit("resident_end_to_end", workload="table1", n=N_RES, reduce=reduce,
+             iters=iters, primal=row["primal"], dual=row["dual"],
+             gap=row["duality_gap"], max_violation=row["max_violation"],
+             wall_s=row["wall_s"], launches=launches,
+             iteration_s=statistics.median(iter_s), final_pass_s=final_s,
+             peak_gb_one_iteration=peak_gb)
+    return paths
+
+
+def phase_dense_end_to_end(torch, dev):
+    """Figure 1's dense setup at n = 10^5, sync bucketed, chunked and not."""
+    from repro_torch.core import solver
+    from repro_torch.core.instances import dense_instance
+    from repro_torch.core.types import SolverConfig
+    from repro_torch.kernels import ops
+
+    kp = dense_instance(0, DENSE_N, DENSE_M, K, local="C223", mixed_b=True, device=dev)
+    cfg = SolverConfig(max_iters=40, kernel_tile=512)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = solver.solve(kp, cfg, q=0, device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    check(launches["bucket_hist"] == res.iters,
+          f"bucket_hist launched {launches['bucket_hist']} times, expected "
+          f"iterations = {res.iters}")
+    check(sum(launches.values()) == res.iters, f"other kernels launched: {launches}")
+    t0 = time.perf_counter()
+    chunked = solver.solve(kp, cfg.replace(chunk_size=16384), q=0, device=dev)
+    wall_chunked = time.perf_counter() - t0
+    check(same_solve(res, chunked), "dense chunked solve differs from unchunked")
+    budgets = kp.budgets.cpu()
+    check(bool(torch.all(res.r <= budgets)), "dense solve over budget")
+    check(float(res.dual) >= float(res.primal), "dense dual below primal")
+    emit("dense_end_to_end", n=DENSE_N, m=DENSE_M, k=K, local="C223", mixed_b=True,
+         iters=res.iters, primal=float(res.primal), dual=float(res.dual),
+         gap=float(res.dual - res.primal),
+         max_violation=float(torch.max((res.r - budgets) / budgets)),
+         wall_s=wall, wall_chunked_s=wall_chunked, chunked_bitwise=True,
+         launches=launches)
+    return {"dense_bucketed": launches}
+
+
+def phase_contracts(torch, dev):
+    """Resident chunked == unchunked == host-fed; exact reruns; card vs CPU."""
+    from repro_torch.core import solver
+    from repro_torch.core.instances import sparse_instance
+    from repro_torch.core.prefetch import solve_streaming_host
+    from repro_torch.core.types import SolverConfig
+    from repro_torch.data.synth import sparse_host_chunk_source
+
+    n = 262_144
+    kp, q = sparse_instance(1, n, K, chunk=C_MAIN, device=dev)
+    cfg = SolverConfig(max_iters=40, kernel_tile=512)
+    whole = solver.solve(kp, cfg, q=q, device=dev)
+    chunked = solver.solve(kp, cfg.replace(chunk_size=C_MAIN), q=q, device=dev)
+    host = solve_streaming_host(sparse_host_chunk_source(1, n, K, C_MAIN), cfg, q=q,
+                                device=dev)
+    exact_cfg = cfg.replace(reduce="exact")
+    exact = solver.solve(kp, exact_cfg, q=q, device=dev)
+    exact_again = solver.solve(kp, exact_cfg, q=q, device=dev)
+    gpu = {"bucketed": whole, "exact": exact}
+    cpu = {"bucketed": solver.solve(kp, cfg, q=q, device="cpu"),
+           "exact": solver.solve(kp, exact_cfg, q=q, device="cpu")}
+    facts = {"chunked_bitwise": same_solve(whole, chunked),
+             "host_fed_bitwise": (host.iters == chunked.iters
+                                  and torch.equal(host.lam, chunked.lam)),
+             "exact_rerun_bitwise": same_solve(exact, exact_again)}
+    emit("resident_contracts", n=n, **facts,
+         against_cpu={name: {"within_tolerance": close_solve(res, cpu[name]),
+                             "bitwise": same_solve(res, cpu[name]),
+                             "iters": [res.iters, cpu[name].iters],
+                             "lam_max_abs_diff": float((res.lam - cpu[name].lam)
+                                                       .abs().max()),
+                             "primal": [float(res.primal), float(cpu[name].primal)],
+                             "dual": [float(res.dual), float(cpu[name].dual)]}
+                      for name, res in gpu.items()})
+    check(facts["chunked_bitwise"], "resident chunked differs from unchunked")
+    check(facts["host_fed_bitwise"], "resident chunked differs from the host-fed solve")
+    check(facts["exact_rerun_bitwise"], "repeated exact solves differ")
+    for name, res in gpu.items():
+        check(close_solve(res, cpu[name]), f"resident {name} solve differs from the CPU")
 
 
 def main():
@@ -304,11 +573,20 @@ def main():
 
     kern = phase_kernels(torch, np, dev)
     phase_determinism_and_cpu(torch, np, dev)
-    launches = phase_end_to_end(torch, dev)
+    paths = {"host_fed": phase_end_to_end(torch, dev)}
+    new_kern, fused_resident = phase_resident_kernels(torch, dev)
+    kern.update(new_kern)
+    kern["scd_fused_hist"]["resident_shape"] = fused_resident
+    paths.update(phase_resident_end_to_end(torch, dev))
+    paths.update(phase_dense_end_to_end(torch, dev))
+    phase_contracts(torch, dev)
 
-    rows = [{"name": name, "route": "cuda", "source": SOURCE,
-             "replaces": REPLACES[name], "launches": launches[name], **kern[name]}
-            for name in ("scd_fused_hist", "scd_finalize_hist")]
+    rows = [{"name": name, "route": "cuda", "source": SOURCE[name],
+             "replaces": REPLACES[name],
+             "launches": sum(p[name] for p in paths.values()),
+             "launches_by_path": {path: p[name] for path, p in paths.items()},
+             **kern[name]}
+            for name in REPLACES]
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
-"""What crosses from the JAX reference into the port: config and state.
+"""What crosses from the JAX reference into the port: config, instance
+and state.
 
 The system has no weights. A test carries the solver configuration (the
-``dataclasses.asdict`` of a reference ``SolverConfig``) and solver state
-(numpy arrays: multipliers, histograms, finalize carries) into the port;
-the instance crosses as numpy bytes through ``host_array_source``.
+``dataclasses.asdict`` of a reference ``SolverConfig``), the instance (the
+reference's ``SparseKP``/``DenseKP`` as numpy arrays, or numpy bytes
+through ``host_array_source``) and solver state (numpy arrays:
+multipliers, histograms, finalize carries) into the port.
 """
 from __future__ import annotations
 
@@ -13,13 +15,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .types import SolverConfig
+from .types import DenseKP, SolverConfig, SparseKP
 
 # Reference fields the port does not carry: their reference defaults, and
 # the ROADMAP item that ports them. Any other value raises.
 _UNPORTED = {
-    "chunk_size": (None, "A2 (chunked resident map)"),
-    "dd_lr": (1e-3, "A2 (DD)"),
     "partial_fraction": (1.0, "A8 (straggler mask)"),
     "checkpoint_keep": (3, "A4 (checkpoint retention)"),
     "fetch_backoff": (0.05, "A4 (fault layer)"),
@@ -62,6 +62,19 @@ def config_from_reference(fields: dict) -> SolverConfig:
         else:
             raise ValueError(f"unknown reference SolverConfig field {name!r}")
     return SolverConfig(**kw)
+
+
+def instance_from_reference(kp, device="cpu"):
+    """A port ``SparseKP``/``DenseKP`` on ``device`` from a reference one
+    (any array type numpy can read): p, b, budgets as float32, sets as
+    bool, caps as int64."""
+    f32 = {f: torch.tensor(np.array(getattr(kp, f), np.float32)).to(device)
+           for f in ("p", "b", "budgets")}
+    if hasattr(kp, "sets"):
+        return DenseKP(**f32,
+                       sets=torch.tensor(np.array(kp.sets, bool)).to(device),
+                       caps=torch.tensor(np.array(kp.caps, np.int64)).to(device))
+    return SparseKP(**f32)
 
 
 class SolverState(NamedTuple):

@@ -92,6 +92,23 @@ def _pinned_dot(a, b):
     return torch.sum(a * b)
 
 
+def _validate_stream_cfg(cfg):
+    """The checks only the streaming drivers make (the resident solve takes
+    every one of these configurations)."""
+    if cfg.algo == "scd" and cfg.reduce != "bucketed":
+        raise ValueError("solve_streaming requires reduce='bucketed' "
+                         "(the exact reduce must sort all candidates)")
+    if cfg.stream_finalize != "fused":
+        raise ValueError(
+            f"stream_finalize must be 'fused', got {cfg.stream_finalize!r}")
+    if cfg.record_history and cfg.metrics_every < 1:
+        raise ValueError(
+            "record_history=True would re-scan the whole chunk source on "
+            "every iteration when streaming; solve resident "
+            "(repro_torch.core.solver.solve), where per-iteration history is "
+            "free (the sampled streaming history, metrics_every, is ROADMAP A3)")
+
+
 def decisions_rows(p_c, b_c, lam, q: int, valid, tau=None):
     """Decision rows (c, K) bool of one chunk at a solved ``(lam, tau)``.
 

@@ -1,18 +1,45 @@
-"""Section 5.4 feasibility projection, in the single-pass streaming form.
+"""Section 5.4 feasibility projection.
 
 Groups are ranked by their cost-adjusted group profit p~_i and removed in
-ascending order until every global constraint holds. The fused finalize
-bins p~ against a fixed geometric ladder and accumulates a removable
-consumption histogram and a removable raw-profit histogram; removing
-every group at or below an edge removes exactly their prefix sums, so
-tau and the post-projection (r, primal) need no further pass.
+ascending order until every global constraint holds. The resident solve
+sorts the groups (:func:`feasibility_threshold_exact`). The streaming
+finalize bins p~ against a fixed geometric ladder and accumulates a
+removable consumption histogram and a removable raw-profit histogram;
+removing every group at or below an edge removes exactly their prefix
+sums, so tau and the post-projection (r, primal) need no further pass.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["profit_edges_fixed", "threshold_and_removed"]
+from ..kernels.ref import row_sum
+from .bucketing import ordered_cumsum
+from .greedy import fma_dot
+
+__all__ = ["group_profit", "feasibility_threshold_exact", "profit_edges_fixed",
+           "threshold_and_removed"]
+
+
+def group_profit(p, cons, lam, x):
+    """p~_i = sum_j p_ij x_ij - sum_k lam_k cons_ik: the gain a left-to-right
+    row sum, the price a chain of fused multiply-adds (``greedy.fma_dot``).
+    p, x: (n, M); cons: (n, K); lam: (K,) -> (n,)."""
+    return row_sum(torch.where(x, p, 0.0)) - fma_dot(cons, lam)
+
+
+def feasibility_threshold_exact(ptilde, cons, budgets):
+    """tau of the minimal ascending-p~ prefix whose removal restores every
+    budget (-inf when nothing has to go); drop the groups with p~ <= tau.
+    ptilde: (n,); cons: (n, K); budgets: (K,)."""
+    order = torch.argsort(ptilde, stable=True)
+    sorted_p = ptilde[order]
+    csum = ordered_cumsum(cons[order], 0)                  # (n, K)
+    excess = torch.clamp_min(csum[-1] - budgets, 0.0)
+    ok = torch.all(csum >= excess[None, :], dim=-1)
+    first_ok = torch.argmax(ok.to(torch.int32))
+    inf = torch.tensor(float("-inf"), dtype=ptilde.dtype, device=ptilde.device)
+    return torch.where(torch.any(excess > 0), sorted_p[first_ok], inf)
 
 
 def profit_edges_fixed(n_edges=512, lo=1e-6, hi=1e6, dtype=torch.float32,

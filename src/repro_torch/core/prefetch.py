@@ -29,14 +29,19 @@ from .chunked import (
     _metrics_init,
     _num_chunks,
     _pinned_dot,
+    _validate_stream_cfg,
     finalize_chunk_accumulate,
 )
 from .postprocess import profit_edges_fixed, threshold_and_removed
-from .solver import damped_multiplier_step, scd_chunk_accumulate
+from .solver import (
+    damped_multiplier_step,
+    resolve_device,
+    scd_chunk_accumulate,
+)
 from .types import SolverConfig
 
 __all__ = ["HostChunkSource", "host_array_source", "callable_source",
-           "solve_streaming_host", "resolve_device", "FeedStats"]
+           "solve_streaming_host", "FeedStats"]
 
 
 class HostChunkSource(NamedTuple):
@@ -89,23 +94,6 @@ def callable_source(fn, n: int, k: int, budgets, chunk: int) -> HostChunkSource:
 
     return HostChunkSource(n=n, k=k, chunk=chunk,
                            budgets=np.asarray(budgets, np.float32), fn=wrapped)
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on. CUDA unless the caller asks for
-    the CPU; raises when CUDA is asked for and absent."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; repro_torch runs on the card by "
-                "default. Pass device='cpu' (--device cpu) to run the plain "
-                "PyTorch versions on the CPU.")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
-    return dev
 
 
 @dataclasses.dataclass
@@ -347,8 +335,10 @@ def solve_streaming_host(source: HostChunkSource,
     fetch, staging, H2D and step times.
 
     Sharding (``mesh``, ``slots``), checkpoint and resume
-    (``checkpoint_dir``, ``resume_from``) and the phase tracer are not
-    ported yet and raise ``NotImplementedError``.
+    (``checkpoint_dir``, ``resume_from``), the phase tracer, and the
+    reference host-fed driver's DD, cyclic CD and presolve are not ported
+    yet and raise ``NotImplementedError``; ``record_history`` needs the
+    unported ``metrics_every`` and raises ``ValueError``.
     """
     for name, value, item in (("mesh", mesh, "A4 and A8"),
                               ("slots", slots, "A4"),
@@ -357,6 +347,14 @@ def solve_streaming_host(source: HostChunkSource,
                               ("tracer", tracer, "A4")):
         if value is not None:
             raise NotImplementedError(f"{name} is not ported yet: ROADMAP {item}")
+    _validate_stream_cfg(cfg)
+    for bad, what in ((cfg.algo == "dd", "algo='dd'"),
+                      (cfg.cd_mode == "cyclic", "cd_mode='cyclic'"),
+                      (cfg.presolve_samples > 0, "presolve_samples > 0")):
+        if bad:
+            raise NotImplementedError(
+                f"the host-fed solve does not port {what} yet: ROADMAP A4 "
+                "(the resident solver.solve takes it)")
     dev = resolve_device(device)
     lam = (torch.ones((source.k,), dtype=cfg.dtype) if lam0 is None
            else torch.as_tensor(lam0, dtype=cfg.dtype).cpu())

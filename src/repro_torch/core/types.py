@@ -1,11 +1,42 @@
-"""Solver configuration and instance container (the fields the host-fed
-sync-SCD bucketed path reads, under the reference's names)."""
+"""Problem containers and the solver configuration, under the reference's
+names.
+
+* ``DenseKP`` — the general GKP: N users x M items, K global knapsacks,
+  dense costs ``b[i, j, k]`` and laminar local constraints given as
+  boolean index-set masks.
+* ``SparseKP`` — the Section 5.1 sparse form: M == K, item j consumes only
+  knapsack j (costs stored as the diagonal ``b[i, k]``), at most Q items
+  per user.
+"""
 from __future__ import annotations
 
 import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
+
+
+class LaminarSets(NamedTuple):
+    """Hierarchical local constraints (Definition 2.1).
+
+    ``sets`` (L, M) bool, row l the index set S_l, in topological (leaf ->
+    root) order; ``caps`` (L,) int, the C_l.
+    """
+
+    sets: torch.Tensor
+    caps: torch.Tensor
+
+
+class DenseKP(NamedTuple):
+    """General GKP shard: ``p`` (n, M) profits, ``b`` (n, M, K) costs,
+    ``budgets`` (K,), plus laminar local constraints ``sets`` (L, M) bool
+    and ``caps`` (L,) int."""
+
+    p: torch.Tensor
+    b: torch.Tensor
+    budgets: torch.Tensor
+    sets: torch.Tensor
+    caps: torch.Tensor
 
 
 class SparseKP(NamedTuple):
@@ -22,35 +53,49 @@ class SparseKP(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """Static configuration of the host-fed streaming solve.
+    """Static solver configuration, read by the resident ``solver.solve``
+    and the host-fed ``prefetch.solve_streaming_host``.
 
     There is no ``use_kernels`` switch: the device of the tensors picks
-    the implementation. On a CUDA tensor every per-chunk step launches the
+    the implementation. On a CUDA tensor every map step launches the
     hand-written kernels of ``kernels/csrc/``; on a CPU tensor it runs
     their plain PyTorch versions (``kernels/ref.py``), which have the same
-    tile structure and addition order. The plain versions serve the CPU
-    tests and the on-card comparison, and nothing on the card's main path.
+    tile structure and addition order.
 
-    Options of the reference that this package does not carry yet raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them.
+    Options of the reference that no driver of this package carries yet
+    raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+    The checks that only the streaming drivers make live in
+    ``chunked._validate_stream_cfg``, as in the reference.
     """
 
     algo: str = "scd"
+    # §4.3.2: sync CD updates every lam_k from one map pass; cyclic CD
+    # sweeps the coordinates one at a time (K passes per iteration).
     cd_mode: str = "sync"
     reduce: str = "bucketed"
     max_iters: int = 32
     tol: float = 1e-3
-    # Reversal damping of the sync-CD step (see solver.damped_multiplier_step).
+    # Reversal damping of the SCD step (see solver.damped_multiplier_step).
     cd_damping: float = 0.5
+    # Resident solve: stream the per-iteration map over user chunks of
+    # this size (None: the whole shard at once). See core/solver.py.
+    chunk_size: Optional[int] = None
     # User-axis tile of the kernels (None: kernels.ops.pick_tile). Chunked
     # and unchunked accumulations are bitwise equal when both run the
-    # same tile decomposition (chunk size a multiple of the tile).
+    # same tile decomposition (chunk rows a multiple of the tile).
     kernel_tile: Optional[int] = None
+    # DD (Alg 2) learning rate.
+    dd_lr: float = 1e-3
     # §5.2 bucket ladder: edges at lam_t +/- delta * growth**i, i < half.
     bucket_half: int = 24
     bucket_delta: float = 1e-4
     bucket_growth: float = 1.6
+    # §5.3 presolve on the first presolve_samples users (0 disables).
     presolve_samples: int = 0
+    # Resident solve: record (lam, primal, dual, gap, max_violation) after
+    # every iteration, over a fixed max_iters loop with converged
+    # iterations frozen.
+    record_history: bool = False
     # §5.4 fixed geometric group-profit ladder of the fused finalize.
     profit_buckets: int = 512
     profit_ladder_lo: float = 1e-6
@@ -58,7 +103,6 @@ class SolverConfig:
     postprocess: bool = True
     stream_finalize: str = "fused"
     # Reference options not ported yet; any value but the default raises.
-    record_history: bool = False
     metrics_every: int = 0
     checkpoint_every: int = 0
     fetch_retries: int = 0
@@ -67,14 +111,10 @@ class SolverConfig:
 
     def __post_init__(self):
         unported = [
-            (self.algo == "dd", "algo='dd' (DD, Alg 2): ROADMAP A2"),
-            (self.cd_mode == "cyclic", "cd_mode='cyclic': ROADMAP A2"),
-            (self.presolve_samples != 0,
-             "presolve_samples > 0 (§5.3 presolve): ROADMAP A2"),
             (self.stream_finalize == "legacy",
              "stream_finalize='legacy' (three-pass finalize): ROADMAP A3"),
-            (self.record_history or self.metrics_every != 0,
-             "record_history / metrics_every (sampled history): ROADMAP A3"),
+            (self.metrics_every != 0,
+             "metrics_every (sampled streaming history): ROADMAP A3"),
             (self.checkpoint_every != 0,
              "checkpoint_every (checkpoint and resume): ROADMAP A4"),
             (self.fetch_retries != 0, "fetch_retries (fault layer): ROADMAP A4"),
@@ -84,14 +124,12 @@ class SolverConfig:
             if bad:
                 raise NotImplementedError(f"not ported yet: {what}")
         checks = [
-            (self.algo == "scd", f"algo must be 'scd', got {self.algo!r}"),
-            (self.cd_mode == "sync",
-             f"cd_mode must be 'sync', got {self.cd_mode!r}"),
-            (self.reduce == "bucketed",
-             "solve_streaming requires reduce='bucketed' (the exact reduce "
-             "must sort all candidates)"),
-            (self.stream_finalize == "fused",
-             f"stream_finalize must be 'fused', got {self.stream_finalize!r}"),
+            (self.algo in ("scd", "dd"),
+             f"algo must be 'scd' or 'dd', got {self.algo!r}"),
+            (self.cd_mode in ("sync", "cyclic"),
+             f"cd_mode must be 'sync' or 'cyclic', got {self.cd_mode!r}"),
+            (self.reduce in ("bucketed", "exact"),
+             f"reduce must be 'bucketed' or 'exact', got {self.reduce!r}"),
             (self.dtype == torch.float32,
              f"dtype must be torch.float32, got {self.dtype}"),
         ]
@@ -102,3 +140,40 @@ class SolverConfig:
     def replace(self, **kw) -> "SolverConfig":
         """Functional update: a copy with the given fields replaced."""
         return dataclasses.replace(self, **kw)
+
+
+def disjoint_partition_sets(group_sizes, caps, m=None):
+    """LaminarSets for disjoint groups of consecutive items."""
+    total = int(sum(group_sizes))
+    m = total if m is None else m
+    rows, start = [], 0
+    for g in group_sizes:
+        row = torch.zeros((m,), dtype=torch.bool)
+        row[start:start + g] = True
+        rows.append(row)
+        start += g
+    return LaminarSets(torch.stack(rows), torch.tensor(caps, dtype=torch.int32))
+
+
+def cardinality_set(m, cap):
+    """Single local constraint: choose at most ``cap`` of the m items."""
+    return LaminarSets(torch.ones((1, m), dtype=torch.bool),
+                       torch.tensor([cap], dtype=torch.int32))
+
+
+def hierarchy_from_lists(index_lists, caps, m):
+    """LaminarSets from explicit index lists, topologically sorted.
+
+    Raises ValueError if the family is not laminar (Definition 2.1).
+    """
+    sets = [frozenset(s) for s in index_lists]
+    for a in sets:
+        for b in sets:
+            if (a & b) and not (a <= b or b <= a):
+                raise ValueError("local constraint family is not laminar")
+    order = sorted(range(len(sets)), key=lambda i: len(sets[i]))
+    rows = torch.zeros((len(sets), m), dtype=torch.bool)
+    for r, i in enumerate(order):
+        rows[r, sorted(sets[i])] = True
+    return LaminarSets(rows, torch.tensor([caps[i] for i in order],
+                                          dtype=torch.int32))

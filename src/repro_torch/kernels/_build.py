@@ -1,10 +1,12 @@
 """Build the CUDA sources of ``csrc/`` with nvcc at first use, load with ctypes.
 
-The shared library has a plain C interface (no PyTorch headers), so it
-builds in seconds. It lands in ``build/repro_torch_kernels/`` at the root
-of the checkout, named by a hash of the sources and flags: an edited
-source builds anew, an unchanged one is loaded from the cache. Importing
-this module needs no nvcc; ``load()`` does.
+Each source compiles to an object file in its own nvcc process, all
+started together, and one more nvcc links the objects into a shared
+library with a plain C interface (no PyTorch headers), so the build takes
+seconds. The library lands in ``build/repro_torch_kernels/`` at the root
+of the checkout, named by a hash of the sources, the shared header and the
+flags: an edited source builds anew, an unchanged one is loaded from the
+cache. Importing this module needs no nvcc; ``load()`` does.
 """
 from __future__ import annotations
 
@@ -13,14 +15,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("scd_fused.cu",)
+SOURCES = ("scd_fused.cu", "scd_candidates.cu", "bucket_hist.cu")
+HEADERS = ("scd_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 _LOCK = threading.Lock()
@@ -42,9 +45,21 @@ def nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libscd_fused-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libscd_kernels-{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Run the commands side by side; raise on the first failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{log}")
+    return "".join(logs)
 
 
 def build() -> tuple[Path, str]:
@@ -57,14 +72,15 @@ def build() -> tuple[Path, str]:
     if out.exists():
         return out, ""
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, out)
-    return out, res.stdout + res.stderr
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [Path(tmp) / f"{Path(s).stem}.o" for s in SOURCES]
+        log = _run_all([[nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                        for s, o in zip(SOURCES, objs)])
+        lib = Path(tmp) / out.name
+        log += _run_all([[nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                          "-shared", "-o", str(lib), *map(str, objs)]])
+        os.replace(lib, out)
+    return out, log
 
 
 def load() -> ctypes.CDLL:
@@ -77,11 +93,15 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()[0]))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.scd_fused_hist_launch.argtypes = [vp] * 7 + [i64, i32, i32, i32, i32, vp]
-        lib.scd_fused_hist_launch.restype = i32
         lib.scd_finalize_hist_launch.argtypes = ([vp] * 7
                                                  + [i64, i32, i32, i32, i32, i32, vp])
-        lib.scd_finalize_hist_launch.restype = i32
-        for fn in (lib.scd_fused_smem_bytes, lib.scd_finalize_smem_bytes):
+        lib.scd_candidates_launch.argtypes = [vp] * 5 + [i64, i32, i32, vp]
+        lib.bucket_hist_launch.argtypes = [vp] * 6 + [i64, i32, i32, i32, vp]
+        for fn in (lib.scd_fused_hist_launch, lib.scd_finalize_hist_launch,
+                   lib.scd_candidates_launch, lib.bucket_hist_launch):
+            fn.restype = i32
+        for fn in (lib.scd_fused_smem_bytes, lib.scd_finalize_smem_bytes,
+                   lib.bucket_hist_smem_bytes):
             fn.argtypes = [i32, i32, i32]
             fn.restype = ctypes.c_size_t
         lib.scd_error_string.argtypes = [i32]

@@ -1,0 +1,80 @@
+"""What the kernel wrappers share: input checks, the launch check and the
+launch counts.
+
+``LAUNCHES`` counts the launches of each kernel, one per wrapper call
+that launched it (the wrappers in ``scd_fused``, ``scd_candidates`` and
+``bucket_hist``); ``reset_launches`` sets every count to 0.
+"""
+from __future__ import annotations
+
+import torch
+
+KMAX = 64
+MAX_TILE = 1024
+MAX_SMEM = 232448
+
+LAUNCHES = {"scd_fused_hist": 0, "scd_finalize_hist": 0, "scd_candidates": 0,
+            "bucket_hist": 0}
+
+
+def reset_launches():
+    """Set every launch count to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def check(name, t, shape, device):
+    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on ``device``."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_rows(fn, x, tile_n=None):
+    """Raise unless ``x`` is an (n, K) CUDA tensor with n >= 1, 1 <= K <= KMAX
+    (and, when given, 1 <= tile_n <= MAX_TILE); returns (n, K)."""
+    if not x.is_cuda:
+        raise ValueError(f"{fn} launches a CUDA kernel and takes CUDA tensors; "
+                         f"got one on {x.device} (kernels.ops sends CPU tensors "
+                         "to the plain version)")
+    if x.dim() != 2:
+        raise ValueError(f"{fn} takes (n, K) rows, got shape {tuple(x.shape)}")
+    n, k = x.shape
+    if n < 1 or not 1 <= k <= KMAX:
+        raise ValueError(f"{fn} takes 1 <= K <= {KMAX} and n >= 1, got {(n, k)}")
+    if tile_n is not None and not 1 <= tile_n <= MAX_TILE:
+        raise ValueError(f"tile_n must be in [1, {MAX_TILE}], got {tile_n}")
+    return n, k
+
+
+def check_p_b_lam(fn, p, b, lam, tile_n=None):
+    """``check_rows`` of p, then p, b (n, K) and lam (K,); returns (n, K)."""
+    n, k = check_rows(fn, p, tile_n)
+    check("p", p, (n, k), p.device)
+    check("b", b, (n, k), p.device)
+    check("lam", lam, (k,), p.device)
+    return n, k
+
+
+def check_smem(smem, tile_n, k, e):
+    if smem > MAX_SMEM:
+        raise ValueError(f"tile_n={tile_n}, K={k}, E={e} needs {smem} bytes of "
+                         f"shared memory per block, above {MAX_SMEM}")
+
+
+def launched(fn, err, lib):
+    """Raise if the launch returned a CUDA error; else count it."""
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err} "
+                           f"({lib.scd_error_string(err).decode()})")
+    LAUNCHES[fn] += 1
+
+
+def stream_of(t):
+    """The raw handle of the current CUDA stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,4 +1,5 @@
-// Hand-written Hopper (sm_90a) kernels of the host-fed sync-SCD solve.
+// Hand-written Hopper (sm_90a) kernels of the sparse bucketed SCD solve
+// (host-fed per chunk; resident over the whole shard or per chunk).
 //
 // Replaces two Pallas TPU kernels of the JAX reference package:
 //   * scd_fused_tile + fold   <- src/repro/kernels/scd_fused.py, _kernel
@@ -33,58 +34,13 @@
 // values with strided loads, and one thread per bin walks the tile's rows
 // out of shared memory. Coalesced loads and warp-level binning are later
 // work. Ragged tails are masked loads that return p = b = 0, which is an
-// inert row (no candidate, no selection). Build without FMA contraction
-// (--fmad=false) and never with --use_fast_math: p - lam*b, the divide
-// and the sums round exactly as the plain versions' separate operations.
+// inert row (no candidate, no selection). The per-row candidates, the
+// bin and the rounding rules live in scd_common.cuh. This file also holds
+// the ordered fold that bucket_hist.cu shares.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-
-#define KMAX 64
-#define SMEM_DEFAULT 49152
-#define SMEM_MAX 232448
+#include "scd_common.cuh"
 
 namespace {
-
-__device__ __forceinline__ float ninf() { return -CUDART_INF_F; }
-
-// Alg 5 for one row: ap = max(p - lam*b, 0), the Q-th / (Q+1)-th largest
-// ap by Q+1 masked-max passes (the lowest index among the maxima is
-// knocked out), pbar, and the candidate (v1, v2); invalid -> (-1, 0).
-__device__ void candidates_row(const float* pv, const float* bv,
-                               const float* lam, int k, int q,
-                               float* v1, float* v2) {
-  float ap[KMAX];
-  for (int j = 0; j < k; ++j)
-    ap[j] = fmaxf(__fsub_rn(pv[j], __fmul_rn(lam[j], bv[j])), 0.f);
-  float q_th = CUDART_INF_F, q1_th = CUDART_INF_F;
-  if (q < k) {
-    float work[KMAX];
-    for (int j = 0; j < k; ++j) work[j] = ap[j];
-    for (int i = 0; i <= q; ++i) {
-      float m = ninf();
-      for (int j = 0; j < k; ++j) m = fmaxf(m, work[j]);
-      if (i == q - 1) q_th = m;
-      if (i == q) q1_th = m;
-      for (int j = 0; j < k; ++j) {
-        if (work[j] == m) { work[j] = ninf(); break; }
-      }
-    }
-  }
-  for (int j = 0; j < k; ++j) {
-    const float pbar = (q >= k) ? 0.f : (ap[j] >= q_th ? q1_th : q_th);
-    const bool valid = (pv[j] > pbar) && (bv[j] > 0.f);
-    v1[j] = valid ? __fdiv_rn(__fsub_rn(pv[j], pbar), bv[j]) : -1.f;
-    v2[j] = valid ? bv[j] : 0.f;
-  }
-}
-
-// Searchsorted-left bin: the count of edges below v.
-__device__ __forceinline__ int bin_of(const float* edges, int e, float v) {
-  int c = 0;
-  for (int t = 0; t < e; ++t) c += (edges[t] < v) ? 1 : 0;
-  return c;
-}
 
 // One block per tile. Record per tile: [hist (K*(E+1)) | top (K)].
 __global__ void scd_fused_tile(const float* __restrict__ p,
@@ -261,17 +217,14 @@ __global__ void fold_partials(const float* __restrict__ part,
   out[i] = acc;
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes > SMEM_MAX) return cudaErrorInvalidValue;
-  if (bytes <= SMEM_DEFAULT) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-int threads_for(int tile_n) { return (tile_n + 31) / 32 * 32; }
-
 }  // namespace
+
+cudaError_t launch_fold(const float* part, const float* init, float* out,
+                        long long n_tiles, int rec, int n_sum, cudaStream_t s) {
+  fold_partials<<<(rec + 255) / 256, 256, 0, s>>>(part, init, out, n_tiles, rec,
+                                                  n_sum);
+  return cudaGetLastError();
+}
 
 extern "C" {
 
@@ -301,10 +254,7 @@ int scd_fused_hist_launch(const float* p, const float* b, const float* lam,
       p, b, lam, edges, part, n, k, e, q, tile_n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int rec = k * (e + 1) + k;
-  fold_partials<<<(rec + 255) / 256, 256, 0, s>>>(part, init, out, n_tiles, rec,
-                                                  k * (e + 1));
-  return (int)cudaGetLastError();
+  return (int)launch_fold(part, init, out, n_tiles, k * (e + 1) + k, k * (e + 1), s);
 }
 
 // As above for the finalize; e = 0 and pedges unused without with_hist.
@@ -326,10 +276,7 @@ int scd_finalize_hist_launch(const float* p, const float* b, const float* lam,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n_hist = with_hist ? k * (ee + 1) + ee + 1 : 0;
-  const int rec = n_hist + k + 4;
-  fold_partials<<<(rec + 255) / 256, 256, 0, s>>>(part, init, out, n_tiles, rec,
-                                                  n_hist + k + 2);
-  return (int)cudaGetLastError();
+  return (int)launch_fold(part, init, out, n_tiles, n_hist + k + 4, n_hist + k + 2, s);
 }
 
 const char* scd_error_string(int err) {

@@ -1,14 +1,18 @@
 """Kernel entry points: dispatch by the device of the tensors.
 
-A CUDA tensor goes to the hand-written kernel (``scd_fused``), which
-launches or raises. A CPU tensor goes to the plain PyTorch version
-(``ref``), which has the kernel's tile structure and addition order.
-There is no fallback from one to the other and no switch between them.
+A CUDA tensor goes to the hand-written kernel (``scd_fused``,
+``scd_candidates``, ``bucket_hist``), which launches or raises. A CPU
+tensor goes to the plain PyTorch version (``ref``), which has the
+kernel's tile structure and addition order. There is no fallback from one
+to the other and no switch between them.
 """
 from __future__ import annotations
 
+from . import bucket_hist as _bucket_hist
 from . import ref
-from . import scd_fused as _kernels
+from . import scd_candidates as _scd_candidates
+from . import scd_fused as _fused
+from ._wrap import LAUNCHES, reset_launches  # noqa: F401
 
 _TILE_LADDER = (512, 256, 128)
 
@@ -28,8 +32,8 @@ def scd_fused_hist(p, b, lam, edges, q, tile_n=512, hist_init=None,
     if p.device.type == "cpu":
         return ref.scd_fused_hist_plain(p, b, lam, edges, q, tile_n=tile_n,
                                         hist_init=hist_init, top_init=top_init)
-    return _kernels.scd_fused_hist(p, b, lam, edges, q, tile_n=tile_n,
-                                   hist_init=hist_init, top_init=top_init)
+    return _fused.scd_fused_hist(p, b, lam, edges, q, tile_n=tile_n,
+                                 hist_init=hist_init, top_init=top_init)
 
 
 def scd_finalize_hist(p, b, lam, pedges, q, tile_n=512, with_hist=True, **inits):
@@ -37,5 +41,21 @@ def scd_finalize_hist(p, b, lam, pedges, q, tile_n=512, with_hist=True, **inits)
     if p.device.type == "cpu":
         return ref.scd_finalize_plain(p, b, lam, pedges, q, tile_n=tile_n,
                                       with_hist=with_hist, **inits)
-    return _kernels.scd_finalize_hist(p, b, lam, pedges, q, tile_n=tile_n,
-                                      with_hist=with_hist, **inits)
+    return _fused.scd_finalize_hist(p, b, lam, pedges, q, tile_n=tile_n,
+                                    with_hist=with_hist, **inits)
+
+
+def scd_candidates(p, b, lam, q):
+    """Alg-5 map: the (n, K) candidate pairs (v1, v2)."""
+    if p.device.type == "cpu":
+        return ref.candidates_block(p, b, lam, q)
+    return _scd_candidates.scd_candidates(p, b, lam, q)
+
+
+def bucket_hist(v1, v2, edges, tile_n=512, hist_init=None):
+    """§5.2 histogram (K, E+1) of (n, K) candidates, seeded by ``hist_init``."""
+    if v1.device.type == "cpu":
+        return ref.bucket_hist_plain(v1, v2, edges, tile_n=tile_n,
+                                     hist_init=hist_init)
+    return _bucket_hist.bucket_hist(v1, v2, edges, tile_n=tile_n,
+                                    hist_init=hist_init)

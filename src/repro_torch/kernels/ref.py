@@ -1,7 +1,9 @@
-"""Plain PyTorch versions of the two kernels in ``csrc/scd_fused.cu``.
+"""Plain PyTorch versions of the kernels in ``csrc/``.
 
-They have the kernels' structure, so that they reproduce the kernels'
-float additions one for one:
+``candidates_block``, the per-row Alg-5 map, is the plain version of
+``scd_candidates``: elementwise, and so equal to its kernel on any input. The three histogram kernels' plain versions
+have the kernels' structure, so that they reproduce the kernels' float
+additions one for one:
 
 * the rows are cut into tiles of ``tile_n`` (the ragged tail padded with
   inert p = b = 0 rows, which the kernels get from masked loads);
@@ -16,7 +18,8 @@ Both facts make a chunked accumulation (chunk size a multiple of the
 tile) bitwise equal to one call over all rows, on the CPU as on the card.
 
 Each function's partials and seeds share one packed float32 layout with
-its kernel; ``fused_layout`` and ``finalize_layout`` define it.
+its kernel; ``fused_layout`` and ``finalize_layout`` define it (the
+``bucket_hist`` record is the bare (K*(E+1)) histogram).
 """
 from __future__ import annotations
 
@@ -42,13 +45,18 @@ def finalize_layout(k, e, with_hist):
     return hist + k + 4, hist + k + 2
 
 
+def pack_hist_init(k, e, hist_init, device):
+    """Seed record of bucket_hist: the (K*(E+1)) histogram, zeros if none."""
+    if hist_init is None:
+        return torch.zeros((k * (e + 1),), dtype=torch.float32, device=device)
+    return hist_init.reshape(-1).to(torch.float32).contiguous()
+
+
 def pack_fused_init(k, e, hist_init, top_init, device):
     """Seed record of scd_fused_hist: zeros / -inf where no seed is given."""
-    hist = (torch.zeros((k * (e + 1),), dtype=torch.float32, device=device)
-            if hist_init is None else hist_init.reshape(-1).to(torch.float32))
     top = (torch.full((k,), NEG_INF, dtype=torch.float32, device=device)
            if top_init is None else top_init.reshape(-1).to(torch.float32))
-    return torch.cat([hist, top])
+    return torch.cat([pack_hist_init(k, e, hist_init, device), top])
 
 
 def unpack_fused(rec, k, e):
@@ -103,12 +111,29 @@ def fold_partials(part, init, n_sum):
 # Per-row semantics (Alg 5 candidates, the top-Q greedy mask).
 # --------------------------------------------------------------------------
 
-def _tiled(x, tile_n):
-    """(n, K) -> (T * tile_n, K) with inert zero rows appended."""
+def _tiled(x, tile_n, fill=0.0):
+    """(n, K) -> (T * tile_n, K) with inert ``fill`` rows appended."""
     pad = -x.shape[0] % tile_n
     if not pad:
         return x
-    return torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+    return torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
+
+
+def _bin_of(v, edges):
+    """Searchsorted-left bin per (row, k): the count of edges below v.
+    v: (rows, K); edges: (K, E)."""
+    return (v[:, :, None] > edges[None, :, :]).sum(-1)
+
+
+def _tile_bin_sums(idx, v2, nb):
+    """(T, K, nb) per-tile histograms of (T, tile_n, K) bins and masses:
+    each bin a row-order sum from 0.0 (a one-hot row added at a time)."""
+    t, tile_n, k = idx.shape
+    bins = torch.arange(nb, device=idx.device)
+    hist = torch.zeros((t, k, nb), dtype=torch.float32, device=idx.device)
+    for r in range(tile_n):
+        hist += torch.where(idx[:, r, :, None] == bins, v2[:, r, :, None], 0.0)
+    return hist
 
 
 def _order_stats(ap, q):
@@ -131,7 +156,8 @@ def _order_stats(ap, q):
 
 
 def candidates_block(p, b, lam, q):
-    """Alg 5 candidates (v1, v2) of (n, K) rows; invalid -> (-1, 0)."""
+    """Alg 5 candidates (v1, v2) of (n, K) rows; invalid -> (-1, 0). The
+    plain version of ``scd_candidates``, and the map of the fused one."""
     ap = torch.clamp_min(p - lam[None, :] * b, 0.0)
     k = p.shape[1]
     if q >= k:
@@ -171,8 +197,24 @@ def row_sum(w):
 
 
 # --------------------------------------------------------------------------
-# The two plain versions.
+# The plain versions.
 # --------------------------------------------------------------------------
+
+def bucket_hist_plain(v1, v2, edges, tile_n=512, hist_init=None):
+    """Plain version of ``bucket_hist``: (K, E+1) f32, the v2 mass of the
+    rows with edges[k, j-1] < v1 <= edges[k, j], folded onto ``hist_init``.
+    Pad rows are v1 = -1, v2 = 0."""
+    n, k = v1.shape
+    e = edges.shape[-1]
+    tile_n = min(tile_n, n)
+    vv1, vv2 = _tiled(v1, tile_n, -1.0), _tiled(v2, tile_n)
+    t = vv1.shape[0] // tile_n
+    idx = _bin_of(vv1, edges).view(t, tile_n, k)
+    part = _tile_bin_sums(idx, vv2.view(t, tile_n, k), e + 1).reshape(t, -1)
+    rec = fold_partials(part, pack_hist_init(k, e, hist_init, v1.device),
+                        k * (e + 1))
+    return rec.view(k, e + 1)
+
 
 def scd_fused_hist_plain(p, b, lam, edges, q, tile_n=512, hist_init=None,
                          top_init=None):
@@ -187,13 +229,8 @@ def scd_fused_hist_plain(p, b, lam, edges, q, tile_n=512, hist_init=None,
     tile_n = min(tile_n, n)
     v1, v2 = candidates_block(_tiled(p, tile_n), _tiled(b, tile_n), lam, q)
     t = v1.shape[0] // tile_n
-    idx = (v1[:, :, None] > edges[None, :, :]).sum(-1).view(t, tile_n, k)
-    bins = torch.arange(e + 1, device=p.device)
-    # Row r's one-hot mass, then the row-order sum of the tile's rows.
-    mass = torch.where(idx[..., None] == bins, v2.view(t, tile_n, k, 1), 0.0)
-    hist = torch.zeros((t, k, e + 1), dtype=torch.float32, device=p.device)
-    for r in range(tile_n):
-        hist += mass[:, r]
+    idx = _bin_of(v1, edges).view(t, tile_n, k)
+    hist = _tile_bin_sums(idx, v2.view(t, tile_n, k), e + 1)
     top = v1.view(t, tile_n, k).amax(dim=1)
     part = torch.cat([hist.reshape(t, -1), top], dim=1)
     _, n_sum = fused_layout(k, e)

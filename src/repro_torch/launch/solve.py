@@ -1,14 +1,19 @@
-"""Solver launcher: the paper's production job, host-fed, on the card.
+"""Solver launcher: the paper's production job, on the card.
 
+    python -m repro_torch.launch.solve --workload table1 --scale 0.1 \\
+        [--reduce exact] [--algo dd] [--presolve N] [--chunk-size C] \\
+        [--device cpu]
     python -m repro_torch.launch.solve --workload table1 --scale 0.1 \\
         --host-feed --chunk-size 65536 [--device cpu]
 
-Generates the §6 sparse workload as NumPy chunks on the host
-(``data/synth.sparse_host_chunk_source``), solves it with the host-fed
-sync-SCD bucketed driver (``core/prefetch.solve_streaming_host``) and
-prints one ``key: value`` line per metric, the keys of the reference
-launcher plus the device. ``--scale`` shrinks N, keeping the structure
-(budgets scale with N).
+Without ``--host-feed`` the §6 sparse workload is generated on the host,
+moved to the device and solved resident (``core/solver.solve``);
+``--chunk-size`` then chunks the per-iteration map. With ``--host-feed``
+it is produced as NumPy chunks and solved by the host-fed sync-SCD
+bucketed driver (``core/prefetch.solve_streaming_host``). Both print one
+``key: value`` line per metric, the keys of the reference launcher plus
+the device. ``--scale`` shrinks N, keeping the structure (budgets scale
+with N).
 """
 from __future__ import annotations
 
@@ -18,9 +23,44 @@ import time
 import torch
 
 from ..configs.paper_kp import WORKLOADS, KPWorkload
-from ..core.prefetch import resolve_device, solve_streaming_host
+from ..core.instances import sparse_instance
+from ..core.prefetch import solve_streaming_host
+from ..core.solver import resolve_device, solve
 from ..core.types import SolverConfig
 from ..data.synth import sparse_host_chunk_source
+
+
+def _device_name(dev):
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def run(workload: KPWorkload, cfg: SolverConfig, seed=0, device="cuda"):
+    """Resident solve of a §6 workload; returns the Table-1-style row dict.
+
+    The instance is generated on the host, moved to the device and solved
+    with ``solve`` (``cfg.chunk_size`` chunks the iteration map if set).
+    """
+    dev = resolve_device(device)
+    kp, q = sparse_instance(seed, workload.n_users, workload.k, workload.q,
+                            tightness=workload.tightness, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.time()
+    res = solve(kp, cfg, q=q, device=dev)
+    dt = time.time() - t0
+    budgets = kp.budgets.cpu()
+    viol = float(torch.max((res.r - budgets) / budgets))
+    return {
+        "n_users": workload.n_users,
+        "k": workload.k,
+        "iterations": int(res.iters),
+        "primal": float(res.primal),
+        "dual": float(res.dual),
+        "duality_gap": float(res.dual - res.primal),
+        "max_violation": viol,
+        "wall_s": round(dt, 2),
+        "device": _device_name(dev),
+    }
 
 
 def run_streaming(workload: KPWorkload, cfg: SolverConfig, chunk: int, seed=0,
@@ -46,16 +86,12 @@ def run_streaming(workload: KPWorkload, cfg: SolverConfig, chunk: int, seed=0,
         "duality_gap": float(res.dual - res.primal),
         "max_violation": viol,
         "wall_s": round(dt, 2),
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
+        "device": _device_name(dev),
     }
 
 
 # Reference flags this slice does not port, and the ROADMAP item that does.
 _UNPORTED = {
-    "algo": ("--algo dd", "A2"),
-    "reduce": ("--reduce exact", "A2"),
-    "presolve": ("--presolve", "A2"),
     "streaming": ("--streaming (traced generator)", "A3"),
     "stream_finalize": ("--stream-finalize legacy", "A3"),
     "checkpoint_dir": ("--checkpoint-dir", "A4"),
@@ -76,10 +112,13 @@ def main(argv=None):
     ap.add_argument("--k", type=int, default=None)
     ap.add_argument("--q", type=int, default=None)
     ap.add_argument("--max-iters", type=int, default=40)
-    ap.add_argument("--chunk-size", type=int, default=None)
+    ap.add_argument("--chunk-size", type=int, default=None,
+                    help="resident: chunk the per-iteration map (bitwise "
+                         "equal on the SCD bucketed path); host-fed: the "
+                         "chunk of the source")
     ap.add_argument("--host-feed", action="store_true",
                     help="host-produced NumPy chunks, double-buffered upload "
-                         "(the only solve mode ported so far)")
+                         "(requires --chunk-size)")
     ap.add_argument("--no-double-buffer", action="store_true",
                     help="synchronous upload and step (the baseline)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -99,20 +138,20 @@ def main(argv=None):
     for name, (flag, item) in _UNPORTED.items():
         if getattr(args, name) != ap.get_default(name):
             raise NotImplementedError(f"{flag} is not ported yet: ROADMAP {item}")
-    if not args.host_feed:
-        raise NotImplementedError(
-            "only the host-fed solve is ported (pass --host-feed); the "
-            "resident solve is ROADMAP A2")
-    if not args.chunk_size:
-        raise SystemExit("--host-feed requires --chunk-size")
-
     wl = WORKLOADS[args.workload]
     n = args.n or max(int(wl.n_users * args.scale), 1024)
     wl = KPWorkload(wl.name, n, args.k or wl.k, args.q or wl.q, wl.tightness)
-    cfg = SolverConfig(max_iters=args.max_iters)
-    out = run_streaming(wl, cfg, args.chunk_size,
-                        double_buffer=not args.no_double_buffer,
-                        device=args.device)
+    cfg = SolverConfig(algo=args.algo, reduce=args.reduce,
+                       max_iters=args.max_iters, presolve_samples=args.presolve,
+                       chunk_size=args.chunk_size)
+    if args.host_feed:
+        if not args.chunk_size:
+            raise SystemExit("--host-feed requires --chunk-size")
+        out = run_streaming(wl, cfg, args.chunk_size,
+                            double_buffer=not args.no_double_buffer,
+                            device=args.device)
+    else:
+        out = run(wl, cfg, device=args.device)
     for k, v in out.items():
         print(f"{k}: {v}")
 

@@ -3,7 +3,11 @@
 No JAX here: this file runs on a machine with the card and PyTorch only,
 ``python -m pytest tests/test_torch_cuda.py -m cuda``. Kernel against plain
 version on the same CUDA tensors: bitwise on dyadic inputs; on random
-inputs allclose (rtol 1e-5, atol 1e-5) with ``top`` exact.
+inputs allclose (rtol 1e-5, atol 1e-5) with ``top`` exact; the elementwise
+``scd_candidates`` bitwise on any input. The resident solve on the card:
+chunked == unchunked and repeated runs bitwise, and within tolerance of
+the same solve on the CPU (lam rtol 1e-5 / atol 1e-6, iterations within
+one, primal and dual 1e-5 relative): its sums run in another order there.
 """
 import numpy as np
 import pytest
@@ -12,11 +16,13 @@ torch = pytest.importorskip("torch")
 
 from _torch_cuda import cuda_device  # noqa: E402,F401
 from repro_torch.core import prefetch as tpf  # noqa: E402
+from repro_torch.core import solver as tsolver  # noqa: E402
 from repro_torch.core.bucketing import make_edges  # noqa: E402
+from repro_torch.core.instances import dense_instance, sparse_instance  # noqa: E402
 from repro_torch.core.postprocess import profit_edges_fixed  # noqa: E402
 from repro_torch.core.types import SolverConfig  # noqa: E402
 from repro_torch.data.synth import sparse_host_chunk_source  # noqa: E402
-from repro_torch.kernels import ops, ref, scd_fused  # noqa: E402
+from repro_torch.kernels import bucket_hist, ops, ref, scd_candidates, scd_fused  # noqa: E402
 
 
 def _inst(n, k, seed, dyadic, device):
@@ -37,6 +43,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         scd_fused.scd_fused_hist(p, p, lam, torch.zeros((4, 3)), 1)
     with pytest.raises(ValueError, match="CUDA tensors"):
         scd_fused.scd_finalize_hist(p, p, lam, torch.zeros(5), 1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        scd_candidates.scd_candidates(p, p, lam, 1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bucket_hist.bucket_hist(p, p, torch.zeros((4, 3)))
 
 
 @pytest.mark.cuda
@@ -46,11 +56,16 @@ def test_ops_never_sends_cuda_tensors_to_plain(cuda_device, monkeypatch):
 
     monkeypatch.setattr(ref, "scd_fused_hist_plain", boom)
     monkeypatch.setattr(ref, "scd_finalize_plain", boom)
+    monkeypatch.setattr(ref, "candidates_block", boom)
+    monkeypatch.setattr(ref, "bucket_hist_plain", boom)
     p, b, lam = _inst(1024, 10, 1, False, cuda_device)
-    h, top = ops.scd_fused_hist(p, b, lam, make_edges(lam, 1e-4, 1.6, 24), 1)
+    edges = make_edges(lam, 1e-4, 1.6, 24)
+    h, top = ops.scd_fused_hist(p, b, lam, edges, 1)
     out = ops.scd_finalize_hist(p, b, lam, profit_edges_fixed(device=cuda_device), 1)
+    v1, v2 = ops.scd_candidates(p, b, lam, 1)
+    h2 = ops.bucket_hist(v1, v2, edges)
     torch.cuda.synchronize()
-    assert h.is_cuda and top.is_cuda and out[0].is_cuda
+    assert h.is_cuda and top.is_cuda and out[0].is_cuda and v1.is_cuda and h2.is_cuda
 
 
 @pytest.mark.cuda
@@ -103,3 +118,81 @@ def test_cuda_solve_matches_cpu(cuda_device):
     np.testing.assert_allclose(float(gpu.primal), float(cpu.primal), rtol=1e-5)
     np.testing.assert_allclose(float(gpu.dual), float(cpu.dual), rtol=1e-5)
     assert float(gpu.tau) == float(cpu.tau)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 3])
+@pytest.mark.parametrize("n", [4099, 65536])
+def test_scd_candidates_bitwise_on_card(cuda_device, q, n):
+    p, b, lam = _inst(n, 10, q, False, cuda_device)
+    b[::7] = 0.0
+    kv1, kv2 = ops.scd_candidates(p, b, lam, q)
+    pv1, pv2 = ref.candidates_block(p, b, lam, q)
+    torch.cuda.synchronize()
+    assert torch.equal(kv1, pv1) and torch.equal(kv2, pv2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dyadic", [False, True])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_bucket_hist_matches_plain_on_card(cuda_device, dyadic, seeded):
+    p, b, lam = _inst(6007, 10, 2, dyadic, cuda_device)
+    v1, v2 = ops.scd_candidates(p, b, lam, 2)
+    edges = make_edges(lam, 1e-4, 1.6, 24)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    init = (torch.randint(0, 256, (10, 50), generator=g) / 64.0).to(cuda_device) \
+        if seeded else None
+    kh = ops.bucket_hist(v1, v2, edges, tile_n=512, hist_init=init)
+    ph = ref.bucket_hist_plain(v1, v2, edges, tile_n=512, hist_init=init)
+    torch.cuda.synchronize()
+    if dyadic:
+        assert torch.equal(kh, ph)
+    else:
+        torch.testing.assert_close(kh, ph, rtol=1e-5, atol=1e-5)
+    # Chunked with the seed == one call (chunk rows a multiple of the tile).
+    h = None
+    for s in range(0, v1.shape[0], 1024):
+        h = ops.bucket_hist(v1[s:s + 1024], v2[s:s + 1024], edges, tile_n=512,
+                            hist_init=init if h is None else h)
+    assert torch.equal(h, kh)
+
+
+def _same(a, b):
+    return a.iters == b.iters and all(
+        torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+        for f in ("lam", "x", "r", "primal", "dual"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduce", ["bucketed", "exact"])
+def test_resident_sparse_solve_on_card(cuda_device, reduce):
+    kp, q = sparse_instance(0, 40_000, 10, chunk=8192)
+    cfg = SolverConfig(max_iters=40, kernel_tile=512, reduce=reduce)
+    gpu = tsolver.solve(kp, cfg, q=q, device=cuda_device)
+    again = tsolver.solve(kp, cfg, q=q, device=cuda_device)
+    assert _same(gpu, again)
+    if reduce == "bucketed":
+        chunked = tsolver.solve(kp, cfg.replace(chunk_size=8192), q=q,
+                                device=cuda_device)
+        assert _same(gpu, chunked)
+        host = tpf.solve_streaming_host(sparse_host_chunk_source(0, 40_000, 10, 8192),
+                                        cfg, q=q, device=cuda_device)
+        assert host.iters == gpu.iters and torch.equal(host.lam, gpu.lam)
+    cpu = tsolver.solve(kp, cfg, q=q, device="cpu")
+    np.testing.assert_allclose(gpu.lam.numpy(), cpu.lam.numpy(), rtol=1e-5, atol=1e-6)
+    assert abs(gpu.iters - cpu.iters) <= 1
+    np.testing.assert_allclose(float(gpu.primal), float(cpu.primal), rtol=1e-5)
+    np.testing.assert_allclose(float(gpu.dual), float(cpu.dual), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_resident_dense_solve_on_card(cuda_device):
+    kp = dense_instance(0, 3000, 10, 10, local="C223", mixed_b=True)
+    cfg = SolverConfig(max_iters=40, kernel_tile=512)
+    gpu = tsolver.solve(kp, cfg, q=0, device=cuda_device)
+    chunked = tsolver.solve(kp, cfg.replace(chunk_size=1024), q=0, device=cuda_device)
+    assert _same(gpu, chunked)
+    assert bool(torch.all(gpu.r <= kp.budgets)) and float(gpu.dual) >= float(gpu.primal)
+    cpu = tsolver.solve(kp, cfg, q=0, device="cpu")
+    np.testing.assert_allclose(gpu.lam.numpy(), cpu.lam.numpy(), rtol=1e-5, atol=1e-6)
+    assert abs(gpu.iters - cpu.iters) <= 1
