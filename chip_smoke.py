@@ -27,7 +27,8 @@ check raises, so the script exits non-zero and prints no result line:
    1e-5, atol 1e-5) on random ones; ``scd_fused_hist`` at the resident
    shape (N = 10^7, tile 128); times beside bounds and plain versions;
 7. resident end to end: table1 at N = 10^7 through the launcher's ``run``,
-   bucketed and ``reduce="exact"``, with launches == iterations, feasible
+   bucketed and ``reduce="exact"``, with the map kernel launched once per
+   iteration and ``adjusted_topc`` once (the final metrics pass), feasible
    and dual >= primal, and the per-iteration and final-pass times;
 8. dense end to end: ``dense_instance`` n = 100,000, M = 10, K = 10, C223,
    mixed b, sync bucketed; ``bucket_hist`` launches == iterations, and
@@ -35,10 +36,28 @@ check raises, so the script exits non-zero and prints no result line:
 9. contracts at n = 262,144: resident chunked == unchunked bitwise and ==
    the host-fed solve (lam, iterations); repeated exact solves bitwise;
    the card's resident solves within tolerance of the CPU's (lam rtol
-   1e-5 / atol 1e-6, iterations within one, primal and dual 1e-5);
-10. the ``kernels`` line (launches summed over the paths run in phases 5,
-   7 and 8, with the split), the card's ``nvidia-smi`` line and, last,
-   ``{"ok": true, "device": {...}}``.
+   1e-5 / atol 1e-6, iterations within one, primal and dual 1e-5); the
+   card's screened host-fed solve (banded, chunk 16,384) equal to the
+   CPU's (lam and iterations bitwise, the same streamed-chunk profile);
+   host-fed DD equal to the resident chunked DD at chunk 65,536 (lam and
+   iterations bitwise);
+10. the slice-3 kernels against their plain versions, bitwise:
+   ``screen_bound`` at a 65,536-row chunk and 65,536 - 37 rows, K = 6 and
+   10, random and dyadic rows, with rows and a whole column at b = 0;
+   ``adjusted_topc`` at N = 10^7 and 10^7 - 37, K = 10, q in {1, 3}, also
+   against ``select_sparse``; times beside bounds and plain versions;
+11. screened host-fed end to end: ``banded_host_chunk_source`` with the
+   reference screening bench's settings (K = 6, Q = 2, tightness 0.08,
+   band 0.05, ``bucket_half=12``, ``max_iters=30``) at N = 10^7, chunk
+   65,536 (153 chunks), screened and unscreened: every result field
+   bitwise equal, ``screen_bound`` launched once per chunk, the fused
+   kernel once per streamed chunk (fallbacks included), some epoch
+   streaming fewer than 153 chunks; walls, per-epoch split and profile;
+12. DD end to end: table1 resident at N = 10^7 (``adjusted_topc`` launched
+   iterations + 1 times and nothing else) and host-fed at N = 10^6;
+13. the ``kernels`` line (launches summed over the paths run in phases 5,
+   7, 8, 11 and 12, with the split), the card's ``nvidia-smi`` line and,
+   last, ``{"ok": true, "device": {...}}``.
 """
 import json
 import statistics
@@ -57,14 +76,20 @@ C_MAIN, K, Q_MAIN = 65536, 10, 1
 N_RES = 10_000_000                 # table1 at --scale 0.1
 DENSE_N, DENSE_M = 100_000, 10     # Figure 1 (C223, mixed b) at 100x its N
 CSRC = "src/repro_torch/kernels/csrc/"
+N_HOST_DD = 1_000_000               # host-fed DD
+BANDED = dict(k=6, q=2, tightness=0.08, band=0.05)   # benchmarks/bench_screening.py
 SOURCE = {"scd_fused_hist": CSRC + "scd_fused.cu",
           "scd_finalize_hist": CSRC + "scd_fused.cu",
           "scd_candidates": CSRC + "scd_candidates.cu",
-          "bucket_hist": CSRC + "bucket_hist.cu"}
+          "bucket_hist": CSRC + "bucket_hist.cu",
+          "screen_bound": CSRC + "screen_bound.cu",
+          "adjusted_topc": CSRC + "adjusted_topc.cu"}
 REPLACES = {"scd_fused_hist": "src/repro/kernels/scd_fused.py:93",
             "scd_finalize_hist": "src/repro/kernels/scd_fused.py:279",
             "scd_candidates": "src/repro/kernels/scd_candidates.py:85",
-            "bucket_hist": "src/repro/kernels/bucket_hist.py:67"}
+            "bucket_hist": "src/repro/kernels/bucket_hist.py:67",
+            "screen_bound": "src/repro/kernels/screen_bound.py:66",
+            "adjusted_topc": "src/repro/kernels/adjusted_topc.py:69"}
 
 
 class SmokeFailure(RuntimeError):
@@ -439,7 +464,10 @@ def phase_resident_end_to_end(torch, dev):
         check(launches[kernel] == iters,
               f"{kernel} launched {launches[kernel]} times in the resident "
               f"{reduce} solve, expected iterations = {iters}")
-        check(sum(launches.values()) == iters,
+        check(launches["adjusted_topc"] == 1,
+              f"adjusted_topc launched {launches['adjusted_topc']} times in the "
+              f"resident {reduce} solve, expected 1 (the final metrics pass)")
+        check(sum(launches.values()) == iters + 1,
               f"other kernels launched in the resident {reduce} solve: {launches}")
         check(row["max_violation"] <= 1e-4, f"max_violation {row['max_violation']}")
         check(row["dual"] >= row["primal"], "dual below primal")
@@ -548,6 +576,223 @@ def phase_contracts(torch, dev):
         check(close_solve(res, cpu[name]), f"resident {name} solve differs from the CPU")
 
 
+def phase_slice3_contracts(torch, np, dev):
+    """Screened host-fed card == CPU; host-fed DD == resident chunked DD."""
+    from repro_torch.core import solver
+    from repro_torch.core.instances import sparse_instance
+    from repro_torch.core.prefetch import solve_streaming_host
+    from repro_torch.core.types import SolverConfig
+    from repro_torch.data.synth import banded_host_chunk_source, sparse_host_chunk_source
+
+    n = 262_144
+    src = banded_host_chunk_source(7, n, BANDED["k"], 16_384, q=BANDED["q"],
+                                   tightness=BANDED["tightness"], band=BANDED["band"])
+    cfg = SolverConfig(max_iters=30, bucket_half=12, kernel_tile=512, screening=True)
+    gpu = solve_streaming_host(src, cfg, q=BANDED["q"], device=dev)
+    cpu = solve_streaming_host(src, cfg, q=BANDED["q"], device="cpu")
+    profile = [gpu.screen["streamed_chunks"].tolist(), cpu.screen["streamed_chunks"].tolist()]
+    screened = {"lam_iters_bitwise": gpu.iters == cpu.iters and torch.equal(gpu.lam, cpu.lam),
+                "all_fields_bitwise": same(gpu, cpu),
+                "bmax_bitwise": bool(np.array_equal(gpu.screen["bmax"], cpu.screen["bmax"])),
+                "streamed_chunks": profile}
+    dd_cfg = SolverConfig(algo="dd", max_iters=20)
+    kp, q = sparse_instance(1, n, K, chunk=C_MAIN, device=dev)
+    resident = solver.solve(kp, dd_cfg.replace(chunk_size=C_MAIN), q=q, device=dev)
+    host = solve_streaming_host(sparse_host_chunk_source(1, n, K, C_MAIN), dd_cfg, q=q,
+                                device=dev)
+    dd = {"lam_iters_bitwise": host.iters == resident.iters
+          and torch.equal(host.lam, resident.lam), "iters": host.iters}
+    emit("slice3_contracts", n=n, screened_card_vs_cpu=screened,
+         host_fed_dd_vs_resident_chunked=dd)
+    check(screened["lam_iters_bitwise"], "screened host-fed solve differs from the CPU's")
+    check(profile[0] == profile[1], "streamed-chunk profiles differ from the CPU's")
+    check(screened["bmax_bitwise"], "certificates differ from the CPU's")
+    check(dd["lam_iters_bitwise"], "host-fed DD differs from the resident chunked DD")
+
+
+def phase_slice3_kernels(torch, np, dev):
+    """screen_bound and adjusted_topc against their plain versions, timed."""
+    from repro_torch.core.sparse_scd import select_sparse
+    from repro_torch.kernels import ops, ref
+
+    cases = 0
+    for k in (6, 10):
+        for c in (C_MAIN, C_MAIN - 37):
+            for dyadic in (False, True):
+                g = np.random.default_rng(31 * k + c % 11 + dyadic)
+                if dyadic:
+                    p, b = g.integers(0, 64, (c, k)) / 64.0, g.integers(0, 64, (c, k)) / 64.0
+                else:
+                    p, b = g.random((c, k)), g.uniform(-0.05, 1.0, (c, k))
+                b[::9] = 0.0                       # rows without a valid item
+                b[:, 1] = 0.0                      # a column without one: -inf
+                pt = torch.tensor(p, dtype=torch.float32, device=dev)
+                bt = torch.tensor(b, dtype=torch.float32, device=dev)
+                got = ops.screen_bound(pt, bt)
+                want = ref.screen_bound_plain(pt, bt)
+                torch.cuda.synchronize()
+                tag = f"K={k} n={c} dyadic={dyadic}"
+                check(torch.equal(got, want), f"screen_bound not bitwise ({tag})")
+                check(float(got[1]) == float("-inf"), f"screen_bound column not -inf ({tag})")
+                cases += 1
+    kb = BANDED["k"]
+    g = np.random.default_rng(3)
+    pt = torch.tensor(g.random((C_MAIN, kb)) * 0.05, dtype=torch.float32, device=dev)
+    bt = torch.tensor(0.5 + g.random((C_MAIN, kb)) * 0.5, dtype=torch.float32, device=dev)
+    out = {"screen_bound": {
+        "max_abs_err": 0.0, "rows": C_MAIN, "k": kb,
+        "ms": time_ms(torch, lambda: ops.screen_bound(pt, bt), reps=50),
+        "plain_ms": time_ms(torch, lambda: ref.screen_bound_plain(pt, bt), reps=20),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(4 * (2 * C_MAIN * kb + kb), 2 * C_MAIN * kb))),
+        "library_ms": None}}
+
+    gen = torch.Generator(device=dev)
+    for n in (N_RES - 37, N_RES):          # the last case, n = N_RES and q = 1, is timed
+        for q in (3, 1):
+            gen.manual_seed(n % 89 + q)
+            p = torch.rand((n, K), generator=gen, device=dev)
+            b = torch.rand((n, K), generator=gen, device=dev)
+            b[::7, 3] = 0.0
+            lam = 0.3 + torch.rand((K,), generator=gen, device=dev)
+            x, v = ops.adjusted_topc(p, b, lam, q)
+            px, pv = ref.adjusted_topc_plain(p, b, lam, q)
+            sx = select_sparse(p, b, lam, q)
+            torch.cuda.synchronize()
+            tag = f"n={n} q={q}"
+            check(torch.equal(x, px) and torch.equal(v, pv),
+                  f"adjusted_topc differs from its plain version ({tag})")
+            check(torch.equal(x, sx), f"adjusted_topc differs from select_sparse ({tag})")
+            cases += 1
+            del x, v, px, pv, sx
+    out["adjusted_topc"] = {
+        "max_abs_err": 0.0, "n": N_RES, "k": K, "q": Q_MAIN,
+        "ms": time_ms(torch, lambda: ops.adjusted_topc(p, b, lam, Q_MAIN), reps=20),
+        "plain_ms": time_ms(torch, lambda: ref.adjusted_topc_plain(p, b, lam, Q_MAIN),
+                            reps=5, warmup=1),
+        "select_sparse_ms": time_ms(torch, lambda: select_sparse(p, b, lam, Q_MAIN),
+                                    reps=3, warmup=1),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(4 * (2 * N_RES * K + K) + 5 * N_RES * K,
+                         N_RES * K * (2 + 2 * Q_MAIN)))),
+        "library_ms": None}
+    # The host-fed DD calls it once per 65,536-row chunk.
+    pc, bc = p[:C_MAIN].contiguous(), b[:C_MAIN].contiguous()
+    out["adjusted_topc"]["chunk_shape"] = {
+        "rows": C_MAIN,
+        "ms": time_ms(torch, lambda: ops.adjusted_topc(pc, bc, lam, Q_MAIN), reps=50),
+        "plain_ms": time_ms(torch, lambda: ref.adjusted_topc_plain(pc, bc, lam, Q_MAIN),
+                            reps=20),
+        "bound_ms": bound(4 * (2 * C_MAIN * K + K) + 5 * C_MAIN * K,
+                          C_MAIN * K * (2 + 2 * Q_MAIN))[0]}
+    emit("slice3_kernels_vs_plain", cases=cases, **out)
+    return out
+
+
+def feed_epochs(stats):
+    keys = ("kind", "chunks", "fetch_s", "stage_s", "h2d_ms", "step_ms", "wall_s")
+    return [{k: e[k] for k in keys} for e in stats.epochs]
+
+
+def phase_screened_end_to_end(torch, dev):
+    """The banded workload at N = 10^7, host-fed, unscreened and screened."""
+    from repro_torch.core.prefetch import FeedStats, solve_streaming_host
+    from repro_torch.core.types import SolverConfig
+    from repro_torch.data.synth import banded_host_chunk_source
+    from repro_torch.kernels import ops
+
+    chunks = -(-N_RES // C_MAIN)
+    src = banded_host_chunk_source(7, N_RES, BANDED["k"], C_MAIN, q=BANDED["q"],
+                                   tightness=BANDED["tightness"], band=BANDED["band"])
+    budgets = torch.as_tensor(src.budgets)
+    runs, paths = {}, {}
+    for screening in (False, True):
+        stats = FeedStats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = solve_streaming_host(
+            src, SolverConfig(max_iters=30, bucket_half=12, screening=screening),
+            q=BANDED["q"], device=dev, stats=stats)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        name = "host_fed_banded_screened" if screening else "host_fed_banded"
+        runs[screening], paths[name] = res, launches
+        viol = float(torch.max((res.r - budgets) / budgets))
+        screen = None
+        if screening:
+            screen = {"streamed_chunks": res.screen["streamed_chunks"].tolist(),
+                      "resets": res.screen["resets"],
+                      "fallbacks": res.screen["fallbacks"],
+                      "retired_at_end": int((~res.screen["active"]).sum())}
+        emit("screened_end_to_end", workload="banded", n=N_RES, chunk=C_MAIN,
+             chunks=chunks, screening=screening, iters=res.iters,
+             primal=float(res.primal), dual=float(res.dual), max_violation=viol,
+             wall_s=wall, launches=launches, screen=screen,
+             epochs=feed_epochs(stats))
+        check(viol <= 1e-4, f"max_violation {viol}")
+        check(float(res.dual) >= float(res.primal), "dual below primal")
+        check(launches["scd_finalize_hist"] == chunks, "finalize launches != chunks")
+    base, scr = runs[False], runs[True]
+    check(same(base, scr), "screened solve differs from the unscreened one")
+    streamed = scr.screen["streamed_chunks"]
+    got = paths["host_fed_banded_screened"]
+    check(got["screen_bound"] == chunks,
+          f"screen_bound launched {got['screen_bound']} times, expected {chunks}")
+    check(got["scd_fused_hist"] == int(streamed.sum()),
+          f"scd_fused_hist launched {got['scd_fused_hist']} times, the streamed-chunk "
+          f"profile sums to {int(streamed.sum())}")
+    check(int(streamed.min()) < chunks, "no epoch streamed fewer chunks: nothing retired")
+    check(paths["host_fed_banded"]["scd_fused_hist"] == base.iters * chunks,
+          "unscreened scd_fused_hist launches != iters x chunks")
+    check(paths["host_fed_banded"]["screen_bound"] == 0, "unscreened solve launched screen_bound")
+    return paths
+
+
+def phase_dd_end_to_end(torch, dev):
+    """DD: table1 resident at N = 10^7 and host-fed at N = 10^6."""
+    from repro_torch.configs.paper_kp import WORKLOADS, KPWorkload
+    from repro_torch.core.prefetch import FeedStats
+    from repro_torch.core.types import SolverConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.solve import run, run_streaming
+
+    wl = WORKLOADS["table1"]
+    cfg = SolverConfig(algo="dd", max_iters=40)
+    ops.reset_launches()
+    row = run(KPWorkload(wl.name, N_RES, wl.k, wl.q, wl.tightness), cfg, device=dev)
+    resident = dict(ops.LAUNCHES)
+    iters = row["iterations"]
+    check(resident["adjusted_topc"] == iters + 1,
+          f"adjusted_topc launched {resident['adjusted_topc']} times in the resident DD "
+          f"solve, expected iterations + 1 = {iters + 1}")
+    check(sum(resident.values()) == iters + 1, f"other kernels launched: {resident}")
+    emit("dd_end_to_end", workload="table1", mode="resident", n=N_RES, iters=iters,
+         primal=row["primal"], dual=row["dual"], gap=row["duality_gap"],
+         max_violation=row["max_violation"], wall_s=row["wall_s"], launches=resident)
+    stats = FeedStats()
+    ops.reset_launches()
+    hrow = run_streaming(KPWorkload(wl.name, N_HOST_DD, wl.k, wl.q, wl.tightness), cfg,
+                         C_MAIN, device=dev, stats=stats)
+    host = dict(ops.LAUNCHES)
+    chunks = -(-N_HOST_DD // C_MAIN)
+    check(host["adjusted_topc"] == hrow["iterations"] * chunks,
+          "host-fed DD: adjusted_topc launches != iters x chunks")
+    check(host["scd_finalize_hist"] == chunks, "host-fed DD: finalize launches != chunks")
+    check(sum(host.values()) == (hrow["iterations"] + 1) * chunks,
+          f"host-fed DD: other kernels launched: {host}")
+    emit("dd_end_to_end", workload="table1", mode="host_fed", n=N_HOST_DD, chunk=C_MAIN,
+         iters=hrow["iterations"], primal=hrow["primal"], dual=hrow["dual"],
+         gap=hrow["duality_gap"], max_violation=hrow["max_violation"],
+         wall_s=hrow["wall_s"], launches=host, epochs=feed_epochs(stats))
+    for r in (row, hrow):
+        check(r["max_violation"] <= 1e-4, f"DD max_violation {r['max_violation']}")
+        check(r["dual"] >= r["primal"], "DD dual below primal")
+        check(all(v == v and abs(v) != float("inf")
+                  for v in (r["primal"], r["dual"], r["max_violation"])),
+              "non-finite DD metrics")
+    return {"resident_dd": resident, "host_fed_dd": host}
+
+
 def main():
     import numpy as np
     import torch
@@ -580,6 +825,10 @@ def main():
     paths.update(phase_resident_end_to_end(torch, dev))
     paths.update(phase_dense_end_to_end(torch, dev))
     phase_contracts(torch, dev)
+    phase_slice3_contracts(torch, np, dev)
+    kern.update(phase_slice3_kernels(torch, np, dev))
+    paths.update(phase_screened_end_to_end(torch, dev))
+    paths.update(phase_dd_end_to_end(torch, dev))
 
     rows = [{"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name],
@@ -587,6 +836,8 @@ def main():
              "launches_by_path": {path: p[name] for path, p in paths.items()},
              **kern[name]}
             for name in REPLACES]
+    for r in rows:
+        check(r["launches"] > 0, f"{r['name']} was launched on no path")
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

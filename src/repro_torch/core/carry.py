@@ -28,7 +28,6 @@ _UNPORTED = {
     "fetch_jitter": (0.25, "A4 (fault layer)"),
     "fetch_timeout": (0.0, "A4 (fault layer)"),
     "verify_refetch": (False, "A4 (fault layer)"),
-    "screening_floor": (0.5, "A5 (screening)"),
 }
 _DTYPES = {"float32": torch.float32}
 

@@ -33,7 +33,8 @@ class StreamResult(NamedTuple):
     ``tau`` is the §5.4 removal threshold (-inf: nothing removed; +inf:
     the ladder's overflow fallback removed everything). ``fin_hist`` holds
     the finalize's (cons_hist (K, E+1), gain_hist (E+1,)) when
-    ``cfg.postprocess``.
+    ``cfg.postprocess``. ``screen`` is the host-fed driver's
+    ``HostScreen.stats()`` with ``cfg.screening``, else None.
     """
 
     lam: torch.Tensor      # (K,) final multipliers
@@ -43,6 +44,7 @@ class StreamResult(NamedTuple):
     dual: torch.Tensor     # () dual objective at lam
     tau: torch.Tensor      # () group-profit removal threshold
     fin_hist: Optional[tuple] = None
+    screen: Optional[dict] = None
 
 
 def _num_chunks(n, chunk):
@@ -107,6 +109,14 @@ def _validate_stream_cfg(cfg):
             "every iteration when streaming; solve resident "
             "(repro_torch.core.solver.solve), where per-iteration history is "
             "free (the sampled streaming history, metrics_every, is ROADMAP A3)")
+    if cfg.screening and (cfg.algo != "scd" or cfg.cd_mode != "sync"
+                          or cfg.reduce != "bucketed"):
+        raise ValueError(
+            "cfg.screening requires the synchronous-SCD bucketed streaming "
+            "path (algo='scd', cd_mode='sync', reduce='bucketed'): the "
+            "certificates are statements about the bucket ladder "
+            "(core/screening.py), and DD and cyclic CD have no bucketed "
+            "skip contract.")
 
 
 def decisions_rows(p_c, b_c, lam, q: int, valid, tau=None):

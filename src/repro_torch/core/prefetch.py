@@ -2,8 +2,11 @@
 
 A :class:`HostChunkSource` produces the instance as NumPy chunks (arrays
 in memory, memory maps, any callable). :func:`solve_streaming_host` runs
-the sync-SCD multiplier iteration as one *epoch* over the chunks per
-iteration, then one fused finalize epoch: ``iters + 1`` passes.
+the sync-SCD (or DD) multiplier iteration as one *epoch* over the chunks
+per iteration, then one fused finalize epoch: ``iters + 1`` passes. With
+``cfg.screening`` an SCD epoch streams only the chunks that
+``core/screening.py`` has not retired, and its results stay bitwise the
+unscreened solve's.
 
 On the card every chunk is staged through one of two pinned host buffers
 and copied to one of two device buffers on a side CUDA stream; the compute
@@ -23,6 +26,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..kernels import ops
 from .bucketing import make_edges, threshold_from_hist
 from .chunked import (
     StreamResult,
@@ -33,8 +37,10 @@ from .chunked import (
     finalize_chunk_accumulate,
 )
 from .postprocess import profit_edges_fixed, threshold_and_removed
+from .screening import HostScreen, chunk_bound, crossing_trusted
 from .solver import (
     damped_multiplier_step,
+    dd_proposal,
     resolve_device,
     scd_chunk_accumulate,
 )
@@ -100,8 +106,11 @@ def callable_source(fn, n: int, k: int, budgets, chunk: int) -> HostChunkSource:
 class FeedStats:
     """Per-epoch timings of a host-fed solve, when the caller passes one.
 
-    Host clock: ``fetch_s`` (``source.fn``), ``stage_s`` (copy into the
-    pinned buffer) and ``wall_s`` (the epoch, up to its host sync). On a
+    One record per pass over chunks, of kind ``iterate``, ``fallback`` (the
+    full pass a screened epoch repeats when its guard fails) or
+    ``finalize``, with the count of chunks it streamed. Host clock:
+    ``fetch_s`` (``source.fn``), ``stage_s`` (copy into the pinned buffer)
+    and ``wall_s`` (the epoch, up to its host sync). On a
     CUDA device, CUDA events give ``h2d_ms`` (copies on the side stream)
     and ``step_ms`` (the per-chunk steps, kernels included, on the compute
     stream). :meth:`resolve` turns the recorded events into these sums.
@@ -186,15 +195,17 @@ class _Feeder:
         if self.cuda:
             self.copied[cur[2]].synchronize()
 
-    def run(self, step, state, cur):
-        """Queue ``step(state, p, b)`` on the compute stream after the upload."""
+    def run(self, step, state, cur, i):
+        """Queue ``step(state, p, b, i)`` for chunk i on the compute stream
+        after its upload; the buffer is marked free only after everything
+        the step queued."""
         p_c, b_c, s = cur
         if not self.cuda:
-            return step(state, p_c, b_c)
+            return step(state, p_c, b_c, i)
         stream = torch.cuda.current_stream(self.device)
         stream.wait_event(self.copied[s])
         end = self._timing("step", stream)
-        state = step(state, p_c, b_c)
+        state = step(state, p_c, b_c, i)
         if end is not None:
             end.record(stream)
         self.consumed[s].record(stream)
@@ -205,24 +216,31 @@ class _Feeder:
             torch.cuda.current_stream(self.device).synchronize()
 
 
-def _epoch(source, feeder, step, state, double_buffer, kind="iterate"):
-    """One pass over all chunks: ``state = step(state, p_c, b_c)``."""
+def _epoch(source, feeder, step, state, double_buffer, kind="iterate",
+           indices=None):
+    """One pass over the chunks: ``state = step(state, p_c, b_c, i)``.
+
+    ``indices`` (ascending) restricts the pass to those chunks: the
+    screened epoch streams only the active set through this loop."""
     if feeder.stats is not None:
         feeder.ep = feeder.stats.begin(kind)
-    c = _num_chunks(source.n, source.chunk)
+    idxs = (list(range(_num_chunks(source.n, source.chunk))) if indices is None
+            else [int(i) for i in indices])
     if not double_buffer:
-        for i in range(c):
+        for i in idxs:
             cur = feeder.put(source, i)
             feeder.wait_upload(cur)
-            state = feeder.run(step, state, cur)
+            state = feeder.run(step, state, cur, i)
             feeder.sync()
         return state
-    nxt = feeder.put(source, 0)
-    for i in range(c):
+    if not idxs:
+        return state
+    nxt = feeder.put(source, idxs[0])
+    for t, i in enumerate(idxs):
         cur, nxt = nxt, None
-        state = feeder.run(step, state, cur)
-        if i + 1 < c:
-            nxt = feeder.put(source, i + 1)
+        state = feeder.run(step, state, cur, i)
+        if t + 1 < len(idxs):
+            nxt = feeder.put(source, idxs[t + 1])
     return state
 
 
@@ -230,52 +248,114 @@ class _SingleRuntime:
     """One device, one slot: the iteration epochs and the fused finalize.
 
     The per-chunk steps run on ``device``. The constant-size tail of each
-    epoch (threshold recovery, damped step, the §5.4 threshold) runs on the
-    host CPU in float32: it is a few (K, E+1) operations, the host needs
-    ``moved`` anyway, and one implementation of its scans and sums makes
-    the solve on the card bitwise the solve on the CPU (the kernels
-    already match their plain versions bit for bit). So ``lam``, ``dprev``
-    and the returned fields are CPU tensors.
+    epoch (threshold recovery or the DD step, the damped step, the
+    screening guard, the §5.4 threshold) runs on the host CPU in float32:
+    it is a few (K, E+1) operations, the host needs ``moved`` anyway, and
+    one implementation of its scans and sums makes the solve on the card
+    bitwise the solve on the CPU (the kernels already match their plain
+    versions bit for bit). So ``lam``, ``dprev`` and the returned fields
+    are CPU tensors.
+
+    With a :class:`HostScreen` in ``scr`` the SCD epochs are screened. The
+    certificates are computed on the device, by ``screen_bound`` on the
+    buffer the chunk's accumulate reads, inside the chunk's step (so before
+    the buffer is marked free for the next upload), into row i of
+    ``bound_d`` (C, K); the rows noted in an epoch reach the host once,
+    before ``retire``.
     """
 
     def __init__(self, source, cfg, q, double_buffer, device, stats):
         self.source, self.cfg, self.q = source, cfg, q
         self.double_buffer = double_buffer
         self.device = device
+        self.c = _num_chunks(source.n, source.chunk)
         self.budgets = torch.as_tensor(np.asarray(source.budgets), dtype=cfg.dtype)
         self.pedges = profit_edges_fixed(cfg.profit_buckets, cfg.profit_ladder_lo,
                                          cfg.profit_ladder_hi, cfg.dtype)
         self.feeder = _Feeder(source.chunk, source.k, device, stats)
+        self.scr = None
+        self.bound_d = None
 
-    def _run_epoch(self, step, state, kind):
+    def install_screen(self, scr):
+        self.scr = scr
+        self.bound_d = torch.full((self.c, self.source.k), float("inf"),
+                                  dtype=torch.float32, device=self.device)
+
+    def _run_epoch(self, step, state, kind, indices=None):
         return _epoch(self.source, self.feeder, step, state, self.double_buffer,
-                      kind)
+                      kind, indices)
 
     def _note_wall(self, t0):
+        """Set the current epoch's wall from ``t0``; returns the time now."""
+        now = time.perf_counter()
         if self.feeder.ep is not None:
-            self.feeder.ep["wall_s"] = time.perf_counter() - t0
+            self.feeder.ep["wall_s"] = now - t0
+        return now
 
     def iter_epoch(self, lam, dprev):
-        """One SCD iteration: (lam_new, delta, moved)."""
+        """One SCD or DD iteration: (lam_new, delta, moved)."""
         t0 = time.perf_counter()
-        cfg, src, dev = self.cfg, self.source, self.device
-        edges = make_edges(lam, cfg.bucket_delta, cfg.bucket_growth,
-                           cfg.bucket_half)
-        lam_d, edges_d = lam.to(dev), edges.to(dev)
-        hist0 = torch.zeros((src.k, edges.shape[-1] + 1), dtype=torch.float32,
-                            device=dev)
-        top0 = torch.full((src.k,), float("-inf"), dtype=lam.dtype, device=dev)
+        cfg, dev = self.cfg, self.device
+        lam_d = lam.to(dev)
+        if cfg.algo == "dd":
+            def step(r, p_c, b_c, _i):
+                return r + torch.sum(ops.adjusted_topc(p_c, b_c, lam_d, self.q)[1],
+                                     dim=0)
 
-        def step(carry, p_c, b_c):
-            return scd_chunk_accumulate(p_c, b_c, lam_d, edges_d, self.q, cfg,
-                                        *carry)
-
-        hist, top = self._run_epoch(step, (hist0, top0), "iterate")
-        prop = threshold_from_hist(hist.cpu(), edges, self.budgets, top.cpu())
+            r = self._run_epoch(step, torch.zeros_like(lam_d), "iterate")
+            prop = dd_proposal(lam, r.cpu(), self.budgets, cfg)
+        else:
+            edges = make_edges(lam, cfg.bucket_delta, cfg.bucket_growth,
+                               cfg.bucket_half)
+            edges_d = edges.to(dev)
+            if self.scr is None:
+                hist, top = self._scd_pass(lam_d, edges_d, "iterate")
+            else:
+                hist, top, t0 = self._scd_pass_screened(lam, lam_d, edges_d, t0)
+            prop = threshold_from_hist(hist, edges, self.budgets, top)
         lam_new, delta, moved = damped_multiplier_step(lam, dprev, prop, cfg)
-        moved = bool(moved)
         self._note_wall(t0)
-        return lam_new, delta, moved
+        return lam_new, delta, bool(moved)
+
+    def _scd_pass(self, lam_d, edges_d, kind, indices=None, noted=()):
+        """(hist, top) on the host from one pass over ``indices`` (default
+        all chunks); the chunks in ``noted`` also get their certificate."""
+        k = self.source.k
+        noted = set(noted)
+        hist0 = torch.zeros((k, edges_d.shape[-1] + 1), dtype=torch.float32,
+                            device=self.device)
+        top0 = torch.full((k,), float("-inf"), dtype=torch.float32,
+                          device=self.device)
+
+        def step(carry, p_c, b_c, i):
+            if i in noted:
+                self.bound_d[i].copy_(chunk_bound(p_c, b_c))
+            return scd_chunk_accumulate(p_c, b_c, lam_d, edges_d, self.q,
+                                        self.cfg, *carry)
+
+        hist, top = self._run_epoch(step, (hist0, top0), kind, indices)
+        return hist.cpu(), top.cpu()
+
+    def _scd_pass_screened(self, lam, lam_d, edges_d, t0):
+        """The reference's ``_iter_epoch_screened``: a pass over the active
+        chunks; when the crossing guard cannot certify its histogram, one
+        full pass (which notes nothing, and whose ``FeedStats`` epoch starts
+        the wall clock anew: the returned t0). Then the certificates and
+        the retirement."""
+        scr = self.scr
+        scr.begin_iter(lam.numpy())
+        idx = scr.active_indices()
+        noted = [int(i) for i in idx if scr.needs_bound(i)]
+        hist, top = self._scd_pass(lam_d, edges_d, "iterate", idx, noted)
+        scr.record_streamed(len(idx))
+        if scr.any_retired() and not bool(crossing_trusted(hist, self.budgets)):
+            t0 = self._note_wall(t0)
+            hist, top = self._scd_pass(lam_d, edges_d, "fallback")
+            scr.record_streamed(self.c, fallback=True)
+        if noted:
+            scr.note_bounds(noted, self.bound_d[noted].cpu().numpy())
+        scr.retire()
+        return hist, top, t0
 
     def fin_init(self):
         init = _metrics_init(self.source.k, self.cfg.dtype, self.device)
@@ -291,7 +371,7 @@ class _SingleRuntime:
         pedges = self.pedges.to(self.device) if self.cfg.postprocess else None
         lam_d = lam.to(self.device)
 
-        def step(carry, p_c, b_c):
+        def step(carry, p_c, b_c, _i):
             return finalize_chunk_accumulate(p_c, b_c, lam_d, self.q, self.cfg,
                                              carry, pedges)
 
@@ -321,23 +401,32 @@ def solve_streaming_host(source: HostChunkSource,
                          lam0=None, double_buffer: bool = True,
                          device="cuda", mesh=None, slots=None,
                          checkpoint_dir=None, resume_from=None, tracer=None,
+                         screen_init: Optional[dict] = None,
                          stats: Optional[FeedStats] = None) -> StreamResult:
-    """Solve a host-fed sparse GKP by sync SCD with the §5.2 bucketed reduce.
+    """Solve a host-fed sparse GKP by sync SCD with the §5.2 bucketed
+    reduce, or by DD (``cfg.algo="dd"``).
 
-    Iterates one epoch over the chunks per SCD iteration until the
-    multipliers stop moving (or ``cfg.max_iters``), then runs the fused
-    finalize epoch and the §5.4 projection: ``iters + 1`` passes. Runs on
-    the card unless ``device="cpu"``; without CUDA and without
-    ``device="cpu"`` it raises. ``lam0`` (K,) warm-starts the multipliers
-    (default ones). The per-chunk kernels run on the device, the
-    constant-size tail on the host, and the result's tensors are on the
-    CPU (see ``_SingleRuntime``). ``stats`` (a :class:`FeedStats`) records per-epoch
-    fetch, staging, H2D and step times.
+    Iterates one epoch over the chunks per iteration until the multipliers
+    stop moving (or ``cfg.max_iters``), then runs the fused finalize epoch
+    and the §5.4 projection: ``iters + 1`` passes. A DD epoch sums the
+    consumption of the greedy primal (``adjusted_topc``) and steps lam by
+    ``dd_lr``, as the resident chunked DD does, bit for bit at the same
+    chunk. With ``cfg.screening`` (SCD only) each SCD epoch skips the
+    retired chunks (``core/screening.py``); the result is bitwise the
+    unscreened one and ``result.screen`` holds ``HostScreen.stats()``.
+    ``screen_init`` seeds the screening state from such stats (the delta
+    refresh's warm start). Runs on the card unless ``device="cpu"``;
+    without CUDA and without ``device="cpu"`` it raises. ``lam0`` (K,)
+    warm-starts the multipliers (default ones). The per-chunk kernels run
+    on the device, the constant-size tail on the host, and the result's
+    tensors are on the CPU (see ``_SingleRuntime``). ``stats`` (a
+    :class:`FeedStats`) records per-epoch fetch, staging, H2D and step
+    times.
 
     Sharding (``mesh``, ``slots``), checkpoint and resume
     (``checkpoint_dir``, ``resume_from``), the phase tracer, and the
-    reference host-fed driver's DD, cyclic CD and presolve are not ported
-    yet and raise ``NotImplementedError``; ``record_history`` needs the
+    reference host-fed driver's cyclic CD and presolve are not ported yet
+    and raise ``NotImplementedError``; ``record_history`` needs the
     unported ``metrics_every`` and raises ``ValueError``.
     """
     for name, value, item in (("mesh", mesh, "A4 and A8"),
@@ -348,8 +437,8 @@ def solve_streaming_host(source: HostChunkSource,
         if value is not None:
             raise NotImplementedError(f"{name} is not ported yet: ROADMAP {item}")
     _validate_stream_cfg(cfg)
-    for bad, what in ((cfg.algo == "dd", "algo='dd'"),
-                      (cfg.cd_mode == "cyclic", "cd_mode='cyclic'"),
+    for bad, what in ((cfg.algo == "scd" and cfg.cd_mode == "cyclic",
+                       "cd_mode='cyclic'"),
                       (cfg.presolve_samples > 0, "presolve_samples > 0")):
         if bad:
             raise NotImplementedError(
@@ -359,6 +448,9 @@ def solve_streaming_host(source: HostChunkSource,
     lam = (torch.ones((source.k,), dtype=cfg.dtype) if lam0 is None
            else torch.as_tensor(lam0, dtype=cfg.dtype).cpu())
     rt = _SingleRuntime(source, cfg, q, double_buffer, dev, stats)
+    if cfg.screening:
+        rt.install_screen(HostScreen(rt.c, source.k, cfg, lam.numpy(),
+                                     seed=screen_init))
     dprev = torch.zeros_like(lam)
     iters = 0
     while iters < cfg.max_iters:
@@ -368,6 +460,8 @@ def solve_streaming_host(source: HostChunkSource,
             break
     carry = rt.fin_run(rt.fin_init(), lam)
     res = rt.fin_result(carry, lam, iters)
+    if rt.scr is not None:
+        res = res._replace(screen=rt.scr.stats())
     if stats is not None:
         stats.resolve()
     return res

@@ -20,7 +20,8 @@ Which map runs:
   which sorts all (n, K) candidates;
 * dense (Alg 3): ``candidates_general``, then the ``bucket_hist`` kernel
   (seeded per chunk when chunked) or the exact reduce;
-* DD: the greedy primal at lam and its (K,) consumption.
+* DD: the greedy primal at lam (sparse: the ``adjusted_topc`` kernel) and
+  its (K,) consumption.
 
 Chunked-vs-unchunked contract (``cfg.chunk_size``): with the bucketed
 reduce the chunked solve equals the unchunked one bitwise in every field
@@ -48,11 +49,11 @@ from .bucketing import exact_threshold, make_edges, threshold_from_hist
 from .greedy import adjusted_profit, consumption, fma_dot, greedy_solve
 from .postprocess import feasibility_threshold_exact, group_profit
 from .scd import candidates_general
-from .sparse_scd import select_sparse
 from .types import DenseKP, SolverConfig, SparseKP
 
 __all__ = ["SolveResult", "solve", "dual_objective", "iterate_multipliers",
-           "damped_multiplier_step", "scd_chunk_accumulate", "resolve_device"]
+           "damped_multiplier_step", "dd_proposal", "scd_chunk_accumulate",
+           "resolve_device"]
 
 
 class SolveResult(NamedTuple):
@@ -204,12 +205,19 @@ def _scd_update(kp, lam, q, cfg):
 
 
 def _solve_primal(kp, lam, q):
-    """Greedy primal at lam (on kp's device) and its (n, K) consumption."""
+    """Greedy primal at lam (on kp's device) and its (n, K) consumption.
+    Sparse: the ``adjusted_topc`` kernel (``select_sparse`` is its oracle
+    in the tests)."""
     if isinstance(kp, SparseKP):
-        x = select_sparse(kp.p, kp.b, lam, q)
-        return x, kp.b * x.to(kp.b.dtype)
+        return ops.adjusted_topc(kp.p, kp.b, lam, q)
     x = greedy_solve(adjusted_profit(kp.p, kp.b, lam), kp.sets, kp.caps)
     return x, consumption(kp.b, x)
+
+
+def dd_proposal(lam, r, budgets, cfg):
+    """Alg 2's projected sub-gradient step on the host:
+    max(lam + dd_lr * (r - budgets), 0). lam, r, budgets: (K,) CPU."""
+    return torch.clamp_min(lam + cfg.dd_lr * (r - budgets), 0.0)
 
 
 def _dd_update(kp, lam, q, cfg):
@@ -223,7 +231,7 @@ def _dd_update(kp, lam, q, cfg):
         for p_c, b_c in _chunk_xs(kp, cfg.chunk_size):
             r = r + torch.sum(_solve_primal(kp._replace(p=p_c, b=b_c), lam_d, q)[1],
                               dim=0)
-    return torch.clamp_min(lam + cfg.dd_lr * (r.cpu() - kp.budgets.cpu()), 0.0)
+    return dd_proposal(lam, r.cpu(), kp.budgets.cpu(), cfg)
 
 
 def dual_objective(kp, lam, q, primal=None):

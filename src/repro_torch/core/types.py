@@ -102,11 +102,16 @@ class SolverConfig:
     profit_ladder_hi: float = 1e6
     postprocess: bool = True
     stream_finalize: str = "fused"
+    # Host-fed solve: safe lambda-interval active-set screening
+    # (core/screening.py), bitwise the unscreened solve; each epoch
+    # certifies multipliers down to lam * screening_floor, and an escape
+    # below the floor reactivates every chunk.
+    screening: bool = False
+    screening_floor: float = 0.5
     # Reference options not ported yet; any value but the default raises.
     metrics_every: int = 0
     checkpoint_every: int = 0
     fetch_retries: int = 0
-    screening: bool = False
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
@@ -118,7 +123,6 @@ class SolverConfig:
             (self.checkpoint_every != 0,
              "checkpoint_every (checkpoint and resume): ROADMAP A4"),
             (self.fetch_retries != 0, "fetch_retries (fault layer): ROADMAP A4"),
-            (self.screening, "screening: ROADMAP A5"),
         ]
         for bad, what in unported:
             if bad:

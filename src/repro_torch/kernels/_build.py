@@ -20,7 +20,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("scd_fused.cu", "scd_candidates.cu", "bucket_hist.cu")
+SOURCES = ("scd_fused.cu", "scd_candidates.cu", "bucket_hist.cu",
+           "screen_bound.cu", "adjusted_topc.cu")
 HEADERS = ("scd_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -97,8 +98,11 @@ def load() -> ctypes.CDLL:
                                                  + [i64, i32, i32, i32, i32, i32, vp])
         lib.scd_candidates_launch.argtypes = [vp] * 5 + [i64, i32, i32, vp]
         lib.bucket_hist_launch.argtypes = [vp] * 6 + [i64, i32, i32, i32, vp]
+        lib.screen_bound_launch.argtypes = [vp] * 5 + [i64, i32, i32, vp]
+        lib.adjusted_topc_launch.argtypes = [vp] * 5 + [i64, i32, i32, vp]
         for fn in (lib.scd_fused_hist_launch, lib.scd_finalize_hist_launch,
-                   lib.scd_candidates_launch, lib.bucket_hist_launch):
+                   lib.scd_candidates_launch, lib.bucket_hist_launch,
+                   lib.screen_bound_launch, lib.adjusted_topc_launch):
             fn.restype = i32
         for fn in (lib.scd_fused_smem_bytes, lib.scd_finalize_smem_bytes,
                    lib.bucket_hist_smem_bytes):

@@ -2,8 +2,9 @@
 launch counts.
 
 ``LAUNCHES`` counts the launches of each kernel, one per wrapper call
-that launched it (the wrappers in ``scd_fused``, ``scd_candidates`` and
-``bucket_hist``); ``reset_launches`` sets every count to 0.
+that launched it (the wrappers in ``scd_fused``, ``scd_candidates``,
+``bucket_hist``, ``screen_bound`` and ``adjusted_topc``);
+``reset_launches`` sets every count to 0.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ MAX_TILE = 1024
 MAX_SMEM = 232448
 
 LAUNCHES = {"scd_fused_hist": 0, "scd_finalize_hist": 0, "scd_candidates": 0,
-            "bucket_hist": 0}
+            "bucket_hist": 0, "screen_bound": 0, "adjusted_topc": 0}
 
 
 def reset_launches():

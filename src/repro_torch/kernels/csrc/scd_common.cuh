@@ -48,6 +48,24 @@ __device__ __forceinline__ void candidates_row(const float* pv, const float* bv,
   }
 }
 
+// Greedy top-Q of one row's strictly positive values, ties to the lower
+// index (the reference's _topq_mask): Q passes, each picking the largest
+// value if it is above zero and knocking it out of `work` (overwritten).
+// Returns the picks as a bit mask over the K items. The finalize kernel
+// and adjusted_topc both select through it, so their ties cannot drift.
+__device__ __forceinline__ unsigned long long topq_row(float* work, int k, int q) {
+  unsigned long long x = 0ull;
+  for (int it = 0; it < q; ++it) {
+    float m = ninf();
+    for (int j = 0; j < k; ++j) m = fmaxf(m, work[j]);
+    if (!(m > 0.f)) break;
+    for (int j = 0; j < k; ++j) {
+      if (work[j] == m) { x |= 1ull << j; work[j] = ninf(); break; }
+    }
+  }
+  return x;
+}
+
 // Searchsorted-left bin: the count of edges below v.
 __device__ __forceinline__ int bin_of(const float* edges, int e, float v) {
   int c = 0;

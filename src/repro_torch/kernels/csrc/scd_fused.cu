@@ -139,17 +139,7 @@ __global__ void scd_finalize_tile(const float* __restrict__ p,
     ap[j] = __fsub_rn(pv[j], __fmul_rn(s_lam[j], bv[j]));
     work[j] = ap[j];
   }
-  // Greedy top-Q of the strictly positive adjusted profits, ties to the
-  // lower index (the reference's _topq_mask).
-  unsigned long long x = 0ull;
-  for (int it = 0; it < q; ++it) {
-    float m = ninf();
-    for (int j = 0; j < k; ++j) m = fmaxf(m, work[j]);
-    if (!(m > 0.f)) break;
-    for (int j = 0; j < k; ++j) {
-      if (work[j] == m) { x |= 1ull << j; work[j] = ninf(); break; }
-    }
-  }
+  const unsigned long long x = topq_row(work, k, q);
   float gain = 0.f, pt = 0.f;
   for (int j = 0; j < k; ++j) {
     const bool xj = (x >> j) & 1ull;

@@ -1,17 +1,20 @@
 """Kernel entry points: dispatch by the device of the tensors.
 
 A CUDA tensor goes to the hand-written kernel (``scd_fused``,
-``scd_candidates``, ``bucket_hist``), which launches or raises. A CPU
+``scd_candidates``, ``bucket_hist``, ``screen_bound``, ``adjusted_topc``),
+which launches or raises. A CPU
 tensor goes to the plain PyTorch version (``ref``), which has the
 kernel's tile structure and addition order. There is no fallback from one
 to the other and no switch between them.
 """
 from __future__ import annotations
 
+from . import adjusted_topc as _adjusted_topc
 from . import bucket_hist as _bucket_hist
 from . import ref
 from . import scd_candidates as _scd_candidates
 from . import scd_fused as _fused
+from . import screen_bound as _screen_bound
 from ._wrap import LAUNCHES, reset_launches  # noqa: F401
 
 _TILE_LADDER = (512, 256, 128)
@@ -59,3 +62,17 @@ def bucket_hist(v1, v2, edges, tile_n=512, hist_init=None):
                                      hist_init=hist_init)
     return _bucket_hist.bucket_hist(v1, v2, edges, tile_n=tile_n,
                                     hist_init=hist_init)
+
+
+def screen_bound(p, b):
+    """Screening certificate (K,): the column max of p / b over b > 0 rows."""
+    if p.device.type == "cpu":
+        return ref.screen_bound_plain(p, b)
+    return _screen_bound.screen_bound(p, b)
+
+
+def adjusted_topc(p, b, lam, q):
+    """Greedy primal at lam: (x (n, K) bool, v = where(x, b, 0))."""
+    if p.device.type == "cpu":
+        return ref.adjusted_topc_plain(p, b, lam, q)
+    return _adjusted_topc.adjusted_topc(p, b, lam, q)

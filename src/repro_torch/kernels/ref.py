@@ -1,7 +1,10 @@
 """Plain PyTorch versions of the kernels in ``csrc/``.
 
 ``candidates_block``, the per-row Alg-5 map, is the plain version of
-``scd_candidates``: elementwise, and so equal to its kernel on any input. The three histogram kernels' plain versions
+``scd_candidates``, and ``adjusted_topc_plain`` (the greedy primal) that
+of ``adjusted_topc``: both elementwise over rows, and so equal to their
+kernels on any input. ``screen_bound_plain`` is a column max, exact in
+any order. The three histogram kernels' plain versions
 have the kernels' structure, so that they reproduce the kernels' float
 additions one for one:
 
@@ -199,6 +202,23 @@ def row_sum(w):
 # --------------------------------------------------------------------------
 # The plain versions.
 # --------------------------------------------------------------------------
+
+def screen_bound_plain(p, b):
+    """Plain version of ``screen_bound``: the (K,) column max of ``p / b``
+    over rows with ``b > 0`` (select, then divide, then select: a row with
+    b <= 0 gives -inf and never divides by zero)."""
+    ok = b > 0
+    safe = torch.where(ok, b, torch.ones_like(b))
+    return torch.where(ok, p / safe, NEG_INF).amax(dim=0)
+
+
+def adjusted_topc_plain(p, b, lam, q):
+    """Plain version of ``adjusted_topc``: the top-Q strictly positive
+    ``p - lam*b`` (a multiply, then a subtract) per row, ties to the lower
+    index, as (x (n, K) bool, v = where(x, b, 0))."""
+    x = topq_mask(p - lam[None, :] * b, q)
+    return x, torch.where(x, b, 0.0)
+
 
 def bucket_hist_plain(v1, v2, edges, tile_n=512, hist_init=None):
     """Plain version of ``bucket_hist``: (K, E+1) f32, the v2 mass of the

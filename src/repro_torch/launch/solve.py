@@ -4,15 +4,17 @@
         [--reduce exact] [--algo dd] [--presolve N] [--chunk-size C] \\
         [--device cpu]
     python -m repro_torch.launch.solve --workload table1 --scale 0.1 \\
-        --host-feed --chunk-size 65536 [--device cpu]
+        --host-feed --chunk-size 65536 [--algo dd] \\
+        [--screening [--screening-floor F]] [--device cpu]
 
 Without ``--host-feed`` the §6 sparse workload is generated on the host,
 moved to the device and solved resident (``core/solver.solve``);
 ``--chunk-size`` then chunks the per-iteration map. With ``--host-feed``
-it is produced as NumPy chunks and solved by the host-fed sync-SCD
-bucketed driver (``core/prefetch.solve_streaming_host``). Both print one
-``key: value`` line per metric, the keys of the reference launcher plus
-the device. ``--scale`` shrinks N, keeping the structure (budgets scale
+it is produced as NumPy chunks and solved by the host-fed driver
+(``core/prefetch.solve_streaming_host``: sync SCD with the bucketed
+reduce, optionally screened, or DD). Both print one ``key: value`` line
+per metric, the keys of the reference launcher plus the device (and,
+screened, the streamed chunks per iteration and the floor resets). ``--scale`` shrinks N, keeping the structure (budgets scale
 with N).
 """
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from ..configs.paper_kp import WORKLOADS, KPWorkload
@@ -76,7 +79,7 @@ def run_streaming(workload: KPWorkload, cfg: SolverConfig, chunk: int, seed=0,
     budgets = torch.as_tensor(src.budgets)
     viol = float(torch.max((res.r - budgets) / budgets))
     dt = time.time() - t0
-    return {
+    out = {
         "n_users": workload.n_users,
         "k": workload.k,
         "chunk_size": chunk,
@@ -88,6 +91,11 @@ def run_streaming(workload: KPWorkload, cfg: SolverConfig, chunk: int, seed=0,
         "wall_s": round(dt, 2),
         "device": _device_name(dev),
     }
+    if res.screen is not None:
+        out["screen_chunks_per_iter"] = np.asarray(
+            res.screen["streamed_chunks"]).tolist()
+        out["screen_resets"] = int(res.screen["resets"])
+    return out
 
 
 # Reference flags this slice does not port, and the ROADMAP item that does.
@@ -98,7 +106,6 @@ _UNPORTED = {
     "checkpoint_every": ("--checkpoint-every", "A4"),
     "resume": ("--resume", "A4"),
     "slots": ("--slots", "A4"),
-    "screening": ("--screening", "A5"),
 }
 
 
@@ -132,7 +139,11 @@ def main(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--slots", type=int, default=None)
-    ap.add_argument("--screening", action="store_true")
+    ap.add_argument("--screening", action="store_true",
+                    help="host-fed: safe active-set screening, bitwise the "
+                         "unscreened solve (retired chunks are not fetched)")
+    ap.add_argument("--screening-floor", type=float, default=0.5,
+                    help="screening certifies multipliers down to lam * this")
     args = ap.parse_args(argv)
 
     for name, (flag, item) in _UNPORTED.items():
@@ -141,9 +152,13 @@ def main(argv=None):
     wl = WORKLOADS[args.workload]
     n = args.n or max(int(wl.n_users * args.scale), 1024)
     wl = KPWorkload(wl.name, n, args.k or wl.k, args.q or wl.q, wl.tightness)
+    if args.screening and not args.host_feed:
+        raise SystemExit("--screening requires --host-feed (only the "
+                         "chunk-streamed driver carries an active chunk set)")
     cfg = SolverConfig(algo=args.algo, reduce=args.reduce,
                        max_iters=args.max_iters, presolve_samples=args.presolve,
-                       chunk_size=args.chunk_size)
+                       chunk_size=args.chunk_size, screening=args.screening,
+                       screening_floor=args.screening_floor)
     if args.host_feed:
         if not args.chunk_size:
             raise SystemExit("--host-feed requires --chunk-size")

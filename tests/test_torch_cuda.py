@@ -4,7 +4,10 @@ No JAX here: this file runs on a machine with the card and PyTorch only,
 ``python -m pytest tests/test_torch_cuda.py -m cuda``. Kernel against plain
 version on the same CUDA tensors: bitwise on dyadic inputs; on random
 inputs allclose (rtol 1e-5, atol 1e-5) with ``top`` exact; the elementwise
-``scd_candidates`` bitwise on any input. The resident solve on the card:
+``scd_candidates``, ``screen_bound`` and ``adjusted_topc`` bitwise on any
+input. The screened host-fed solve on the card: bitwise the unscreened one
+and the CPU one, with the same streamed-chunk profile; host-fed DD bitwise
+the resident chunked DD. The resident solve on the card:
 chunked == unchunked and repeated runs bitwise, and within tolerance of
 the same solve on the CPU (lam rtol 1e-5 / atol 1e-6, iterations within
 one, primal and dual 1e-5 relative): its sums run in another order there.
@@ -21,8 +24,17 @@ from repro_torch.core.bucketing import make_edges  # noqa: E402
 from repro_torch.core.instances import dense_instance, sparse_instance  # noqa: E402
 from repro_torch.core.postprocess import profit_edges_fixed  # noqa: E402
 from repro_torch.core.types import SolverConfig  # noqa: E402
-from repro_torch.data.synth import sparse_host_chunk_source  # noqa: E402
-from repro_torch.kernels import bucket_hist, ops, ref, scd_candidates, scd_fused  # noqa: E402
+from repro_torch.core.sparse_scd import select_sparse  # noqa: E402
+from repro_torch.data.synth import banded_host_chunk_source, sparse_host_chunk_source  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    adjusted_topc,
+    bucket_hist,
+    ops,
+    ref,
+    scd_candidates,
+    scd_fused,
+    screen_bound,
+)
 
 
 def _inst(n, k, seed, dyadic, device):
@@ -47,6 +59,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         scd_candidates.scd_candidates(p, p, lam, 1)
     with pytest.raises(ValueError, match="CUDA tensors"):
         bucket_hist.bucket_hist(p, p, torch.zeros((4, 3)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        screen_bound.screen_bound(p, p)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        adjusted_topc.adjusted_topc(p, p, lam, 1)
 
 
 @pytest.mark.cuda
@@ -58,14 +74,19 @@ def test_ops_never_sends_cuda_tensors_to_plain(cuda_device, monkeypatch):
     monkeypatch.setattr(ref, "scd_finalize_plain", boom)
     monkeypatch.setattr(ref, "candidates_block", boom)
     monkeypatch.setattr(ref, "bucket_hist_plain", boom)
+    monkeypatch.setattr(ref, "screen_bound_plain", boom)
+    monkeypatch.setattr(ref, "adjusted_topc_plain", boom)
     p, b, lam = _inst(1024, 10, 1, False, cuda_device)
     edges = make_edges(lam, 1e-4, 1.6, 24)
     h, top = ops.scd_fused_hist(p, b, lam, edges, 1)
     out = ops.scd_finalize_hist(p, b, lam, profit_edges_fixed(device=cuda_device), 1)
     v1, v2 = ops.scd_candidates(p, b, lam, 1)
     h2 = ops.bucket_hist(v1, v2, edges)
+    bound = ops.screen_bound(p, b)
+    x, v = ops.adjusted_topc(p, b, lam, 1)
     torch.cuda.synchronize()
     assert h.is_cuda and top.is_cuda and out[0].is_cuda and v1.is_cuda and h2.is_cuda
+    assert bound.is_cuda and x.is_cuda and v.is_cuda
 
 
 @pytest.mark.cuda
@@ -196,3 +217,60 @@ def test_resident_dense_solve_on_card(cuda_device):
     cpu = tsolver.solve(kp, cfg, q=0, device="cpu")
     np.testing.assert_allclose(gpu.lam.numpy(), cpu.lam.numpy(), rtol=1e-5, atol=1e-6)
     assert abs(gpu.iters - cpu.iters) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [6, 10])
+@pytest.mark.parametrize("n", [4099, 65536])
+def test_screen_bound_bitwise_on_card(cuda_device, n, k):
+    p, b, _ = _inst(n, k, n + k, False, cuda_device)
+    b[::5] = 0.0
+    b[:, 2] = 0.0
+    got = ops.screen_bound(p, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.screen_bound_plain(p, b))
+    assert got[2] == float("-inf")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 3, 10])
+@pytest.mark.parametrize("n", [4099, 65536])
+def test_adjusted_topc_bitwise_on_card(cuda_device, n, q):
+    p, b, lam = _inst(n, 10, n + q, False, cuda_device)
+    b[::7, 3] = 0.0
+    x, v = ops.adjusted_topc(p, b, lam, q)
+    px, pv = ref.adjusted_topc_plain(p, b, lam, q)
+    torch.cuda.synchronize()
+    assert torch.equal(x, px) and torch.equal(v, pv)
+    assert torch.equal(x, select_sparse(p, b, lam, q))
+
+
+@pytest.mark.cuda
+def test_screened_host_fed_on_card(cuda_device):
+    src = banded_host_chunk_source(7, 65536, 6, 4096, q=2, tightness=0.08, band=0.05)
+    cfg = SolverConfig(max_iters=30, bucket_half=12, kernel_tile=512)
+    base = tpf.solve_streaming_host(src, cfg, q=2, device=cuda_device)
+    ops.reset_launches()
+    scr = tpf.solve_streaming_host(src, cfg.replace(screening=True), q=2,
+                                   device=cuda_device)
+    assert ops.LAUNCHES["screen_bound"] == 16
+    assert ops.LAUNCHES["scd_fused_hist"] == int(scr.screen["streamed_chunks"].sum())
+    assert scr.iters == base.iters and all(
+        torch.equal(getattr(scr, f), getattr(base, f))
+        for f in ("lam", "r", "primal", "dual", "tau"))
+    assert scr.screen["streamed_chunks"].min() < 16
+    cpu = tpf.solve_streaming_host(src, cfg.replace(screening=True), q=2, device="cpu")
+    assert cpu.iters == scr.iters and torch.equal(cpu.lam, scr.lam)
+    for key in ("streamed_chunks", "bmax", "active"):
+        np.testing.assert_array_equal(cpu.screen[key], scr.screen[key])
+
+
+@pytest.mark.cuda
+def test_host_fed_dd_on_card(cuda_device):
+    n, chunk = 40_000, 8192
+    cfg = SolverConfig(algo="dd", max_iters=12)
+    kp, q = sparse_instance(0, n, 10, chunk=chunk)
+    resident = tsolver.solve(kp, cfg.replace(chunk_size=chunk), q=q, device=cuda_device)
+    host = tpf.solve_streaming_host(sparse_host_chunk_source(0, n, 10, chunk), cfg, q=q,
+                                    device=cuda_device)
+    assert host.iters == resident.iters and torch.equal(host.lam, resident.lam)

@@ -160,20 +160,19 @@ def test_entry_points_raise_without_cuda(inst, monkeypatch):
 
 def test_unported_options_raise(inst):
     """Options no driver ports yet raise at construction; the resident-only
-    ones (DD, cyclic, presolve, the exact reduce, history) construct, and
-    the host-fed driver refuses them naming its ROADMAP item."""
+    ones (cyclic, presolve, the exact reduce, history) construct, and the
+    host-fed driver refuses them naming its ROADMAP item."""
     for kw in ({"stream_finalize": "legacy"}, {"metrics_every": 2},
-               {"screening": True}, {"checkpoint_every": 2},
-               {"fetch_retries": 3}):
+               {"checkpoint_every": 2}, {"fetch_retries": 3}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SolverConfig(**kw)
-    for kw in ({"screening": True}, {"partial_fraction": 0.5},
+    for kw in ({"partial_fraction": 0.5},
                {"fetch_timeout": 1.0}, {"verify_refetch": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             config_from_reference(dataclasses.asdict(JCfg(**kw)))
     p, b, budgets = inst
     src = tpf.host_array_source(p, b, budgets, CHUNK)
-    for kw in ({"algo": "dd"}, {"cd_mode": "cyclic"}, {"presolve_samples": 64}):
+    for kw in ({"cd_mode": "cyclic"}, {"presolve_samples": 64}):
         with pytest.raises(NotImplementedError, match="ROADMAP A4"):
             tpf.solve_streaming_host(src, SolverConfig(**kw), device="cpu")
     with pytest.raises(ValueError, match="bucketed"):
@@ -185,10 +184,5 @@ def test_unported_options_raise(inst):
                {"resume_from": "ckpt"}, {"tracer": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpf.solve_streaming_host(src, device="cpu", **kw)
-    for argv in (["--host-feed", "--chunk-size", "1024", "--screening"],
-                 ["--streaming", "--chunk-size", "1024"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlaunch.main(argv)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tlaunch.main(["--host-feed", "--chunk-size", "1024", "--algo", "dd",
-                      "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlaunch.main(["--streaming", "--chunk-size", "1024"])
