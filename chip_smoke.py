@@ -11,9 +11,12 @@ check raises, so the script exits non-zero and prints no result line:
 1. environment: the card, its power limit, torch/CUDA versions, build time;
 2. the host-fed path's kernels against their plain versions on the card
    at its shapes (chunk 65,536 and 65,536 - 37, K = 10, q in {1, 3}, seeded
-   carries): bitwise on dyadic inputs, allclose (rtol 1e-5, atol 1e-5) on
-   random ones with top, lo/hi and (q = 1) bucket patterns exact; times
-   from CUDA events beside the byte bound and the plain version's time;
+   carries, ``scd_fused_hist`` at its default tile ``MAP_TILE``):
+   ``scd_fused_hist`` bitwise on random and dyadic inputs, the finalize
+   bitwise on dyadic inputs and allclose (rtol 1e-5, atol 1e-5) on random
+   ones with lo/hi and (q = 1) bucket patterns exact; times from CUDA
+   events beside the byte bound and the plain version's time, after a line
+   with the fused call's profiler split (``launch/kernel_split.py``);
 3. determinism: repeated kernel runs bitwise; a host-fed solve at chunk
    65,536 and 131,072 (tile 512) bitwise;
 4. the same host-fed solve (n = 262,144) on the card and on the CPU;
@@ -23,18 +26,22 @@ check raises, so the script exits non-zero and prints no result line:
 6. the resident path's kernels against their plain versions:
    ``scd_candidates`` at N = 10^7 and 10^7 - 37, q in {1, 3}, bitwise;
    ``bucket_hist`` at the dense shape (100,000 users x 55 candidates, K =
-   10), seeded and unseeded, bitwise on dyadic inputs and allclose (rtol
-   1e-5, atol 1e-5) on random ones; ``scd_fused_hist`` at the resident
-   shape (N = 10^7, tile 128); times beside bounds and plain versions;
+   10, default tile), seeded and unseeded, random and dyadic, bitwise;
+   ``scd_fused_hist`` at the resident shape (N = 10^7, default tile),
+   bitwise; times beside bounds and plain versions, after the profiler
+   split of both histogram calls (kernel time against the call's wall);
 7. resident end to end: table1 at N = 10^7 through the launcher's ``run``,
    bucketed and ``reduce="exact"``, with the map kernel launched once per
    iteration and ``adjusted_topc`` once (the final metrics pass), feasible
-   and dual >= primal, and the per-iteration and final-pass times;
+   and dual >= primal, and the per-iteration and final-pass times; the
+   default bucketed solve of the same rows equals phase 5's host-fed solve
+   in lam and iterations (the map tile divides the chunk);
 8. dense end to end: ``dense_instance`` n = 100,000, M = 10, K = 10, C223,
    mixed b, sync bucketed; ``bucket_hist`` launches == iterations, and
    chunk 16,384 (tile 512) bitwise equal to unchunked;
 9. contracts at n = 262,144: resident chunked == unchunked bitwise and ==
-   the host-fed solve (lam, iterations); repeated exact solves bitwise;
+   the host-fed solve (lam, iterations), pinned at tile 512 and at the
+   default tiles; repeated exact solves bitwise;
    the card's resident solves within tolerance of the CPU's (lam rtol
    1e-5 / atol 1e-6, iterations within one, primal and dual 1e-5); the
    card's screened host-fed solve (banded, chunk 16,384) equal to the
@@ -85,7 +92,7 @@ SOURCE = {"scd_fused_hist": CSRC + "scd_fused.cu",
           "screen_bound": CSRC + "screen_bound.cu",
           "adjusted_topc": CSRC + "adjusted_topc.cu"}
 REPLACES = {"scd_fused_hist": "src/repro/kernels/scd_fused.py:93",
-            "scd_finalize_hist": "src/repro/kernels/scd_fused.py:279",
+            "scd_finalize_hist": "src/repro/kernels/scd_fused.py:256,279",
             "scd_candidates": "src/repro/kernels/scd_candidates.py:85",
             "bucket_hist": "src/repro/kernels/bucket_hist.py:67",
             "screen_bound": "src/repro/kernels/screen_bound.py:66",
@@ -157,6 +164,7 @@ def phase_kernels(torch, np, dev):
     from repro_torch.core.bucketing import make_edges
     from repro_torch.core.postprocess import profit_edges_fixed
     from repro_torch.kernels import ops, ref
+    from repro_torch.launch.kernel_split import split
 
     pedges = profit_edges_fixed(512, 1e-6, 1e6, device=dev)
     err = {"scd_fused_hist": 0.0, "scd_finalize_hist": 0.0}
@@ -173,10 +181,11 @@ def phase_kernels(torch, np, dev):
                 torch.cuda.synchronize()
                 tag = f"C={c} q={q} dyadic={dyadic}"
                 check(torch.equal(kt, pt), f"fused top differs ({tag})")
+                # The fused kernel and its plain version add in one order.
+                check(torch.equal(kh, ph), f"scd_fused_hist not bitwise ({tag})")
                 check(torch.equal(kf[5], pf[5]) and torch.equal(kf[6], pf[6]),
                       f"finalize lo/hi differ ({tag})")
-                pairs = {"scd_fused_hist": [(kh, ph)],
-                         "scd_finalize_hist": list(zip(kf[:5], pf[:5]))}
+                pairs = {"scd_finalize_hist": list(zip(kf[:5], pf[:5]))}
                 for name, prs in pairs.items():
                     for a, e in prs:
                         if dyadic:
@@ -215,12 +224,15 @@ def phase_kernels(torch, np, dev):
             bound(read + 4 * (ep + 2 * rec_g),
                   C_MAIN * K * (5 + Q_MAIN) + C_MAIN * (ep + K + 1))),
     }
+    emit("kernel_split", kernel="scd_fused_hist", rows=C_MAIN, tile=ops.MAP_TILE,
+         **split(timing["scd_fused_hist"][0], reps=50))
     out = {}
     for name, (kern, plain, (b_ms, b_by)) in timing.items():
         ms = time_ms(torch, kern, reps=50)
         plain_ms = time_ms(torch, plain, reps=5, warmup=1)
         out[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    out["scd_fused_hist"]["tile"] = ops.MAP_TILE
     emit("kernels_vs_plain", cases=cases, chunk=C_MAIN, k=K, **out)
     return out
 
@@ -326,7 +338,7 @@ def phase_end_to_end(torch, dev):
          wall_s=row["wall_s"], launches=launches,
          iterate_epoch_mean=per_epoch,
          finalize_epoch={k: fin[0][k] for k in keys})
-    return launches
+    return launches, row
 
 
 def same_solve(a, b):
@@ -349,6 +361,7 @@ def phase_resident_kernels(torch, dev):
     """The resident path's kernels against their plain versions, timed."""
     from repro_torch.core.bucketing import make_edges
     from repro_torch.kernels import ops, ref
+    from repro_torch.launch.kernel_split import split
 
     gen = torch.Generator(device=dev)
     out, cases = {}, 0
@@ -381,30 +394,32 @@ def phase_resident_kernels(torch, dev):
                    bound(4 * (4 * N_RES * K + K), N_RES * K * (11 + 2 * Q_MAIN)))),
         "library_ms": None, "n": N_RES}
 
-    # The fused kernel at the resident shape: one call over N rows.
+    # The fused kernel at the resident shape: one call over N rows, at the
+    # map's default tile (what the resident solve runs).
     edges = make_edges(lam.cpu(), 1e-4, 1.6, 24).to(dev)
     e = edges.shape[-1]
-    tile = ops.pick_tile(N_RES)
-    kh, kt = ops.scd_fused_hist(p, b, lam, edges, Q_MAIN, tile_n=tile)
-    ph, pt = ref.scd_fused_hist_plain(p, b, lam, edges, Q_MAIN, tile_n=tile)
+    tile = ops.MAP_TILE
+    kh, kt = ops.scd_fused_hist(p, b, lam, edges, Q_MAIN)
+    ph, pt = ref.scd_fused_hist_plain(p, b, lam, edges, Q_MAIN)
     torch.cuda.synchronize()
-    check(torch.equal(kt, pt) and torch.allclose(kh, ph, rtol=1e-5, atol=1e-5),
-          "scd_fused_hist differs from its plain version at the resident shape")
+    check(torch.equal(kt, pt) and torch.equal(kh, ph),
+          "scd_fused_hist not bitwise its plain version at the resident shape")
+    cases += 1
+    fused_call = lambda: ops.scd_fused_hist(p, b, lam, edges, Q_MAIN)  # noqa: E731
+    emit("kernel_split", kernel="scd_fused_hist", rows=N_RES, tile=tile,
+         **split(fused_call, reps=20))
     fused_res = {
-        "n": N_RES, "tile": tile, "bitwise": torch.equal(kh, ph),
-        "max_abs_err": float((kh - ph).abs().max()),
-        "ms": time_ms(torch, lambda: ops.scd_fused_hist(p, b, lam, edges, Q_MAIN,
-                                                        tile_n=tile), reps=20),
+        "n": N_RES, "tile": tile, "bitwise": True, "max_abs_err": 0.0,
+        "ms": time_ms(torch, fused_call, reps=20),
         "plain_ms": time_ms(torch, lambda: ref.scd_fused_hist_plain(
-            p, b, lam, edges, Q_MAIN, tile_n=tile), reps=1, warmup=0),
+            p, b, lam, edges, Q_MAIN), reps=1, warmup=0),
         **dict(zip(("bound_ms", "bound_by"),
                    bound(4 * (2 * N_RES * K + K + K * e + 2 * (K * (e + 1) + K)),
                          N_RES * K * (8 + e + Q_MAIN + 1))))}
     del p, b, kh, ph
 
-    # bucket_hist at the dense shape: n * P candidate rows.
+    # bucket_hist at the dense shape: n * P candidate rows, default tile.
     nrows = DENSE_N * (DENSE_M * (DENSE_M - 1) // 2 + DENSE_M)
-    err = 0.0
     for dyadic in (False, True):
         for seeded in (False, True):
             gen.manual_seed(17 + 2 * dyadic + seeded)
@@ -417,23 +432,20 @@ def phase_resident_kernels(torch, dev):
             v1, v2 = torch.where(invalid, -1.0, v1), torch.where(invalid, 0.0, v2)
             init = (torch.round(torch.rand((K, e + 1), generator=gen, device=dev)
                                 * 256) / 64 if seeded else None)
-            kh = ops.bucket_hist(v1, v2, edges, tile_n=512, hist_init=init)
-            ph = ref.bucket_hist_plain(v1, v2, edges, tile_n=512, hist_init=init)
+            kh = ops.bucket_hist(v1, v2, edges, hist_init=init)
+            ph = ref.bucket_hist_plain(v1, v2, edges, hist_init=init)
             torch.cuda.synchronize()
-            tag = f"dyadic={dyadic} seeded={seeded}"
-            if dyadic:
-                check(torch.equal(kh, ph), f"bucket_hist not bitwise ({tag})")
-            else:
-                check(torch.allclose(kh, ph, rtol=1e-5, atol=1e-5),
-                      f"bucket_hist not allclose ({tag})")
-                err = max(err, float((kh - ph).abs().max()))
+            check(torch.equal(kh, ph),
+                  f"bucket_hist not bitwise (dyadic={dyadic} seeded={seeded})")
             cases += 1
+    bucket_call = lambda: ops.bucket_hist(v1, v2, edges, hist_init=init)  # noqa: E731
+    emit("kernel_split", kernel="bucket_hist", rows=nrows, tile=ops.MAP_TILE,
+         **split(bucket_call, reps=20))
     out["bucket_hist"] = {
-        "max_abs_err": err,
-        "ms": time_ms(torch, lambda: ops.bucket_hist(v1, v2, edges, tile_n=512,
-                                                     hist_init=init), reps=20),
+        "max_abs_err": 0.0, "tile": ops.MAP_TILE,
+        "ms": time_ms(torch, bucket_call, reps=20),
         "plain_ms": time_ms(torch, lambda: ref.bucket_hist_plain(
-            v1, v2, edges, tile_n=512, hist_init=init), reps=2, warmup=1),
+            v1, v2, edges, hist_init=init), reps=2, warmup=1),
         **dict(zip(("bound_ms", "bound_by"),
                    bound(4 * (2 * nrows * K + K * e + 2 * K * (e + 1)),
                          nrows * K * (e + 1)))),
@@ -443,8 +455,9 @@ def phase_resident_kernels(torch, dev):
     return out, fused_res
 
 
-def phase_resident_end_to_end(torch, dev):
-    """table1 at N = 10^7, solved resident, bucketed and exact."""
+def phase_resident_end_to_end(torch, dev, host_fed):
+    """table1 at N = 10^7, solved resident, bucketed and exact; the default
+    bucketed solve against ``host_fed``, phase 5's row on the same rows."""
     from repro_torch.configs.paper_kp import WORKLOADS, KPWorkload
     from repro_torch.core import solver
     from repro_torch.core.instances import sparse_instance
@@ -477,6 +490,13 @@ def phase_resident_end_to_end(torch, dev):
         # synchronised by the host read of its result), and the final
         # metrics and exact projection (a solve with max_iters = 0).
         kp, q = sparse_instance(0, N_RES, K, wl.q, tightness=wl.tightness, device=dev)
+        same_as_host_fed = None
+        if reduce == "bucketed":
+            res = solver.solve(kp, cfg, q=q, device=dev)
+            same_as_host_fed = (res.iters == host_fed["iterations"]
+                                and res.lam.tolist() == host_fed["lam"])
+            check(same_as_host_fed, "the default resident bucketed solve differs from "
+                  "the host-fed one on the same rows (lam or iterations)")
         lam = torch.ones(K)
         solver._scd_pass(kp, lam, q, cfg)
         iter_s = []
@@ -497,7 +517,8 @@ def phase_resident_end_to_end(torch, dev):
              gap=row["duality_gap"], max_violation=row["max_violation"],
              wall_s=row["wall_s"], launches=launches,
              iteration_s=statistics.median(iter_s), final_pass_s=final_s,
-             peak_gb_one_iteration=peak_gb)
+             peak_gb_one_iteration=peak_gb, map_tile=ops.MAP_TILE,
+             lam_iters_equal_host_fed=same_as_host_fed)
     return paths
 
 
@@ -553,13 +574,20 @@ def phase_contracts(torch, dev):
     exact_cfg = cfg.replace(reduce="exact")
     exact = solver.solve(kp, exact_cfg, q=q, device=dev)
     exact_again = solver.solve(kp, exact_cfg, q=q, device=dev)
+    default = SolverConfig(max_iters=40)          # MAP_TILE divides the chunk
+    whole_default = solver.solve(kp, default, q=q, device=dev)
+    host_default = solve_streaming_host(sparse_host_chunk_source(1, n, K, C_MAIN),
+                                        default, q=q, device=dev)
     gpu = {"bucketed": whole, "exact": exact}
     cpu = {"bucketed": solver.solve(kp, cfg, q=q, device="cpu"),
            "exact": solver.solve(kp, exact_cfg, q=q, device="cpu")}
     facts = {"chunked_bitwise": same_solve(whole, chunked),
              "host_fed_bitwise": (host.iters == chunked.iters
                                   and torch.equal(host.lam, chunked.lam)),
-             "exact_rerun_bitwise": same_solve(exact, exact_again)}
+             "exact_rerun_bitwise": same_solve(exact, exact_again),
+             "default_tile_host_fed_bitwise": (host_default.iters == whole_default.iters
+                                               and torch.equal(host_default.lam,
+                                                               whole_default.lam))}
     emit("resident_contracts", n=n, **facts,
          against_cpu={name: {"within_tolerance": close_solve(res, cpu[name]),
                              "bitwise": same_solve(res, cpu[name]),
@@ -572,6 +600,8 @@ def phase_contracts(torch, dev):
     check(facts["chunked_bitwise"], "resident chunked differs from unchunked")
     check(facts["host_fed_bitwise"], "resident chunked differs from the host-fed solve")
     check(facts["exact_rerun_bitwise"], "repeated exact solves differ")
+    check(facts["default_tile_host_fed_bitwise"],
+          "at the default tiles the resident solve differs from the host-fed one")
     for name, res in gpu.items():
         check(close_solve(res, cpu[name]), f"resident {name} solve differs from the CPU")
 
@@ -818,11 +848,12 @@ def main():
 
     kern = phase_kernels(torch, np, dev)
     phase_determinism_and_cpu(torch, np, dev)
-    paths = {"host_fed": phase_end_to_end(torch, dev)}
+    host_fed_launches, host_fed_row = phase_end_to_end(torch, dev)
+    paths = {"host_fed": host_fed_launches}
     new_kern, fused_resident = phase_resident_kernels(torch, dev)
     kern.update(new_kern)
     kern["scd_fused_hist"]["resident_shape"] = fused_resident
-    paths.update(phase_resident_end_to_end(torch, dev))
+    paths.update(phase_resident_end_to_end(torch, dev, host_fed_row))
     paths.update(phase_dense_end_to_end(torch, dev))
     phase_contracts(torch, dev)
     phase_slice3_contracts(torch, np, dev)

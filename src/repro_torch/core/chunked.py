@@ -20,7 +20,7 @@ import torch
 
 from ..kernels import ops
 from ..kernels.ref import row_sum
-from .solver import _kernel_tile
+from .solver import _finalize_tile
 from .sparse_scd import select_sparse
 
 __all__ = ["StreamResult", "adjusted_profit_chunk", "finalize_chunk_accumulate",
@@ -66,7 +66,7 @@ def finalize_chunk_accumulate(p_c, b_c, lam, q, cfg, carry, pedges=None):
     the kernel's tile fold, so a chunked finalize is bitwise the one-pass
     finalize (chunk a multiple of the tile).
     """
-    tile = _kernel_tile(cfg, p_c.shape[0])
+    tile = _finalize_tile(cfg, p_c.shape[0])
     if pedges is None:
         r, primal, dual_sum, lo, hi = carry
         out = ops.scd_finalize_hist(

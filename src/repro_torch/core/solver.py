@@ -26,8 +26,10 @@ Which map runs:
 Chunked-vs-unchunked contract (``cfg.chunk_size``): with the bucketed
 reduce the chunked solve equals the unchunked one bitwise in every field
 when both run the same kernel tile and the tile divides the chunk's rows
-(``cfg.kernel_tile`` pins it): each chunk's kernel call is seeded with the
-running histogram, so the tile partials are folded in the same order. The
+(the default ``ops.MAP_TILE`` divides every chunk size that is a multiple
+of 8,192; ``cfg.kernel_tile`` pins another): each chunk's kernel call is
+seeded with the running histogram, so the tile records are folded in the
+same order. The
 ragged last chunk is padded with inert p = b = 0 users. The exact reduce
 cannot be chunked and raises ``ValueError``; chunked DD sums r per chunk,
 so it matches unchunked DD to float32 reduce order, not bitwise.
@@ -87,8 +89,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _kernel_tile(cfg, n):
-    """User-axis tile of the kernels: the cfg override or the ladder."""
+def _map_tile(cfg):
+    """User-axis tile of the histogram kernels (``scd_fused_hist``,
+    ``bucket_hist``): the cfg override or ``ops.MAP_TILE``, whatever n is."""
+    return cfg.kernel_tile if cfg.kernel_tile else ops.MAP_TILE
+
+
+def _finalize_tile(cfg, n):
+    """User-axis tile of the finalize kernel (at most 1,024 rows): the cfg
+    override or ``ops.pick_tile``'s ladder."""
     return cfg.kernel_tile if cfg.kernel_tile else ops.pick_tile(n)
 
 
@@ -103,7 +112,7 @@ def scd_chunk_accumulate(p_c, b_c, lam, edges, q, cfg, hist, top):
     same additions as one pass over all rows (chunk a multiple of the tile).
     """
     return ops.scd_fused_hist(p_c, b_c, lam, edges, q,
-                              tile_n=_kernel_tile(cfg, p_c.shape[0]),
+                              tile_n=_map_tile(cfg),
                               hist_init=hist, top_init=top)
 
 
@@ -133,7 +142,7 @@ def _scd_reduce(v1, v2, lam, kp, cfg):
         return exact_threshold(v1.T, v2.T, kp.budgets).cpu()
     edges = _edges(lam, cfg)
     hist = ops.bucket_hist(v1, v2, edges.to(v1.device),
-                           tile_n=_kernel_tile(cfg, v1.shape[0]))
+                           tile_n=_map_tile(cfg))
     return _threshold(hist, edges, kp, torch.amax(v1, dim=0))
 
 
@@ -143,7 +152,7 @@ def _scd_step_fused(kp, lam, q, cfg):
     edges = _edges(lam, cfg)
     dev = kp.p.device
     hist, top = ops.scd_fused_hist(kp.p, kp.b, lam.to(dev), edges.to(dev), q,
-                                   tile_n=_kernel_tile(cfg, kp.p.shape[0]))
+                                   tile_n=_map_tile(cfg))
     return _threshold(hist, edges, kp, top)
 
 
@@ -173,7 +182,7 @@ def _scd_pass_chunked(kp, lam, q, cfg):
         if isinstance(kp, DenseKP):
             v1, v2 = _scd_candidates(kp._replace(p=p_c, b=b_c), lam_d, q)
             hist = ops.bucket_hist(v1, v2, edges_d,
-                                   tile_n=_kernel_tile(cfg, v1.shape[0]),
+                                   tile_n=_map_tile(cfg),
                                    hist_init=hist)
             top = torch.maximum(top, torch.amax(v1, dim=0))
         else:

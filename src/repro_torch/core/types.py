@@ -80,9 +80,11 @@ class SolverConfig:
     # Resident solve: stream the per-iteration map over user chunks of
     # this size (None: the whole shard at once). See core/solver.py.
     chunk_size: Optional[int] = None
-    # User-axis tile of the kernels (None: kernels.ops.pick_tile). Chunked
-    # and unchunked accumulations are bitwise equal when both run the
-    # same tile decomposition (chunk rows a multiple of the tile).
+    # User-axis tile of the kernels; when set it pins every kernel's tile
+    # (None: kernels.ops.MAP_TILE for the histogram map, kernels.ops.pick_tile
+    # for the finalize). Chunked and unchunked accumulations are bitwise
+    # equal when both run the same tile decomposition (chunk rows a multiple
+    # of the tile).
     kernel_tile: Optional[int] = None
     # DD (Alg 2) learning rate.
     dd_lr: float = 1e-3

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("scd_fused.cu", "scd_candidates.cu", "bucket_hist.cu",
            "screen_bound.cu", "adjusted_topc.cu")
-HEADERS = ("scd_common.cuh",)
+HEADERS = ("scd_common.cuh", "hist_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -93,21 +93,23 @@ def load() -> ctypes.CDLL:
             return lib
         lib = ctypes.CDLL(str(build()[0]))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.scd_fused_hist_launch.argtypes = [vp] * 7 + [i64, i32, i32, i32, i32, vp]
+        lib.scd_fused_hist_launch.argtypes = [vp] * 9 + [i64, i32, i32, i32, i32, vp]
         lib.scd_finalize_hist_launch.argtypes = ([vp] * 7
                                                  + [i64, i32, i32, i32, i32, i32, vp])
         lib.scd_candidates_launch.argtypes = [vp] * 5 + [i64, i32, i32, vp]
-        lib.bucket_hist_launch.argtypes = [vp] * 6 + [i64, i32, i32, i32, vp]
+        lib.bucket_hist_launch.argtypes = [vp] * 7 + [i64, i32, i32, i32, vp]
         lib.screen_bound_launch.argtypes = [vp] * 5 + [i64, i32, i32, vp]
         lib.adjusted_topc_launch.argtypes = [vp] * 5 + [i64, i32, i32, vp]
         for fn in (lib.scd_fused_hist_launch, lib.scd_finalize_hist_launch,
                    lib.scd_candidates_launch, lib.bucket_hist_launch,
                    lib.screen_bound_launch, lib.adjusted_topc_launch):
             fn.restype = i32
-        for fn in (lib.scd_fused_smem_bytes, lib.scd_finalize_smem_bytes,
-                   lib.bucket_hist_smem_bytes):
-            fn.argtypes = [i32, i32, i32]
-            fn.restype = ctypes.c_size_t
+        lib.scd_finalize_smem_bytes.argtypes = [i32, i32, i32]
+        lib.scd_finalize_smem_bytes.restype = ctypes.c_size_t
+        lib.hist_smem_bytes.argtypes = [i32, i32, i32, i32]
+        lib.hist_smem_bytes.restype = ctypes.c_size_t
+        lib.hist_scratch.argtypes = [i64, i32, i32, i32, i32]
+        lib.hist_scratch.restype = i64
         lib.scd_error_string.argtypes = [i32]
         lib.scd_error_string.restype = ctypes.c_char_p
         _LOADED["lib"] = lib

@@ -36,9 +36,9 @@ def check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_rows(fn, x, tile_n=None):
+def check_rows(fn, x, tile_n=None, max_tile=MAX_TILE):
     """Raise unless ``x`` is an (n, K) CUDA tensor with n >= 1, 1 <= K <= KMAX
-    (and, when given, 1 <= tile_n <= MAX_TILE); returns (n, K)."""
+    (and, when given, 1 <= tile_n <= max_tile; None: no cap); returns (n, K)."""
     if not x.is_cuda:
         raise ValueError(f"{fn} launches a CUDA kernel and takes CUDA tensors; "
                          f"got one on {x.device} (kernels.ops sends CPU tensors "
@@ -48,14 +48,14 @@ def check_rows(fn, x, tile_n=None):
     n, k = x.shape
     if n < 1 or not 1 <= k <= KMAX:
         raise ValueError(f"{fn} takes 1 <= K <= {KMAX} and n >= 1, got {(n, k)}")
-    if tile_n is not None and not 1 <= tile_n <= MAX_TILE:
-        raise ValueError(f"tile_n must be in [1, {MAX_TILE}], got {tile_n}")
+    if tile_n is not None and (tile_n < 1 or (max_tile and tile_n > max_tile)):
+        raise ValueError(f"tile_n must be in [1, {max_tile or 'any'}], got {tile_n}")
     return n, k
 
 
-def check_p_b_lam(fn, p, b, lam, tile_n=None):
+def check_p_b_lam(fn, p, b, lam, tile_n=None, max_tile=MAX_TILE):
     """``check_rows`` of p, then p, b (n, K) and lam (K,); returns (n, K)."""
-    n, k = check_rows(fn, p, tile_n)
+    n, k = check_rows(fn, p, tile_n, max_tile)
     check("p", p, (n, k), p.device)
     check("b", b, (n, k), p.device)
     check("lam", lam, (k,), p.device)
@@ -66,6 +66,46 @@ def check_smem(smem, tile_n, k, e):
     if smem > MAX_SMEM:
         raise ValueError(f"tile_n={tile_n}, K={k}, E={e} needs {smem} bytes of "
                          f"shared memory per block, above {MAX_SMEM}")
+
+
+def flat_seed(name, x, numel, device):
+    """An optional seed as a flat contiguous float32 tensor of ``numel`` on
+    ``device`` (None stays None: the kernel starts from zeros or -inf)."""
+    if x is None:
+        return None
+    x = x.reshape(-1).to(torch.float32).contiguous()
+    check(name, x, (numel,), device)
+    return x
+
+
+def ptr(t):
+    """A tensor's device pointer, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
+_TICKETS: dict = {}
+
+
+def hist_buffers(lib, x, e, tile_n, fused):
+    """What one launch of the histogram kernels of ``csrc/hist_tile.cuh`` on
+    the (n, K) rows ``x`` needs beside its inputs: (scratch, tickets, out).
+    The scratch holds the sub-tile and tile records; the tickets are int32
+    counters, zero, that the kernel puts back to zero, so one buffer per
+    (device, stream) serves every call on that stream and grows when a call
+    needs more."""
+    (n, k), device = x.shape, x.device
+    check_smem(lib.hist_smem_bytes(k, e, tile_n, int(fused)), tile_n, k, e)
+    rec = k * (e + 1) + (k if fused else 0)
+    scratch = torch.empty((lib.hist_scratch(n, k, e, tile_n, int(fused)),),
+                          dtype=torch.float32, device=device)
+    out = torch.empty((rec,), dtype=torch.float32, device=device)
+    key = (device, stream_of(x))
+    need = -(-n // tile_n) + 1
+    tickets = _TICKETS.get(key)
+    if tickets is None or tickets.numel() < need:
+        tickets = torch.zeros((max(need, 4096),), dtype=torch.int32, device=device)
+        _TICKETS[key] = tickets
+    return scratch, tickets, out
 
 
 def launched(fn, err, lib):

@@ -17,30 +17,50 @@
 
 __device__ __forceinline__ float ninf() { return -CUDART_INF_F; }
 
+// Loop bound over a row's k items for a compile-time bound KC >= k: below
+// KMAX the loops run KC times with a `j < k` guard, so `#pragma unroll`
+// unrolls them fully and the per-row arrays live in registers; at KMAX they
+// run k times. Either way each item sees the same operations.
+template <int KC>
+__device__ __forceinline__ int kc_loop(int k) { return KC < KMAX ? KC : k; }
+
 // Alg 5 for one row: ap = max(p - lam*b, 0), the Q-th / (Q+1)-th largest
 // ap by Q+1 masked-max passes (the lowest index among the maxima is
 // knocked out), pbar, and the candidate (v1, v2); invalid -> (-1, 0).
+// Needs k <= KC. v1 may be pv and v2 may be bv (in place): item j is read
+// before it is written, and no later item reads it.
+template <int KC = KMAX>
 __device__ __forceinline__ void candidates_row(const float* pv, const float* bv,
                                                const float* lam, int k, int q,
                                                float* v1, float* v2) {
-  float ap[KMAX];
-  for (int j = 0; j < k; ++j)
-    ap[j] = fmaxf(__fsub_rn(pv[j], __fmul_rn(lam[j], bv[j])), 0.f);
+  const int kl = kc_loop<KC>(k);
+  float ap[KC];
+#pragma unroll
+  for (int j = 0; j < kl; ++j)
+    if (j < k) ap[j] = fmaxf(__fsub_rn(pv[j], __fmul_rn(lam[j], bv[j])), 0.f);
   float q_th = CUDART_INF_F, q1_th = CUDART_INF_F;
   if (q < k) {
-    float work[KMAX];
-    for (int j = 0; j < k; ++j) work[j] = ap[j];
+    float work[KC];
+#pragma unroll
+    for (int j = 0; j < kl; ++j)
+      if (j < k) work[j] = ap[j];
     for (int i = 0; i <= q; ++i) {
       float m = ninf();
-      for (int j = 0; j < k; ++j) m = fmaxf(m, work[j]);
+#pragma unroll
+      for (int j = 0; j < kl; ++j)
+        if (j < k) m = fmaxf(m, work[j]);
       if (i == q - 1) q_th = m;
       if (i == q) q1_th = m;
-      for (int j = 0; j < k; ++j) {
-        if (work[j] == m) { work[j] = ninf(); break; }
+      bool hit = false;
+#pragma unroll
+      for (int j = 0; j < kl; ++j) {
+        if (j < k && !hit && work[j] == m) { work[j] = ninf(); hit = true; }
       }
     }
   }
-  for (int j = 0; j < k; ++j) {
+#pragma unroll
+  for (int j = 0; j < kl; ++j) {
+    if (j >= k) continue;
     const float pbar = (q >= k) ? 0.f : (ap[j] >= q_th ? q1_th : q_th);
     const bool valid = (pv[j] > pbar) && (bv[j] > 0.f);
     v1[j] = valid ? __fdiv_rn(__fsub_rn(pv[j], pbar), bv[j]) : -1.f;

@@ -2,8 +2,8 @@
 // (host-fed per chunk; resident over the whole shard or per chunk).
 //
 // Replaces two Pallas TPU kernels of the JAX reference package:
-//   * scd_fused_tile + fold   <- src/repro/kernels/scd_fused.py, _kernel
-//                                (wrapper scd_fused_hist): the Alg-5 candidate
+//   * hist_kernel<true>       <- src/repro/kernels/scd_fused.py, _kernel
+//     (hist_tile.cuh)            (wrapper scd_fused_hist): the Alg-5 candidate
 //                                map, the §5.2 bucket histogram and the
 //                                running max of the candidates, per chunk
 //                                and iteration;
@@ -15,94 +15,34 @@
 //
 // Bound on the card: bytes. Each kernel reads the chunk's p and b once,
 // 2 * C * K * 4 bytes (5.2 MB at C = 65,536 and K = 10, about 1.6 us at
-// 3.35 TB/s); its outputs are a few KB. The arithmetic (Q+1 masked-max
-// passes and E compares per (row, k)) is far below the card's float32 rate.
+// 3.35 TB/s; 800 MB at N = 10^7 resident, 0.24 ms); the outputs are a few
+// KB. The arithmetic (Q+1 masked-max passes, a divide and a binary search
+// over E edges per (row, k)) is far below the card's float32 rate.
 //
-// Design. The TPU grid ran its tiles in order and carried the histogram
-// from one grid step to the next (`out += tile`). Blocks on the card run in
-// no order, so each block owns one tile of tile_n rows and writes its own
-// partial record to a scratch buffer, and a second small kernel folds the
-// partials onto the carried seed in tile order (init + part[0] + part[1]
-// + ...). Inside a block every histogram bin and scalar is a row-order sum
-// from 0.0, and per-row sums over k run left to right. No float atomics:
-// the result depends only on the data and tile_n, so a chunked
-// accumulation (chunk a multiple of tile_n) equals one call over all rows
-// bit for bit, run after run. The plain PyTorch versions in
-// kernels/ref.py perform the same additions in the same order.
+// scd_fused_hist: the histogram stage of hist_tile.cuh with the candidate
+// map in front (one thread per row, candidates_row of scd_common.cuh): one
+// launch per call, cp.async row loads into shared memory, binary-search
+// binning, per-run sums of HIST_RUN rows and an in-kernel ordered fold of
+// the sub-tile and tile records onto the seed. The tile (the unit of the
+// addition order) may be any size; the map's default, 8,192 rows, divides
+// the host-fed chunk and leaves about 1,221 tile records to fold at
+// N = 10^7.
 //
-// This first version is simple, not fast: one thread per row reads its K
-// values with strided loads, and one thread per bin walks the tile's rows
-// out of shared memory. Coalesced loads and warp-level binning are later
-// work. Ragged tails are masked loads that return p = b = 0, which is an
-// inert row (no candidate, no selection). The per-row candidates, the
-// bin and the rounding rules live in scd_common.cuh. This file also holds
-// the ordered fold that bucket_hist.cu shares.
+// scd_finalize_hist keeps its first design: one block per tile of at most
+// 1,024 rows writes a partial record (one thread per row; one thread per bin
+// walking the tile's rows in shared memory, each a row-order sum from 0.0),
+// and fold_partials adds the records onto the carried seed in tile order
+// (init + part[0] + part[1] + ...). screen_bound.cu shares that fold. No
+// float atomics anywhere: the results depend only on the data and tile_n,
+// and the plain PyTorch versions in kernels/ref.py perform the same
+// additions in the same order. Ragged tails are masked loads that return
+// p = b = 0, an inert row (no candidate, no selection). The per-row
+// candidates, the bin and the rounding rules live in scd_common.cuh.
 
+#include "hist_tile.cuh"
 #include "scd_common.cuh"
 
 namespace {
-
-// One block per tile. Record per tile: [hist (K*(E+1)) | top (K)].
-__global__ void scd_fused_tile(const float* __restrict__ p,
-                               const float* __restrict__ b,
-                               const float* __restrict__ lam,
-                               const float* __restrict__ edges,
-                               float* __restrict__ part,
-                               long long n, int k, int e, int q, int tile_n) {
-  extern __shared__ float smem[];
-  const int nb = e + 1;
-  const int rec = k * nb + k;
-  const int nwarps = blockDim.x >> 5;
-  float* s_edges = smem;                                     // k * e
-  float* s_lam = s_edges + k * e;                            // k
-  float* s_v2 = s_lam + k;                                   // tile_n * k
-  int* s_idx = reinterpret_cast<int*>(s_v2 + tile_n * k);    // tile_n * k
-  float* s_top = reinterpret_cast<float*>(s_idx + tile_n * k);  // nwarps * k
-  for (int i = threadIdx.x; i < k * e; i += blockDim.x) s_edges[i] = edges[i];
-  for (int i = threadIdx.x; i < k; i += blockDim.x) s_lam[i] = lam[i];
-  __syncthreads();
-
-  const int r = threadIdx.x;
-  const long long row = (long long)blockIdx.x * tile_n + r;
-  const bool live = (r < tile_n) && (row < n);
-  float pv[KMAX], bv[KMAX], v1[KMAX], v2[KMAX];
-  for (int j = 0; j < k; ++j) {
-    pv[j] = live ? p[row * k + j] : 0.f;
-    bv[j] = live ? b[row * k + j] : 0.f;
-  }
-  candidates_row(pv, bv, s_lam, k, q, v1, v2);
-  if (r < tile_n) {
-    for (int j = 0; j < k; ++j) {
-      s_idx[r * k + j] = bin_of(s_edges + j * e, e, v1[j]);
-      s_v2[r * k + j] = v2[j];
-    }
-  }
-  // Max is exact in any order: a warp shuffle per k, then over the warps.
-  // Lanes past tile_n hold an inert row (v1 = -1), which every tile has
-  // anyway or which sits below a real candidate.
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j = 0; j < k; ++j) {
-    float m = v1[j];
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if (lane == 0) s_top[warp * k + j] = m;
-  }
-  __syncthreads();
-
-  float* out = part + (long long)blockIdx.x * rec;
-  for (int slot = threadIdx.x; slot < k * nb; slot += blockDim.x) {
-    const int j = slot / nb, t = slot - j * nb;
-    float acc = 0.f;
-    for (int rr = 0; rr < tile_n; ++rr)
-      if (s_idx[rr * k + j] == t) acc = __fadd_rn(acc, s_v2[rr * k + j]);
-    out[slot] = acc;
-  }
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    float m = ninf();
-    for (int w = 0; w < nwarps; ++w) m = fmaxf(m, s_top[w * k + j]);
-    out[k * nb + j] = m;
-  }
-}
 
 // One block per tile. Record per tile:
 // [cons_hist (K*(E+1)) | gain_hist (E+1) |] r (K) | primal | dual | hi | -lo
@@ -218,33 +158,34 @@ cudaError_t launch_fold(const float* part, const float* init, float* out,
 
 extern "C" {
 
-size_t scd_fused_smem_bytes(int k, int e, int tile_n) {
-  const int nwarps = threads_for(tile_n) / 32;
-  return sizeof(float) * ((size_t)k * e + k + (size_t)tile_n * k * 2 + (size_t)nwarps * k);
+size_t hist_smem_bytes(int k, int e, int tile_n, int fused) {
+  return sizeof(float) * hist_smem_floats(k, e, tile_n, fused != 0);
+}
+
+long long hist_scratch(long long n, int k, int e, int tile_n, int fused) {
+  return hist_scratch_floats(n, k, e, tile_n, fused != 0);
 }
 
 size_t scd_finalize_smem_bytes(int k, int e, int tile_n) {
   return sizeof(float) * ((size_t)e + k + (size_t)tile_n * k + (size_t)tile_n * 4);
 }
 
-// Launches the tile kernel and the fold on `stream`; returns the first
-// CUDA error (0 on success). part: (n_tiles, K*(E+1)+K); init, out: one record.
+// One launch on `stream`; returns its CUDA error (0 on success). hist_init
+// (K*(E+1)) and top_init (K) may be null (zeros, -inf); scratch holds
+// hist_scratch(n, k, e, tile_n, 1) floats; tickets n_tiles + 1 zeroed ints,
+// which the kernel leaves at zero; out: [hist (K*(E+1)) | top (K)].
 int scd_fused_hist_launch(const float* p, const float* b, const float* lam,
-                          const float* edges, const float* init, float* part,
-                          float* out, long long n, int k, int e, int q,
-                          int tile_n, void* stream) {
-  if (n < 1 || k < 1 || k > KMAX || e < 1 || q < 0 || tile_n < 1 || tile_n > 1024)
+                          const float* edges, const float* hist_init,
+                          const float* top_init, float* scratch, int* tickets,
+                          float* out, long long n, int k, int e, int q, int tile_n,
+                          void* stream) {
+  if (n < 1 || k < 1 || k > KMAX || e < 1 || q < 0 || tile_n < 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = scd_fused_smem_bytes(k, e, tile_n);
-  cudaError_t err = allow_smem(scd_fused_tile, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long n_tiles = (n + tile_n - 1) / tile_n;
-  scd_fused_tile<<<(unsigned)n_tiles, threads_for(tile_n), smem, s>>>(
-      p, b, lam, edges, part, n, k, e, q, tile_n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_fold(part, init, out, n_tiles, k * (e + 1) + k, k * (e + 1), s);
+  HistArgs A{};
+  A.a = p; A.b = b; A.lam = lam; A.edges = edges;
+  A.hist_init = hist_init; A.top_init = top_init; A.out = out; A.tickets = tickets;
+  A.n = n; A.k = k; A.e = e; A.q = q; A.tile_n = tile_n;
+  return (int)launch_hist<true>(A, scratch, static_cast<cudaStream_t>(stream));
 }
 
 // As above for the finalize; e = 0 and pedges unused without with_hist.

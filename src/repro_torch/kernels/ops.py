@@ -17,19 +17,22 @@ from . import scd_fused as _fused
 from . import screen_bound as _screen_bound
 from ._wrap import LAUNCHES, reset_launches  # noqa: F401
 
+MAP_TILE = ref.MAP_TILE
 _TILE_LADDER = (512, 256, 128)
 
 
 def pick_tile(n, max_tile=512):
-    """User-axis tile for n rows: the largest ladder tile dividing n, else
-    one tile of n rows (n <= max_tile) or max_tile with a ragged tail."""
+    """The finalize's user-axis tile for n rows (its kernel takes at most
+    1,024): the largest ladder tile dividing n, else one tile of n rows
+    (n <= max_tile) or max_tile with a ragged tail. The histogram kernels
+    take any tile and default to ``MAP_TILE``."""
     for t in _TILE_LADDER:
         if t <= max_tile and n % t == 0:
             return t
     return min(max_tile, max(n, 1))
 
 
-def scd_fused_hist(p, b, lam, edges, q, tile_n=512, hist_init=None,
+def scd_fused_hist(p, b, lam, edges, q, tile_n=MAP_TILE, hist_init=None,
                    top_init=None):
     """Fused Alg-5 map + §5.2 histogram: (hist (K, E+1), top (K,))."""
     if p.device.type == "cpu":
@@ -55,7 +58,7 @@ def scd_candidates(p, b, lam, q):
     return _scd_candidates.scd_candidates(p, b, lam, q)
 
 
-def bucket_hist(v1, v2, edges, tile_n=512, hist_init=None):
+def bucket_hist(v1, v2, edges, tile_n=MAP_TILE, hist_init=None):
     """§5.2 histogram (K, E+1) of (n, K) candidates, seeded by ``hist_init``."""
     if v1.device.type == "cpu":
         return ref.bucket_hist_plain(v1, v2, edges, tile_n=tile_n,

@@ -4,31 +4,49 @@
 ``scd_candidates``, and ``adjusted_topc_plain`` (the greedy primal) that
 of ``adjusted_topc``: both elementwise over rows, and so equal to their
 kernels on any input. ``screen_bound_plain`` is a column max, exact in
-any order. The three histogram kernels' plain versions
-have the kernels' structure, so that they reproduce the kernels' float
-additions one for one:
+any order. The three histogram kernels' plain versions reproduce the
+kernels' float additions one for one. The rows are cut into tiles of
+``tile_n`` (the ragged tail padded with inert rows, which the kernels get
+from masked loads), each tile reduces into its own record, and the records
+are folded onto the carried seed (``*_init``) in tile order,
+``init + rec[0] + rec[1] + ...``; max and min fold exactly.
 
-* the rows are cut into tiles of ``tile_n`` (the ragged tail padded with
-  inert p = b = 0 rows, which the kernels get from masked loads);
-* each tile reduces into its own partial: every histogram bin, and every
-  scalar sum, is a sum over the tile's rows in row order, starting from
-  0.0 (a one-hot contraction written out row by row);
-* the partials are folded onto the carried seed (``*_init``) in tile
-  order, ``init + part[0] + part[1] + ...``; max and min fold exactly.
+Inside a tile, the two histogram kernels ``scd_fused_hist`` and
+``bucket_hist`` (``csrc/hist_tile.cuh``) add in this order, a function of
+row position only:
 
-Per-row sums over the K items (``pt``, ``gain``) run left to right.
-Both facts make a chunked accumulation (chunk size a multiple of the
-tile) bitwise equal to one call over all rows, on the CPU as on the card.
+* the tile is cut into sub-tiles of ``HIST_SUB`` rows from its start, and
+  each sub-tile into runs of ``HIST_RUN`` rows (the last of each may be
+  short);
+* each (k, bin) of a run is the sum of the run's masses in row order, from
+  0.0 (``_tile_bin_sums`` adds one row of every run at a time with
+  ``index_add_``, whose indices never repeat within a call, so it is exact
+  and deterministic on both devices);
+* a sub-tile's record is its run sums added in run order from 0.0, and the
+  tile's record its sub-tile records in order from 0.0.
 
-Each function's partials and seeds share one packed float32 layout with
-its kernel; ``fused_layout`` and ``finalize_layout`` define it (the
-``bucket_hist`` record is the bare (K*(E+1)) histogram).
+The finalize (``scd_finalize_hist``) sums each bin and scalar of a tile
+over the tile's rows in row order from 0.0. Inert rows have mass 0.0, and
+adding +0.0 to a sum that starts at +0.0 changes no bit, so padding is
+invisible. Per-row sums over the K items (``pt``, ``gain``) run left to
+right. Together these make a chunked accumulation (chunk size a multiple of
+the tile) bitwise equal to one call over all rows, on the CPU as on the
+card.
+
+``MAP_TILE`` is the histogram kernels' default tile: any size works, and
+8,192 divides the host-fed chunk of 65,536 rows. Each function's records
+and seeds share one packed float32 layout with its kernel;
+``fused_layout`` and ``finalize_layout`` define it (the ``bucket_hist``
+record is the bare (K*(E+1)) histogram).
 """
 from __future__ import annotations
 
 import torch
 
 NEG_INF = float("-inf")
+MAP_TILE = 8192      # default tile of scd_fused_hist and bucket_hist
+HIST_SUB = 512       # rows per sub-tile (csrc/hist_tile.cuh)
+HIST_RUN = 32        # rows per run
 
 
 # --------------------------------------------------------------------------
@@ -53,13 +71,6 @@ def pack_hist_init(k, e, hist_init, device):
     if hist_init is None:
         return torch.zeros((k * (e + 1),), dtype=torch.float32, device=device)
     return hist_init.reshape(-1).to(torch.float32).contiguous()
-
-
-def pack_fused_init(k, e, hist_init, top_init, device):
-    """Seed record of scd_fused_hist: zeros / -inf where no seed is given."""
-    top = (torch.full((k,), NEG_INF, dtype=torch.float32, device=device)
-           if top_init is None else top_init.reshape(-1).to(torch.float32))
-    return torch.cat([pack_hist_init(k, e, hist_init, device), top])
 
 
 def unpack_fused(rec, k, e):
@@ -129,14 +140,44 @@ def _bin_of(v, edges):
 
 
 def _tile_bin_sums(idx, v2, nb):
-    """(T, K, nb) per-tile histograms of (T, tile_n, K) bins and masses:
-    each bin a row-order sum from 0.0 (a one-hot row added at a time)."""
+    """(T, K, nb) tile records of (T, tile_n, K) bins and masses, in the
+    histogram kernels' order (module doc): runs, then sub-tiles, then the
+    tile."""
     t, tile_n, k = idx.shape
-    bins = torch.arange(nb, device=idx.device)
-    hist = torch.zeros((t, k, nb), dtype=torch.float32, device=idx.device)
-    for r in range(tile_n):
-        hist += torch.where(idx[:, r, :, None] == bins, v2[:, r, :, None], 0.0)
-    return hist
+    sub = min(tile_n, HIST_SUB)
+    subs = -(-tile_n // sub)
+    sub_pad = -(-sub // HIST_RUN) * HIST_RUN
+    runs = sub_pad // HIST_RUN
+    pad = subs * sub_pad - tile_n             # inert rows: bin 0, mass 0.0
+    if pad:
+        idx = torch.cat([idx, idx.new_zeros((t, pad, k))], dim=1)
+        v2 = torch.cat([v2, v2.new_zeros((t, pad, k))], dim=1)
+    m = t * subs * runs
+    idx = idx.reshape(m, HIST_RUN, k)
+    v2 = v2.reshape(m, HIST_RUN, k)
+    base = (torch.arange(m, device=idx.device)[:, None] * k
+            + torch.arange(k, device=idx.device)[None, :]) * nb
+    run_hist = torch.zeros((m * k * nb,), dtype=torch.float32, device=idx.device)
+    for r in range(HIST_RUN):
+        run_hist.index_add_(0, (base + idx[:, r, :]).reshape(-1),
+                            v2[:, r, :].reshape(-1))
+    run_hist = run_hist.view(t * subs, runs, k * nb)
+    sub_rec = torch.zeros((t * subs, k * nb), dtype=torch.float32, device=idx.device)
+    for r in range(runs):
+        sub_rec = sub_rec + run_hist[:, r]
+    sub_rec = sub_rec.view(t, subs, k * nb)
+    tile_rec = torch.zeros((t, k * nb), dtype=torch.float32, device=idx.device)
+    for s in range(subs):
+        tile_rec = tile_rec + sub_rec[:, s]
+    return tile_rec.view(t, k, nb)
+
+
+def _fold_hist(part, init):
+    """The ordered fold of (T, L) histogram records onto ``init`` (L,)."""
+    acc = init.clone()
+    for t in range(part.shape[0]):
+        acc = acc + part[t]
+    return acc
 
 
 def _order_stats(ap, q):
@@ -220,7 +261,7 @@ def adjusted_topc_plain(p, b, lam, q):
     return x, torch.where(x, b, 0.0)
 
 
-def bucket_hist_plain(v1, v2, edges, tile_n=512, hist_init=None):
+def bucket_hist_plain(v1, v2, edges, tile_n=MAP_TILE, hist_init=None):
     """Plain version of ``bucket_hist``: (K, E+1) f32, the v2 mass of the
     rows with edges[k, j-1] < v1 <= edges[k, j], folded onto ``hist_init``.
     Pad rows are v1 = -1, v2 = 0."""
@@ -231,12 +272,11 @@ def bucket_hist_plain(v1, v2, edges, tile_n=512, hist_init=None):
     t = vv1.shape[0] // tile_n
     idx = _bin_of(vv1, edges).view(t, tile_n, k)
     part = _tile_bin_sums(idx, vv2.view(t, tile_n, k), e + 1).reshape(t, -1)
-    rec = fold_partials(part, pack_hist_init(k, e, hist_init, v1.device),
-                        k * (e + 1))
+    rec = _fold_hist(part, pack_hist_init(k, e, hist_init, v1.device))
     return rec.view(k, e + 1)
 
 
-def scd_fused_hist_plain(p, b, lam, edges, q, tile_n=512, hist_init=None,
+def scd_fused_hist_plain(p, b, lam, edges, q, tile_n=MAP_TILE, hist_init=None,
                          top_init=None):
     """Plain version of ``scd_fused_hist``: (hist (K, E+1) f32, top (K,)).
 
@@ -250,13 +290,12 @@ def scd_fused_hist_plain(p, b, lam, edges, q, tile_n=512, hist_init=None,
     v1, v2 = candidates_block(_tiled(p, tile_n), _tiled(b, tile_n), lam, q)
     t = v1.shape[0] // tile_n
     idx = _bin_of(v1, edges).view(t, tile_n, k)
-    hist = _tile_bin_sums(idx, v2.view(t, tile_n, k), e + 1)
-    top = v1.view(t, tile_n, k).amax(dim=1)
-    part = torch.cat([hist.reshape(t, -1), top], dim=1)
-    _, n_sum = fused_layout(k, e)
-    rec = fold_partials(part, pack_fused_init(k, e, hist_init, top_init,
-                                              p.device), n_sum)
-    return unpack_fused(rec, k, e)
+    part = _tile_bin_sums(idx, v2.view(t, tile_n, k), e + 1).reshape(t, -1)
+    hist = _fold_hist(part, pack_hist_init(k, e, hist_init, p.device))
+    top = v1.amax(dim=0)
+    if top_init is not None:
+        top = torch.maximum(top_init.reshape(-1).to(torch.float32), top)
+    return hist.view(k, e + 1), top
 
 
 def scd_finalize_plain(p, b, lam, pedges, q, tile_n=512, with_hist=True,

@@ -68,7 +68,8 @@ def run(workload: KPWorkload, cfg: SolverConfig, seed=0, device="cuda"):
 
 def run_streaming(workload: KPWorkload, cfg: SolverConfig, chunk: int, seed=0,
                   double_buffer=True, device="cuda", stats=None):
-    """Host-fed solve of a §6 workload; returns the Table-1-style row dict."""
+    """Host-fed solve of a §6 workload; returns the Table-1-style row dict
+    (and the final multipliers, ``lam``)."""
     dev = resolve_device(device)
     t0 = time.time()
     src = sparse_host_chunk_source(seed, workload.n_users, workload.k, chunk,
@@ -90,6 +91,7 @@ def run_streaming(workload: KPWorkload, cfg: SolverConfig, chunk: int, seed=0,
         "max_violation": viol,
         "wall_s": round(dt, 2),
         "device": _device_name(dev),
+        "lam": res.lam.tolist(),
     }
     if res.screen is not None:
         out["screen_chunks_per_iter"] = np.asarray(

@@ -3,9 +3,10 @@
 No JAX here: this file runs on a machine with the card and PyTorch only,
 ``python -m pytest tests/test_torch_cuda.py -m cuda``. Kernel against plain
 version on the same CUDA tensors: bitwise on dyadic inputs; on random
-inputs allclose (rtol 1e-5, atol 1e-5) with ``top`` exact; the elementwise
-``scd_candidates``, ``screen_bound`` and ``adjusted_topc`` bitwise on any
-input. The screened host-fed solve on the card: bitwise the unscreened one
+inputs allclose (rtol 1e-5, atol 1e-5) with ``top`` exact; the histogram
+kernels ``scd_fused_hist`` and ``bucket_hist``, whose plain versions add in
+the kernels' order, and the elementwise ``scd_candidates``,
+``screen_bound`` and ``adjusted_topc`` bitwise on any input. The screened host-fed solve on the card: bitwise the unscreened one
 and the CPU one, with the same streamed-chunk profile; host-fed DD bitwise
 the resident chunked DD. The resident solve on the card:
 chunked == unchunked and repeated runs bitwise, and within tolerance of
@@ -125,6 +126,88 @@ def test_kernels_run_to_run_bitwise(cuda_device):
     fc = ops.scd_finalize_hist(p, b, lam, pedges, 1)
     for x, y in list(zip(a, c)) + list(zip(fa, fc)):
         assert torch.equal(x, y)
+
+
+def _hist_inputs(n, seed, device):
+    """Random rows, lam, edges and seeds for the histogram kernels."""
+    p, b, lam = _inst(n, 10, seed, False, device)
+    b[::7, 3] = 0.0
+    edges = make_edges(lam, 1e-4, 1.6, 24)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    seeds = {"hist_init": torch.rand((10, 50), generator=g).to(device),
+             "top_init": torch.full((10,), -1.0, device=device)}
+    return p, b, lam, edges, seeds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,tile", [(65536, None), (65536 - 37, None),
+                                    (2_000_003, None), (10_000, 1000), (4099, 50),
+                                    (1021, 4)],
+                         ids=["chunk", "chunk-ragged", "resident-ragged", "tile1000",
+                              "tile50", "tile4"])
+def test_hist_kernels_bitwise_on_card(cuda_device, n, tile):
+    """The new in-tile order: kernel == plain bitwise on random inputs at the
+    default map tile (chunk and resident shapes) and at pinned ragged tiles."""
+    p, b, lam, edges, seeds = _hist_inputs(n, n % 101, cuda_device)
+    kw = {} if tile is None else {"tile_n": tile}
+    for seeded in (False, True):
+        s = seeds if seeded else {}
+        kh, kt = ops.scd_fused_hist(p, b, lam, edges, 1, **kw, **s)
+        ph, pt = ref.scd_fused_hist_plain(p, b, lam, edges, 1, **kw, **s)
+        v1, v2 = ops.scd_candidates(p, b, lam, 2)
+        init = seeds["hist_init"] if seeded else None
+        kb = ops.bucket_hist(v1, v2, edges, **kw, hist_init=init)
+        pb = ref.bucket_hist_plain(v1, v2, edges, **kw, hist_init=init)
+        torch.cuda.synchronize()
+        assert torch.equal(kh, ph) and torch.equal(kt, pt)
+        assert torch.equal(kb, pb)
+
+
+@pytest.mark.cuda
+def test_hist_kernels_ties_on_edges_on_card(cuda_device):
+    """Values on an edge go to the lower bucket (searchsorted-left) in the
+    kernels' binary search, as in the plain versions' count of edges."""
+    k = 4
+    edges = torch.tensor([[0.5, 1.0, 1.5]] * k, device=cuda_device)
+    vals = torch.tensor([0.5, 1.0, 1.5, 0.25, 1.75, 1.0], device=cuda_device)
+    p = vals[:, None].repeat(1, k).contiguous()
+    b = torch.ones_like(p)
+    lam = torch.zeros(k, device=cuda_device)
+    h, top = ops.scd_fused_hist(p, b, lam, edges, k, tile_n=4)
+    hb = ops.bucket_hist(p, b, edges, tile_n=4)
+    torch.cuda.synchronize()
+    want = torch.tensor([2.0, 2.0, 1.0, 1.0], device=cuda_device)
+    assert torch.equal(h[0], want) and torch.equal(hb[0], want)
+    assert torch.equal(h, ref.scd_fused_hist_plain(p, b, lam, edges, k, tile_n=4)[0])
+    assert torch.equal(top, torch.full((k,), 1.75, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_hist_kernels_one_launch_and_rerun_bitwise(cuda_device):
+    p, b, lam, edges, seeds = _hist_inputs(300_000, 3, cuda_device)
+    v1, v2 = ops.scd_candidates(p, b, lam, 1)
+    ops.reset_launches()
+    runs = [(ops.scd_fused_hist(p, b, lam, edges, 1, **seeds),
+             ops.bucket_hist(v1, v2, edges, hist_init=seeds["hist_init"]))
+            for _ in range(3)]
+    assert ops.LAUNCHES["scd_fused_hist"] == 3 and ops.LAUNCHES["bucket_hist"] == 3
+    for (h, t), hb in runs[1:]:
+        assert torch.equal(h, runs[0][0][0]) and torch.equal(t, runs[0][0][1])
+        assert torch.equal(hb, runs[0][1])
+
+
+@pytest.mark.cuda
+def test_hist_kernels_chunked_default_tile_bitwise(cuda_device):
+    """Chunks of 65,536 rows (a multiple of MAP_TILE), seeded by the carry,
+    equal one call over all rows, the ragged last chunk included."""
+    n, c = 5 * 65536 + 4321, 65536
+    p, b, lam, edges, _ = _hist_inputs(n, 9, cuda_device)
+    h1, t1 = ops.scd_fused_hist(p, b, lam, edges, 1)
+    h, t = None, None
+    for s in range(0, n, c):
+        h, t = ops.scd_fused_hist(p[s:s + c], b[s:s + c], lam, edges, 1,
+                                  hist_init=h, top_init=t)
+    assert torch.equal(h, h1) and torch.equal(t, t1)
 
 
 @pytest.mark.cuda

@@ -140,6 +140,46 @@ def test_bucket_hist_chunked_seed_bitwise():
     assert torch.equal(h, whole)
 
 
+@pytest.mark.parametrize("tile", [4, 50, 1500, ops.MAP_TILE])
+@pytest.mark.parametrize("dyadic", [False, True])
+def test_bucket_hist_tiles_vs_pallas(tile, dyadic):
+    """The in-tile order (runs, sub-tiles, tile) at tiles above 1,024 with a
+    ragged tail, off the run length, tile 4 and the default map tile,
+    against the Pallas kernel at its own tile 256."""
+    g = np.random.default_rng(tile)
+    n, k = 3001, 6
+    v1 = g.uniform(-0.3, 2.0, (n, k)).astype(np.float32)
+    v2 = g.random((n, k)).astype(np.float32)
+    if dyadic:
+        v2 = (np.round(v2 * 64) / 64).astype(np.float32)
+    v2[v1 < 0] = 0.0
+    edges = np.asarray(j_make_edges(jnp.asarray(g.random(k).astype(np.float32)),
+                                    1e-4, 1.6, 24))
+    jh = np.asarray(jops.bucket_hist(jnp.asarray(v1), jnp.asarray(v2),
+                                     jnp.asarray(edges), tile_n=256, interpret=True))
+    th = ops.bucket_hist(_t(v1), _t(v2), _t(edges), tile_n=tile).numpy()
+    np.testing.assert_array_equal(th > 0, jh > 0)
+    if dyadic:
+        np.testing.assert_array_equal(th, jh)
+    else:
+        np.testing.assert_allclose(th, jh, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("tile,chunk", [(ops.MAP_TILE, 16384), (1500, 3000), (50, 200)])
+def test_bucket_hist_chunked_tiles_bitwise(tile, chunk):
+    g = np.random.default_rng(chunk)
+    n = 40_000
+    v1 = _t(g.uniform(-0.3, 2.0, (n, 5)).astype(np.float32))
+    v2 = _t(g.random((n, 5)).astype(np.float32))
+    edges = _t(np.sort(g.random((5, 9)).astype(np.float32), axis=1))
+    kw = {} if tile == ops.MAP_TILE else {"tile_n": tile}
+    whole = ops.bucket_hist(v1, v2, edges, **kw)
+    h = None
+    for s in range(0, n, chunk):
+        h = ops.bucket_hist(v1[s:s + chunk], v2[s:s + chunk], edges, hist_init=h, **kw)
+    assert torch.equal(h, whole)
+
+
 @pytest.fixture(scope="module")
 def ref_dense():
     return _ref_dense(11, 300, 6, 4, "C223")

@@ -212,3 +212,92 @@ def test_chunked_equals_unchunked_bitwise(q):
     for a, c in zip(f, f1):
         assert torch.equal(a, c)
 
+
+
+# The histogram kernels' in-tile order (runs of 32 rows, sub-tiles of 512,
+# then the tile) at tiles above 1,024 with a ragged tail, tiles that are not
+# a multiple of the run, tile 4 and the default map tile. The reference's
+# Pallas kernel keeps its own tile (TILE): bitwise on dyadic inputs. On
+# random inputs its FMA-contracted v1 can sit one ulp across a bucket edge
+# (ROADMAP C), so there the port is held to the reference's jnp path, whose
+# per-row values it equals bitwise: masses to rounding, top exactly.
+HIST_TILES = [4, 50, 1500, ops.MAP_TILE]
+
+
+@pytest.mark.parametrize("tile", HIST_TILES)
+@pytest.mark.parametrize("dyadic", [False, True])
+def test_fused_hist_tiles_vs_pallas(tile, dyadic):
+    n, k = 3001, 10
+    p, b, lam = _inst(n, k, seed=tile % 97, dyadic=dyadic)
+    edges = np.asarray(j_make_edges(jnp.asarray(lam), 1e-4, 1.6, 24))
+    g = np.random.default_rng(tile)
+    seeds = {"hist_init": (np.round(g.random((k, 50)) * 64) / 64).astype(np.float32),
+             "top_init": np.full((k,), -1.0, np.float32)}
+    th, tt = ops.scd_fused_hist(_t(p), _t(b), _t(lam), _t(edges), 1, tile_n=tile,
+                                **{key: _t(v) for key, v in seeds.items()})
+    if dyadic:
+        (jh, jt), _ = _fused_pair(p, b, lam, 1, edges, seeds)
+        np.testing.assert_array_equal(th.numpy(), jh)
+        np.testing.assert_array_equal(tt.numpy(), jt)
+    else:
+        jh, jt = jops.scd_fused_hist(jnp.asarray(p), jnp.asarray(b), jnp.asarray(lam),
+                                     jnp.asarray(edges), 1, use_pallas=False,
+                                     **{key: jnp.asarray(v) for key, v in seeds.items()})
+        np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+
+
+def _order_ref(v1, v2, edges, tile, init):
+    """The histogram kernels' addition order written out with float32
+    scalars: runs of 32 rows from 0.0, run sums into sub-tiles of 512 rows
+    from 0.0, sub-tile records into the tile from 0.0, tiles onto init."""
+    n, k = v1.shape
+    nb = edges.shape[1] + 1
+    bins = (v1[:, :, None] > edges[None, :, :]).sum(-1)
+    acc = init.astype(np.float32).copy()
+    for t0 in range(0, n, tile):
+        t1 = min(t0 + tile, n)
+        tile_rec = np.zeros((k, nb), np.float32)
+        for s0 in range(t0, t1, 512):
+            sub_rec = np.zeros((k, nb), np.float32)
+            for r0 in range(s0, min(s0 + 512, t1), 32):
+                run = np.zeros((k, nb), np.float32)
+                for r in range(r0, min(r0 + 32, s0 + 512, t1)):
+                    for j in range(k):
+                        run[j, bins[r, j]] = np.float32(run[j, bins[r, j]] + v2[r, j])
+                sub_rec = sub_rec + run
+            tile_rec = tile_rec + sub_rec
+        acc = acc + tile_rec
+    return acc
+
+
+@pytest.mark.parametrize("tile", HIST_TILES)
+def test_hist_plain_addition_order(tile):
+    """Random masses, where the order shows in the last bits: both plain
+    versions equal the order written out, bit for bit."""
+    n, k = 2100, 3
+    p, b, lam = _inst(n, k, seed=5 + tile % 13)
+    edges = np.asarray(j_make_edges(jnp.asarray(lam), 1e-4, 1.6, 6))
+    v1, v2 = (x.numpy() for x in ops.scd_candidates(_t(p), _t(b), _t(lam), 1))
+    init = np.random.default_rng(1).random((k, edges.shape[1] + 1)).astype(np.float32)
+    want = _order_ref(v1, v2, edges, tile, init)
+    got = ops.bucket_hist(_t(v1), _t(v2), _t(edges), tile_n=tile, hist_init=_t(init))
+    np.testing.assert_array_equal(got.numpy(), want)
+    fh, _ = ops.scd_fused_hist(_t(p), _t(b), _t(lam), _t(edges), 1, tile_n=tile,
+                               hist_init=_t(init))
+    np.testing.assert_array_equal(fh.numpy(), want)
+
+
+@pytest.mark.parametrize("tile,chunk,n", [(ops.MAP_TILE, 2 * ops.MAP_TILE, 5 * 8192 + 77),
+                                          (1500, 3000, 7001), (50, 200, 1001)])
+def test_fused_hist_chunked_equals_unchunked_tiles(tile, chunk, n):
+    p, b, lam = (_t(a) for a in _inst(n, 10, seed=chunk % 89))
+    edges = torch.tensor(np.asarray(j_make_edges(jnp.asarray(lam.numpy()),
+                                                 1e-4, 1.6, 24)))
+    kw = {} if tile == ops.MAP_TILE else {"tile_n": tile}
+    h1, t1 = ops.scd_fused_hist(p, b, lam, edges, 1, **kw)
+    h, top = None, None
+    for s in range(0, n, chunk):
+        h, top = ops.scd_fused_hist(p[s:s + chunk], b[s:s + chunk], lam, edges, 1,
+                                    hist_init=h, top_init=top, **kw)
+    assert torch.equal(h, h1) and torch.equal(top, t1)
