@@ -11,12 +11,13 @@ check raises, so the script exits non-zero and prints no result line:
 1. environment: the card, its power limit, torch/CUDA versions, build time;
 2. the host-fed path's kernels against their plain versions on the card
    at its shapes (chunk 65,536 and 65,536 - 37, K = 10, q in {1, 3}, seeded
-   carries, ``scd_fused_hist`` at its default tile ``MAP_TILE``):
-   ``scd_fused_hist`` bitwise on random and dyadic inputs, the finalize
-   bitwise on dyadic inputs and allclose (rtol 1e-5, atol 1e-5) on random
-   ones with lo/hi and (q = 1) bucket patterns exact; times from CUDA
-   events beside the byte bound and the plain version's time, after a line
-   with the fused call's profiler split (``launch/kernel_split.py``);
+   carries, ``scd_fused_hist`` at its default tile ``MAP_TILE``, the
+   finalize at ``ops.pick_tile``'s 512): both bitwise on random and dyadic
+   inputs; the finalize also at each K branch (K in 1, 8, 9, 16, 17, 64;
+   tiles 128, 512 and 1,024; with and without the histograms) and as one
+   call over 10^6 rows, bitwise; times from CUDA events beside the byte
+   bound and the plain version's time, after a line with each call's
+   profiler split (``launch/kernel_split.py``);
 3. determinism: repeated kernel runs bitwise; a host-fed solve at chunk
    65,536 and 131,072 (tile 512) bitwise;
 4. the same host-fed solve (n = 262,144) on the card and on the CPU;
@@ -52,7 +53,10 @@ check raises, so the script exits non-zero and prints no result line:
    ``screen_bound`` at a 65,536-row chunk and 65,536 - 37 rows, K = 6 and
    10, random and dyadic rows, with rows and a whole column at b = 0;
    ``adjusted_topc`` at N = 10^7 and 10^7 - 37, K = 10, q in {1, 3}, also
-   against ``select_sparse``; times beside bounds and plain versions;
+   against ``select_sparse``, and at each K branch (K in 1, 8, 9, 16, 17,
+   64; q in {0, 1, 3, K}; 262,107 rows with b = 0 and tied rows); times
+   beside bounds and plain versions, after the profiler split of
+   ``adjusted_topc`` at N = 10^7 and at a chunk;
 11. screened host-fed end to end: ``banded_host_chunk_source`` with the
    reference screening bench's settings (K = 6, Q = 2, tightness 0.08,
    band 0.05, ``bucket_half=12``, ``max_iters=30``) at N = 10^7, chunk
@@ -85,6 +89,8 @@ DENSE_N, DENSE_M = 100_000, 10     # Figure 1 (C223, mixed b) at 100x its N
 CSRC = "src/repro_torch/kernels/csrc/"
 N_HOST_DD = 1_000_000               # host-fed DD
 BANDED = dict(k=6, q=2, tightness=0.08, band=0.05)   # benchmarks/bench_screening.py
+FIN_TILE = 512                      # ops.pick_tile at a 65,536-row chunk
+BRANCH_K = (1, 8, 9, 16, 17, 64)    # each KC branch of the finalize and adjusted_topc
 SOURCE = {"scd_fused_hist": CSRC + "scd_fused.cu",
           "scd_finalize_hist": CSRC + "scd_fused.cu",
           "scd_candidates": CSRC + "scd_candidates.cu",
@@ -168,7 +174,7 @@ def phase_kernels(torch, np, dev):
 
     pedges = profit_edges_fixed(512, 1e-6, 1e6, device=dev)
     err = {"scd_fused_hist": 0.0, "scd_finalize_hist": 0.0}
-    cases = 0
+    cases = phase_finalize_branches(torch, np, dev, pedges)
     for c in (C_MAIN, C_MAIN - 37):
         for q in (1, 3):
             for dyadic in (False, True):
@@ -183,17 +189,9 @@ def phase_kernels(torch, np, dev):
                 check(torch.equal(kt, pt), f"fused top differs ({tag})")
                 # The fused kernel and its plain version add in one order.
                 check(torch.equal(kh, ph), f"scd_fused_hist not bitwise ({tag})")
-                check(torch.equal(kf[5], pf[5]) and torch.equal(kf[6], pf[6]),
-                      f"finalize lo/hi differ ({tag})")
-                pairs = {"scd_finalize_hist": list(zip(kf[:5], pf[:5]))}
-                for name, prs in pairs.items():
-                    for a, e in prs:
-                        if dyadic:
-                            check(torch.equal(a, e), f"{name} not bitwise ({tag})")
-                        else:
-                            check(torch.allclose(a, e, rtol=1e-5, atol=1e-5),
-                                  f"{name} not allclose ({tag})")
-                            err[name] = max(err[name], float((a - e).abs().max()))
+                # So does the finalize: every output bitwise.
+                check(all(torch.equal(a, e) for a, e in zip(kf, pf)),
+                      f"scd_finalize_hist not bitwise ({tag})")
                 if q == 1 and not dyadic:
                     # Bucket indices: with one item per row every value is
                     # exact, so the unseeded histograms have the same support.
@@ -219,13 +217,17 @@ def phase_kernels(torch, np, dev):
             bound(read + 4 * (K * e + 2 * rec_f),
                   C_MAIN * K * (8 + e + Q_MAIN + 1))),
         "scd_finalize_hist": (
-            lambda: ops.scd_finalize_hist(p, b, lam, pedges, Q_MAIN, **gs),
-            lambda: ref.scd_finalize_plain(p, b, lam, pedges, Q_MAIN, **gs),
+            lambda: ops.scd_finalize_hist(p, b, lam, pedges, Q_MAIN, tile_n=FIN_TILE,
+                                          **gs),
+            lambda: ref.scd_finalize_plain(p, b, lam, pedges, Q_MAIN, tile_n=FIN_TILE,
+                                           **gs),
             bound(read + 4 * (ep + 2 * rec_g),
                   C_MAIN * K * (5 + Q_MAIN) + C_MAIN * (ep + K + 1))),
     }
     emit("kernel_split", kernel="scd_fused_hist", rows=C_MAIN, tile=ops.MAP_TILE,
          **split(timing["scd_fused_hist"][0], reps=50))
+    emit("kernel_split", kernel="scd_finalize_hist", rows=C_MAIN, tile=FIN_TILE,
+         **split(timing["scd_finalize_hist"][0], reps=50))
     out = {}
     for name, (kern, plain, (b_ms, b_by)) in timing.items():
         ms = time_ms(torch, kern, reps=50)
@@ -233,8 +235,85 @@ def phase_kernels(torch, np, dev):
         out[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     out["scd_fused_hist"]["tile"] = ops.MAP_TILE
-    emit("kernels_vs_plain", cases=cases, chunk=C_MAIN, k=K, **out)
+    out["scd_finalize_hist"]["tile"] = FIN_TILE
+
+    # The finalize as one call over 10^6 rows (1,953 tile records to fold).
+    n1 = 1_000_000
+    g = np.random.default_rng(5)
+    p1, b1 = (torch.tensor(g.random((n1, K)), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    call = lambda: ops.scd_finalize_hist(p1, b1, lam, pedges, Q_MAIN, **gs)  # noqa: E731
+    got = call()
+    want = ref.scd_finalize_plain(p1, b1, lam, pedges, Q_MAIN, **gs)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, e) for a, e in zip(got, want)),
+          "scd_finalize_hist not bitwise at 10^6 rows")
+    emit("kernel_split", kernel="scd_finalize_hist", rows=n1, tile=FIN_TILE,
+         **split(call, reps=20))
+    out["scd_finalize_hist"]["rows_1e6"] = {
+        "rows": n1, "ms": time_ms(torch, call, reps=20),
+        "plain_ms": time_ms(torch, lambda: ref.scd_finalize_plain(
+            p1, b1, lam, pedges, Q_MAIN, **gs), reps=1, warmup=0),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(4 * (2 * n1 * K + K) + 4 * (ep + 2 * rec_g),
+                         n1 * K * (5 + Q_MAIN) + n1 * (ep + K + 1))))}
+    emit("kernels_vs_plain", cases=cases + 1, chunk=C_MAIN, k=K, **out)
     return out
+
+
+def branch_rows(torch, np, n, k, seed, dyadic, dev):
+    """Rows at width k with b = 0 rows and rows whose adjusted profits all
+    tie (b = 0, equal p), numpy-seeded, on the card."""
+    g = np.random.default_rng(seed)
+    if dyadic:
+        p, b = g.integers(0, 64, (n, k)) / 64.0, g.integers(0, 64, (n, k)) / 64.0
+        lam = g.integers(0, 12, (k,)) / 8.0
+    else:
+        p, b, lam = g.random((n, k)), g.uniform(0.0, 1.0, (n, k)), g.uniform(0.3, 1.2, k)
+    b[::7] = 0.0
+    p[1::5] = p[1::5, :1]
+    b[1::5] = 0.0
+    return tuple(torch.tensor(a, dtype=torch.float32, device=dev) for a in (p, b, lam))
+
+
+def phase_finalize_branches(torch, np, dev, pedges):
+    """The finalize at each compile-time K branch (KC = 8, 16, 64) and its
+    edges, tiles 128, 512 and 1,024, with and without the histograms,
+    seeded and not, at a ragged chunk (65,536 - 37 rows): bitwise its plain
+    version. K = 64 at tile 1,024 needs more shared memory than a block has
+    (the wrapper refuses it; ``tests/test_torch_cuda.py`` checks that)."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels._wrap import MAX_SMEM
+
+    lib = _build.load()
+    cases = 0
+    for k in BRANCH_K:
+        for tile, q in ((128, 1), (512, min(3, k)), (1024, k)):
+            if lib.scd_finalize_smem_bytes(k, pedges.shape[0], tile) > MAX_SMEM:
+                check(k * tile > 32768, f"finalize has no room for K={k} at tile {tile}")
+                continue
+            p, b, lam = branch_rows(torch, np, C_MAIN - 37, k, k + tile, k % 2 == 0, dev)
+            for with_hist in (True, False):
+                seeds = {}
+                if with_hist:
+                    g = np.random.default_rng(k)
+                    t = lambda *s: torch.tensor(g.random(s), dtype=torch.float32,  # noqa: E731
+                                                device=dev)
+                    seeds = {"cons_hist_init": t(k, 513), "gain_hist_init": t(513),
+                             "r_init": t(k), "sums_init": t(2) * 64,
+                             "maxs_init": torch.tensor([0.5, -0.25], device=dev)}
+                got = ops.scd_finalize_hist(p, b, lam, pedges, q, tile_n=tile,
+                                            with_hist=with_hist, **seeds)
+                want = ref.scd_finalize_plain(p, b, lam, pedges, q, tile_n=tile,
+                                              with_hist=with_hist, **seeds)
+                torch.cuda.synchronize()
+                check(all((a is None and e is None) or torch.equal(a, e)
+                          for a, e in zip(got, want)),
+                      f"scd_finalize_hist not bitwise (K={k} tile={tile} q={q} "
+                      f"with_hist={with_hist})")
+                cases += 1
+    emit("finalize_branches", cases=cases, k=BRANCH_K, rows=C_MAIN - 37, bitwise=True)
+    return cases
 
 
 def host_instance(np, n, seed):
@@ -644,6 +723,7 @@ def phase_slice3_kernels(torch, np, dev):
     """screen_bound and adjusted_topc against their plain versions, timed."""
     from repro_torch.core.sparse_scd import select_sparse
     from repro_torch.kernels import ops, ref
+    from repro_torch.launch.kernel_split import split
 
     cases = 0
     for k in (6, 10):
@@ -695,9 +775,24 @@ def phase_slice3_kernels(torch, np, dev):
             check(torch.equal(x, sx), f"adjusted_topc differs from select_sparse ({tag})")
             cases += 1
             del x, v, px, pv, sx
+    for k in BRANCH_K:
+        for q in sorted({0, 1, 3, k}):
+            for dyadic in (False, True):
+                pk, bk, lk = branch_rows(torch, np, 4 * C_MAIN - 37, k, 7 * k + q, dyadic,
+                                         dev)
+                x, v = ops.adjusted_topc(pk, bk, lk, q)
+                px, pv = ref.adjusted_topc_plain(pk, bk, lk, q)
+                torch.cuda.synchronize()
+                check(torch.equal(x, px) and torch.equal(v, pv),
+                      f"adjusted_topc differs from its plain version (K={k} q={q} "
+                      f"dyadic={dyadic})")
+                cases += 1
+    del pk, bk, x, v, px, pv
+    topc_call = lambda: ops.adjusted_topc(p, b, lam, Q_MAIN)  # noqa: E731
+    emit("kernel_split", kernel="adjusted_topc", rows=N_RES, **split(topc_call, reps=20))
     out["adjusted_topc"] = {
         "max_abs_err": 0.0, "n": N_RES, "k": K, "q": Q_MAIN,
-        "ms": time_ms(torch, lambda: ops.adjusted_topc(p, b, lam, Q_MAIN), reps=20),
+        "ms": time_ms(torch, topc_call, reps=20),
         "plain_ms": time_ms(torch, lambda: ref.adjusted_topc_plain(p, b, lam, Q_MAIN),
                             reps=5, warmup=1),
         "select_sparse_ms": time_ms(torch, lambda: select_sparse(p, b, lam, Q_MAIN),
@@ -708,6 +803,8 @@ def phase_slice3_kernels(torch, np, dev):
         "library_ms": None}
     # The host-fed DD calls it once per 65,536-row chunk.
     pc, bc = p[:C_MAIN].contiguous(), b[:C_MAIN].contiguous()
+    emit("kernel_split", kernel="adjusted_topc", rows=C_MAIN,
+         **split(lambda: ops.adjusted_topc(pc, bc, lam, Q_MAIN), reps=50))
     out["adjusted_topc"]["chunk_shape"] = {
         "rows": C_MAIN,
         "ms": time_ms(torch, lambda: ops.adjusted_topc(pc, bc, lam, Q_MAIN), reps=50),

@@ -94,7 +94,7 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()[0]))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.scd_fused_hist_launch.argtypes = [vp] * 9 + [i64, i32, i32, i32, i32, vp]
-        lib.scd_finalize_hist_launch.argtypes = ([vp] * 7
+        lib.scd_finalize_hist_launch.argtypes = ([vp] * 11
                                                  + [i64, i32, i32, i32, i32, i32, vp])
         lib.scd_candidates_launch.argtypes = [vp] * 5 + [i64, i32, i32, vp]
         lib.bucket_hist_launch.argtypes = [vp] * 7 + [i64, i32, i32, i32, vp]
@@ -104,6 +104,8 @@ def load() -> ctypes.CDLL:
                    lib.scd_candidates_launch, lib.bucket_hist_launch,
                    lib.screen_bound_launch, lib.adjusted_topc_launch):
             fn.restype = i32
+        lib.scd_finalize_part_stride.argtypes = [i32, i32]
+        lib.scd_finalize_part_stride.restype = i32
         lib.scd_finalize_smem_bytes.argtypes = [i32, i32, i32]
         lib.scd_finalize_smem_bytes.restype = ctypes.c_size_t
         lib.hist_smem_bytes.argtypes = [i32, i32, i32, i32]

@@ -29,7 +29,7 @@
 //      edges;
 //   2. one thread per row computes its candidates (fused) in place and bins
 //      each k by binary lifting over the k-th edge row in shared memory
-//      (exactly searchsorted-left, like bin_of), writing the bin over v1; for
+//      (exactly searchsorted-left, like bin_lift), writing the bin over v1; for
 //      K <= 16 the row's work arrays are registers (KC, kc_loop in
 //      scd_common.cuh), at most 64 a thread so that two blocks share an SM
 //      (three, at 42 registers, spilled and ran slower);
@@ -44,8 +44,6 @@
 // onto the seed, each thread a slot with its loads issued sixteen ahead of
 // the add chain. The tickets are left at zero for the next call.
 #pragma once
-
-#include <cstdint>
 
 #include "scd_common.cuh"
 
@@ -87,42 +85,8 @@ __host__ __device__ inline size_t hist_smem_floats(int k, int e, int tile_n, boo
          (fused ? (size_t)k + (size_t)warps * k : 0);
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Copies count floats from src into dst, of which the first `valid` are
-// read and the rest zero-filled; src may be unreadable past `valid` (masked
-// copies read nothing from their address, which is src itself).
-__device__ __forceinline__ void load_async(float* dst, const float* src, int count,
-                                           int valid) {
-  if (valid <= 0) {
-    for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = 0.f;
-  } else if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    for (int i = 4 * threadIdx.x; i < count; i += 4 * blockDim.x) {
-      const int v = min(max(valid - i, 0), 4);
-      cp_async16(dst + i, v ? src + i : src, 4 * v);
-    }
-  } else {
-    for (int i = threadIdx.x; i < count; i += blockDim.x)
-      cp_async4(dst + i, i < valid ? src + i : src, i < valid ? 4 : 0);
-  }
-}
-
 // Searchsorted-left bins of one row's k values: bin[j] = the count of
-// edges of row j (ascending, non-decreasing) below v[j], as bin_of counts
+// edges of row j (ascending, non-decreasing) below v[j], as bin_lift counts
 // them (NaN gives 0). Binary lifting: the edges below v form a prefix, and
 // steps of 2^s, largest first, each taken when it stays inside the prefix,
 // add up to its length. The k searches advance together, so their
@@ -140,26 +104,6 @@ __device__ __forceinline__ void bin_row(const float* edges, int e, int k,
       if (j < k && next <= e && edges[j * e + next - 1] < v[j]) bin[j] = next;
     }
   }
-}
-
-// acc folded with the count values src[0], src[stride], ... in order: added
-// when `sum`, else by max. Their L2 loads are issued sixteen ahead of the
-// add chain.
-__device__ __forceinline__ float fold_chain(float acc, const float* src, long long stride,
-                                            long long count, bool sum) {
-  long long t = 0;
-  for (; t + 16 <= count; t += 16) {
-    float v[16];
-#pragma unroll
-    for (int u = 0; u < 16; ++u) v[u] = __ldcg(src + (t + u) * stride);
-#pragma unroll
-    for (int u = 0; u < 16; ++u) acc = sum ? __fadd_rn(acc, v[u]) : fmaxf(acc, v[u]);
-  }
-  for (; t < count; ++t) {
-    const float v = __ldcg(src + t * stride);
-    acc = sum ? __fadd_rn(acc, v) : fmaxf(acc, v);
-  }
-  return acc;
 }
 
 // One ticket per block on counter c (thread 0); true in the block that

@@ -1,5 +1,6 @@
 // Per-row building blocks shared by the kernels of csrc/: the Alg-5
-// candidates of one row, the searchsorted-left bin, and the launch helpers.
+// candidates and the greedy top-Q of one row, the searchsorted-left bin,
+// row staging into shared memory, the ordered fold and the launch helpers.
 // The tie and rounding semantics of the candidate map exist only here, as
 // candidates_block does in the reference (src/repro/kernels/scd_candidates.py).
 //
@@ -7,6 +8,8 @@
 // --use_fast_math. p - lam*b, the divide and every sum round exactly as the
 // plain versions' separate operations in kernels/ref.py.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -71,26 +74,126 @@ __device__ __forceinline__ void candidates_row(const float* pv, const float* bv,
 // Greedy top-Q of one row's strictly positive values, ties to the lower
 // index (the reference's _topq_mask): Q passes, each picking the largest
 // value if it is above zero and knocking it out of `work` (overwritten).
-// Returns the picks as a bit mask over the K items. The finalize kernel
-// and adjusted_topc both select through it, so their ties cannot drift.
+// Returns the picks as a bit mask over the K items. Needs k <= KC; below
+// KMAX the loops unroll and `work` stays in registers (kc_loop). The
+// finalize kernel and adjusted_topc both select through it, so their ties
+// cannot drift.
+template <int KC>
 __device__ __forceinline__ unsigned long long topq_row(float* work, int k, int q) {
+  const int kl = kc_loop<KC>(k);
   unsigned long long x = 0ull;
   for (int it = 0; it < q; ++it) {
     float m = ninf();
-    for (int j = 0; j < k; ++j) m = fmaxf(m, work[j]);
+#pragma unroll
+    for (int j = 0; j < kl; ++j)
+      if (j < k) m = fmaxf(m, work[j]);
     if (!(m > 0.f)) break;
-    for (int j = 0; j < k; ++j) {
-      if (work[j] == m) { x |= 1ull << j; work[j] = ninf(); break; }
+    bool hit = false;
+#pragma unroll
+    for (int j = 0; j < kl; ++j) {
+      if (j < k && !hit && work[j] == m) { x |= 1ull << j; work[j] = ninf(); hit = true; }
     }
   }
   return x;
 }
 
-// Searchsorted-left bin: the count of edges below v.
-__device__ __forceinline__ int bin_of(const float* edges, int e, float v) {
-  int c = 0;
-  for (int t = 0; t < e; ++t) c += (edges[t] < v) ? 1 : 0;
-  return c;
+// Searchsorted-left bin of v against e >= 1 ascending (non-decreasing)
+// edges: the count of edges below v, NaN giving 0. The edges below v form a
+// prefix; binary lifting adds steps of 2^s, largest first, each taken when
+// it stays inside the prefix.
+__device__ __forceinline__ int bin_lift(const float* edges, int e, float v) {
+  int bin = 0;
+  for (int step = 1 << (31 - __clz(e)); step > 0; step >>= 1) {
+    const int next = bin + step;
+    if (next <= e && edges[next - 1] < v) bin = next;
+  }
+  return bin;
+}
+
+// Row staging. cp.async copies global memory into shared memory without
+// passing through registers; 16-byte copies need both addresses 16-byte
+// aligned, 4-byte ones any float address. `bytes` below the copy size
+// zero-fills the rest.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Copies count floats from src into dst (16-byte aligned shared memory), of
+// which the first `valid` are read and the rest zero-filled; src may be
+// unreadable past `valid` (masked copies read nothing from their address,
+// which is src itself). 16-byte copies when src is aligned, else 4-byte.
+// The caller waits (cp_async_wait_all, then __syncthreads).
+__device__ __forceinline__ void load_async(float* dst, const float* src, int count,
+                                           int valid) {
+  if (valid <= 0) {
+    for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = 0.f;
+  } else if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int i = 4 * threadIdx.x; i < count; i += 4 * blockDim.x) {
+      const int v = min(max(valid - i, 0), 4);
+      cp_async16(dst + i, v ? src + i : src, 4 * v);
+    }
+  } else {
+    for (int i = threadIdx.x; i < count; i += blockDim.x)
+      cp_async4(dst + i, i < valid ? src + i : src, i < valid ? 4 : 0);
+  }
+}
+
+// Stores `count` elements of T from 16-byte aligned shared memory to dst,
+// by the block: 16-byte vector stores when dst is aligned (consecutive
+// threads on consecutive 16-byte pieces), the tail and unaligned dst one
+// element a thread.
+template <typename T>
+__device__ __forceinline__ void store_tile(T* dst, const T* src, int count) {
+  constexpr int per = 16 / sizeof(T);
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int vecs = count / per;
+    for (int i = threadIdx.x; i < vecs; i += blockDim.x)
+      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+    done = vecs * per;
+  }
+  for (int i = done + threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
+}
+
+// acc folded with the count values src[0], src[stride], ... in order: added
+// when `sum`, else by max. Their L2 loads run in groups of sixteen, each
+// group issued before the previous group's adds.
+__device__ __forceinline__ float fold_chain(float acc, const float* src, long long stride,
+                                            long long count, bool sum) {
+  long long t = 0;
+  if (count >= 16) {
+    float cur[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) cur[u] = __ldcg(src + u * stride);
+    for (t = 16; t + 16 <= count; t += 16) {
+      float nxt[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) nxt[u] = __ldcg(src + (t + u) * stride);
+#pragma unroll
+      for (int u = 0; u < 16; ++u) acc = sum ? __fadd_rn(acc, cur[u]) : fmaxf(acc, cur[u]);
+#pragma unroll
+      for (int u = 0; u < 16; ++u) cur[u] = nxt[u];
+    }
+#pragma unroll
+    for (int u = 0; u < 16; ++u) acc = sum ? __fadd_rn(acc, cur[u]) : fmaxf(acc, cur[u]);
+  }
+  for (; t < count; ++t) {
+    const float v = __ldcg(src + t * stride);
+    acc = sum ? __fadd_rn(acc, v) : fmaxf(acc, v);
+  }
+  return acc;
 }
 
 template <typename Kernel>
@@ -103,8 +206,24 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 inline int threads_for(int tile_n) { return (tile_n + 31) / 32 * 32; }
 
-// The ordered fold of per-tile partial records (defined in scd_fused.cu):
-// out[i] = init[i] + part[0][i] + part[1][i] + ... for i < n_sum, and the
-// running max for the rest. Returns the launch's CUDA error.
+// Seeds of the ordered fold, a record cut into up to FOLD_SEGS segments in
+// order: segment i has len[i] slots and starts from ptr[i], or from fill[i]
+// in every slot where ptr[i] is null.
+#define FOLD_SEGS 5
+struct FoldSeeds {
+  const float* ptr[FOLD_SEGS];
+  int len[FOLD_SEGS];
+  float fill[FOLD_SEGS];
+  int count;
+};
+
+// The ordered fold of per-tile partial records (defined in scd_fused.cu),
+// rec slots each, `stride` floats apart: out[i] = seed[i] + part[0][i] +
+// part[1][i] + ... for i < n_sum, and the running max for the rest; with
+// `neg_last`, out[rec] = -out[rec - 1] as well. Returns the launch's CUDA
+// error. The second form seeds from one array init, records dense.
+cudaError_t launch_fold(const float* part, const FoldSeeds& seeds, float* out,
+                        long long n_tiles, int rec, int stride, int n_sum, bool neg_last,
+                        cudaStream_t s);
 cudaError_t launch_fold(const float* part, const float* init, float* out,
                         long long n_tiles, int rec, int n_sum, cudaStream_t s);

@@ -82,7 +82,9 @@ def unpack_fused(rec, k, e):
 def pack_finalize_init(k, e, with_hist, device, cons_hist_init=None,
                        gain_hist_init=None, r_init=None, sums_init=None,
                        maxs_init=None):
-    """Seed record of scd_finalize_hist. ``maxs_init`` is (hi, -lo)."""
+    """Seed record of the plain finalize (``scd_finalize_plain``);
+    ``maxs_init`` is (hi, -lo). The card's wrapper passes the seeds to its
+    fold as separate pointers instead."""
     def seed(x, n, fill):
         if x is None:
             return torch.full((n,), fill, dtype=torch.float32, device=device)
@@ -97,9 +99,10 @@ def pack_finalize_init(k, e, with_hist, device, cons_hist_init=None,
     return torch.cat(parts)
 
 
-def unpack_finalize(rec, k, e, with_hist):
+def unpack_finalize(rec, k, e, with_hist, lo=None):
     """Packed record -> (cons_hist, gain_hist, r, primal, dual, lo, hi);
-    the histograms are None without ``with_hist``."""
+    the histograms are None without ``with_hist``. ``lo``, where given,
+    stands for ``-rec[-1]`` (the card's fold writes it beside the record)."""
     nb = e + 1
     ch = gh = None
     o = 0
@@ -108,7 +111,9 @@ def unpack_finalize(rec, k, e, with_hist):
         gh = rec[k * nb:k * nb + nb]
         o = k * nb + nb
     r = rec[o:o + k]
-    return ch, gh, r, rec[o + k], rec[o + k + 1], -rec[o + k + 3], rec[o + k + 2]
+    if lo is None:
+        lo = -rec[o + k + 3]
+    return ch, gh, r, rec[o + k], rec[o + k + 1], lo, rec[o + k + 2]
 
 
 def fold_partials(part, init, n_sum):

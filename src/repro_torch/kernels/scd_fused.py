@@ -6,7 +6,8 @@ its ``_finalize_kernel``, with the same signatures and ``*_init`` seeds.
 Each wrapper checks its inputs, allocates its scratch and output with
 ``torch.empty``, launches on the current stream without synchronising
 (``scd_fused_hist`` one kernel that folds its records itself; the finalize
-a tile kernel and the ordered fold), and raises if a launch returned a
+a tile kernel and the ordered fold onto its seeds, which it passes as
+separate pointers and never packs), and raises if a launch returned a
 CUDA error. They take CUDA tensors only; ``kernels.ops``
 sends CPU tensors to the plain versions in ``kernels/ref.py``.
 
@@ -57,29 +58,35 @@ def scd_finalize_hist(p, b, lam, pedges, q, tile_n=512, with_hist=True,
     Greedy top-Q at lam; r (K,), primal, dual sum and the (lo, hi) range
     of the per-row group profit over rows that selected anything; with
     ``with_hist`` the removable consumption (K, E+1) and raw-profit (E+1,)
-    histograms of that profit against ``pedges`` (E,). Seeds: ``r_init``,
-    ``sums_init`` (primal, dual), ``maxs_init`` (hi, -lo) and the
-    histogram inits. Returns (cons_hist, gain_hist, r, primal, dual, lo, hi).
+    histograms of that profit against ``pedges`` (E,), ascending. Seeds:
+    ``r_init``, ``sums_init`` (primal, dual), ``maxs_init`` (hi, -lo) and
+    the histogram inits, each passed to the fold as its own pointer (None:
+    zeros, or -inf for ``maxs_init``). ``tile_n`` <= 1,024. Returns
+    (cons_hist, gain_hist, r, primal, dual, lo, hi).
     """
     tile_n = min(tile_n, p.shape[0])
     n, k = check_p_b_lam("scd_finalize_hist", p, b, lam, tile_n)
     e = 0
+    seeds = [None, None]
     if with_hist:
         e = pedges.shape[-1]
         check("pedges", pedges, (e,), p.device)
+        seeds = [flat_seed("cons_hist_init", cons_hist_init, k * (e + 1), p.device),
+                 flat_seed("gain_hist_init", gain_hist_init, e + 1, p.device)]
+    seeds += [flat_seed("r_init", r_init, k, p.device),
+              flat_seed("sums_init", sums_init, 2, p.device),
+              flat_seed("maxs_init", maxs_init, 2, p.device)]
     lib = _build.load()
-    smem = lib.scd_finalize_smem_bytes(k, e, tile_n)
-    check_smem(smem, tile_n, k, e)
-    init = ref.pack_finalize_init(k, e, with_hist, p.device, cons_hist_init,
-                                  gain_hist_init, r_init, sums_init, maxs_init)
+    check_smem(lib.scd_finalize_smem_bytes(k, e, tile_n), tile_n, k, e)
     rec, _ = ref.finalize_layout(k, e, with_hist)
-    n_tiles = -(-n // tile_n)
-    part = torch.empty((n_tiles, rec), dtype=torch.float32, device=p.device)
-    out = torch.empty((rec,), dtype=torch.float32, device=p.device)
+    part = torch.empty((-(-n // tile_n), lib.scd_finalize_part_stride(k, e)),
+                       dtype=torch.float32, device=p.device)
+    out = torch.empty((rec + 1,), dtype=torch.float32, device=p.device)  # + lo
     err = lib.scd_finalize_hist_launch(
         p.data_ptr(), b.data_ptr(), lam.data_ptr(),
-        pedges.data_ptr() if with_hist else None,
-        init.data_ptr(), part.data_ptr(), out.data_ptr(), n, k, e, q, tile_n,
-        int(with_hist), stream_of(p))
+        pedges.data_ptr() if with_hist else None, *map(ptr, seeds),
+        part.data_ptr(), out.data_ptr(), n, k, e, q, tile_n, int(with_hist),
+        stream_of(p))
     launched("scd_finalize_hist", err, lib)
-    return ref.unpack_finalize(out, k, e, with_hist)
+    # lo from out[rec], where the fold wrote -(-lo): no negation kernel.
+    return ref.unpack_finalize(out, k, e, with_hist, lo=out[rec])

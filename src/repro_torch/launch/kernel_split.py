@@ -1,16 +1,26 @@
-"""Where a histogram kernel call's time goes on the card.
+"""Where a kernel call's time goes on the card.
 
     python -m repro_torch.launch.kernel_split [--case fused:10000000:8192 ...]
 
-Each ``--case kind:rows:tile`` calls ``kernels.ops.scd_fused_hist``
-(``fused``, K = 10, q = 1, random p and b) or ``kernels.ops.bucket_hist``
-(``bucket``, K = 10, dense-like candidates) on ``rows`` rows at ``tile``, and
-prints one JSON line per case:
+Each ``--case kind:rows[:tile]`` calls one kernel wrapper of
+``kernels.ops`` on ``rows`` random rows (K = 10, q = 1):
+
+* ``fused:ROWS:TILE``: ``scd_fused_hist`` at ``tile``;
+* ``bucket:ROWS:TILE``: ``bucket_hist`` on dense-like candidates at ``tile``;
+* ``finalize:ROWS:TILE``: ``scd_finalize_hist`` with the histograms against
+  the fixed 512-edge profit ladder, every seed passed (the carry of a
+  chunked finalize, as ``chip_smoke.py`` seeds it), at ``tile`` (at most
+  1,024);
+* ``topc:ROWS``: ``adjusted_topc``.
+
+It prints one JSON line per case:
 
 * ``wall_ms``: CUDA events around ``reps`` back-to-back calls, per call;
 * ``host_ms``: the host's time to enqueue one call (no synchronise);
 * ``device_ms``: per device kernel (name shortened), its time per call from
-  a ``torch.profiler`` trace of the same calls, and their sum;
+  a ``torch.profiler`` trace of the same calls (the mean per recorded
+  launch times its launches per call), and their sum; the trace's launches
+  per call beside them (below one where the trace dropped events);
 * ``gap_ms``: wall minus the device sum, the time the card waits on the host
   between the call's kernels and calls (launches, allocations, packing).
 
@@ -26,16 +36,30 @@ import time
 import torch
 
 from ..core.bucketing import make_edges
+from ..core.postprocess import profit_edges_fixed
 from ..kernels import ops
 
 K = 10
-DEFAULT_CASES = ("fused:10000000:8192", "fused:65536:8192", "bucket:5500000:8192")
+DEFAULT_CASES = ("fused:10000000:8192", "fused:65536:8192", "bucket:5500000:8192",
+                 "finalize:65536:512", "finalize:10000000:512", "topc:65536",
+                 "topc:10000000")
 
 
 def _rows(kind, n, gen, dev):
+    """The case's call, a function of the tile."""
     p = torch.rand((n, K), generator=gen, device=dev)
     b = torch.rand((n, K), generator=gen, device=dev)
     lam = 0.3 + torch.rand((K,), generator=gen, device=dev)
+    if kind == "topc":
+        return lambda _tile: ops.adjusted_topc(p, b, lam, 1)
+    if kind == "finalize":
+        pedges = profit_edges_fixed(512, 1e-6, 1e6, device=dev)
+        grid = lambda *s: torch.rand(s, generator=gen, device=dev) * 4.0  # noqa: E731
+        seeds = {"cons_hist_init": grid(K, 513), "gain_hist_init": grid(513),
+                 "r_init": grid(K), "sums_init": grid(2) * 64,
+                 "maxs_init": torch.tensor([0.5, -0.25], device=dev)}
+        return lambda tile: ops.scd_finalize_hist(p, b, lam, pedges, 1, tile_n=tile,
+                                                  **seeds)
     edges = make_edges(lam.cpu(), 1e-4, 1.6, 24).to(dev)
     if kind == "fused":
         return lambda tile: ops.scd_fused_hist(p, b, lam, edges, 1, tile_n=tile)
@@ -53,20 +77,23 @@ def _short(name):
 
 
 def device_split(fn, reps):
-    """{kernel name: ms per call} from a profiler trace of ``reps`` calls."""
+    """{kernel name: (ms per launch, launches per call)} from a profiler
+    trace of ``reps`` calls. The mean is over the launches the trace
+    recorded, so a trace that drops some events still times the others."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    total, count = {}, {}
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = _short(evt.name)
-        out[name] = out.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3 / reps
-    return out
+        total[name] = total.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3
+        count[name] = count.get(name, 0) + 1
+    return {name: (total[name] / count[name], count[name] / reps) for name in total}
 
 
 def split(fn, reps):
@@ -84,16 +111,21 @@ def split(fn, reps):
     torch.cuda.synchronize()
     wall = a.elapsed_time(b) / reps
     dev = device_split(fn, reps)
-    total = sum(dev.values())
-    return {"wall_ms": wall, "host_ms": host_ms, "device_ms": dev,
+    # Each kernel's time per call: its mean per launch times its launches
+    # per call, rounded to a whole number (at least one).
+    per_call = {name: ms * max(1, round(n)) for name, (ms, n) in dev.items()}
+    total = sum(per_call.values())
+    return {"wall_ms": wall, "host_ms": host_ms, "device_ms": per_call,
+            "traced_launches_per_call": {name: n for name, (_, n) in dev.items()},
             "device_sum_ms": total if dev else None,
             "gap_ms": wall - total if dev else None}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--case", action="append", help="kind:rows:tile "
-                    f"(kind fused or bucket; default {' '.join(DEFAULT_CASES)})")
+    ap.add_argument("--case", action="append", help="kind:rows[:tile] (kind fused, "
+                    "bucket, finalize or topc; default "
+                    f"{' '.join(DEFAULT_CASES)})")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -101,9 +133,10 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     for case in args.case or DEFAULT_CASES:
-        kind, n, tile = case.split(":")
+        kind, n, *tile = case.split(":")
         fn = _rows(kind, int(n), gen, dev)
-        row = split(lambda: fn(int(tile)), args.reps)
+        tile = int(tile[0]) if tile else None
+        row = split(lambda: fn(tile), args.reps)
         print(json.dumps({"case": case, "device": torch.cuda.get_device_name(0),
                           **row}), flush=True)
         del fn

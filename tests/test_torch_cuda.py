@@ -4,9 +4,10 @@ No JAX here: this file runs on a machine with the card and PyTorch only,
 ``python -m pytest tests/test_torch_cuda.py -m cuda``. Kernel against plain
 version on the same CUDA tensors: bitwise on dyadic inputs; on random
 inputs allclose (rtol 1e-5, atol 1e-5) with ``top`` exact; the histogram
-kernels ``scd_fused_hist`` and ``bucket_hist``, whose plain versions add in
-the kernels' order, and the elementwise ``scd_candidates``,
-``screen_bound`` and ``adjusted_topc`` bitwise on any input. The screened host-fed solve on the card: bitwise the unscreened one
+kernels ``scd_fused_hist`` and ``bucket_hist`` and the finalize, whose plain
+versions add in the kernels' order, and the elementwise ``scd_candidates``,
+``screen_bound`` and ``adjusted_topc`` bitwise on any input (the finalize
+and ``adjusted_topc`` at every K branch, q and tile). The screened host-fed solve on the card: bitwise the unscreened one
 and the CPU one, with the same streamed-chunk profile; host-fed DD bitwise
 the resident chunked DD. The resident solve on the card:
 chunked == unchunked and repeated runs bitwise, and within tolerance of
@@ -326,6 +327,96 @@ def test_adjusted_topc_bitwise_on_card(cuda_device, n, q):
     torch.cuda.synchronize()
     assert torch.equal(x, px) and torch.equal(v, pv)
     assert torch.equal(x, select_sparse(p, b, lam, q))
+
+
+# K at each compile-time branch of the two redesigned kernels (KC = 8, 16,
+# 64) and its edges; q from none to all K.
+BRANCH_K = [1, 8, 9, 16, 17, 64]
+QS = ["0", "1", "3", "K"]
+
+
+def _branch_rows(n, k, seed, dyadic, device):
+    """Rows with b = 0 (no valid item), and rows whose adjusted profits all
+    tie (b = 0, equal p): the selection takes the lowest indices."""
+    g = np.random.default_rng(seed)
+    if dyadic:
+        p, b = g.integers(0, 64, (n, k)) / 64.0, g.integers(0, 64, (n, k)) / 64.0
+        lam = g.integers(0, 12, (k,)) / 8.0
+    else:
+        p, b, lam = g.random((n, k)), g.uniform(0.0, 1.0, (n, k)), g.uniform(0, 1.5, k)
+    b[::7] = 0.0
+    p[1::5] = p[1::5, :1]
+    b[1::5] = 0.0
+    return tuple(torch.tensor(a, dtype=torch.float32, device=device)
+                 for a in (p, b, lam))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dyadic", [False, True])
+@pytest.mark.parametrize("q", QS)
+@pytest.mark.parametrize("k", BRANCH_K)
+def test_adjusted_topc_branches_bitwise_on_card(cuda_device, k, q, dyadic):
+    """Every K branch, ragged n (256 m - 37, and n below one 256-row tile)."""
+    q = k if q == "K" else int(q)
+    for n in (256 * 16 - 37, 100):
+        p, b, lam = _branch_rows(n, k, n + k + q, dyadic, cuda_device)
+        x, v = ops.adjusted_topc(p, b, lam, q)
+        px, pv = ref.adjusted_topc_plain(p, b, lam, q)
+        torch.cuda.synchronize()
+        assert x.dtype == torch.bool and v.dtype == torch.float32
+        assert torch.equal(x, px) and torch.equal(v, pv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", QS)
+@pytest.mark.parametrize("tile", [128, 512, 1024])
+@pytest.mark.parametrize("k", BRANCH_K)
+def test_finalize_branches_bitwise_on_card(cuda_device, k, tile, q):
+    """The finalize equals its plain version bit for bit at every K branch,
+    tile, q, with and without the histograms, seeded and not, on random
+    rows at a ragged n (3 tiles - 37) and dyadic rows at n below one tile."""
+    q = k if q == "K" else int(q)
+    pedges = profit_edges_fixed(device=cuda_device)
+    if k * tile > 32768:            # its consumption tile alone exceeds shared memory
+        p, b, lam = _branch_rows(tile, k, 0, False, cuda_device)
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.scd_finalize_hist(p, b, lam, pedges, q, tile_n=tile)
+        return
+    g = np.random.default_rng(k * tile + q)
+    for n, dyadic in ((3 * tile - 37, False), (tile // 2 + 3, True)):
+        p, b, lam = _branch_rows(n, k, n + q, dyadic, cuda_device)
+        for with_hist in (True, False):
+            for seeded in (False, True):
+                seeds = {}
+                if seeded:
+                    t = lambda *s: torch.tensor(g.random(s) * 4, dtype=torch.float32,  # noqa: E731
+                                                device=cuda_device)
+                    seeds = {"r_init": t(k), "sums_init": t(2) * 64,
+                             "maxs_init": torch.tensor([0.5, -0.25], device=cuda_device)}
+                    if with_hist:
+                        seeds.update(cons_hist_init=t(k, 513), gain_hist_init=t(513))
+                got = ops.scd_finalize_hist(p, b, lam, pedges, q, tile_n=tile,
+                                            with_hist=with_hist, **seeds)
+                want = ref.scd_finalize_plain(p, b, lam, pedges, q, tile_n=tile,
+                                              with_hist=with_hist, **seeds)
+                torch.cuda.synchronize()
+                for a, c in zip(got, want):
+                    assert (a is None and c is None) or torch.equal(a, c), \
+                        (n, with_hist, seeded)
+
+
+@pytest.mark.cuda
+def test_finalize_passes_seeds_unpacked(cuda_device, monkeypatch):
+    """The card's wrapper hands the seeds to the fold as they are."""
+    def boom(*a, **kw):
+        raise AssertionError("the card's finalize packed its seeds")
+
+    monkeypatch.setattr(ref, "pack_finalize_init", boom)
+    p, b, lam = _inst(4099, 10, 4, False, cuda_device)
+    out = ops.scd_finalize_hist(p, b, lam, profit_edges_fixed(device=cuda_device), 1,
+                                r_init=torch.ones(10, device=cuda_device))
+    torch.cuda.synchronize()
+    assert out[2].is_cuda
 
 
 @pytest.mark.cuda

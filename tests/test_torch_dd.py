@@ -67,6 +67,24 @@ def test_adjusted_topc_plain_vs_reference(n, q, dyadic):
     assert x.dtype == torch.bool and v.dtype == torch.float32
 
 
+@pytest.mark.parametrize("q", ["1", "3", "K"])
+@pytest.mark.parametrize("k", [8, 9, 17])
+def test_adjusted_topc_plain_vs_reference_k_branches(k, q):
+    """At each compile-time branch of the kernel (KC = 8, 16, 64) and its
+    edges, with b = 0 rows and all-tied rows: equal to the reference's jnp
+    version bit for bit."""
+    q = k if q == "K" else int(q)
+    p, b, lam = _inst(1000, k, 7 * k + q, False)
+    b[::7] = 0.0
+    p[1::5] = p[1::5, :1]
+    b[1::5] = 0.0
+    x, v = ref.adjusted_topc_plain(*map(torch.tensor, (p, b, lam)), q)
+    jx, jv = jref.adjusted_topc_ref(jnp.asarray(p), jnp.asarray(b), jnp.asarray(lam), q)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    assert x[1::5].sum(1).eq(min(q, k)).all()         # the tied rows pick q items
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_adjusted_topc_plain_vs_pallas(seed):
     """Interpret-mode Pallas equals the top-Q of the FMA-contracted

@@ -301,3 +301,90 @@ def test_fused_hist_chunked_equals_unchunked_tiles(tile, chunk, n):
         h, top = ops.scd_fused_hist(p[s:s + chunk], b[s:s + chunk], lam, edges, 1,
                                     hist_init=h, top_init=top, **kw)
     assert torch.equal(h, h1) and torch.equal(top, t1)
+
+
+# The finalize's in-tile order, and the redesigned kernel's K branches
+# (KC = 8, 16, 64) against the reference.
+@pytest.mark.parametrize("k", [8, 9, 17])
+def test_finalize_plain_vs_pallas_k_branches(k):
+    p, b, lam = _inst(1021, k, seed=3 * k)
+    pedges = np.asarray(j_pedges(512, 1e-6, 1e6, jnp.float32))
+    j, t = _fin_pair(p, b, lam, 2, pedges, _fin_seeds(k, 513, k))
+    for a, c in zip(t[:5], j[:5]):
+        np.testing.assert_allclose(a, c, **TOL)
+    np.testing.assert_allclose(t[5:], j[5:], rtol=1e-6, atol=1e-7)
+
+
+def _finalize_order_ref(p, b, lam, q, pedges, tile, seeds, with_hist):
+    """The finalize written out with float32 scalars: per row the top-Q
+    selection (ties to the lower index, only values > 0), gain and pt left to
+    right from 0.0 and the bin (count of edges below pt); per tile every
+    histogram bin, r[j], primal and dual a sum over the tile's rows in row
+    order from 0.0; the tile records onto the seeds in tile order."""
+    f32 = np.float32
+    n, k = p.shape
+    nb = pedges.shape[0] + 1
+    acc_ch = seeds["cons_hist_init"].astype(f32).copy()
+    acc_gh = seeds["gain_hist_init"].astype(f32).copy()
+    acc_r = seeds["r_init"].astype(f32).copy()
+    acc_s = seeds["sums_init"].astype(f32).copy()
+    hi, nlo = f32(seeds["maxs_init"][0]), f32(seeds["maxs_init"][1])
+    for t0 in range(0, n, tile):
+        ch = np.zeros((k, nb), f32)
+        gh = np.zeros((nb,), f32)
+        r = np.zeros((k,), f32)
+        s = np.zeros((2,), f32)
+        for row in range(t0, min(t0 + tile, n)):
+            ap = [f32(p[row, j] - f32(lam[j] * b[row, j])) for j in range(k)]
+            work, x = list(ap), [False] * k
+            for _ in range(q):
+                m = max(work)
+                if not m > 0:
+                    break
+                pick = work.index(m)
+                x[pick], work[pick] = True, -np.inf
+            gain, pt = f32(0.0), f32(0.0)
+            for j in range(k):
+                gain = f32(gain + (p[row, j] if x[j] else f32(0.0)))
+                pt = f32(pt + (ap[j] if x[j] else f32(0.0)))
+            bin_ = int((pedges < pt).sum())
+            for j in range(k):
+                cons = b[row, j] if x[j] else f32(0.0)
+                r[j] = f32(r[j] + cons)
+                ch[j, bin_] = f32(ch[j, bin_] + cons)
+            gh[bin_] = f32(gh[bin_] + gain)
+            s[0], s[1] = f32(s[0] + gain), f32(s[1] + pt)
+            if any(x):
+                hi, nlo = max(hi, pt), max(nlo, f32(-pt))
+        acc_ch, acc_gh = acc_ch + ch, acc_gh + gh
+        acc_r, acc_s = acc_r + r, acc_s + s
+    return ((acc_ch, acc_gh) if with_hist else (None, None)) + (
+        acc_r, acc_s[0], acc_s[1], -nlo, hi)
+
+
+@pytest.mark.parametrize("with_hist", [True, False])
+@pytest.mark.parametrize("q", [1, 3])
+def test_finalize_plain_addition_order(q, with_hist):
+    """Random rows whose group profits share a few bins, where the order
+    shows in the last bits: the plain finalize equals the order written
+    out, bit for bit. The card's walks must reproduce this order."""
+    n, k, tile = 300, 4, 128                 # a ragged last tile
+    p, b, lam = _inst(n, k, seed=31 + q)
+    pedges = np.geomspace(1e-2, 2.0, 12).astype(np.float32)
+    g = np.random.default_rng(q)
+    nb = pedges.shape[0] + 1
+    seeds = {"cons_hist_init": g.random((k, nb)).astype(np.float32),
+             "gain_hist_init": g.random((nb,)).astype(np.float32),
+             "r_init": g.random((k,)).astype(np.float32),
+             "sums_init": (g.random((2,)) * 10).astype(np.float32),
+             "maxs_init": np.array([0.5, -0.25], np.float32)}
+    want = _finalize_order_ref(p, b, lam, q, pedges, tile, seeds, with_hist)
+    kw = dict(seeds) if with_hist else {key: v for key, v in seeds.items()
+                                       if "hist" not in key}
+    got = ops.scd_finalize_hist(_t(p), _t(b), _t(lam), _t(pedges), q, tile_n=tile,
+                                with_hist=with_hist, **{key: _t(v) for key, v in kw.items()})
+    for a, c in zip(got, want):
+        if c is None:
+            assert a is None
+        else:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(c, np.float32))
