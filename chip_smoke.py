@@ -25,7 +25,10 @@ check raises, so the script exits non-zero and prints no result line:
    0.5) at N = 10,000,000 (``--scale 0.1``), chunk 65,536, through the
    launcher's ``run_streaming``, with launch counts and the per-epoch split;
 6. the resident path's kernels against their plain versions:
-   ``scd_candidates`` at N = 10^7 and 10^7 - 37, q in {1, 3}, bitwise;
+   ``scd_candidates`` at N = 10^7 and 10^7 - 37, q in {1, 3}, and at each
+   K branch and staged row width (K in 1, 8, 9, 10, 16, 17, 64; q in {0,
+   1, 3, K}; 262,107 rows with b = 0, b < 0 and tied rows, aligned and one
+   row in), bitwise, timed at K = 10 (after its profiler split), 8 and 16;
    ``bucket_hist`` at the dense shape (100,000 users x 55 candidates, K =
    10, default tile), seeded and unseeded, random and dyadic, bitwise;
    ``scd_fused_hist`` at the resident shape (N = 10^7, default tile),
@@ -51,7 +54,9 @@ check raises, so the script exits non-zero and prints no result line:
    iterations bitwise);
 10. the slice-3 kernels against their plain versions, bitwise:
    ``screen_bound`` at a 65,536-row chunk and 65,536 - 37 rows, K = 6 and
-   10, random and dyadic rows, with rows and a whole column at b = 0;
+   10, random and dyadic rows, with rows and a whole column at b = 0,
+   written through ``out=`` into one row of a buffer as the screened
+   driver does, and timed so after its profiler split;
    ``adjusted_topc`` at N = 10^7 and 10^7 - 37, K = 10, q in {1, 3}, also
    against ``select_sparse``, and at each K branch (K in 1, 8, 9, 16, 17,
    64; q in {0, 1, 3, K}; 262,107 rows with b = 0 and tied rows); times
@@ -91,6 +96,7 @@ N_HOST_DD = 1_000_000               # host-fed DD
 BANDED = dict(k=6, q=2, tightness=0.08, band=0.05)   # benchmarks/bench_screening.py
 FIN_TILE = 512                      # ops.pick_tile at a 65,536-row chunk
 BRANCH_K = (1, 8, 9, 16, 17, 64)    # each KC branch of the finalize and adjusted_topc
+CAND_K = (1, 8, 9, 10, 16, 17, 64)  # scd_candidates: each KC branch and row width
 SOURCE = {"scd_fused_hist": CSRC + "scd_fused.cu",
           "scd_finalize_hist": CSRC + "scd_fused.cu",
           "scd_candidates": CSRC + "scd_candidates.cu",
@@ -436,7 +442,7 @@ def close_solve(gpu, cpu):
                     <= 1e-5 * abs(float(getattr(cpu, f))) for f in ("primal", "dual")))
 
 
-def phase_resident_kernels(torch, dev):
+def phase_resident_kernels(torch, np, dev):
     """The resident path's kernels against their plain versions, timed."""
     from repro_torch.core.bucketing import make_edges
     from repro_torch.kernels import ops, ref
@@ -445,12 +451,12 @@ def phase_resident_kernels(torch, dev):
     gen = torch.Generator(device=dev)
     out, cases = {}, 0
 
-    def rows(n, seed):
+    def rows(n, seed, k=K):
         gen.manual_seed(seed)
-        p = torch.rand((n, K), generator=gen, device=dev)
-        b = torch.rand((n, K), generator=gen, device=dev)
+        p = torch.rand((n, k), generator=gen, device=dev)
+        b = torch.rand((n, k), generator=gen, device=dev)
         b[::7, 3] = 0.0                           # no candidate at b = 0
-        lam = 0.3 + torch.rand((K,), generator=gen, device=dev)
+        lam = 0.3 + torch.rand((k,), generator=gen, device=dev)
         return p, b, lam
 
     for n in (N_RES, N_RES - 37):
@@ -463,15 +469,41 @@ def phase_resident_kernels(torch, dev):
                   f"scd_candidates differs from its plain version (n={n}, q={q})")
             cases += 1
             del kv, pv
-    p, b, lam = rows(N_RES, 5)
+    # Each K branch and staged row width (K odd, 2 mod 4, swizzled 8, 16,
+    # 64), q from none to all K, aligned and one row in (unaligned copies).
+    for k in CAND_K:
+        for q in sorted({0, 1, 3, k}):
+            for dyadic in (False, True):
+                pk, bk, lk = branch_rows(torch, np, 4 * C_MAIN - 36, k, 5 * k + q, dyadic,
+                                         dev)
+                bk[2::11] = -bk[2::11]
+                for tag, pa, ba in (("aligned", pk[:-1], bk[:-1]),
+                                    ("one row in", pk[1:], bk[1:])):
+                    kv = ops.scd_candidates(pa, ba, lk, q)
+                    want = ref.candidates_block(pa, ba, lk, q)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(x, y) for x, y in zip(kv, want)),
+                          f"scd_candidates differs from its plain version (K={k} q={q} "
+                          f"dyadic={dyadic} {tag})")
+                    cases += 1
+    del pk, bk, kv, want
+
+    def cand_row(k):
+        pk, bk, lk = rows(N_RES, 5, k)
+        call = lambda: ops.scd_candidates(pk, bk, lk, Q_MAIN)  # noqa: E731
+        return pk, bk, lk, call, {
+            "ms": time_ms(torch, call, reps=20),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(4 * (4 * N_RES * k + k), N_RES * k * (11 + 2 * Q_MAIN))))}
+
+    other_k = {f"k{k}": cand_row(k)[-1] for k in (8, 16)}
+    p, b, lam, cand_call, row = cand_row(K)
+    emit("kernel_split", kernel="scd_candidates", rows=N_RES, k=K, **split(cand_call, reps=20))
     out["scd_candidates"] = {
-        "max_abs_err": 0.0,
-        "ms": time_ms(torch, lambda: ops.scd_candidates(p, b, lam, Q_MAIN), reps=20),
+        "max_abs_err": 0.0, **row,
         "plain_ms": time_ms(torch, lambda: ref.candidates_block(p, b, lam, Q_MAIN),
                             reps=3, warmup=1),
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(4 * (4 * N_RES * K + K), N_RES * K * (11 + 2 * Q_MAIN)))),
-        "library_ms": None, "n": N_RES}
+        "library_ms": None, "n": N_RES, "k": K, "q": Q_MAIN, "other_k": other_k}
 
     # The fused kernel at the resident shape: one call over N rows, at the
     # map's default tile (what the resident solve runs).
@@ -738,20 +770,29 @@ def phase_slice3_kernels(torch, np, dev):
                 b[:, 1] = 0.0                      # a column without one: -inf
                 pt = torch.tensor(p, dtype=torch.float32, device=dev)
                 bt = torch.tensor(b, dtype=torch.float32, device=dev)
-                got = ops.screen_bound(pt, bt)
+                # Into row 1 of a (3, K) buffer, as the screened driver
+                # writes its certificates; rows 0 and 2 must stay.
+                buf = torch.full((3, k), 7.0, dtype=torch.float32, device=dev)
+                got = ops.screen_bound(pt, bt, out=buf[1])
                 want = ref.screen_bound_plain(pt, bt)
                 torch.cuda.synchronize()
                 tag = f"K={k} n={c} dyadic={dyadic}"
-                check(torch.equal(got, want), f"screen_bound not bitwise ({tag})")
+                check(torch.equal(got, want) and torch.equal(buf[1], want),
+                      f"screen_bound not bitwise ({tag})")
+                check(bool(torch.all(buf[0::2] == 7.0)), f"screen_bound wrote outside out ({tag})")
                 check(float(got[1]) == float("-inf"), f"screen_bound column not -inf ({tag})")
                 cases += 1
     kb = BANDED["k"]
     g = np.random.default_rng(3)
     pt = torch.tensor(g.random((C_MAIN, kb)) * 0.05, dtype=torch.float32, device=dev)
     bt = torch.tensor(0.5 + g.random((C_MAIN, kb)) * 0.5, dtype=torch.float32, device=dev)
+    bound_row = torch.empty((kb,), dtype=torch.float32, device=dev)
+    screen_call = lambda: ops.screen_bound(pt, bt, out=bound_row)  # noqa: E731
+    emit("kernel_split", kernel="screen_bound", rows=C_MAIN, k=kb,
+         **split(screen_call, reps=50))
     out = {"screen_bound": {
         "max_abs_err": 0.0, "rows": C_MAIN, "k": kb,
-        "ms": time_ms(torch, lambda: ops.screen_bound(pt, bt), reps=50),
+        "ms": time_ms(torch, screen_call, reps=50),
         "plain_ms": time_ms(torch, lambda: ref.screen_bound_plain(pt, bt), reps=20),
         **dict(zip(("bound_ms", "bound_by"),
                    bound(4 * (2 * C_MAIN * kb + kb), 2 * C_MAIN * kb))),
@@ -947,7 +988,7 @@ def main():
     phase_determinism_and_cpu(torch, np, dev)
     host_fed_launches, host_fed_row = phase_end_to_end(torch, dev)
     paths = {"host_fed": host_fed_launches}
-    new_kern, fused_resident = phase_resident_kernels(torch, dev)
+    new_kern, fused_resident = phase_resident_kernels(torch, np, dev)
     kern.update(new_kern)
     kern["scd_fused_hist"]["resident_shape"] = fused_resident
     paths.update(phase_resident_end_to_end(torch, dev, host_fed_row))

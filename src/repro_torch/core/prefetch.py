@@ -329,7 +329,7 @@ class _SingleRuntime:
 
         def step(carry, p_c, b_c, i):
             if i in noted:
-                self.bound_d[i].copy_(chunk_bound(p_c, b_c))
+                chunk_bound(p_c, b_c, out=self.bound_d[i])
             return scd_chunk_accumulate(p_c, b_c, lam_d, edges_d, self.q,
                                         self.cfg, *carry)
 

@@ -43,12 +43,12 @@ from .bucketing import hist_crossings, make_edges
 __all__ = ["chunk_bound", "crossing_trusted", "lowest_edges", "HostScreen"]
 
 
-def chunk_bound(p_c, b_c):
+def chunk_bound(p_c, b_c, out=None):
     """(chunk, K) profits and costs -> (K,) f32: the column max of ``p / b``
     over rows with ``b > 0`` (-inf where there is none), through the
     ``screen_bound`` kernel on a CUDA tensor and its plain version on a
-    CPU one."""
-    return ops.screen_bound(p_c, b_c)
+    CPU one; written into ``out`` (a (K,) view) when given."""
+    return ops.screen_bound(p_c, b_c, out=out)
 
 
 def crossing_trusted(hist, budgets):

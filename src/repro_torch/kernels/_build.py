@@ -98,7 +98,7 @@ def load() -> ctypes.CDLL:
                                                  + [i64, i32, i32, i32, i32, i32, vp])
         lib.scd_candidates_launch.argtypes = [vp] * 5 + [i64, i32, i32, vp]
         lib.bucket_hist_launch.argtypes = [vp] * 7 + [i64, i32, i32, i32, vp]
-        lib.screen_bound_launch.argtypes = [vp] * 5 + [i64, i32, i32, vp]
+        lib.screen_bound_launch.argtypes = [vp] * 5 + [i64, i32, i32, i64, vp]
         lib.adjusted_topc_launch.argtypes = [vp] * 5 + [i64, i32, i32, vp]
         for fn in (lib.scd_fused_hist_launch, lib.scd_finalize_hist_launch,
                    lib.scd_candidates_launch, lib.bucket_hist_launch,

@@ -1,5 +1,6 @@
-"""What the kernel wrappers share: input checks, the launch check and the
-launch counts.
+"""What the kernel wrappers share: input checks, the launch check, the
+launch counts and the scratch kept per (device, stream): ticket counters
+and ``screen_bound``'s partials.
 
 ``LAUNCHES`` counts the launches of each kernel, one per wrapper call
 that launched it (the wrappers in ``scd_fused``, ``scd_candidates``,
@@ -87,28 +88,49 @@ def ptr(t):
 
 
 _TICKETS: dict = {}
+_SCREEN: dict = {}
+
+
+def tickets(x, need):
+    """int32 counters for the kernels' last-block tickets on ``x``'s device
+    and current stream, at least ``need`` of them, all zero: each kernel
+    puts the counters it takes back to zero, so one buffer per (device,
+    stream) serves every call on that stream and grows when a call needs
+    more."""
+    key = (x.device, stream_of(x))
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < need:
+        t = torch.zeros((max(need, 4096),), dtype=torch.int32, device=x.device)
+        _TICKETS[key] = t
+    return t
 
 
 def hist_buffers(lib, x, e, tile_n, fused):
     """What one launch of the histogram kernels of ``csrc/hist_tile.cuh`` on
     the (n, K) rows ``x`` needs beside its inputs: (scratch, tickets, out).
-    The scratch holds the sub-tile and tile records; the tickets are int32
-    counters, zero, that the kernel puts back to zero, so one buffer per
-    (device, stream) serves every call on that stream and grows when a call
-    needs more."""
+    The scratch holds the sub-tile and tile records."""
     (n, k), device = x.shape, x.device
     check_smem(lib.hist_smem_bytes(k, e, tile_n, int(fused)), tile_n, k, e)
     rec = k * (e + 1) + (k if fused else 0)
     scratch = torch.empty((lib.hist_scratch(n, k, e, tile_n, int(fused)),),
                           dtype=torch.float32, device=device)
     out = torch.empty((rec,), dtype=torch.float32, device=device)
-    key = (device, stream_of(x))
-    need = -(-n // tile_n) + 1
-    tickets = _TICKETS.get(key)
-    if tickets is None or tickets.numel() < need:
-        tickets = torch.zeros((max(need, 4096),), dtype=torch.int32, device=device)
-        _TICKETS[key] = tickets
-    return scratch, tickets, out
+    return scratch, tickets(x, -(-n // tile_n) + 1), out
+
+
+def screen_scratch(x):
+    """What ``screen_bound`` needs on ``x``'s device and current stream,
+    made once and kept: (partials, SM count). The kernel runs at most
+    2 x SMs + KMAX blocks of K <= KMAX partial maxima, each written before
+    it is read, so the buffer is never cleared."""
+    key = (x.device, stream_of(x))
+    hit = _SCREEN.get(key)
+    if hit is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        part = torch.empty(((2 * sms + KMAX) * KMAX,), dtype=torch.float32,
+                           device=x.device)
+        hit = _SCREEN[key] = (part, sms)
+    return hit
 
 
 def launched(fn, err, lib):

@@ -106,21 +106,6 @@ __device__ __forceinline__ void bin_row(const float* edges, int e, int k,
   }
 }
 
-// One ticket per block on counter c (thread 0); true in the block that
-// took the last of `total`, which also puts the counter back to zero.
-__device__ __forceinline__ bool last_ticket(int* c, long long total, int* s_flag) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const bool last = atomicAdd(c, 1) == total - 1;
-    if (last) *c = 0;
-    *s_flag = last;
-  }
-  __syncthreads();
-  if (*s_flag) __threadfence();
-  return *s_flag;
-}
-
 template <bool FUSED, int KC>
 __global__ void __launch_bounds__(HIST_SUB, HIST_MIN_BLOCKS) hist_kernel(HistArgs A) {
   extern __shared__ __align__(16) float hist_smem[];

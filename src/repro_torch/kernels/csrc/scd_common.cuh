@@ -1,6 +1,7 @@
 // Per-row building blocks shared by the kernels of csrc/: the Alg-5
 // candidates and the greedy top-Q of one row, the searchsorted-left bin,
-// row staging into shared memory, the ordered fold and the launch helpers.
+// row staging into shared memory, the ordered fold, the last-block ticket
+// and the launch helpers.
 // The tie and rounding semantics of the candidate map exist only here, as
 // candidates_block does in the reference (src/repro/kernels/scd_candidates.py).
 //
@@ -130,41 +131,72 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Where a staged tile keeps its 16-byte units: unit u of the rows' range
+// at unit phys(u) of the shared buffer. NoSwizzle keeps them in order.
+// RowSwizzle is for rows of w = 2^shift units (k = 4w floats, w >= 2): it
+// XORs a unit's place with its row's low three bits, which permutes the
+// units of each aligned group of eight, so a thread that reads its own row
+// a 16-byte unit at a time meets seven other rows on distinct bank groups
+// (row-major rows of 8, 16 or 64 floats would put 2, 4 or 8 rows on one).
+struct NoSwizzle {
+  static constexpr bool identity = true;
+  __device__ __forceinline__ int operator()(int u) const { return u; }
+};
+
+struct RowSwizzle {
+  static constexpr bool identity = false;
+  int shift, mask;   // mask 0: no swizzle
+  __device__ __forceinline__ int operator()(int u) const {
+    return u ^ ((u >> shift) & mask);
+  }
+};
+
+// Offset of element i of a staged range of PER elements a unit, whose units
+// sit at swz(unit).
+template <int PER, typename Swz>
+__device__ __forceinline__ int staged(const Swz& swz, int i) {
+  if constexpr (Swz::identity) return i;
+  else return PER * swz(i / PER) + i % PER;
+}
+
 // Copies count floats from src into dst (16-byte aligned shared memory), of
 // which the first `valid` are read and the rest zero-filled; src may be
 // unreadable past `valid` (masked copies read nothing from their address,
 // which is src itself). 16-byte copies when src is aligned, else 4-byte.
-// The caller waits (cp_async_wait_all, then __syncthreads).
+// Each 16-byte unit lands at swz(unit). The caller waits
+// (cp_async_wait_all, then __syncthreads).
+template <typename Swz = NoSwizzle>
 __device__ __forceinline__ void load_async(float* dst, const float* src, int count,
-                                           int valid) {
+                                           int valid, Swz swz = {}) {
   if (valid <= 0) {
-    for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = 0.f;
+    for (int i = threadIdx.x; i < count; i += blockDim.x) dst[staged<4>(swz, i)] = 0.f;
   } else if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
     for (int i = 4 * threadIdx.x; i < count; i += 4 * blockDim.x) {
       const int v = min(max(valid - i, 0), 4);
-      cp_async16(dst + i, v ? src + i : src, 4 * v);
+      cp_async16(dst + 4 * swz(i >> 2), v ? src + i : src, 4 * v);
     }
   } else {
     for (int i = threadIdx.x; i < count; i += blockDim.x)
-      cp_async4(dst + i, i < valid ? src + i : src, i < valid ? 4 : 0);
+      cp_async4(dst + staged<4>(swz, i), i < valid ? src + i : src, i < valid ? 4 : 0);
   }
 }
 
 // Stores `count` elements of T from 16-byte aligned shared memory to dst,
 // by the block: 16-byte vector stores when dst is aligned (consecutive
 // threads on consecutive 16-byte pieces), the tail and unaligned dst one
-// element a thread.
-template <typename T>
-__device__ __forceinline__ void store_tile(T* dst, const T* src, int count) {
+// element a thread. The 16-byte unit u of dst is read from unit swz(u).
+template <typename T, typename Swz = NoSwizzle>
+__device__ __forceinline__ void store_tile(T* dst, const T* src, int count, Swz swz = {}) {
   constexpr int per = 16 / sizeof(T);
   int done = 0;
   if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
     const int vecs = count / per;
     for (int i = threadIdx.x; i < vecs; i += blockDim.x)
-      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[swz(i)];
     done = vecs * per;
   }
-  for (int i = done + threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
+  for (int i = done + threadIdx.x; i < count; i += blockDim.x)
+    dst[i] = src[staged<per>(swz, i)];
 }
 
 // acc folded with the count values src[0], src[stride], ... in order: added
@@ -194,6 +226,23 @@ __device__ __forceinline__ float fold_chain(float acc, const float* src, long lo
     acc = sum ? __fadd_rn(acc, v) : fmaxf(acc, v);
   }
   return acc;
+}
+
+// One ticket per block on counter c (thread 0); true in the block that
+// took the last of `total`, which also puts the counter back to zero. The
+// fences order the block's earlier global writes before its ticket, and the
+// last block's later reads after every ticket.
+__device__ __forceinline__ bool last_ticket(int* c, long long total, int* s_flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const bool last = atomicAdd(c, 1) == total - 1;
+    if (last) *c = 0;
+    *s_flag = last;
+  }
+  __syncthreads();
+  if (*s_flag) __threadfence();
+  return *s_flag;
 }
 
 template <typename Kernel>

@@ -67,11 +67,13 @@ def bucket_hist(v1, v2, edges, tile_n=MAP_TILE, hist_init=None):
                                     hist_init=hist_init)
 
 
-def screen_bound(p, b):
-    """Screening certificate (K,): the column max of p / b over b > 0 rows."""
+def screen_bound(p, b, out=None):
+    """Screening certificate (K,): the column max of p / b over b > 0 rows,
+    written into ``out`` when given (on the CPU, the plain result copied in)."""
     if p.device.type == "cpu":
-        return ref.screen_bound_plain(p, b)
-    return _screen_bound.screen_bound(p, b)
+        res = ref.screen_bound_plain(p, b)
+        return res if out is None else out.copy_(res)
+    return _screen_bound.screen_bound(p, b, out=out)
 
 
 def adjusted_topc(p, b, lam, q):

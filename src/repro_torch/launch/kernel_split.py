@@ -2,8 +2,9 @@
 
     python -m repro_torch.launch.kernel_split [--case fused:10000000:8192 ...]
 
-Each ``--case kind:rows[:tile]`` calls one kernel wrapper of
-``kernels.ops`` on ``rows`` random rows (K = 10, q = 1):
+Each ``--case kind:rows[:arg]`` calls one kernel wrapper of
+``kernels.ops`` on ``rows`` random rows (K = 10, q = 1 unless the case
+sets K):
 
 * ``fused:ROWS:TILE``: ``scd_fused_hist`` at ``tile``;
 * ``bucket:ROWS:TILE``: ``bucket_hist`` on dense-like candidates at ``tile``;
@@ -11,7 +12,12 @@ Each ``--case kind:rows[:tile]`` calls one kernel wrapper of
   the fixed 512-edge profit ladder, every seed passed (the carry of a
   chunked finalize, as ``chip_smoke.py`` seeds it), at ``tile`` (at most
   1,024);
-* ``topc:ROWS``: ``adjusted_topc``.
+* ``topc:ROWS``: ``adjusted_topc``;
+* ``cand:ROWS[:K]``: ``scd_candidates`` (K = 10 by default);
+* ``screen:ROWS[:K]``: ``screen_bound`` on banded-like rows (K = 6 by
+  default, the banded workload's), written into a (K,) buffer through
+  ``out=`` as the screened driver does (a wrapper without ``out=`` returns
+  a new tensor).
 
 It prints one JSON line per case:
 
@@ -29,6 +35,7 @@ Needs a CUDA card; the kernels are built at first use.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import re
 import time
@@ -42,11 +49,26 @@ from ..kernels import ops
 K = 10
 DEFAULT_CASES = ("fused:10000000:8192", "fused:65536:8192", "bucket:5500000:8192",
                  "finalize:65536:512", "finalize:10000000:512", "topc:65536",
-                 "topc:10000000")
+                 "topc:10000000", "cand:10000000", "cand:65536", "screen:65536")
 
 
-def _rows(kind, n, gen, dev):
-    """The case's call, a function of the tile."""
+def _rows(kind, n, gen, dev, arg=None):
+    """The case's call, a function of the tile (``arg`` is the tile of the
+    histogram and finalize kinds, K of ``cand`` and ``screen``)."""
+    if kind == "screen":
+        k = arg or 6
+        p = torch.rand((n, k), generator=gen, device=dev) * 0.05
+        b = 0.5 + torch.rand((n, k), generator=gen, device=dev) * 0.5
+        if "out" not in inspect.signature(ops.screen_bound).parameters:
+            return lambda _tile: ops.screen_bound(p, b)
+        out = torch.empty((k,), dtype=torch.float32, device=dev)
+        return lambda _tile: ops.screen_bound(p, b, out=out)
+    if kind == "cand":
+        k = arg or K
+        p = torch.rand((n, k), generator=gen, device=dev)
+        b = torch.rand((n, k), generator=gen, device=dev)
+        lam = 0.3 + torch.rand((k,), generator=gen, device=dev)
+        return lambda _tile: ops.scd_candidates(p, b, lam, 1)
     p = torch.rand((n, K), generator=gen, device=dev)
     b = torch.rand((n, K), generator=gen, device=dev)
     lam = 0.3 + torch.rand((K,), generator=gen, device=dev)
@@ -123,8 +145,8 @@ def split(fn, reps):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--case", action="append", help="kind:rows[:tile] (kind fused, "
-                    "bucket, finalize or topc; default "
+    ap.add_argument("--case", action="append", help="kind:rows[:arg] (kind fused, "
+                    "bucket, finalize, topc, cand or screen; default "
                     f"{' '.join(DEFAULT_CASES)})")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
@@ -133,10 +155,10 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     for case in args.case or DEFAULT_CASES:
-        kind, n, *tile = case.split(":")
-        fn = _rows(kind, int(n), gen, dev)
-        tile = int(tile[0]) if tile else None
-        row = split(lambda: fn(tile), args.reps)
+        kind, n, *arg = case.split(":")
+        arg = int(arg[0]) if arg else None
+        fn = _rows(kind, int(n), gen, dev, arg)
+        row = split(lambda: fn(arg), args.reps)
         print(json.dumps({"case": case, "device": torch.cuda.get_device_name(0),
                           **row}), flush=True)
         del fn

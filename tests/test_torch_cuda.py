@@ -6,10 +6,12 @@ version on the same CUDA tensors: bitwise on dyadic inputs; on random
 inputs allclose (rtol 1e-5, atol 1e-5) with ``top`` exact; the histogram
 kernels ``scd_fused_hist`` and ``bucket_hist`` and the finalize, whose plain
 versions add in the kernels' order, and the elementwise ``scd_candidates``,
-``screen_bound`` and ``adjusted_topc`` bitwise on any input (the finalize
-and ``adjusted_topc`` at every K branch, q and tile). The screened host-fed solve on the card: bitwise the unscreened one
-and the CPU one, with the same streamed-chunk profile; host-fed DD bitwise
-the resident chunked DD. The resident solve on the card:
+``screen_bound`` and ``adjusted_topc`` bitwise on any input (the finalize,
+``scd_candidates`` and ``adjusted_topc`` at every K branch, q and tile;
+``screen_bound`` also through ``out=``, and unaligned). The screened
+host-fed solve on the card: bitwise the unscreened one and the CPU one,
+with the same streamed-chunk profile; host-fed DD bitwise the resident
+chunked DD. The resident solve on the card:
 chunked == unchunked and repeated runs bitwise, and within tolerance of
 the same solve on the CPU (lam rtol 1e-5 / atol 1e-6, iterations within
 one, primal and dual 1e-5 relative): its sums run in another order there.
@@ -37,6 +39,7 @@ from repro_torch.kernels import (  # noqa: E402
     scd_fused,
     screen_bound,
 )
+from repro_torch.kernels import _wrap  # noqa: E402
 
 
 def _inst(n, k, seed, dyadic, device):
@@ -225,16 +228,29 @@ def test_cuda_solve_matches_cpu(cuda_device):
     assert float(gpu.tau) == float(cpu.tau)
 
 
+# K at each compile-time branch of scd_candidates (KC = 8, 16, 64) and its
+# edges, with every row width it stages differently: K odd, K = 2 mod 4, and
+# K = 8, 16, 64 (swizzled 16-byte pieces).
+CAND_K = [1, 8, 9, 10, 16, 17, 64]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("q", [1, 3])
-@pytest.mark.parametrize("n", [4099, 65536])
-def test_scd_candidates_bitwise_on_card(cuda_device, q, n):
-    p, b, lam = _inst(n, 10, q, False, cuda_device)
-    b[::7] = 0.0
-    kv1, kv2 = ops.scd_candidates(p, b, lam, q)
-    pv1, pv2 = ref.candidates_block(p, b, lam, q)
-    torch.cuda.synchronize()
-    assert torch.equal(kv1, pv1) and torch.equal(kv2, pv2)
+@pytest.mark.parametrize("dyadic", [False, True])
+@pytest.mark.parametrize("q", ["0", "1", "3", "K"])
+@pytest.mark.parametrize("k", CAND_K)
+def test_scd_candidates_bitwise_on_card(cuda_device, k, q, dyadic):
+    """n from one row to a chunk, ragged tiles included; p and b as given and
+    as views one row in (unaligned 4-byte copies where K floats are not a
+    multiple of 16 bytes); rows with b = 0, b < 0 and tied p - lam*b."""
+    q = k if q == "K" else int(q)
+    for n in (1, 255, 4099, 65536):
+        p, b, lam = _branch_rows(n + 1, k, n + 3 * k + q, dyadic, cuda_device)
+        b[2::11] = -b[2::11]
+        for pp, bb in ((p[:n], b[:n]), (p[1:], b[1:])):
+            kv1, kv2 = ops.scd_candidates(pp, bb, lam, q)
+            pv1, pv2 = ref.candidates_block(pp, bb, lam, q)
+            torch.cuda.synchronize()
+            assert torch.equal(kv1, pv1) and torch.equal(kv2, pv2), (n, pp.data_ptr() % 16)
 
 
 @pytest.mark.cuda
@@ -304,16 +320,47 @@ def test_resident_dense_solve_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [6, 10])
-@pytest.mark.parametrize("n", [4099, 65536])
+@pytest.mark.parametrize("k", [1, 6, 10, 64])
+@pytest.mark.parametrize("n", [1, 37, 4099, 65499, 65536])
 def test_screen_bound_bitwise_on_card(cuda_device, n, k):
-    p, b, _ = _inst(n, k, n + k, False, cuda_device)
+    """Aligned and one row in (unaligned where K floats are not a multiple
+    of 16 bytes); returned and written through ``out=`` into the middle row
+    of a (3, K) buffer whose other rows stay untouched; rows with b = 0 and
+    b < 0, and a column with no b > 0 (-inf)."""
+    p, b, _ = _inst(n + 1, k, n + k, False, cuda_device)
     b[::5] = 0.0
-    b[:, 2] = 0.0
-    got = ops.screen_bound(p, b)
+    b[1::9] = -b[1::9]
+    if k > 1:
+        b[:, k // 2] = 0.0
+    buf = torch.full((3, k), 7.0, device=cuda_device)
+    for pp, bb in ((p[:n], b[:n]), (p[1:], b[1:])):
+        want = ref.screen_bound_plain(pp, bb)
+        got = ops.screen_bound(pp, bb)
+        out = ops.screen_bound(pp, bb, out=buf[1])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(buf[1], want)
+        assert out.data_ptr() == buf[1].data_ptr()
+        assert torch.all(buf[0] == 7.0) and torch.all(buf[2] == 7.0)
+        if k > 1:
+            assert got[k // 2] == float("-inf")
+
+
+@pytest.mark.cuda
+def test_screen_bound_no_valid_rows_and_repeats_on_card(cuda_device):
+    """A chunk with no b > 0 gives -inf in every column; twenty calls in a
+    row on one stream, alternating two grid sizes, each equal to the plain
+    version, leave every ticket at zero."""
+    p, b, _ = _inst(65536, 6, 5, False, cuda_device)
+    none = ops.screen_bound(p, torch.zeros_like(b))
+    assert torch.equal(none, torch.full((6,), float("-inf"), device=cuda_device))
+    outs = torch.empty((20, 6), device=cuda_device)
+    for i in range(20):
+        rows = 65536 if i % 2 == 0 else 37
+        ops.screen_bound(p[:rows], b[:rows], out=outs[i])
     torch.cuda.synchronize()
-    assert torch.equal(got, ref.screen_bound_plain(p, b))
-    assert got[2] == float("-inf")
+    assert torch.equal(outs[0::2], ref.screen_bound_plain(p, b).expand(10, 6))
+    assert torch.equal(outs[1::2], ref.screen_bound_plain(p[:37], b[:37]).expand(10, 6))
+    assert int(torch.count_nonzero(_wrap.tickets(p, 1))) == 0
 
 
 @pytest.mark.cuda

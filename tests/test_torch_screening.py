@@ -238,3 +238,33 @@ def test_ops_screen_bound_routes_cpu_to_plain():
     p, b = _rows(300, 9)
     got = ops.screen_bound(torch.tensor(p), torch.tensor(b))
     assert torch.equal(got, ref.screen_bound_plain(torch.tensor(p), torch.tensor(b)))
+
+
+@pytest.mark.parametrize("fn", ["ops", "chunk_bound"])
+def test_screen_bound_out_writes_the_view(fn):
+    """``out=`` on the CPU: the plain result lands in the given (K,) view,
+    which is returned; the buffer's other rows keep their bits."""
+    p, b = _rows(4099, 13)
+    pt, bt = torch.tensor(p), torch.tensor(b)
+    buf = torch.full((5, K), float("inf"))
+    buf[4] = -2.0
+    call = ops.screen_bound if fn == "ops" else tscr.chunk_bound
+    got = call(pt, bt, out=buf[2])
+    assert got.data_ptr() == buf[2].data_ptr()
+    assert torch.equal(buf[2], ref.screen_bound_plain(pt, bt))
+    assert buf[2, 3] == float("-inf")
+    assert torch.all(buf[[0, 1, 3]] == float("inf")) and torch.all(buf[4] == -2.0)
+
+
+def test_screened_certificates_land_in_their_rows():
+    """The screened solve writes each chunk's certificate into its own row:
+    every chunk is noted in the first epoch, so ``bmax`` is the plain
+    certificate of each chunk's bytes (the ragged last chunk's tail rows,
+    p = b = 0, add only -inf). The solve also equals the unscreened one."""
+    src = _banded(11, n=N - 17)
+    scr = _solve(src, _cfg(True))
+    for i in range(C):
+        p, b = (torch.tensor(a) for a in src.fn(i))
+        np.testing.assert_array_equal(scr.screen["bmax"][i],
+                                      ref.screen_bound_plain(p, b).numpy())
+    _assert_bitwise(_solve(src, _cfg(False)), scr)
