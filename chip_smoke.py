@@ -71,11 +71,29 @@ check raises, so the script exits non-zero and prints no result line:
    streaming fewer than 153 chunks; walls, per-epoch split and profile;
 12. DD end to end: table1 resident at N = 10^7 (``adjusted_topc`` launched
    iterations + 1 times and nothing else) and host-fed at N = 10^6;
-13. the ``kernels`` line (launches summed over the paths run in phases 5,
-   7, 8, 11 and 12, with the split), the card's ``nvidia-smi`` line and,
-   last, ``{"ok": true, "device": {...}}``.
+13. the slot solve (``slots=4``) at table1's full width, N = 10^7, chunk
+   65,536 (153 chunks, 39 columns, 3 inert chunk slots): uninterrupted,
+   with ``scd_fused_hist`` launched iters x 4 x 39 times and
+   ``scd_finalize_hist`` 4 x 39, feasible, within tolerance of phase 5;
+   checkpointed every 4 iterations and columns with a ``Tracer`` journal,
+   bitwise equal, with the journal's spans and at most ``checkpoint_keep``
+   states left; SIGKILLed mid-iterate in a fresh interpreter and resumed
+   here, bitwise equal; from the oldest state the checkpointed solve left,
+   resumed and SIGKILLed between finalize columns in a fresh interpreter,
+   then resumed here, bitwise equal, reading exactly the fingerprint probe
+   and the real chunks of the columns left; at N = 10^6 a ``FaultPlan`` run (drops,
+   corruption, ``verify_refetch``) bitwise the clean one and an exhausting
+   plan raising ``ChunkFetchError`` naming the chunk; at n = 262,144 the
+   card's SCD, screened banded, DD and presolve slot solves bitwise the
+   CPU's (the screened profile too); walls, the per-epoch split and the
+   cost of a save;
+14. the ``kernels`` line (launches summed over the paths run in phases 5,
+   7, 8, 11, 12 and 13, with the split), the card's ``nvidia-smi`` line
+   and, last, ``{"ok": true, "device": {...}}``.
 """
 import json
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -95,6 +113,9 @@ CSRC = "src/repro_torch/kernels/csrc/"
 N_HOST_DD = 1_000_000               # host-fed DD
 BANDED = dict(k=6, q=2, tightness=0.08, band=0.05)   # benchmarks/bench_screening.py
 FIN_TILE = 512                      # ops.pick_tile at a 65,536-row chunk
+SLOTS, CKPT_EVERY = 4, 4            # the slot phase: 39 columns, 156 chunk slots
+N_FAULTS = 1_000_000                # the fault-layer run of the slot phase
+N_VS_CPU = 262_144                  # card against CPU (phases 4, 9 and 13)
 BRANCH_K = (1, 8, 9, 16, 17, 64)    # each KC branch of the finalize and adjusted_topc
 CAND_K = (1, 8, 9, 10, 16, 17, 64)  # scd_candidates: each KC branch and row width
 SOURCE = {"scd_fused_hist": CSRC + "scd_fused.cu",
@@ -961,6 +982,315 @@ def phase_dd_end_to_end(torch, dev):
     return {"resident_dd": resident, "host_fed_dd": host}
 
 
+_KILL_CHILD = """
+import os, signal, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs.paper_kp import WORKLOADS
+from repro_torch.core.prefetch import solve_streaming_host
+from repro_torch.core.types import SolverConfig
+from repro_torch.data.synth import sparse_host_chunk_source
+from repro_torch.kernels import _build
+
+n, kill_after, ckpt_dir, resume = (int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                                   sys.argv[5] == "1")
+_build.load()                       # the parent's library, from the build/ cache
+wl = WORKLOADS["table1"]
+src = sparse_host_chunk_source(0, n, wl.k, int(sys.argv[6]), q=wl.q,
+                               tightness=wl.tightness)
+calls = {"n": 0}
+inner = src.fn
+
+def fn(i):
+    calls["n"] += 1
+    if calls["n"] > kill_after:
+        os.kill(os.getpid(), signal.SIGKILL)
+    return inner(i)
+
+solve_streaming_host(src._replace(fn=fn),
+                     SolverConfig(max_iters=40, checkpoint_every=int(sys.argv[7])),
+                     q=wl.q, slots=int(sys.argv[8]), checkpoint_dir=ckpt_dir,
+                     resume_from=ckpt_dir if resume else None)
+"""
+
+
+def table1_source(n, seed=0):
+    """table1's rows in chunks of C_MAIN, as the launcher's ``run_streaming``
+    draws them."""
+    from repro_torch.configs.paper_kp import WORKLOADS
+    from repro_torch.data.synth import sparse_host_chunk_source
+    wl = WORKLOADS["table1"]
+    return sparse_host_chunk_source(seed, n, wl.k, C_MAIN, q=wl.q,
+                                    tightness=wl.tightness), wl.q
+
+
+def counting(src):
+    calls = {"n": 0}
+    inner = src.fn
+
+    def fn(i):
+        calls["n"] += 1
+        return inner(i)
+
+    return src._replace(fn=fn), calls
+
+
+def run_killed(ckpt_dir, kill_after, resume):
+    """The slot solve in a fresh interpreter, SIGKILLed at its
+    (kill_after + 1)-th chunk read; returns its wall."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", _KILL_CHILD, str(ROOT / "src"),
+                          str(N_RES), str(kill_after), str(ckpt_dir),
+                          "1" if resume else "0", str(C_MAIN), str(CKPT_EVERY),
+                          str(SLOTS)], capture_output=True, text=True, timeout=600)
+    check(out.returncode == -signal.SIGKILL,
+          f"the killed solve ended with {out.returncode}: {out.stderr[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def latest_state(ckpt, d):
+    step = ckpt.latest_step(d)
+    check(step is not None, f"no checkpoint in {d}")
+    st = ckpt.restore_auto(d, step)
+    return step, {k: int(st[k]) for k in ("phase", "iters", "cursor", "slots")}
+
+
+def solve_metrics(torch, res, budgets):
+    viol = float(torch.max((res.r - budgets) / budgets))
+    return {"iters": res.iters, "primal": float(res.primal), "dual": float(res.dual),
+            "gap": float(res.dual - res.primal), "max_violation": viol}
+
+
+def phase_slots(torch, np, dev, host_fed_row):
+    """The slot solve at table1's full width, checkpointed, killed and
+    resumed, under faults, and on the card against the CPU (phase 13)."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import prefetch as tpf
+    from repro_torch.core.faults import ChunkFetchError, FaultPlan, faulty_source
+    from repro_torch.core.faults import process_registry
+    from repro_torch.core.types import SolverConfig
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Tracer, read_trace
+
+    src, q = table1_source(N_RES)
+    budgets = torch.as_tensor(src.budgets)
+    c = -(-N_RES // C_MAIN)
+    cps = -(-c // SLOTS)
+    cfg = SolverConfig(max_iters=40)
+    ckpt_cfg = cfg.replace(checkpoint_every=CKPT_EVERY)
+    work = ROOT / "build" / "smoke_slots"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    def solve(source, config, device=dev, **kw):
+        t0 = time.perf_counter()
+        res = tpf.solve_streaming_host(source, config, q=q, slots=SLOTS, device=device,
+                                       **kw)
+        return res, time.perf_counter() - t0
+
+    # 1. Uninterrupted, counted.
+    stats = tpf.FeedStats()
+    ops.reset_launches()
+    base, wall = solve(src, cfg, stats=stats)
+    launches = dict(ops.LAUNCHES)
+    iters = base.iters
+    m = solve_metrics(torch, base, budgets)
+    single = {"lam": np.asarray(host_fed_row["lam"], np.float32),
+              "iters": host_fed_row["iterations"], "primal": host_fed_row["primal"],
+              "dual": host_fed_row["dual"]}
+    lam_diff = np.abs(base.lam.numpy() - single["lam"])
+    it = [e for e in stats.epochs if e["kind"] == "iterate"]
+    keys = ("fetch_s", "stage_s", "h2d_ms", "step_ms", "wall_s")
+    emit("slots_end_to_end", workload="table1", n=N_RES, chunk=C_MAIN, slots=SLOTS,
+         chunks=c, columns=cps, chunk_slots=SLOTS * cps, wall_s=wall, launches=launches,
+         **m, single_slot={"iters": single["iters"], "primal": single["primal"],
+                           "dual": single["dual"],
+                           "lam_max_abs_diff": float(lam_diff.max()),
+                           "lam_max_rel_diff": float((lam_diff / np.abs(single["lam"]))
+                                                     .max())},
+         lam=base.lam.tolist(), single_lam=single["lam"].tolist(),
+         iterate_epoch_mean={k: statistics.mean(e[k] for e in it) for k in keys},
+         finalize_epoch={k: stats.epochs[-1][k] for k in keys})
+    check(launches["scd_fused_hist"] == iters * SLOTS * cps,
+          f"scd_fused_hist launched {launches['scd_fused_hist']} times, expected "
+          f"iters x slots x cps = {iters * SLOTS * cps}")
+    check(launches["scd_finalize_hist"] == SLOTS * cps,
+          f"scd_finalize_hist launched {launches['scd_finalize_hist']} times, "
+          f"expected slots x cps = {SLOTS * cps}")
+    check(m["max_violation"] <= 1e-4, f"slots: max_violation {m['max_violation']}")
+    check(m["dual"] >= m["primal"], "slots: dual below primal")
+    check(all(v == v and abs(v) != float("inf") for v in m.values()), "slots: non-finite")
+    # Another slot count groups the float32 sums differently, and lam is
+    # fixed only to the stopping rule's tolerance, tol * (1 + max lam): the
+    # check holds lam to that, iterations within one, primal and dual to
+    # 1e-5. Beside it, the grouping floor: the single-slot solve (the
+    # resident one, bitwise it at the default tile) with only its map tile
+    # changed.
+    from repro_torch.core.instances import sparse_instance
+    from repro_torch.core.solver import solve as solve_resident
+    from repro_torch.configs.paper_kp import WORKLOADS
+    kp, _ = sparse_instance(0, N_RES, src.k, q, tightness=WORKLOADS["table1"].tightness,
+                            device=dev, chunk=C_MAIN)
+    tiles = {t: solve_resident(kp, cfg.replace(kernel_tile=t), q=q, device=dev)
+             for t in (8192, 4096, 16384)}
+    del kp
+    check(tiles[8192].iters == single["iters"]
+          and np.array_equal(tiles[8192].lam.numpy(), single["lam"]),
+          "the resident solve at the default tile differs from phase 5's")
+    floor = {t: float((np.abs(r.lam.numpy() - single["lam"]) / np.abs(single["lam"])).max())
+             for t, r in tiles.items() if t != 8192}
+    stop_tol = cfg.tol * (1.0 + float(single["lam"].max()))
+    emit("slots_vs_single_slot", lam_max_abs_diff=float(lam_diff.max()),
+         lam_max_rel_diff=float((lam_diff / np.abs(single["lam"])).max()),
+         stopping_tolerance=stop_tol,
+         grouping_floor_lam_max_rel_diff_by_map_tile=floor,
+         iters={"slots": iters, "single": single["iters"],
+                "by_map_tile": {t: r.iters for t, r in tiles.items()}})
+    check(float(lam_diff.max()) <= stop_tol and abs(iters - single["iters"]) <= 1
+          and all(abs(m[f] - single[f]) <= 1e-5 * abs(single[f]) for f in ("primal", "dual")),
+          "the slots=4 solve is not within tolerance of phase 5's single slot (lam within "
+          "tol * (1 + max lam), iterations within one, primal and dual 1e-5)")
+
+    # 2. Checkpointed every CKPT_EVERY iterations and columns, traced.
+    saves = []
+    real_save = ckpt.save
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_save(*a, **kw)
+        saves.append(time.perf_counter() - t0)
+        return out
+
+    ckpt.save = timed_save
+    try:
+        with Tracer(work / "journal.jsonl") as tr:
+            traced, ck_wall = solve(src, ckpt_cfg, checkpoint_dir=work / "ck", tracer=tr)
+    finally:
+        ckpt.save = real_save
+    spans = read_trace(work / "journal.jsonl")
+    n_iter = sum(s["phase"] == "solve.iterate" for s in spans)
+    n_fin = sum(s["phase"] == "solve.finalize" for s in spans)
+    left = sorted(p.name for p in (work / "ck").iterdir())
+    check(same(traced, base), "the checkpointed, traced solve differs from the plain one")
+    check(n_iter == iters and n_fin == 1,
+          f"journal holds {n_iter} solve.iterate and {n_fin} solve.finalize spans")
+    check(len(left) <= ckpt_cfg.checkpoint_keep, f"states left: {left}")
+    emit("slots_checkpointed", wall_s=ck_wall, plain_wall_s=wall, saves=len(saves),
+         save_mean_s=statistics.mean(saves), save_max_s=max(saves),
+         states_left=left, spans={p: sum(s["phase"] == p for s in spans)
+                                  for p in sorted({s["phase"] for s in spans})})
+
+    # 3. SIGKILLed mid-iterate in a fresh interpreter, resumed here.
+    def real(cols):
+        """Chunk reads of these finalize columns (inert chunk slots read nothing)."""
+        return sum(1 for j in cols for s in range(SLOTS) if s * cps + j < c)
+
+    kill_epoch = max(CKPT_EVERY, iters // 2)
+    d1, d2 = work / "kill1", work / "kill2"
+    kill1_wall = run_killed(d1, 1 + kill_epoch * c + c // 2, resume=False)
+    step1, st1 = latest_state(ckpt, d1)
+    check(st1["phase"] == 0 and 0 < st1["iters"] <= kill_epoch,
+          f"not a mid-iterate state: {st1}")
+    res1, resume1_wall = solve(src, ckpt_cfg, resume_from=d1)
+    check(same(res1, base), "resume after the mid-iterate kill differs")
+
+    # 4. From the oldest state step 2 left: resumed in a fresh interpreter,
+    # SIGKILLed between finalize columns after its next save, resumed here,
+    # its chunk reads counted.
+    shutil.copytree(work / "ck", d2)
+    states = sorted(p for p in d2.iterdir() if p.name.startswith("step_"))
+    for p in states[1:]:
+        shutil.rmtree(p)
+    _, st0 = latest_state(ckpt, d2)
+    c0 = st0["cursor"]
+    c1 = c0 + CKPT_EVERY
+    check(c1 < cps, f"no finalize save after column {c0}: {st0}")
+    epochs_left = (iters - st0["iters"]) if st0["phase"] == 0 else 0
+    kill2_wall = run_killed(d2, 1 + epochs_left * c + real(range(c0, c1)) + 2, resume=True)
+    step2, st2 = latest_state(ckpt, d2)
+    check(st2["phase"] == 1 and st2["cursor"] == c1,
+          f"not the mid-finalize state at column {c1}: {st2}")
+    counted, calls = counting(src)
+    res2, resume2_wall = solve(counted, ckpt_cfg, resume_from=d2)
+    left_real = real(range(c1, cps))
+    check(same(res2, base), "resume after the mid-finalize kill differs")
+    check(calls["n"] == 1 + left_real,
+          f"the mid-finalize resume read {calls['n']} chunks, expected the probe and "
+          f"the {left_real} real chunks of columns {c1}..{cps - 1}")
+    emit("slots_killed_and_resumed", kill_mid_iterate={
+        "killed_wall_s": kill1_wall, "state": {"step": step1, **st1},
+        "resumed_wall_s": resume1_wall, "bitwise": True},
+        kill_between_finalize_columns={
+        "resumed_from": st0, "killed_wall_s": kill2_wall, "state": {"step": step2, **st2},
+        "resumed_wall_s": resume2_wall, "chunks_read": calls["n"],
+        "formula_1_plus_cols_left_x_slots": 1 + (cps - st2["cursor"]) * SLOTS,
+        "bitwise": True})
+
+    # 5. The fault layer at N = 10^6.
+    fsrc, _ = table1_source(N_FAULTS)
+    clean, clean_wall = solve(fsrc, cfg)
+    retries = process_registry().counter("faults_retries_total")
+    before = retries.value
+    chaos_cfg = cfg.replace(fetch_retries=8, fetch_backoff=1e-4, fetch_backoff_cap=1e-3,
+                            verify_refetch=True)
+    chaos, chaos_wall = solve(faulty_source(fsrc, FaultPlan(seed=0, drop=0.08,
+                                                            corrupt=0.04)), chaos_cfg)
+    check(same(chaos, clean), "the fault-plan solve differs from the clean one")
+    try:
+        solve(faulty_source(fsrc, FaultPlan(offenders=(3,), offender_failures=10 ** 6)),
+              cfg.replace(fetch_retries=2, fetch_backoff=1e-5, fetch_backoff_cap=1e-4))
+    except ChunkFetchError as e:
+        check(e.chunk == 3 and "chunk 3" in str(e) and len(e.history) == 3,
+              f"exhaustion error does not name chunk 3: {e}")
+    else:
+        check(False, "an exhausting fault plan did not raise ChunkFetchError")
+    emit("slots_faults", n=N_FAULTS, iters=clean.iters, clean_wall_s=clean_wall,
+         fault_plan_wall_s=chaos_wall, retries=retries.value - before, bitwise=True,
+         exhaustion="ChunkFetchError names chunk 3 after 3 attempts")
+
+    # 6. Card against CPU at n = 262,144.
+    from repro_torch.data.synth import banded_host_chunk_source
+    n = N_VS_CPU
+    rows, _ = table1_source(n, seed=1)
+    banded = banded_host_chunk_source(7, n, BANDED["k"], n // 16, q=BANDED["q"],
+                                      tightness=BANDED["tightness"], band=BANDED["band"])
+    cases = {"scd": (rows, cfg, q),
+             "screened_banded": (banded, SolverConfig(max_iters=30, bucket_half=12,
+                                                      screening=True), BANDED["q"]),
+             "dd": (rows, SolverConfig(algo="dd", max_iters=12), q),
+             "presolve": (rows, cfg.replace(presolve_samples=65_536), q)}
+    out, paths = {}, {"host_fed_slots4": launches}
+    for name, (source, config, qq) in cases.items():
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        gpu = tpf.solve_streaming_host(source, config, q=qq, slots=SLOTS, device=dev)
+        t1 = time.perf_counter()
+        if name != "scd":
+            paths[f"host_fed_slots4_{name}"] = dict(ops.LAUNCHES)
+        cpu = tpf.solve_streaming_host(source, config, q=qq, slots=SLOTS, device="cpu")
+        out[name] = {"iters": gpu.iters, "bitwise": same(gpu, cpu),
+                     "card_wall_s": t1 - t0, "cpu_wall_s": time.perf_counter() - t1,
+                     "launches": dict(ops.LAUNCHES)}
+        check(out[name]["bitwise"], f"slots {name}: the card's solve differs from the CPU's")
+        if gpu.screen is not None:
+            profile = [gpu.screen["streamed_chunks"].tolist(),
+                       cpu.screen["streamed_chunks"].tolist()]
+            out[name]["streamed_chunks"] = profile[0]
+            check(profile[0] == profile[1], "slots: screened profiles differ")
+            check(min(profile[0]) < 16, "slots: the banded solve retired nothing")
+    emit("slots_card_vs_cpu", n=n, slots=SLOTS, cases=out)
+    def chunk_slots(chunk):
+        return SLOTS * -(-(-(-n // chunk)) // SLOTS)
+
+    check(out["screened_banded"]["launches"]["screen_bound"] == chunk_slots(n // 16),
+          "slots: screen_bound not launched once per chunk slot of the screened solve")
+    check(out["dd"]["launches"]["adjusted_topc"] == out["dd"]["iters"] * chunk_slots(C_MAIN),
+          "slots: adjusted_topc not launched iters x slots x cps times in DD")
+    check(out["presolve"]["launches"]["adjusted_topc"] == 1,
+          "slots: the presolve's resident solve did not launch adjusted_topc once")
+    shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
 def main():
     import numpy as np
     import torch
@@ -998,6 +1328,7 @@ def main():
     kern.update(phase_slice3_kernels(torch, np, dev))
     paths.update(phase_screened_end_to_end(torch, dev))
     paths.update(phase_dd_end_to_end(torch, dev))
+    paths.update(phase_slots(torch, np, dev, host_fed_row))
 
     rows = [{"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name],

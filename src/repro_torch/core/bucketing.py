@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["make_edges", "bucket_histogram", "hist_crossings",
-           "threshold_from_hist", "exact_threshold", "ordered_cumsum"]
+           "threshold_from_hist", "exact_threshold", "ordered_cumsum",
+           "ordered_colsum"]
 
 _SCAN_BLOCK = 2048
 
@@ -43,6 +44,24 @@ def ordered_cumsum(x, dim=-1):
     off = torch.nn.functional.pad(run[:-1, :r].T, (1, 0))     # exclusive, (R, B)
     out = (within + off[..., None]).reshape(r, blocks * _SCAN_BLOCK)[:, :n]
     return out.to(x.dtype).reshape(lead + (n,)).movedim(-1, dim)
+
+
+def ordered_colsum(x):
+    """(n, K) -> (K,): the column sums, with the same bits on every device.
+
+    ``torch.sum`` over the rows groups the additions one way on the CPU and
+    another on the card. Here the rows are added pairwise by halving: row i
+    of the top half plus row i of the bottom half, until one row is left
+    (an odd row out is carried to the next level). Every step is an
+    elementwise float32 add, which both devices round the same way.
+    """
+    if x.shape[0] == 0:
+        return x.new_zeros(x.shape[1:])
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        pair = x[:h] + x[h:2 * h]
+        x = torch.cat([pair, x[2 * h:]]) if x.shape[0] % 2 else pair
+    return x[0]
 
 
 def bucket_histogram(v1, v2, edges, init=None):

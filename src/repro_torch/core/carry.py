@@ -21,13 +21,6 @@ from .types import DenseKP, SolverConfig, SparseKP
 # the ROADMAP item that ports them. Any other value raises.
 _UNPORTED = {
     "partial_fraction": (1.0, "A8 (straggler mask)"),
-    "checkpoint_keep": (3, "A4 (checkpoint retention)"),
-    "fetch_backoff": (0.05, "A4 (fault layer)"),
-    "fetch_backoff_growth": (2.0, "A4 (fault layer)"),
-    "fetch_backoff_cap": (2.0, "A4 (fault layer)"),
-    "fetch_jitter": (0.25, "A4 (fault layer)"),
-    "fetch_timeout": (0.0, "A4 (fault layer)"),
-    "verify_refetch": (False, "A4 (fault layer)"),
 }
 _DTYPES = {"float32": torch.float32}
 

@@ -24,7 +24,7 @@ from .solver import _finalize_tile
 from .sparse_scd import select_sparse
 
 __all__ = ["StreamResult", "adjusted_profit_chunk", "finalize_chunk_accumulate",
-           "decisions_rows"]
+           "decisions_rows", "ordered_fold"]
 
 
 class StreamResult(NamedTuple):
@@ -82,11 +82,18 @@ def finalize_chunk_accumulate(p_c, b_c, lam, q, cfg, carry, pedges=None):
     return r, primal, dual_sum, lo, hi, ch, gh
 
 
-def _metrics_init(k, dtype, device):
-    z = dict(dtype=dtype, device=device)
-    inf = torch.tensor(float("inf"), **z)
-    return (torch.zeros((k,), **z), torch.zeros((), **z), torch.zeros((), **z),
-            inf, -inf)
+def ordered_fold(x, dim=0):
+    """Sum ``x`` over ``dim`` in strict index order: the float32 left fold
+    ``x[0] + x[1] + ... + x[S-1]``, one elementwise add at a time.
+
+    The host-fed driver combines its per-slot partials with it on the
+    host, so the combined sums depend only on the slot count, never on how
+    a reduction kernel would group the additions.
+    """
+    acc = x.select(dim, 0).clone()
+    for i in range(1, x.shape[dim]):
+        acc = acc + x.select(dim, i)
+    return acc
 
 
 def _pinned_dot(a, b):

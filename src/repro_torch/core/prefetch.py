@@ -8,34 +8,66 @@ per iteration, then one fused finalize epoch: ``iters + 1`` passes. With
 ``core/screening.py`` has not retired, and its results stay bitwise the
 unscreened solve's.
 
-On the card every chunk is staged through one of two pinned host buffers
-and copied to one of two device buffers on a side CUDA stream; the compute
-stream waits on the copy's event, and the next copy into a device buffer
-waits on the event of the step that last read it. With ``double_buffer``
-the next chunk is fetched and its copy issued right after the current
-chunk's step is queued, so the host fetch and the H2D copy run under the
-kernel. ``double_buffer=False`` blocks on every copy and every step: the
-synchronous baseline. Both give the same bits.
+* **Feeding.** On the card every chunk is staged through one of two pinned
+  host buffers and copied to one of two device buffers on a side CUDA
+  stream; the compute stream waits on the copy's event, and the next copy
+  into a device buffer waits on the event of the step that last read it.
+  With ``double_buffer`` the next chunk is fetched and its copy issued
+  right after the current chunk's step is queued, so the host fetch and
+  the H2D copy run under the kernel. ``double_buffer=False`` blocks on
+  every copy and every step: the synchronous baseline. Both give the same
+  bits.
+* **Virtual slots.** ``slots=S`` splits the chunk range into S contiguous
+  ranges of ``cps = ceil(c / S)`` chunks (:func:`sharded_source`), each an
+  independent carry-seeded accumulator on the one device. Each column
+  advances every slot by one chunk, in slot order, through the same
+  double buffer; chunk slots past the last real chunk are fed inert zero
+  chunks and run, as the reference runs them. The (K, E+1)-size slot
+  partials are combined on the host by :func:`chunked.ordered_fold`, so
+  the result depends on S and not on the device. ``slots=1`` (the
+  default) is the plain single-slot solve.
+* **Fault layer.** With ``cfg.fetch_retries`` (or ``fetch_timeout``,
+  ``verify_refetch``) the source is wrapped once, at entry, in
+  :func:`faults.resilient_source`: every fetch (the epochs, the presolve's
+  head, the fingerprint's probe) retries transient failures. Retries re-run
+  only the fetch, never the staging, the copy or the step, so a solve that
+  survives faults is bitwise the fault-free one.
+* **Preemption safety.** With ``cfg.checkpoint_every = N`` and a
+  checkpoint directory, a constant-size resume state (lam, the damping
+  carry, the per-slot finalize partials, a phase and column cursor and a
+  fingerprint of the solve) is written atomically (``checkpoint/ckpt.py``)
+  every N iterations, at finalize entry, and every N columns of the
+  finalize. ``resume_from=`` restores the latest state and continues to
+  the uninterrupted solve's bits, at the slot count it was written with.
+* **Tracing.** ``tracer=`` (an ``obs.Tracer``) records the spans
+  ``solve.iterate``, ``solve.finalize`` and ``screen.skip``, and per epoch
+  one ``ingest.fetch`` and one ``ingest.h2d`` record from the feeder's host
+  clocks. Spans bracket host Python only, so a traced solve keeps its bits.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
 import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..checkpoint import ckpt
 from ..kernels import ops
-from .bucketing import make_edges, threshold_from_hist
+from ..obs import NULL_TRACER
+from .bucketing import make_edges, ordered_colsum, threshold_from_hist
 from .chunked import (
     StreamResult,
-    _metrics_init,
     _num_chunks,
     _pinned_dot,
     _validate_stream_cfg,
     finalize_chunk_accumulate,
+    ordered_fold,
 )
+from .faults import policy_from_cfg, resilient_source
 from .postprocess import profit_edges_fixed, threshold_and_removed
 from .screening import HostScreen, chunk_bound, crossing_trusted
 from .solver import (
@@ -43,11 +75,18 @@ from .solver import (
     dd_proposal,
     resolve_device,
     scd_chunk_accumulate,
+    solve,
 )
-from .types import SolverConfig
+from .types import SolverConfig, SparseKP
 
-__all__ = ["HostChunkSource", "host_array_source", "callable_source",
-           "solve_streaming_host", "FeedStats"]
+__all__ = ["HostChunkSource", "host_array_source", "memmap_source",
+           "callable_source", "sharded_source", "chunk_hashes",
+           "solve_streaming_host", "source_fingerprint", "FeedStats"]
+
+# Resume-state phases (the "epoch cursor" of the checkpoint): the solve is
+# either still iterating multipliers or inside the finalize pass.
+_PHASE_ITER = 0
+_PHASE_FIN = 1
 
 
 class HostChunkSource(NamedTuple):
@@ -55,7 +94,9 @@ class HostChunkSource(NamedTuple):
 
     ``fn(i)`` returns ``(p, b)`` NumPy arrays of shape exactly (chunk, K)
     holding rows [i*chunk, (i+1)*chunk); rows at index >= n come back as
-    p = b = 0 (inert: no candidate, never selected).
+    p = b = 0 (inert: no candidate, never selected). Checkpoint and resume
+    also need ``fn`` to be restart-deterministic (the same bytes for the
+    same index across processes).
     """
 
     n: int
@@ -91,6 +132,36 @@ def host_array_source(p, b, budgets, chunk: int) -> HostChunkSource:
                            budgets=np.asarray(budgets, dtype), fn=fn)
 
 
+def memmap_source(p_path, b_path, n: int, k: int, budgets,
+                  chunk: int, dtype=np.float32) -> HostChunkSource:
+    """Memory-mapped on-disk instance: raw row-major (n, K) p and b files,
+    opened with ``np.memmap(mode="r")`` and served by
+    :func:`host_array_source`, so only the chunks streamed are read."""
+    p = np.memmap(p_path, dtype=dtype, mode="r", shape=(n, k))
+    b = np.memmap(b_path, dtype=dtype, mode="r", shape=(n, k))
+    return host_array_source(p, b, budgets, chunk)
+
+
+def chunk_hashes(source: HostChunkSource, chunks=None) -> np.ndarray:
+    """Per-chunk sha256 digests of a host source, as (c, 32) uint8.
+
+    Hashes the float32 bytes of ``p`` then ``b`` that each chunk index
+    serves, the bytes the solver consumes, so two sources whose digests
+    match for a chunk are byte-identical there (the content identity a
+    file-backed source brings to the serving layer's delta refresh).
+    ``chunks`` restricts the scan to those indices, in that order.
+    """
+    if chunks is None:
+        chunks = range(-(-source.n // source.chunk))
+    out = np.zeros((len(chunks), 32), np.uint8)
+    for j, i in enumerate(chunks):
+        p, b = source.fn(int(i))
+        h = hashlib.sha256(np.asarray(p, np.float32).tobytes())
+        h.update(np.asarray(b, np.float32).tobytes())
+        out[j] = np.frombuffer(h.digest(), np.uint8)
+    return out
+
+
 def callable_source(fn, n: int, k: int, budgets, chunk: int) -> HostChunkSource:
     """HostChunkSource from any chunk-producing callable (padded defensively)."""
     def wrapped(i):
@@ -102,15 +173,46 @@ def callable_source(fn, n: int, k: int, budgets, chunk: int) -> HostChunkSource:
                            budgets=np.asarray(budgets, np.float32), fn=wrapped)
 
 
+def sharded_source(source: HostChunkSource, slots: int):
+    """Split a host source into ``slots`` disjoint chunk-range sub-sources.
+
+    Slot ``s`` owns global chunks [s*cps, (s+1)*cps), cps = ceil(c/slots).
+    Sub-source ``fn(j)`` serves global chunk ``s*cps + j``, or an all-zero
+    (inert) chunk past the last real one: those padded chunks are run like
+    any other (their invalid candidates still raise a slot's running top
+    from -inf), as in the reference.
+    """
+    if slots < 1:
+        raise ValueError(f"slots must be >= 1, got {slots}")
+    c = _num_chunks(source.n, source.chunk)
+    cps = -(-c // slots)
+    subs = []
+    for s in range(slots):
+        def fn(j, _s=s):
+            i = _s * cps + j
+            if i >= c:
+                z = np.zeros((source.chunk, source.k), np.float32)
+                return z, z.copy()
+            return source.fn(i)
+
+        lo = min(s * cps * source.chunk, source.n)
+        hi = min((s + 1) * cps * source.chunk, source.n)
+        subs.append(HostChunkSource(n=hi - lo, k=source.k,
+                                    chunk=source.chunk,
+                                    budgets=source.budgets, fn=fn))
+    return subs
+
+
 @dataclasses.dataclass
 class FeedStats:
     """Per-epoch timings of a host-fed solve, when the caller passes one.
 
     One record per pass over chunks, of kind ``iterate``, ``fallback`` (the
     full pass a screened epoch repeats when its guard fails) or
-    ``finalize``, with the count of chunks it streamed. Host clock:
-    ``fetch_s`` (``source.fn``), ``stage_s`` (copy into the pinned buffer)
-    and ``wall_s`` (the epoch, up to its host sync). On a
+    ``finalize``, with the count of chunks it fed (with slots, every chunk
+    slot, inert and zero-fed ones included). Host clock: ``fetch_s``
+    (``source.fn``), ``stage_s`` (copy into the pinned buffer) and
+    ``wall_s`` (the epoch, up to its host sync). On a
     CUDA device, CUDA events give ``h2d_ms`` (copies on the side stream)
     and ``step_ms`` (the per-chunk steps, kernels included, on the compute
     stream). :meth:`resolve` turns the recorded events into these sums.
@@ -155,6 +257,17 @@ class _Feeder:
             self.copied = [torch.cuda.Event() for _ in range(2)]
             self.consumed = [torch.cuda.Event() for _ in range(2)]
 
+    def begin(self, kind, timed):
+        """Start an epoch's accumulators: the ``FeedStats`` record when the
+        caller passed one, else a bare one when ``timed`` (tracing)."""
+        if self.stats is not None:
+            self.ep = self.stats.begin(kind)
+        elif timed:
+            self.ep = {"kind": kind, "chunks": 0, "fetch_s": 0.0, "stage_s": 0.0}
+        else:
+            self.ep = None
+        return self.ep
+
     def _timing(self, kind, stream):
         if self.stats is None or not self.cuda:
             return None
@@ -163,10 +276,11 @@ class _Feeder:
         self.ep[f"_{kind}"].append((a, torch.cuda.Event(enable_timing=True)))
         return self.ep[f"_{kind}"][-1][1]
 
-    def put(self, source, i):
-        """Fetch chunk i and start its upload; returns a handle for ``run``."""
+    def put(self, fetch, item):
+        """Fetch ``item``'s chunk and start its upload; returns a handle for
+        ``run``."""
         t0 = time.perf_counter()
-        p, b = source.fn(i)
+        p, b = fetch(item)
         t1 = time.perf_counter()
         if not self.cuda:
             cur = (torch.tensor(np.asarray(p, np.float32)),
@@ -195,17 +309,17 @@ class _Feeder:
         if self.cuda:
             self.copied[cur[2]].synchronize()
 
-    def run(self, step, state, cur, i):
-        """Queue ``step(state, p, b, i)`` for chunk i on the compute stream
-        after its upload; the buffer is marked free only after everything
-        the step queued."""
+    def run(self, step, state, cur, item):
+        """Queue ``step(state, p, b, item)`` on the compute stream after the
+        chunk's upload; the buffer is marked free only after everything the
+        step queued."""
         p_c, b_c, s = cur
         if not self.cuda:
-            return step(state, p_c, b_c, i)
+            return step(state, p_c, b_c, item)
         stream = torch.cuda.current_stream(self.device)
         stream.wait_event(self.copied[s])
         end = self._timing("step", stream)
-        state = step(state, p_c, b_c, i)
+        state = step(state, p_c, b_c, item)
         if end is not None:
             end.record(stream)
         self.consumed[s].record(stream)
@@ -216,59 +330,221 @@ class _Feeder:
             torch.cuda.current_stream(self.device).synchronize()
 
 
-def _epoch(source, feeder, step, state, double_buffer, kind="iterate",
-           indices=None):
-    """One pass over the chunks: ``state = step(state, p_c, b_c, i)``.
+def _epoch(fetch, feeder, step, state, double_buffer, items, kind="iterate",
+           on_step=None, tracer=NULL_TRACER):
+    """One pass over ``items``: ``state = step(state, p_c, b_c, item)`` on
+    the chunk ``fetch(item)``.
 
-    ``indices`` (ascending) restricts the pass to those chunks: the
-    screened epoch streams only the active set through this loop."""
-    if feeder.stats is not None:
-        feeder.ep = feeder.stats.begin(kind)
-    idxs = (list(range(_num_chunks(source.n, source.chunk))) if indices is None
-            else [int(i) for i in indices])
+    ``on_step(item, state)`` observes the state after each item's step is
+    queued (and, double-buffered, after the next item's upload is issued):
+    the checkpoint hook, whose host read of the carry waits for the queued
+    steps on the compute stream. With a tracer, the feeder's host clocks of
+    the epoch become one ``ingest.fetch`` and one ``ingest.h2d`` record.
+    """
+    ep = feeder.begin(kind, tracer.enabled)
+    t_epoch = time.time()
     if not double_buffer:
-        for i in idxs:
-            cur = feeder.put(source, i)
+        for item in items:
+            cur = feeder.put(fetch, item)
             feeder.wait_upload(cur)
-            state = feeder.run(step, state, cur, i)
+            state = feeder.run(step, state, cur, item)
             feeder.sync()
-        return state
-    if not idxs:
-        return state
-    nxt = feeder.put(source, idxs[0])
-    for t, i in enumerate(idxs):
-        cur, nxt = nxt, None
-        state = feeder.run(step, state, cur, i)
-        if t + 1 < len(idxs):
-            nxt = feeder.put(source, idxs[t + 1])
+            if on_step is not None:
+                on_step(item, state)
+    elif items:
+        nxt = feeder.put(fetch, items[0])
+        for t, item in enumerate(items):
+            cur, nxt = nxt, None
+            state = feeder.run(step, state, cur, item)
+            if t + 1 < len(items):
+                nxt = feeder.put(fetch, items[t + 1])
+            if on_step is not None:
+                on_step(item, state)
+    if tracer.enabled and ep["chunks"]:
+        tracer.record("ingest.fetch", t_epoch, ep["fetch_s"], chunks=ep["chunks"])
+        tracer.record("ingest.h2d", t_epoch, ep["stage_s"], chunks=ep["chunks"])
     return state
 
 
-class _SingleRuntime:
-    """One device, one slot: the iteration epochs and the fused finalize.
+# --------------------------------------------------------------------------
+# Checkpoint state (constant size): save / restore / fingerprint.
+# --------------------------------------------------------------------------
 
-    The per-chunk steps run on ``device``. The constant-size tail of each
-    epoch (threshold recovery or the DD step, the damped step, the
-    screening guard, the §5.4 threshold) runs on the host CPU in float32:
-    it is a few (K, E+1) operations, the host needs ``moved`` anyway, and
-    one implementation of its scans and sums makes the solve on the card
-    bitwise the solve on the CPU (the kernels already match their plain
-    versions bit for bit). So ``lam``, ``dprev`` and the returned fields
-    are CPU tensors.
+_FIN_KEYS = ["fin_r", "fin_primal", "fin_dual", "fin_lo", "fin_hi",
+             "fin_ch", "fin_gh"]
 
-    With a :class:`HostScreen` in ``scr`` the SCD epochs are screened. The
-    certificates are computed on the device, by ``screen_bound`` on the
-    buffer the chunk's accumulate reads, inside the chunk's step (so before
-    the buffer is marked free for the next upload), into row i of
-    ``bound_d`` (C, K); the rows noted in an epoch reach the host once,
-    before ``retire``.
+# The SolverConfig fields whose values steer the multiplier trajectory or
+# the finalize arithmetic: hashed, in this order, into the resume-state
+# fingerprint, with ``str(cfg.dtype)``. The reference's list without its
+# ``partial_fraction`` and ``use_kernels``, which the port has not.
+_FINGERPRINT_CFG_FIELDS = (
+    "algo", "cd_mode", "reduce", "tol", "cd_damping", "dd_lr",
+    "bucket_half", "bucket_delta", "bucket_growth", "presolve_samples",
+    "stream_finalize", "profit_buckets", "profit_ladder_lo",
+    "profit_ladder_hi", "kernel_tile", "postprocess",
+)
+
+# Fields deliberately EXCLUDED from the fingerprint: changing any of them
+# across a restart is legitimate because none alters the accepted
+# multiplier trajectory or the finalize results (iteration budget, save
+# cadence and retention, history sampling, the fault policy, the resident
+# solver's chunking, screening, which never steers the trajectory and is
+# rebuilt on resume). Every SolverConfig field is in exactly one of the two
+# sets (tests/test_torch_resume.py checks it).
+FINGERPRINT_EXEMPT_FIELDS = frozenset({
+    "max_iters", "metrics_every", "record_history",
+    "checkpoint_every", "checkpoint_keep",
+    "fetch_retries", "fetch_backoff", "fetch_backoff_growth",
+    "fetch_backoff_cap", "fetch_jitter", "fetch_timeout",
+    "verify_refetch",
+    "chunk_size",
+    "screening", "screening_floor",
+})
+
+
+def _fingerprint(source, cfg, q, lam_init):
+    """Identity hash of (instance, solver arithmetic): the workload shape,
+    the budgets, the warm-start multipliers, the bytes of chunk 0 and every
+    field of ``_FINGERPRINT_CFG_FIELDS``, as (8,) uint8. A resume whose
+    fingerprint differs belongs to another solve and is refused."""
+    h = hashlib.sha256()
+    h.update(repr(
+        (source.n, source.k, source.chunk, int(q))
+        + tuple(getattr(cfg, f) for f in _FINGERPRINT_CFG_FIELDS)
+        + (str(cfg.dtype),)).encode())
+    h.update(np.asarray(source.budgets, np.float32).tobytes())
+    h.update(np.asarray(lam_init, np.float32).tobytes())
+    p0, b0 = source.fn(0)
+    h.update(np.asarray(p0, np.float32).tobytes())
+    h.update(np.asarray(b0, np.float32).tobytes())
+    return np.frombuffer(h.digest()[:8], np.uint8).copy()
+
+
+def source_fingerprint(source: HostChunkSource, cfg: SolverConfig, q: int,
+                       lam0=None) -> np.ndarray:
+    """Public identity hash of one (source, cfg, q, lam0) solve, (8,) uint8:
+    the fingerprint ``solve_streaming_host`` stores in its resume state,
+    for higher layers to stamp published results with. ``lam0`` defaults
+    to the all-ones cold start. The chunk-0 probe fetches under the cfg's
+    fault policy."""
+    lam0 = (np.ones((source.k,), np.float32) if lam0 is None
+            else np.asarray(lam0, np.float32))
+    policy = policy_from_cfg(cfg)
+    if policy is not None:
+        source = resilient_source(source, policy, verify=cfg.verify_refetch)
+    return _fingerprint(source, cfg, q, lam0)
+
+
+def _save_state(directory, step, phase, iters, cursor, slots, fp, lam,
+                dprev, fin, keep=3):
+    """Write one resume state atomically; keep the newest ``keep``.
+
+    ``fin`` is the per-slot finalize partial tuple (leading axis = slots; 5
+    or 7 leaves), zeros while still iterating. Everything is host NumPy,
+    constant size in n.
+    """
+    state = {
+        "phase": np.int32(phase),
+        "iters": np.int32(iters),
+        "cursor": np.int32(cursor),
+        "slots": np.int32(slots),
+        "fingerprint": np.asarray(fp, np.uint8),
+        "lam": np.asarray(lam),
+        "dprev": np.asarray(dprev),
+    }
+    for name, arr in zip(_FIN_KEYS, fin):
+        state[name] = np.asarray(arr)
+    ckpt.save(directory, step, state)
+    ckpt.prune(directory, keep=keep)
+
+
+def _load_state(resume_from):
+    """Latest resume state as host NumPy, or None when the directory has
+    none (a fresh start)."""
+    step = ckpt.latest_step(resume_from)
+    if step is None:
+        return None
+    try:
+        state = ckpt.restore_auto(resume_from, step)
+    except ValueError as e:
+        raise ValueError(
+            f"could not restore checkpoint {resume_from!r} step {step}: "
+            f"{e}") from e
+    return {k: v.numpy() for k, v in state.items()}
+
+
+def _fin_zeros_np(slots, k, nb, postprocess, dtype=np.float32):
+    """ITER-phase placeholder for the finalize partials (constant shape)."""
+    dtype = np.dtype(dtype)
+    fin = (np.zeros((slots, k), dtype), np.zeros((slots,), dtype),
+           np.zeros((slots,), dtype),
+           np.full((slots,), np.inf, dtype),
+           np.full((slots,), -np.inf, dtype))
+    if postprocess:
+        fin = fin + (np.zeros((slots, k, nb), dtype),
+                     np.zeros((slots, nb), dtype))
+    return fin
+
+
+def _presolve_host(source, lam0, q, cfg, device):
+    """§5.3 warm start: the first ``presolve_samples`` rows of the stream,
+    solved resident on ``device`` with the budgets scaled by their
+    fraction."""
+    if cfg.presolve_samples <= 0:
+        return lam0
+    s = min(cfg.presolve_samples, source.n)
+    parts = [source.fn(i) for i in range(-(-s // source.chunk))]
+    p = np.concatenate([pp for pp, _ in parts])[:s]
+    b = np.concatenate([bb for _, bb in parts])[:s]
+    small = SparseKP(p=torch.from_numpy(np.asarray(p, np.float32)),
+                     b=torch.from_numpy(np.asarray(b, np.float32)),
+                     budgets=torch.as_tensor(source.budgets) * (s / source.n))
+    sub = cfg.replace(presolve_samples=0, record_history=False,
+                      postprocess=False, chunk_size=None)
+    return solve(small, sub, q=q, lam0=lam0, device=device).lam
+
+
+# --------------------------------------------------------------------------
+# The runtime: S virtual slots on one device.
+# --------------------------------------------------------------------------
+
+class _SlotRuntime:
+    """S slot accumulators on one device: the iteration epochs and the fused
+    finalize.
+
+    An epoch feeds the items ``(s, j)`` column by column (slot ``s``'s
+    chunk ``j``, global chunk ``s * cps + j``) and each step advances slot
+    s's own carry, so slot s accumulates its chunks in order; S = 1 is the
+    plain pass over the chunks. The per-chunk steps run on ``device``. The
+    constant-size tail of each epoch (the slot fold, threshold recovery or
+    the DD step, the damped step, the screening guard, the §5.4 threshold)
+    runs on the host CPU in float32: it is a few (K, E+1) operations, the
+    host needs ``moved`` anyway, and one implementation of its scans and
+    sums makes the solve on the card bitwise the solve on the CPU (the
+    kernels already match their plain versions bit for bit). So ``lam``,
+    ``dprev`` and the returned fields are CPU tensors.
+
+    With a :class:`HostScreen` in ``scr`` (over the S * cps chunk slots) the
+    SCD epochs are screened: a column whose chunk slots are all retired is
+    skipped, and a retired slot of a streamed column is fed a zero chunk,
+    as in the reference. The certificates are computed on the device, by
+    ``screen_bound`` on the buffer the chunk's accumulate reads, inside the
+    chunk's step (so before the buffer is marked free for the next upload),
+    into row g of ``bound_d`` (S * cps, K); the rows noted in an epoch reach
+    the host once, before ``retire``.
     """
 
-    def __init__(self, source, cfg, q, double_buffer, device, stats):
+    def __init__(self, source, cfg, q, slots, double_buffer, device, stats,
+                 tracer):
         self.source, self.cfg, self.q = source, cfg, q
+        self.slots = slots
         self.double_buffer = double_buffer
         self.device = device
+        self.tracer = tracer
         self.c = _num_chunks(source.n, source.chunk)
+        self.cps = -(-self.c // slots)
+        self.subs = sharded_source(source, slots)
+        self.zero = np.zeros((source.chunk, source.k), np.float32)
         self.budgets = torch.as_tensor(np.asarray(source.budgets), dtype=cfg.dtype)
         self.pedges = profit_edges_fixed(cfg.profit_buckets, cfg.profit_ladder_lo,
                                          cfg.profit_ladder_hi, cfg.dtype)
@@ -278,12 +554,26 @@ class _SingleRuntime:
 
     def install_screen(self, scr):
         self.scr = scr
-        self.bound_d = torch.full((self.c, self.source.k), float("inf"),
-                                  dtype=torch.float32, device=self.device)
+        self.bound_d = torch.full((self.slots * self.cps, self.source.k),
+                                  float("inf"), dtype=torch.float32,
+                                  device=self.device)
 
-    def _run_epoch(self, step, state, kind, indices=None):
-        return _epoch(self.source, self.feeder, step, state, self.double_buffer,
-                      kind, indices)
+    def _items(self, cols):
+        return [(s, int(j)) for j in cols for s in range(self.slots)]
+
+    def _fetch(self, item):
+        s, j = item
+        return self.subs[s].fn(j)
+
+    def _fetch_screened(self, item):
+        s, j = item
+        if not self.scr.active[s * self.cps + j]:
+            return self.zero, self.zero
+        return self.subs[s].fn(j)
+
+    def _run_epoch(self, step, state, kind, items, fetch=None, on_step=None):
+        return _epoch(fetch or self._fetch, self.feeder, step, state,
+                      self.double_buffer, items, kind, on_step, self.tracer)
 
     def _note_wall(self, t0):
         """Set the current epoch's wall from ``t0``; returns the time now."""
@@ -292,18 +582,27 @@ class _SingleRuntime:
             self.feeder.ep["wall_s"] = now - t0
         return now
 
+    def _fold(self, parts):
+        """The slots' (S, ...) partials of one field, on the host, folded
+        in slot order."""
+        return ordered_fold(torch.stack([x.cpu() for x in parts]))
+
     def iter_epoch(self, lam, dprev):
         """One SCD or DD iteration: (lam_new, delta, moved)."""
         t0 = time.perf_counter()
         cfg, dev = self.cfg, self.device
         lam_d = lam.to(dev)
         if cfg.algo == "dd":
-            def step(r, p_c, b_c, _i):
-                return r + torch.sum(ops.adjusted_topc(p_c, b_c, lam_d, self.q)[1],
-                                     dim=0)
+            def step(rs, p_c, b_c, item):
+                s = item[0]
+                rs[s] = rs[s] + ordered_colsum(
+                    ops.adjusted_topc(p_c, b_c, lam_d, self.q)[1])
+                return rs
 
-            r = self._run_epoch(step, torch.zeros_like(lam_d), "iterate")
-            prop = dd_proposal(lam, r.cpu(), self.budgets, cfg)
+            rs = self._run_epoch(step, [torch.zeros_like(lam_d)
+                                        for _ in range(self.slots)],
+                                 "iterate", self._items(range(self.cps)))
+            prop = dd_proposal(lam, self._fold(rs), self.budgets, cfg)
         else:
             edges = make_edges(lam, cfg.bucket_delta, cfg.bucket_growth,
                                cfg.bucket_half)
@@ -317,37 +616,51 @@ class _SingleRuntime:
         self._note_wall(t0)
         return lam_new, delta, bool(moved)
 
-    def _scd_pass(self, lam_d, edges_d, kind, indices=None, noted=()):
-        """(hist, top) on the host from one pass over ``indices`` (default
-        all chunks); the chunks in ``noted`` also get their certificate."""
-        k = self.source.k
+    def _scd_pass(self, lam_d, edges_d, kind, items=None, noted=(), fetch=None):
+        """(hist, top) on the host from one pass over ``items`` (default
+        every column); the chunk slots in ``noted`` also get their
+        certificate."""
+        k, cps = self.source.k, self.cps
         noted = set(noted)
-        hist0 = torch.zeros((k, edges_d.shape[-1] + 1), dtype=torch.float32,
-                            device=self.device)
-        top0 = torch.full((k,), float("-inf"), dtype=torch.float32,
-                          device=self.device)
+        carry = [(torch.zeros((k, edges_d.shape[-1] + 1), dtype=torch.float32,
+                              device=self.device),
+                  torch.full((k,), float("-inf"), dtype=torch.float32,
+                             device=self.device))
+                 for _ in range(self.slots)]
 
-        def step(carry, p_c, b_c, i):
-            if i in noted:
-                chunk_bound(p_c, b_c, out=self.bound_d[i])
-            return scd_chunk_accumulate(p_c, b_c, lam_d, edges_d, self.q,
-                                        self.cfg, *carry)
+        def step(carry, p_c, b_c, item):
+            s, j = item
+            if s * cps + j in noted:
+                chunk_bound(p_c, b_c, out=self.bound_d[s * cps + j])
+            carry[s] = scd_chunk_accumulate(p_c, b_c, lam_d, edges_d, self.q,
+                                            self.cfg, *carry[s])
+            return carry
 
-        hist, top = self._run_epoch(step, (hist0, top0), kind, indices)
-        return hist.cpu(), top.cpu()
+        if items is None:
+            items = self._items(range(cps))
+        carry = self._run_epoch(step, carry, kind, items, fetch)
+        hist = self._fold([h for h, _ in carry])
+        top = torch.amax(torch.stack([t.cpu() for _, t in carry]), dim=0)
+        return hist, top
 
     def _scd_pass_screened(self, lam, lam_d, edges_d, t0):
-        """The reference's ``_iter_epoch_screened``: a pass over the active
-        chunks; when the crossing guard cannot certify its histogram, one
-        full pass (which notes nothing, and whose ``FeedStats`` epoch starts
-        the wall clock anew: the returned t0). Then the certificates and
-        the retirement."""
-        scr = self.scr
+        """The reference's screened epoch: a pass over the columns with an
+        active chunk slot, the retired slots fed zeros; when the crossing
+        guard cannot certify its histogram, one full pass (which notes
+        nothing, and whose ``FeedStats`` epoch starts the wall clock anew:
+        the returned t0). Then the certificates and the retirement."""
+        scr, cps = self.scr, self.cps
         scr.begin_iter(lam.numpy())
-        idx = scr.active_indices()
-        noted = [int(i) for i in idx if scr.needs_bound(i)]
-        hist, top = self._scd_pass(lam_d, edges_d, "iterate", idx, noted)
-        scr.record_streamed(len(idx))
+        cols = np.flatnonzero(scr.active.reshape(self.slots, cps).any(axis=0))
+        items = self._items(cols)
+        noted = [s * cps + j for s, j in items
+                 if scr.active[s * cps + j] and scr.needs_bound(s * cps + j)]
+        streamed = int(np.count_nonzero(scr.active[:self.c]))
+        hist, top = self._scd_pass(lam_d, edges_d, "iterate", items, noted,
+                                   self._fetch_screened)
+        scr.record_streamed(streamed)
+        self.tracer.event("screen.skip", streamed=streamed,
+                          skipped=self.c - streamed)
         if scr.any_retired() and not bool(crossing_trusted(hist, self.budgets)):
             t0 = self._note_wall(t0)
             hist, top = self._scd_pass(lam_d, edges_d, "fallback")
@@ -358,48 +671,73 @@ class _SingleRuntime:
         return hist, top, t0
 
     def fin_init(self):
-        init = _metrics_init(self.source.k, self.cfg.dtype, self.device)
-        if self.cfg.postprocess:
-            nb = self.pedges.shape[0] + 1
-            z = dict(dtype=self.cfg.dtype, device=self.device)
-            init = init + (torch.zeros((self.source.k, nb), **z),
-                           torch.zeros((nb,), **z))
-        return init
+        """Per-slot finalize carries, from zeros (lo = +inf, hi = -inf)."""
+        nb = self.pedges.shape[0] + 1
+        return self.fin_from_np(_fin_zeros_np(self.slots, self.source.k, nb,
+                                              self.cfg.postprocess))
 
-    def fin_run(self, carry, lam):
+    def fin_run(self, carry, lam, start, on_col):
+        """The fused finalize over columns [start, cps); ``on_col(j, carry)``
+        after each column's last slot."""
         t0 = time.perf_counter()
         pedges = self.pedges.to(self.device) if self.cfg.postprocess else None
         lam_d = lam.to(self.device)
+        last = self.slots - 1
 
-        def step(carry, p_c, b_c, _i):
-            return finalize_chunk_accumulate(p_c, b_c, lam_d, self.q, self.cfg,
-                                             carry, pedges)
+        def step(carry, p_c, b_c, item):
+            s = item[0]
+            carry[s] = finalize_chunk_accumulate(p_c, b_c, lam_d, self.q,
+                                                 self.cfg, carry[s], pedges)
+            return carry
 
-        out = self._run_epoch(step, carry, "finalize")
+        on_step = None
+        if on_col is not None:
+            def on_step(item, carry):
+                if item[0] == last:
+                    on_col(item[1], carry)
+
+        out = self._run_epoch(step, carry, "finalize",
+                              self._items(range(start, self.cps)),
+                              on_step=on_step)
         self.feeder.sync()
         self._note_wall(t0)
         return out
 
-    def fin_result(self, out, lam, iters):
-        out = tuple(a.cpu() for a in out)
-        r, primal, dual_sum = out[0], out[1], out[2]
+    def fin_to_np(self, carry):
+        """Per-slot carries -> a tuple of (S, ...) host arrays."""
+        return tuple(np.stack([c[f].cpu().numpy() for c in carry])
+                     for f in range(len(carry[0])))
+
+    def fin_from_np(self, fin):
+        """A tuple of (S, ...) host arrays -> per-slot device carries."""
+        return [tuple(torch.from_numpy(np.array(a[s], np.float32)).to(self.device)
+                      for a in fin)
+                for s in range(self.slots)]
+
+    def fin_result(self, carry, lam, iters):
+        r, primal, dual_sum = (self._fold([c[f] for c in carry]) for f in range(3))
         dual = dual_sum + _pinned_dot(lam, self.budgets)
         fin_hist = None
         if self.cfg.postprocess:
+            ch, gh = (self._fold([c[f] for c in carry]) for f in (5, 6))
             tau, removed_cons, removed_gain = threshold_and_removed(
-                out[5], out[6], self.pedges, r, self.budgets)
+                ch, gh, self.pedges, r, self.budgets)
             r = r - removed_cons
             primal = primal - removed_gain
-            fin_hist = (out[5], out[6])
+            fin_hist = (ch, gh)
         else:
             tau = torch.tensor(float("-inf"), dtype=lam.dtype)
         return StreamResult(lam, iters, r, primal, dual, tau, fin_hist)
 
 
+# --------------------------------------------------------------------------
+# The driver: presolve -> iterate -> finalize, with checkpoint and resume.
+# --------------------------------------------------------------------------
+
 def solve_streaming_host(source: HostChunkSource,
                          cfg: SolverConfig = SolverConfig(), q: int = 1,
                          lam0=None, double_buffer: bool = True,
-                         device="cuda", mesh=None, slots=None,
+                         device="cuda", mesh=None, slots: Optional[int] = None,
                          checkpoint_dir=None, resume_from=None, tracer=None,
                          screen_init: Optional[dict] = None,
                          stats: Optional[FeedStats] = None) -> StreamResult:
@@ -415,51 +753,136 @@ def solve_streaming_host(source: HostChunkSource,
     retired chunks (``core/screening.py``); the result is bitwise the
     unscreened one and ``result.screen`` holds ``HostScreen.stats()``.
     ``screen_init`` seeds the screening state from such stats (the delta
-    refresh's warm start). Runs on the card unless ``device="cpu"``;
-    without CUDA and without ``device="cpu"`` it raises. ``lam0`` (K,)
-    warm-starts the multipliers (default ones). The per-chunk kernels run
-    on the device, the constant-size tail on the host, and the result's
-    tensors are on the CPU (see ``_SingleRuntime``). ``stats`` (a
-    :class:`FeedStats`) records per-epoch fetch, staging, H2D and step
-    times.
+    refresh's warm start). ``cfg.presolve_samples`` warm-starts lam by a
+    resident solve of the stream's first rows. Runs on the card unless
+    ``device="cpu"``; without CUDA and without ``device="cpu"`` it raises.
+    ``lam0`` (K,) warm-starts the multipliers (default ones). The per-chunk
+    kernels run on the device, the constant-size tail on the host, and the
+    result's tensors are on the CPU. ``stats`` (a :class:`FeedStats`)
+    records per-epoch fetch, staging, H2D and step times.
 
-    Sharding (``mesh``, ``slots``), checkpoint and resume
-    (``checkpoint_dir``, ``resume_from``), the phase tracer, and the
-    reference host-fed driver's cyclic CD and presolve are not ported yet
-    and raise ``NotImplementedError``; ``record_history`` needs the
-    unported ``metrics_every`` and raises ``ValueError``.
+    ``slots`` (default 1) is the virtual slot count (see the module
+    docstring); different slot counts group the additions differently, so
+    give different bits. Checkpoint and resume: with
+    ``cfg.checkpoint_every = N`` and ``checkpoint_dir`` (or
+    ``resume_from``, which doubles as the directory) the resume state is
+    written every N iterations, at finalize entry and every N finalize
+    columns, keeping ``cfg.checkpoint_keep`` states; ``resume_from=<dir>``
+    restores the latest one (fingerprint-checked against this source, cfg,
+    q and lam0; torn writes ignored; an empty or missing directory starts
+    fresh) and returns bitwise the uninterrupted ``lam/iters/r/primal/
+    dual/tau`` and ``fin_hist``. The slot count is fixed at first launch.
+    ``tracer`` (an ``obs.Tracer``) journals the phase spans; it is not a
+    config field and never enters the fingerprint.
+
+    Restrictions: ``cd_mode="cyclic"`` raises ``ValueError``, as in the
+    reference; ``record_history`` needs the unported ``metrics_every`` and
+    raises ``ValueError`` (ROADMAP A3); ``mesh`` (several GPUs) raises
+    ``NotImplementedError`` (ROADMAP A8).
     """
-    for name, value, item in (("mesh", mesh, "A4 and A8"),
-                              ("slots", slots, "A4"),
-                              ("checkpoint_dir", checkpoint_dir, "A4"),
-                              ("resume_from", resume_from, "A4"),
-                              ("tracer", tracer, "A4")):
-        if value is not None:
-            raise NotImplementedError(f"{name} is not ported yet: ROADMAP {item}")
+    if mesh is not None:
+        raise NotImplementedError("mesh is not ported yet: ROADMAP A8")
     _validate_stream_cfg(cfg)
-    for bad, what in ((cfg.algo == "scd" and cfg.cd_mode == "cyclic",
-                       "cd_mode='cyclic'"),
-                      (cfg.presolve_samples > 0, "presolve_samples > 0")):
-        if bad:
-            raise NotImplementedError(
-                f"the host-fed solve does not port {what} yet: ROADMAP A4 "
-                "(the resident solver.solve takes it)")
+    if cfg.algo == "scd" and cfg.cd_mode != "sync":
+        raise ValueError(
+            "solve_streaming_host supports cd_mode='sync' (cyclic CD "
+            "re-feeds the whole source K times per iteration)")
+    # Wrap the source once, here, so every fetch below (epochs, presolve,
+    # fingerprint) retries under cfg's policy; only the fetch is re-run.
+    fault_policy = policy_from_cfg(cfg)
+    if fault_policy is not None:
+        source = resilient_source(source, fault_policy,
+                                  verify=cfg.verify_refetch)
+    # The directory enables checkpointing; a cadence without one runs
+    # unprotected (so a reference run can share a checkpointed job's cfg).
+    ckpt_every = cfg.checkpoint_every
+    if checkpoint_dir is None:
+        checkpoint_dir = resume_from
+    checkpointing = ckpt_every > 0 and checkpoint_dir is not None
+    if checkpointing and cfg.checkpoint_keep < 1:
+        raise ValueError(
+            f"checkpoint_keep must be >= 1 (got {cfg.checkpoint_keep}): "
+            "retaining zero resume states would leave nothing to resume "
+            "from")
+
+    restored = _load_state(resume_from) if resume_from is not None else None
+    if restored is not None:
+        S = int(restored["slots"])
+        if slots is not None and slots != S:
+            raise ValueError(
+                f"checkpoint was written with slots={S}; asked for "
+                f"slots={slots} (the slot count is fixed at first launch)")
+    else:
+        S = 1 if slots is None else slots
+    if S < 1:
+        raise ValueError(f"slots must be >= 1, got {S}")
+
     dev = resolve_device(device)
     lam = (torch.ones((source.k,), dtype=cfg.dtype) if lam0 is None
            else torch.as_tensor(lam0, dtype=cfg.dtype).cpu())
-    rt = _SingleRuntime(source, cfg, q, double_buffer, dev, stats)
-    if cfg.screening:
-        rt.install_screen(HostScreen(rt.c, source.k, cfg, lam.numpy(),
-                                     seed=screen_init))
+    fp = (_fingerprint(source, cfg, q, lam.numpy())
+          if (checkpointing or restored is not None) else None)
+    if restored is not None and not np.array_equal(restored["fingerprint"], fp):
+        raise ValueError(
+            "resume state fingerprint mismatch: the checkpoint in "
+            f"{resume_from!r} was written for a different "
+            "(source, cfg, q, lam0) — refusing to resume")
+
+    tracer = NULL_TRACER if tracer is None else tracer
+    rt = _SlotRuntime(source, cfg, q, S, double_buffer, dev, stats, tracer)
     dprev = torch.zeros_like(lam)
-    iters = 0
-    while iters < cfg.max_iters:
-        lam, dprev, moved = rt.iter_epoch(lam, dprev)
-        iters += 1
-        if not moved:
-            break
-    carry = rt.fin_run(rt.fin_init(), lam)
-    res = rt.fin_result(carry, lam, iters)
+    iters, phase, cursor, fin_carry = 0, _PHASE_ITER, 0, None
+    if restored is not None:
+        lam = torch.from_numpy(restored["lam"]).to(cfg.dtype)
+        dprev = torch.from_numpy(restored["dprev"]).to(cfg.dtype)
+        iters = int(restored["iters"])
+        phase = int(restored["phase"])
+        cursor = int(restored["cursor"])
+        if phase == _PHASE_FIN and cursor > 0:
+            fin_carry = rt.fin_from_np(tuple(
+                restored[k] for k in _FIN_KEYS if k in restored))
+    else:
+        lam = _presolve_host(source, lam, q, cfg, dev)
+
+    if cfg.screening:
+        # Rebuilt on every (re)start: screening never steers the trajectory.
+        rt.install_screen(HostScreen(S * rt.cps, source.k, cfg, lam.numpy(),
+                                     seed=screen_init))
+    fin_zeros = functools.partial(_fin_zeros_np, S, source.k,
+                                  cfg.profit_buckets + 1, cfg.postprocess)
+
+    if phase == _PHASE_ITER:
+        while iters < cfg.max_iters:
+            with tracer.span("solve.iterate", iter=iters):
+                lam, dprev, moved = rt.iter_epoch(lam, dprev)
+            iters += 1
+            if not moved:
+                break
+            if (checkpointing and iters % ckpt_every == 0
+                    and iters < cfg.max_iters):
+                _save_state(checkpoint_dir, iters, _PHASE_ITER, iters, 0, S,
+                            fp, lam, dprev, fin_zeros(),
+                            keep=cfg.checkpoint_keep)
+        phase, cursor = _PHASE_FIN, 0
+        if checkpointing:
+            # Finalize entry: a kill in the finalize replays no iteration.
+            _save_state(checkpoint_dir, cfg.max_iters + 1, _PHASE_FIN, iters,
+                        0, S, fp, lam, dprev, fin_zeros(),
+                        keep=cfg.checkpoint_keep)
+
+    on_col = None
+    if checkpointing:
+        def on_col(j, carry):
+            done = j + 1
+            if done % ckpt_every == 0 and done < rt.cps:
+                _save_state(checkpoint_dir, cfg.max_iters + 1 + done,
+                            _PHASE_FIN, iters, done, S, fp, lam, dprev,
+                            rt.fin_to_np(carry), keep=cfg.checkpoint_keep)
+
+    carry = rt.fin_init() if fin_carry is None else fin_carry
+    with tracer.span("solve.finalize", mode="fused", iters=iters):
+        carry = rt.fin_run(carry, lam, cursor, on_col)
+        res = rt.fin_result(carry, lam, iters)
     if rt.scr is not None:
         res = res._replace(screen=rt.scr.stats())
     if stats is not None:

@@ -47,7 +47,7 @@ import torch
 
 from ..kernels import ops
 from ..kernels.ref import row_sum
-from .bucketing import exact_threshold, make_edges, threshold_from_hist
+from .bucketing import exact_threshold, make_edges, ordered_colsum, threshold_from_hist
 from .greedy import adjusted_profit, consumption, fma_dot, greedy_solve
 from .postprocess import feasibility_threshold_exact, group_profit
 from .scd import candidates_general
@@ -231,15 +231,16 @@ def dd_proposal(lam, r, budgets, cfg):
 
 def _dd_update(kp, lam, q, cfg):
     """Alg 2: projected sub-gradient step on the dual. Chunked, r is summed
-    chunk by chunk."""
+    chunk by chunk, each chunk's rows by ``ordered_colsum`` (as the host-fed
+    DD epoch sums them), so a chunked DD solve has the same bits on the
+    card and the CPU."""
     lam_d = lam.to(kp.p.device)
     if cfg.chunk_size is None:
         r = torch.sum(_solve_primal(kp, lam_d, q)[1], dim=0)
     else:
         r = torch.zeros_like(lam_d)
         for p_c, b_c in _chunk_xs(kp, cfg.chunk_size):
-            r = r + torch.sum(_solve_primal(kp._replace(p=p_c, b=b_c), lam_d, q)[1],
-                              dim=0)
+            r = r + ordered_colsum(_solve_primal(kp._replace(p=p_c, b=b_c), lam_d, q)[1])
     return dd_proposal(lam, r.cpu(), kp.budgets.cpu(), cfg)
 
 

@@ -110,10 +110,27 @@ class SolverConfig:
     # below the floor reactivates every chunk.
     screening: bool = False
     screening_floor: float = 0.5
-    # Reference options not ported yet; any value but the default raises.
-    metrics_every: int = 0
+    # Host-fed solve: write the constant-size resume state every this-many
+    # iterations, and every this-many chunk columns of the fused finalize,
+    # into the call's checkpoint directory (0 disables); keep the newest
+    # checkpoint_keep states (>= 1).
     checkpoint_every: int = 0
+    checkpoint_keep: int = 3
+    # Host-fed solve, fault layer (core/faults.py): retry a failed chunk
+    # fetch up to fetch_retries times under a capped exponential backoff
+    # with deterministic jitter, bound each fetch by fetch_timeout seconds
+    # (0: unbounded), and with verify_refetch read every chunk twice and
+    # require equal bytes. Retries re-run only the fetch, so the solve
+    # keeps its bits.
     fetch_retries: int = 0
+    fetch_backoff: float = 0.05
+    fetch_backoff_growth: float = 2.0
+    fetch_backoff_cap: float = 2.0
+    fetch_jitter: float = 0.25
+    fetch_timeout: float = 0.0
+    verify_refetch: bool = False
+    # Reference option not ported yet; any value but the default raises.
+    metrics_every: int = 0
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
@@ -122,9 +139,6 @@ class SolverConfig:
              "stream_finalize='legacy' (three-pass finalize): ROADMAP A3"),
             (self.metrics_every != 0,
              "metrics_every (sampled streaming history): ROADMAP A3"),
-            (self.checkpoint_every != 0,
-             "checkpoint_every (checkpoint and resume): ROADMAP A4"),
-            (self.fetch_retries != 0, "fetch_retries (fault layer): ROADMAP A4"),
         ]
         for bad, what in unported:
             if bad:

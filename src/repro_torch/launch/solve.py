@@ -4,18 +4,23 @@
         [--reduce exact] [--algo dd] [--presolve N] [--chunk-size C] \\
         [--device cpu]
     python -m repro_torch.launch.solve --workload table1 --scale 0.1 \\
-        --host-feed --chunk-size 65536 [--algo dd] \\
-        [--screening [--screening-floor F]] [--device cpu]
+        --host-feed --chunk-size 65536 [--algo dd] [--slots S] \\
+        [--screening [--screening-floor F]] [--device cpu] \\
+        [--checkpoint-dir DIR [--checkpoint-every N] [--resume]]
 
 Without ``--host-feed`` the §6 sparse workload is generated on the host,
 moved to the device and solved resident (``core/solver.solve``);
 ``--chunk-size`` then chunks the per-iteration map. With ``--host-feed``
 it is produced as NumPy chunks and solved by the host-fed driver
 (``core/prefetch.solve_streaming_host``: sync SCD with the bucketed
-reduce, optionally screened, or DD). Both print one ``key: value`` line
-per metric, the keys of the reference launcher plus the device (and,
-screened, the streamed chunks per iteration and the floor resets). ``--scale`` shrinks N, keeping the structure (budgets scale
-with N).
+reduce, optionally screened, or DD), over ``--slots`` virtual slots, and
+with ``--checkpoint-every`` and ``--checkpoint-dir`` it survives
+preemption: relaunch with ``--resume`` and the same directory (a
+directory with no checkpoint starts fresh, so a relaunch loop can always
+pass it). Both print one ``key: value`` line per metric, the keys of the
+reference launcher plus the device (and, screened, the streamed chunks
+per iteration and the floor resets). ``--scale`` shrinks N, keeping the
+structure (budgets scale with N).
 """
 from __future__ import annotations
 
@@ -67,16 +72,21 @@ def run(workload: KPWorkload, cfg: SolverConfig, seed=0, device="cuda"):
 
 
 def run_streaming(workload: KPWorkload, cfg: SolverConfig, chunk: int, seed=0,
-                  double_buffer=True, device="cuda", stats=None):
+                  double_buffer=True, device="cuda", stats=None,
+                  checkpoint_dir=None, resume=False, slots=None):
     """Host-fed solve of a §6 workload; returns the Table-1-style row dict
-    (and the final multipliers, ``lam``)."""
+    (and the final multipliers, ``lam``). ``slots`` virtual slots; with
+    ``cfg.checkpoint_every`` and ``checkpoint_dir`` the solve checkpoints
+    there, and ``resume`` restores the latest state in it first."""
     dev = resolve_device(device)
     t0 = time.time()
     src = sparse_host_chunk_source(seed, workload.n_users, workload.k, chunk,
                                    q=workload.q, tightness=workload.tightness)
     res = solve_streaming_host(src, cfg, q=workload.q,
                                double_buffer=double_buffer, device=dev,
-                               stats=stats)
+                               stats=stats, slots=slots,
+                               checkpoint_dir=checkpoint_dir,
+                               resume_from=checkpoint_dir if resume else None)
     budgets = torch.as_tensor(src.budgets)
     viol = float(torch.max((res.r - budgets) / budgets))
     dt = time.time() - t0
@@ -104,10 +114,6 @@ def run_streaming(workload: KPWorkload, cfg: SolverConfig, chunk: int, seed=0,
 _UNPORTED = {
     "streaming": ("--streaming (traced generator)", "A3"),
     "stream_finalize": ("--stream-finalize legacy", "A3"),
-    "checkpoint_dir": ("--checkpoint-dir", "A4"),
-    "checkpoint_every": ("--checkpoint-every", "A4"),
-    "resume": ("--resume", "A4"),
-    "slots": ("--slots", "A4"),
 }
 
 
@@ -137,10 +143,17 @@ def main(argv=None):
     ap.add_argument("--streaming", action="store_true")
     ap.add_argument("--stream-finalize", choices=["fused", "legacy"],
                     default="fused")
-    ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--checkpoint-every", type=int, default=0)
-    ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--slots", type=int, default=None)
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="host-feed only: directory of the atomic resume state")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="write the resume state every N iterations (and every "
+                         "N chunk columns of the finalize); 0 disables")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint of --checkpoint-dir "
+                         "first (a fresh start when it has none)")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="host-feed only: virtual slot count (default 1), "
+                         "fixed at first launch")
     ap.add_argument("--screening", action="store_true",
                     help="host-fed: safe active-set screening, bitwise the "
                          "unscreened solve (retired chunks are not fetched)")
@@ -157,16 +170,28 @@ def main(argv=None):
     if args.screening and not args.host_feed:
         raise SystemExit("--screening requires --host-feed (only the "
                          "chunk-streamed driver carries an active chunk set)")
+    if ((args.checkpoint_every or args.checkpoint_dir or args.resume
+         or args.slots) and not args.host_feed):
+        raise SystemExit("--checkpoint-every/--checkpoint-dir/--resume/"
+                         "--slots require --host-feed (only the host-fed "
+                         "epoch driver is preemption-safe and slot-sharded)")
+    if args.checkpoint_every and not args.checkpoint_dir:
+        raise SystemExit("--checkpoint-every requires --checkpoint-dir")
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume requires --checkpoint-dir")
     cfg = SolverConfig(algo=args.algo, reduce=args.reduce,
                        max_iters=args.max_iters, presolve_samples=args.presolve,
                        chunk_size=args.chunk_size, screening=args.screening,
-                       screening_floor=args.screening_floor)
+                       screening_floor=args.screening_floor,
+                       checkpoint_every=args.checkpoint_every)
     if args.host_feed:
         if not args.chunk_size:
             raise SystemExit("--host-feed requires --chunk-size")
         out = run_streaming(wl, cfg, args.chunk_size,
                             double_buffer=not args.no_double_buffer,
-                            device=args.device)
+                            device=args.device,
+                            checkpoint_dir=args.checkpoint_dir,
+                            resume=args.resume, slots=args.slots)
     else:
         out = run(wl, cfg, device=args.device)
     for k, v in out.items():

@@ -495,3 +495,87 @@ def test_host_fed_dd_on_card(cuda_device):
     host = tpf.solve_streaming_host(sparse_host_chunk_source(0, n, 10, chunk), cfg, q=q,
                                     device=cuda_device)
     assert host.iters == resident.iters and torch.equal(host.lam, resident.lam)
+
+
+def _same_result(a, b):
+    return a.iters == b.iters and all(
+        torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+        for f in ("lam", "r", "primal", "dual", "tau")) and all(
+        torch.equal(x, y) for x, y in zip(a.fin_hist, b.fin_hist))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["scd", "dd", "screened", "presolve"])
+def test_slots_on_card_equal_cpu(cuda_device, case):
+    """slots=4 over 10 chunks (3 columns, 2 inert chunk slots): the card's
+    solve equals the CPU's in every field."""
+    src = sparse_host_chunk_source(0, 40_000, 10, 4096)
+    q, cfg = 1, SolverConfig(max_iters=40)
+    if case == "dd":
+        cfg = SolverConfig(algo="dd", max_iters=12)
+    elif case == "presolve":
+        cfg = cfg.replace(presolve_samples=8192)
+    elif case == "screened":
+        src = banded_host_chunk_source(7, 65536, 6, 4096, q=2, tightness=0.08, band=0.05)
+        q, cfg = 2, SolverConfig(max_iters=30, bucket_half=12, screening=True)
+    gpu = tpf.solve_streaming_host(src, cfg, q=q, slots=4, device=cuda_device)
+    cpu = tpf.solve_streaming_host(src, cfg, q=q, slots=4, device="cpu")
+    assert _same_result(gpu, cpu)
+    if case == "screened":
+        np.testing.assert_array_equal(gpu.screen["streamed_chunks"],
+                                      cpu.screen["streamed_chunks"])
+        assert gpu.screen["streamed_chunks"].min() < 16
+
+
+class _Kill(Exception):
+    pass
+
+
+def _killing(src, after):
+    calls = {"n": 0}
+    inner = src.fn
+
+    def fn(i):
+        calls["n"] += 1
+        if calls["n"] > after:
+            raise _Kill()
+        return inner(i)
+
+    return src._replace(fn=fn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["mid_iterate", "between_finalize_columns"])
+def test_kill_and_resume_on_card(cuda_device, tmp_path, where):
+    """A slots=4 solve on the card (10 chunks: 3 columns, 2 inert chunk
+    slots), checkpointed every 2 iterations and columns, killed in process
+    and resumed, equals the uninterrupted one."""
+    src = sparse_host_chunk_source(0, 40_000, 10, 4096)
+    cfg = SolverConfig(max_iters=40, checkpoint_every=2)
+    base = tpf.solve_streaming_host(src, cfg, q=1, slots=4, device=cuda_device)
+    # the fingerprint probe, 10 reads an epoch, then the finalize's columns
+    # 0 (4 reads) and 1 (3 reads) and the first read of column 2, after
+    # which the state at cursor 2 is saved
+    kill_after = (1 + base.iters // 2 * 10 + 5 if where == "mid_iterate"
+                  else 1 + base.iters * 10 + 8)
+    with pytest.raises(_Kill):
+        tpf.solve_streaming_host(_killing(src, kill_after), cfg, q=1, slots=4,
+                                 device=cuda_device, checkpoint_dir=str(tmp_path))
+    res = tpf.solve_streaming_host(src, cfg, q=1, device=cuda_device,
+                                   resume_from=str(tmp_path))
+    assert _same_result(res, base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [1, 4])
+def test_chaos_on_card(cuda_device, slots):
+    from repro_torch.core.faults import FaultPlan, faulty_source
+    src = sparse_host_chunk_source(3, 40_000, 10, 4096)
+    cfg = SolverConfig(max_iters=40)
+    clean = tpf.solve_streaming_host(src, cfg, q=1, slots=slots, device=cuda_device)
+    chaos = tpf.solve_streaming_host(
+        faulty_source(src, FaultPlan(seed=0, drop=0.08, slow=0.05, slow_s=0.002,
+                                     corrupt=0.04, offenders=(1,), offender_failures=2)),
+        cfg.replace(fetch_retries=8, fetch_backoff=1e-4, fetch_backoff_cap=1e-3,
+                    verify_refetch=True), q=1, slots=slots, device=cuda_device)
+    assert _same_result(chaos, clean)

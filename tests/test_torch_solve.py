@@ -159,30 +159,25 @@ def test_entry_points_raise_without_cuda(inst, monkeypatch):
 
 
 def test_unported_options_raise(inst):
-    """Options no driver ports yet raise at construction; the resident-only
-    ones (cyclic, presolve, the exact reduce, history) construct, and the
-    host-fed driver refuses them naming its ROADMAP item."""
-    for kw in ({"stream_finalize": "legacy"}, {"metrics_every": 2},
-               {"checkpoint_every": 2}, {"fetch_retries": 3}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Options no driver ports yet raise at construction, naming their
+    ROADMAP item (A3: the legacy finalize and the sampled history; A8: the
+    straggler mask and the mesh); the host-fed driver refuses cyclic CD
+    and the exact reduce with the reference's ValueError."""
+    for kw in ({"stream_finalize": "legacy"}, {"metrics_every": 2}):
+        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
             SolverConfig(**kw)
-    for kw in ({"partial_fraction": 0.5},
-               {"fetch_timeout": 1.0}, {"verify_refetch": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            config_from_reference(dataclasses.asdict(JCfg(**kw)))
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        config_from_reference(dataclasses.asdict(JCfg(partial_fraction=0.5)))
     p, b, budgets = inst
     src = tpf.host_array_source(p, b, budgets, CHUNK)
-    for kw in ({"cd_mode": "cyclic"}, {"presolve_samples": 64}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            tpf.solve_streaming_host(src, SolverConfig(**kw), device="cpu")
+    with pytest.raises(ValueError, match="cd_mode='sync'"):
+        tpf.solve_streaming_host(src, SolverConfig(cd_mode="cyclic"), device="cpu")
     with pytest.raises(ValueError, match="bucketed"):
         tpf.solve_streaming_host(src, SolverConfig(reduce="exact"), device="cpu")
     with pytest.raises(ValueError, match="ROADMAP A3"):
         tpf.solve_streaming_host(src, SolverConfig(record_history=True),
                                  device="cpu")
-    for kw in ({"mesh": object()}, {"slots": 2}, {"checkpoint_dir": "ckpt"},
-               {"resume_from": "ckpt"}, {"tracer": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpf.solve_streaming_host(src, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        tpf.solve_streaming_host(src, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         tlaunch.main(["--streaming", "--chunk-size", "1024"])
