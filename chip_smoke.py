@@ -87,9 +87,32 @@ check raises, so the script exits non-zero and prints no result line:
    card's SCD, screened banded, DD and presolve slot solves bitwise the
    CPU's (the screened profile too); walls, the per-epoch split and the
    cost of a save;
-14. the ``kernels`` line (launches summed over the paths run in phases 5,
-   7, 8, 11, 12 and 13, with the split), the card's ``nvidia-smi`` line
-   and, last, ``{"ok": true, "device": {...}}``.
+14. the device-streamed driver (``core/chunked.solve_streaming``): table1
+   generated on the card (``data/synth.sparse_chunk_source``) through the
+   launcher at N = 10^7 and uncut at 10^8, chunk 65,536, with the wall,
+   iterations, primal, dual, ``max_violation``, the launches per solve
+   (``scd_fused_hist`` iters x chunks, the finalize once a chunk, nothing
+   else) and the peak device memory at both sizes, which must stay flat;
+   phase 5's rows through ``array_source`` bitwise the host-fed solve of
+   the same bytes, fused (and phase 5's row) and legacy, the source read
+   iters + 1 and iters + 3 times; ``bucket_hist`` at the legacy finalize's
+   shape (three real chunks' p~ and consumption at the solved lam, E = 512,
+   ``removable_tile``'s tile, a non-zero seed, as given and dyadic) bitwise
+   its plain version, timed into the kernels line's ``legacy_shape``; DD at
+   N = 10^7; the sampled history
+   (``metrics_every=4``) at N = 10^6 bitwise the host-fed one; the banded
+   N = 10^7 of phase 11 screened == unscreened == phase 11's host-fed
+   screened solve, with the active-chunk profile;
+15. the serving layer: ``launch/refresh.run_scenario`` at the reference's
+   serving shape (K = 8, Q = 2, tightness 0.4, 8 slots, chunk 65,536,
+   N = 2^22, 3 generations): warm iterations below cold, 512 lookups
+   bitwise ``decisions_chunk``, batched and single QPS; a warm refresh
+   SIGKILLed in a fresh interpreter and recovered here, its record bitwise
+   the uninterrupted one; ``run_chaos`` at n = 262,144 (chaos == clean);
+   and the card's generation records bitwise the CPU's there;
+16. the ``kernels`` line (launches summed over the paths run in phases 5,
+   7, 8, 11, 12, 13, 14 and 15, with the split), the card's
+   ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 """
 import json
 import shutil
@@ -130,6 +153,14 @@ REPLACES = {"scd_fused_hist": "src/repro/kernels/scd_fused.py:93",
             "bucket_hist": "src/repro/kernels/bucket_hist.py:67",
             "screen_bound": "src/repro/kernels/screen_bound.py:66",
             "adjusted_topc": "src/repro/kernels/adjusted_topc.py:69"}
+
+
+N_STREAM = 100_000_000              # the device-streamed table1, uncut
+N_HISTORY = 1_000_000               # the sampled history, host-fed against streamed
+SERVE = dict(k=8, q=2, tightness=0.4)   # the reference's serving shape (launch/refresh.py)
+N_SERVE, SERVE_SLOTS, SERVE_GENS = 1 << 22, 8, 3   # 64 chunks, cut from 10^8
+SERVE_CKPT_EVERY = 2
+HOST_RESULTS = {}                   # host-fed results later phases compare against
 
 
 class SmokeFailure(RuntimeError):
@@ -922,6 +953,7 @@ def phase_screened_end_to_end(torch, dev):
         check(float(res.dual) >= float(res.primal), "dual below primal")
         check(launches["scd_finalize_hist"] == chunks, "finalize launches != chunks")
     base, scr = runs[False], runs[True]
+    HOST_RESULTS["banded_screened"] = scr
     check(same(base, scr), "screened solve differs from the unscreened one")
     streamed = scr.screen["streamed_chunks"]
     got = paths["host_fed_banded_screened"]
@@ -1291,6 +1323,378 @@ def phase_slots(torch, np, dev, host_fed_row):
     return paths
 
 
+def counted(src):
+    """A ChunkSource whose reads are counted."""
+    calls = {"n": 0}
+    inner = src.fn
+
+    def fn(i):
+        calls["n"] += 1
+        return inner(i)
+
+    return src._replace(fn=fn), calls
+
+
+def removable_vs_plain(torch, chunk_fn, lam, q, dev, indices):
+    """``bucket_hist`` at the legacy finalize's shape (pass 2): real chunks'
+    (p~, consumption) at the solved lam, binned by ``removable_hist`` on
+    the card (the kernel at E = 512 and ``removable_tile``'s tile, v1 = p~
+    over the K columns) onto a non-zero seed, against
+    ``ref.bucket_hist_plain`` on the same inputs, as given and rounded to
+    dyadic values; bitwise. Returns the kernel's entry at this shape."""
+    from repro_torch.core.chunked import _chunk_primal
+    from repro_torch.core.postprocess import profit_edges, removable_hist, removable_tile
+    from repro_torch.kernels import ref
+
+    lam_d = lam.to(dev)
+    gen = torch.Generator(device=dev)
+    cases = 0
+    for i in indices:
+        p_c, b_c = chunk_fn(i)
+        x, cons, pt = _chunk_primal(p_c, b_c, lam_d, q)
+        sel = x.any(dim=1)
+        edges = profit_edges(float(pt[sel].min()), float(pt[sel].max())).to(dev)
+        k, e = cons.shape[1], edges.shape[0]
+        tile = removable_tile(k, e)
+        for dyadic in (False, True):
+            v1 = torch.round(pt * 64) / 64 if dyadic else pt
+            v2 = torch.round(cons * 64) / 64 if dyadic else cons
+            gen.manual_seed(31 + 2 * int(i) + dyadic)
+            init = torch.round(torch.rand((k, e + 1), generator=gen, device=dev)
+                               * 256) / 64
+            kh = removable_hist(v1, v2, edges, init=init)
+            w1 = v1[:, None].expand(-1, k).contiguous()
+            e2 = edges[None, :].expand(k, e).contiguous()
+            ph = ref.bucket_hist_plain(w1, v2.contiguous(), e2, tile_n=tile,
+                                       hist_init=init)
+            torch.cuda.synchronize()
+            check(torch.equal(kh, ph), f"bucket_hist at the legacy shape not bitwise "
+                                       f"(chunk {i}, dyadic={dyadic})")
+            cases += 1
+    call = lambda: removable_hist(v1, v2, edges, init=init)  # noqa: E731
+    rows = v2.shape[0]
+    entry = {"rows": rows, "k": k, "edges": e, "tile": tile, "cases": cases,
+             "chunks": list(indices), "max_abs_err": 0.0,
+             "ms": time_ms(torch, call, reps=20),
+             "plain_ms": time_ms(torch, lambda: ref.bucket_hist_plain(
+                 w1, v2.contiguous(), e2, tile_n=tile, hist_init=init), reps=2, warmup=1),
+             **dict(zip(("bound_ms", "bound_by"),
+                        bound(4 * (rows + rows * k + e + 2 * k * (e + 1)),
+                              rows * k * (e + 1)))),
+             "library_ms": None}
+    emit("removable_hist_vs_plain", **entry)
+    return entry
+
+
+def phase_streamed(torch, np, dev):
+    """The device-streamed driver (phase 14): table1 generated on the card
+    at N = 10^7 and uncut 10^8, phase 5's bytes against the host-fed
+    driver (fused and legacy), screened banded, DD and the sampled
+    history."""
+    from repro_torch.configs.paper_kp import WORKLOADS, KPWorkload
+    from repro_torch.core.chunked import array_source, solve_streaming
+    from repro_torch.core.instances import sparse_instance
+    from repro_torch.core.prefetch import host_array_source, solve_streaming_host
+    from repro_torch.core.types import SolverConfig, SparseKP
+    from repro_torch.kernels import ops
+    from repro_torch.launch.solve import run_streaming
+
+    wl = WORKLOADS["table1"]
+    cfg = SolverConfig(max_iters=40)
+    paths, peaks = {}, {}
+
+    # 1. Generated on the card: peak memory at 10^7 and 10^8.
+    for n in (N_RES, N_STREAM):
+        chunks = -(-n // C_MAIN)
+        torch.cuda.synchronize()
+        base_gb = torch.cuda.memory_allocated(dev) / 1e9
+        ops.reset_launches()
+        row = run_streaming(KPWorkload(wl.name, n, wl.k, wl.q, wl.tightness), cfg,
+                            C_MAIN, device=dev, host_feed=False)
+        launches = dict(ops.LAUNCHES)
+        iters = row["iterations"]
+        peaks[n] = row["peak_device_gb"] - base_gb
+        emit("streamed_end_to_end", workload="table1", source="generated on the card",
+             n=n, chunk=C_MAIN, chunks=chunks, iters=iters, primal=row["primal"],
+             dual=row["dual"], gap=row["duality_gap"],
+             max_violation=row["max_violation"], wall_s=row["wall_s"],
+             peak_device_gb=row["peak_device_gb"], allocated_before_gb=base_gb,
+             peak_over_before_gb=peaks[n], launches=launches)
+        check(launches["scd_fused_hist"] == iters * chunks,
+              f"streamed: scd_fused_hist launched {launches['scd_fused_hist']} times, "
+              f"expected iters x chunks = {iters * chunks}")
+        check(launches["scd_finalize_hist"] == chunks, "streamed: finalize launches != chunks")
+        check(sum(launches.values()) == (iters + 1) * chunks,
+              f"streamed: other kernels launched: {launches}")
+        check(row["max_violation"] <= 1e-4, f"streamed max_violation {row['max_violation']}")
+        check(row["dual"] >= row["primal"], "streamed dual below primal")
+        check(all(v == v and abs(v) != float("inf")
+                  for v in (row["primal"], row["dual"], row["max_violation"])),
+              "streamed: non-finite metrics")
+        paths[f"streamed_table1_{n:.0e}".replace("+", "")] = launches
+    check(peaks[N_STREAM] <= 1.05 * peaks[N_RES] + 0.01,
+          f"streamed peak memory grew with N: {peaks}")
+
+    # 2. Phase 5's bytes through array_source: bitwise the host-fed solve,
+    # fused and legacy; the source read iters + 1 and iters + 3 times.
+    chunks = -(-N_RES // C_MAIN)
+    kp, q = sparse_instance(0, N_RES, wl.k, wl.q, tightness=wl.tightness, device=dev,
+                            chunk=C_MAIN)
+    ph, bh = kp.p.cpu().numpy(), kp.b.cpu().numpy()
+    host_src = host_array_source(ph, bh, kp.budgets.cpu().numpy(), C_MAIN)
+    out = {}
+    for finalize, extra in (("fused", 1), ("legacy", 3)):
+        fcfg = cfg.replace(stream_finalize=finalize)
+        t0 = time.perf_counter()
+        host = solve_streaming_host(host_src, fcfg, q=q, device=dev)
+        host_s = time.perf_counter() - t0
+        src, calls = counted(array_source(kp, C_MAIN, device=dev))
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve_streaming(src, fcfg, q=q, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        out[finalize] = {"iters": res.iters, "wall_s": wall, "host_fed_wall_s": host_s,
+                         "reads": calls["n"], "launches": launches,
+                         "bitwise_host_fed": same_stream(res, host),
+                         "tau": repr(float(res.tau)), "primal": float(res.primal)}
+        check(out[finalize]["bitwise_host_fed"],
+              f"streamed {finalize} solve differs from the host-fed one on the same bytes")
+        check(calls["n"] == (res.iters + extra) * chunks,
+              f"streamed {finalize}: {calls['n']} reads, expected (iters + {extra}) x "
+              f"chunks = {(res.iters + extra) * chunks}")
+        paths[f"streamed_{finalize}"] = launches
+        if finalize == "fused":
+            check(res.iters == HOST_RESULTS["table1"]["iterations"]
+                  and res.lam.tolist() == HOST_RESULTS["table1"]["lam"]
+                  and float(res.primal) == HOST_RESULTS["table1"]["primal"]
+                  and float(res.dual) == HOST_RESULTS["table1"]["dual"],
+                  "streamed solve differs from phase 5's host-fed row")
+        else:
+            check(launches["bucket_hist"] == chunks
+                  and launches["adjusted_topc"] == 2 * chunks
+                  and launches["scd_finalize_hist"] == chunks,
+                  f"streamed legacy launches: {launches}")
+            legacy_shape = removable_vs_plain(torch, src.fn, res.lam, q, dev,
+                                              (0, chunks // 2, chunks - 1))
+    emit("streamed_vs_host_fed", n=N_RES, chunk=C_MAIN, chunks=chunks, finalize=out)
+
+    # 3. DD, and the sampled history against the host-fed one.
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    dd = solve_streaming(array_source(kp, C_MAIN, device=dev),
+                         cfg.replace(algo="dd"), q=q, device=dev)
+    dd_wall = time.perf_counter() - t0
+    paths["streamed_dd"] = dict(ops.LAUNCHES)
+    m = solve_metrics(torch, dd, kp.budgets.cpu())
+    check(paths["streamed_dd"]["adjusted_topc"] == dd.iters * chunks,
+          "streamed DD: adjusted_topc launches != iters x chunks")
+    check(m["max_violation"] <= 1e-4 and m["dual"] >= m["primal"], f"streamed DD: {m}")
+    emit("streamed_dd", n=N_RES, wall_s=dd_wall, launches=paths["streamed_dd"], **m)
+    del kp
+    hkp = SparseKP(*(torch.from_numpy(a[:N_HISTORY]) for a in (ph, bh)),
+                   torch.full((wl.k,), wl.tightness * N_HISTORY * wl.q * 0.5 / wl.k))
+    hcfg = cfg.replace(record_history=True, metrics_every=4)
+    t0 = time.perf_counter()
+    dev_h = solve_streaming(array_source(hkp, C_MAIN, device=dev), hcfg, q=q, device=dev)
+    t1 = time.perf_counter()
+    host_h = solve_streaming_host(host_array_source(hkp.p.numpy(), hkp.b.numpy(),
+                                                    hkp.budgets.numpy(), C_MAIN),
+                                  hcfg, q=q, device=dev)
+    hist_same = all(np.array_equal(dev_h.history[k].numpy(), host_h.history[k].numpy(),
+                                   equal_nan=True) for k in dev_h.history)
+    emit("streamed_history", n=N_HISTORY, metrics_every=4, iters=dev_h.iters,
+         rows=int(dev_h.history["lam"].shape[0]), wall_s=t1 - t0,
+         host_fed_wall_s=time.perf_counter() - t1,
+         bitwise=hist_same and same_stream(dev_h, host_h),
+         primal_rows=[float(v) for v in dev_h.history["primal"][:8]])
+    check(hist_same and same_stream(dev_h, host_h),
+          "sampled history: streamed differs from host-fed")
+    del ph, bh
+
+    # 4. Screened banded (phase 11's settings) == unscreened, streamed, and
+    # == phase 11's host-fed screened solve.
+    from repro_torch.data.synth import banded_host_chunk_source
+    bsrc = banded_host_chunk_source(7, N_RES, BANDED["k"], C_MAIN, q=BANDED["q"],
+                                    tightness=BANDED["tightness"], band=BANDED["band"])
+    bp = np.concatenate([bsrc.fn(i)[0] for i in range(chunks)])[:N_RES]
+    bb = np.concatenate([bsrc.fn(i)[1] for i in range(chunks)])[:N_RES]
+    bkp = SparseKP(torch.from_numpy(bp), torch.from_numpy(bb), torch.from_numpy(bsrc.budgets))
+    del bp, bb
+    dsrc = array_source(bkp, C_MAIN, device=dev)
+    scfg = SolverConfig(max_iters=30, bucket_half=12)
+    runs = {}
+    for screening in (False, True):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[screening] = solve_streaming(dsrc, scfg.replace(screening=screening),
+                                          q=BANDED["q"], device=dev)
+        torch.cuda.synchronize()
+        runs[screening, "wall"] = time.perf_counter() - t0
+        runs[screening, "launches"] = dict(ops.LAUNCHES)
+    scr = runs[True]
+    active = scr.screen["active_chunks"].numpy()
+    profile = active[active >= 0].tolist()
+    host = HOST_RESULTS["banded_screened"]
+    facts = {"bitwise_unscreened": same_stream(scr, runs[False]),
+             "bitwise_host_fed": same_stream(scr, host)}
+    emit("streamed_screened", workload="banded", n=N_RES, chunk=C_MAIN, chunks=chunks,
+         iters=scr.iters, active_chunks_per_iter=profile, fallbacks=scr.screen["fallbacks"],
+         resets=scr.screen["resets"], host_fed_profile=host.screen["streamed_chunks"].tolist(),
+         wall_s={"unscreened": runs[False, "wall"], "screened": runs[True, "wall"]},
+         launches={"unscreened": runs[False, "launches"], "screened": runs[True, "launches"]},
+         **facts)
+    check(all(facts.values()), f"streamed screened: {facts}")
+    got = runs[True, "launches"]
+    check(got["screen_bound"] == chunks, "streamed screened: screen_bound launches != chunks")
+    check(got["scd_fused_hist"] == sum(profile) + chunks * scr.screen["fallbacks"],
+          "streamed screened: fused launches != the active-chunk profile")
+    check(min(profile) < chunks, "streamed screened: nothing retired")
+    paths["streamed_screened_banded"] = got
+    return paths, legacy_shape
+
+
+def same_stream(a, b):
+    """Every result field bitwise (the finalize histograms where both have
+    them)."""
+    import torch
+    ok = a.iters == b.iters and all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+                                    for f in ("lam", "r", "primal", "dual", "tau"))
+    if a.fin_hist is not None and b.fin_hist is not None:
+        ok = ok and all(torch.equal(x, y) for x, y in zip(a.fin_hist, b.fin_hist))
+    return ok
+
+
+_SERVE_KILL = """
+import json, os, signal, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.core.types import SolverConfig
+from repro_torch.kernels import _build
+from repro_torch.serve import RefreshEngine, WorkloadSpec, synthetic_source
+
+root, kill_after, scale = sys.argv[2], int(sys.argv[3]), float(sys.argv[4])
+spec = WorkloadSpec.from_json(json.loads(sys.argv[5]))
+_build.load()                       # the parent's library, from the build/ cache
+calls = {"n": 0}
+
+def make(s):
+    src = synthetic_source(s)
+    inner = src.fn
+
+    def fn(i):
+        calls["n"] += 1
+        if calls["n"] > kill_after:
+            os.kill(os.getpid(), signal.SIGKILL)
+        return inner(i)
+
+    return src._replace(fn=fn)
+
+RefreshEngine(root, spec, make_source=make,
+              cfg=SolverConfig(max_iters=60, checkpoint_every=int(sys.argv[6])),
+              slots=int(sys.argv[7])).refresh(budget_scale=scale)
+"""
+
+
+def same_generation(np, a, b):
+    fields = ("lam", "tau", "iters", "r", "primal", "dual", "fingerprint")
+    return (all(np.asarray(getattr(a, f)).tobytes() == np.asarray(getattr(b, f)).tobytes()
+                for f in fields)
+            and all(x.tobytes() == y.tobytes() for x, y in zip(a.fin_hist, b.fin_hist)))
+
+
+def phase_serving(torch, np, dev):
+    """The serving layer (phase 15): ``run_scenario`` at the reference's
+    serving shape, a SIGKILLed refresh recovered, ``run_chaos``, and the
+    card's generation records against the CPU's."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.types import SolverConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.refresh import _budget_schedule, run_chaos, run_scenario
+    from repro_torch.serve import RefreshEngine, WorkloadSpec
+
+    work = ROOT / "build" / "smoke_serve"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    spec = WorkloadSpec(seed=0, n=N_SERVE, chunk=C_MAIN, **SERVE)
+    cfg = SolverConfig(max_iters=60, checkpoint_every=SERVE_CKPT_EVERY)
+
+    # 1. The scenario: warm against cold, lookups round-trip bitwise.
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = run_scenario(spec, SERVE_GENS, work / "scenario", cfg, device=dev,
+                       slots=SERVE_SLOTS, lookups=512)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    emit("serving", n=N_SERVE, chunk=C_MAIN, slots=SERVE_SLOTS, generations=SERVE_GENS,
+         wall_s=wall, per_generation=out["per_generation"],
+         warm_iters_total=out["warm_iters_total"], cold_iters_total=out["cold_iters_total"],
+         lookups=out["lookup"], lookups_bitwise=out["lookups_bitwise"], launches=launches)
+    check(out["warm_iters_total"] < out["cold_iters_total"],
+          f"serving: warm {out['warm_iters_total']} did not beat cold "
+          f"{out['cold_iters_total']}")
+    check(out["lookups_bitwise"], "serving: lookups differ from decisions_chunk")
+    check(launches["scd_fused_hist"] > 0 and launches["scd_finalize_hist"] > 0,
+          f"serving launched no solve kernel: {launches}")
+
+    # 2. A warm refresh SIGKILLed in a fresh interpreter mid-iterate, then
+    # recovered here: the record is bitwise the scenario's generation 1.
+    root = work / "killed"
+    root.mkdir()
+    shutil.copytree(work / "scenario" / "gen_000000", root / "gen_000000")
+    ckpt.write_json(root, "LIVE.json", {"gen": 0})
+    chunks = -(-N_SERVE // C_MAIN)
+    scale = _budget_schedule(SERVE_GENS, spec.seed)[1]
+    kill_after = 1 + 2 * chunks + chunks // 2
+    t0 = time.perf_counter()
+    killed = subprocess.run(
+        [sys.executable, "-c", _SERVE_KILL, str(ROOT / "src"), str(root), str(kill_after),
+         repr(scale), json.dumps(spec.to_json()), str(SERVE_CKPT_EVERY), str(SERVE_SLOTS)],
+        capture_output=True, text=True, timeout=600)
+    killed_s = time.perf_counter() - t0
+    check(killed.returncode == -signal.SIGKILL,
+          f"the killed refresh ended with {killed.returncode}: {killed.stderr[-3000:]}")
+    eng = RefreshEngine(root, spec, cfg=cfg, device=dev, slots=SERVE_SLOTS)
+    left = ckpt.latest_step(root / "gen_000001" / "ckpt")
+    check(eng.live_gen_id() == 0 and left is not None,
+          f"after the kill: live {eng.live_gen_id()}, resume state {left}")
+    t0 = time.perf_counter()
+    rec = eng.recover()
+    recover_s = time.perf_counter() - t0
+    want = RefreshEngine(work / "scenario", spec, cfg=cfg, device=dev).generation(1)
+    bitwise = rec is not None and rec.gen == 1 and same_generation(np, rec, want)
+    emit("serving_kill", killed_after_reads=kill_after, killed_wall_s=killed_s,
+         resume_step=left, recover_s=recover_s, iters=rec.iters, bitwise=bitwise)
+    check(bitwise, "the recovered refresh's record differs from the uninterrupted one")
+
+    # 3. Chaos == clean, and the card's records == the CPU's, at n = 262,144.
+    small = spec.replace(n=N_VS_CPU, chunk=N_VS_CPU // 16)
+    t0 = time.perf_counter()
+    ok, chaos = run_chaos(small, SERVE_GENS, work / "chaos", cfg, device=dev,
+                          slots=SERVE_SLOTS, lookups=256)
+    chaos_s = time.perf_counter() - t0
+    check(ok, "run_chaos: the chaos records differ from the clean ones")
+    recs, walls = {}, {}
+    for name, where in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        eng = RefreshEngine(work / f"records_{name}", small, cfg=cfg, device=where,
+                            slots=SERVE_SLOTS)
+        recs[name] = [eng.refresh(budget_scale=s)
+                      for s in _budget_schedule(SERVE_GENS, small.seed)]
+        walls[name] = time.perf_counter() - t0
+    card_cpu = all(same_generation(np, a, b) for a, b in zip(recs["card"], recs["cpu"]))
+    emit("serving_chaos_and_cpu", n=N_VS_CPU, chunk=small.chunk, chaos_bitwise=ok,
+         chaos_wall_s=chaos_s,
+         chaos_stale_serves=chaos["chaos"]["lookup"]["cache"]["stale_serves"],
+         chaos_retries=chaos["chaos"]["lookup"]["cache"]["retries"],
+         records_card_equal_cpu=card_cpu, walls_s=walls)
+    check(card_cpu, "the card's generation records differ from the CPU's")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"serving": launches}
+
+
 def main():
     import numpy as np
     import torch
@@ -1317,6 +1721,7 @@ def main():
     kern = phase_kernels(torch, np, dev)
     phase_determinism_and_cpu(torch, np, dev)
     host_fed_launches, host_fed_row = phase_end_to_end(torch, dev)
+    HOST_RESULTS["table1"] = host_fed_row
     paths = {"host_fed": host_fed_launches}
     new_kern, fused_resident = phase_resident_kernels(torch, np, dev)
     kern.update(new_kern)
@@ -1329,6 +1734,9 @@ def main():
     paths.update(phase_screened_end_to_end(torch, dev))
     paths.update(phase_dd_end_to_end(torch, dev))
     paths.update(phase_slots(torch, np, dev, host_fed_row))
+    streamed_paths, kern["bucket_hist"]["legacy_shape"] = phase_streamed(torch, np, dev)
+    paths.update(streamed_paths)
+    paths.update(phase_serving(torch, np, dev))
 
     rows = [{"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name],

@@ -3,7 +3,8 @@
 A :class:`HostChunkSource` produces the instance as NumPy chunks (arrays
 in memory, memory maps, any callable). :func:`solve_streaming_host` runs
 the sync-SCD (or DD) multiplier iteration as one *epoch* over the chunks
-per iteration, then one fused finalize epoch: ``iters + 1`` passes. With
+per iteration, then one fused finalize epoch: ``iters + 1`` passes (the
+legacy three-pass finalize, single slot only: ``iters + 3``). With
 ``cfg.screening`` an SCD epoch streams only the chunks that
 ``core/screening.py`` has not retired, and its results stay bitwise the
 unscreened solve's.
@@ -56,27 +57,17 @@ import numpy as np
 import torch
 
 from ..checkpoint import ckpt
-from ..kernels import ops
 from ..obs import NULL_TRACER
-from .bucketing import make_edges, ordered_colsum, threshold_from_hist
 from .chunked import (
+    PassRunner,
     StreamResult,
     _num_chunks,
-    _pinned_dot,
     _validate_stream_cfg,
-    finalize_chunk_accumulate,
-    ordered_fold,
+    run_iterations,
 )
 from .faults import policy_from_cfg, resilient_source
-from .postprocess import profit_edges_fixed, threshold_and_removed
-from .screening import HostScreen, chunk_bound, crossing_trusted
-from .solver import (
-    damped_multiplier_step,
-    dd_proposal,
-    resolve_device,
-    scd_chunk_accumulate,
-    solve,
-)
+from .screening import HostScreen
+from .solver import resolve_device, solve
 from .types import SolverConfig, SparseKP
 
 __all__ = ["HostChunkSource", "host_array_source", "memmap_source",
@@ -505,70 +496,26 @@ def _presolve_host(source, lam0, q, cfg, device):
 
 
 # --------------------------------------------------------------------------
-# The runtime: S virtual slots on one device.
+# The runtime: S virtual slots on one device, fed from the host.
 # --------------------------------------------------------------------------
 
-class _SlotRuntime:
-    """S slot accumulators on one device: the iteration epochs and the fused
-    finalize.
-
-    An epoch feeds the items ``(s, j)`` column by column (slot ``s``'s
-    chunk ``j``, global chunk ``s * cps + j``) and each step advances slot
-    s's own carry, so slot s accumulates its chunks in order; S = 1 is the
-    plain pass over the chunks. The per-chunk steps run on ``device``. The
-    constant-size tail of each epoch (the slot fold, threshold recovery or
-    the DD step, the damped step, the screening guard, the §5.4 threshold)
-    runs on the host CPU in float32: it is a few (K, E+1) operations, the
-    host needs ``moved`` anyway, and one implementation of its scans and
-    sums makes the solve on the card bitwise the solve on the CPU (the
-    kernels already match their plain versions bit for bit). So ``lam``,
-    ``dprev`` and the returned fields are CPU tensors.
-
-    With a :class:`HostScreen` in ``scr`` (over the S * cps chunk slots) the
-    SCD epochs are screened: a column whose chunk slots are all retired is
-    skipped, and a retired slot of a streamed column is fed a zero chunk,
-    as in the reference. The certificates are computed on the device, by
-    ``screen_bound`` on the buffer the chunk's accumulate reads, inside the
-    chunk's step (so before the buffer is marked free for the next upload),
-    into row g of ``bound_d`` (S * cps, K); the rows noted in an epoch reach
-    the host once, before ``retire``.
-    """
+class _SlotRuntime(PassRunner):
+    """The passes of ``chunked.PassRunner`` over S virtual slots on one
+    device, each chunk uploaded from the host through the one double buffer
+    (:class:`_Feeder`); a retired chunk slot is fed a host zero chunk. The
+    feeder times every epoch (``FeedStats``) and the tracer records the
+    phase spans."""
 
     def __init__(self, source, cfg, q, slots, double_buffer, device, stats,
                  tracer):
-        self.source, self.cfg, self.q = source, cfg, q
-        self.slots = slots
+        super().__init__(source, cfg, q, slots, device)
         self.double_buffer = double_buffer
-        self.device = device
         self.tracer = tracer
-        self.c = _num_chunks(source.n, source.chunk)
-        self.cps = -(-self.c // slots)
         self.subs = sharded_source(source, slots)
         self.zero = np.zeros((source.chunk, source.k), np.float32)
-        self.budgets = torch.as_tensor(np.asarray(source.budgets), dtype=cfg.dtype)
-        self.pedges = profit_edges_fixed(cfg.profit_buckets, cfg.profit_ladder_lo,
-                                         cfg.profit_ladder_hi, cfg.dtype)
         self.feeder = _Feeder(source.chunk, source.k, device, stats)
-        self.scr = None
-        self.bound_d = None
 
-    def install_screen(self, scr):
-        self.scr = scr
-        self.bound_d = torch.full((self.slots * self.cps, self.source.k),
-                                  float("inf"), dtype=torch.float32,
-                                  device=self.device)
-
-    def _items(self, cols):
-        return [(s, int(j)) for j in cols for s in range(self.slots)]
-
-    def _fetch(self, item):
-        s, j = item
-        return self.subs[s].fn(j)
-
-    def _fetch_screened(self, item):
-        s, j = item
-        if not self.scr.active[s * self.cps + j]:
-            return self.zero, self.zero
+    def _chunk_of(self, s, j):
         return self.subs[s].fn(j)
 
     def _run_epoch(self, step, state, kind, items, fetch=None, on_step=None):
@@ -582,126 +529,8 @@ class _SlotRuntime:
             self.feeder.ep["wall_s"] = now - t0
         return now
 
-    def _fold(self, parts):
-        """The slots' (S, ...) partials of one field, on the host, folded
-        in slot order."""
-        return ordered_fold(torch.stack([x.cpu() for x in parts]))
-
-    def iter_epoch(self, lam, dprev):
-        """One SCD or DD iteration: (lam_new, delta, moved)."""
-        t0 = time.perf_counter()
-        cfg, dev = self.cfg, self.device
-        lam_d = lam.to(dev)
-        if cfg.algo == "dd":
-            def step(rs, p_c, b_c, item):
-                s = item[0]
-                rs[s] = rs[s] + ordered_colsum(
-                    ops.adjusted_topc(p_c, b_c, lam_d, self.q)[1])
-                return rs
-
-            rs = self._run_epoch(step, [torch.zeros_like(lam_d)
-                                        for _ in range(self.slots)],
-                                 "iterate", self._items(range(self.cps)))
-            prop = dd_proposal(lam, self._fold(rs), self.budgets, cfg)
-        else:
-            edges = make_edges(lam, cfg.bucket_delta, cfg.bucket_growth,
-                               cfg.bucket_half)
-            edges_d = edges.to(dev)
-            if self.scr is None:
-                hist, top = self._scd_pass(lam_d, edges_d, "iterate")
-            else:
-                hist, top, t0 = self._scd_pass_screened(lam, lam_d, edges_d, t0)
-            prop = threshold_from_hist(hist, edges, self.budgets, top)
-        lam_new, delta, moved = damped_multiplier_step(lam, dprev, prop, cfg)
-        self._note_wall(t0)
-        return lam_new, delta, bool(moved)
-
-    def _scd_pass(self, lam_d, edges_d, kind, items=None, noted=(), fetch=None):
-        """(hist, top) on the host from one pass over ``items`` (default
-        every column); the chunk slots in ``noted`` also get their
-        certificate."""
-        k, cps = self.source.k, self.cps
-        noted = set(noted)
-        carry = [(torch.zeros((k, edges_d.shape[-1] + 1), dtype=torch.float32,
-                              device=self.device),
-                  torch.full((k,), float("-inf"), dtype=torch.float32,
-                             device=self.device))
-                 for _ in range(self.slots)]
-
-        def step(carry, p_c, b_c, item):
-            s, j = item
-            if s * cps + j in noted:
-                chunk_bound(p_c, b_c, out=self.bound_d[s * cps + j])
-            carry[s] = scd_chunk_accumulate(p_c, b_c, lam_d, edges_d, self.q,
-                                            self.cfg, *carry[s])
-            return carry
-
-        if items is None:
-            items = self._items(range(cps))
-        carry = self._run_epoch(step, carry, kind, items, fetch)
-        hist = self._fold([h for h, _ in carry])
-        top = torch.amax(torch.stack([t.cpu() for _, t in carry]), dim=0)
-        return hist, top
-
-    def _scd_pass_screened(self, lam, lam_d, edges_d, t0):
-        """The reference's screened epoch: a pass over the columns with an
-        active chunk slot, the retired slots fed zeros; when the crossing
-        guard cannot certify its histogram, one full pass (which notes
-        nothing, and whose ``FeedStats`` epoch starts the wall clock anew:
-        the returned t0). Then the certificates and the retirement."""
-        scr, cps = self.scr, self.cps
-        scr.begin_iter(lam.numpy())
-        cols = np.flatnonzero(scr.active.reshape(self.slots, cps).any(axis=0))
-        items = self._items(cols)
-        noted = [s * cps + j for s, j in items
-                 if scr.active[s * cps + j] and scr.needs_bound(s * cps + j)]
-        streamed = int(np.count_nonzero(scr.active[:self.c]))
-        hist, top = self._scd_pass(lam_d, edges_d, "iterate", items, noted,
-                                   self._fetch_screened)
-        scr.record_streamed(streamed)
-        self.tracer.event("screen.skip", streamed=streamed,
-                          skipped=self.c - streamed)
-        if scr.any_retired() and not bool(crossing_trusted(hist, self.budgets)):
-            t0 = self._note_wall(t0)
-            hist, top = self._scd_pass(lam_d, edges_d, "fallback")
-            scr.record_streamed(self.c, fallback=True)
-        if noted:
-            scr.note_bounds(noted, self.bound_d[noted].cpu().numpy())
-        scr.retire()
-        return hist, top, t0
-
-    def fin_init(self):
-        """Per-slot finalize carries, from zeros (lo = +inf, hi = -inf)."""
-        nb = self.pedges.shape[0] + 1
-        return self.fin_from_np(_fin_zeros_np(self.slots, self.source.k, nb,
-                                              self.cfg.postprocess))
-
-    def fin_run(self, carry, lam, start, on_col):
-        """The fused finalize over columns [start, cps); ``on_col(j, carry)``
-        after each column's last slot."""
-        t0 = time.perf_counter()
-        pedges = self.pedges.to(self.device) if self.cfg.postprocess else None
-        lam_d = lam.to(self.device)
-        last = self.slots - 1
-
-        def step(carry, p_c, b_c, item):
-            s = item[0]
-            carry[s] = finalize_chunk_accumulate(p_c, b_c, lam_d, self.q,
-                                                 self.cfg, carry[s], pedges)
-            return carry
-
-        on_step = None
-        if on_col is not None:
-            def on_step(item, carry):
-                if item[0] == last:
-                    on_col(item[1], carry)
-
-        out = self._run_epoch(step, carry, "finalize",
-                              self._items(range(start, self.cps)),
-                              on_step=on_step)
+    def _sync(self):
         self.feeder.sync()
-        self._note_wall(t0)
-        return out
 
     def fin_to_np(self, carry):
         """Per-slot carries -> a tuple of (S, ...) host arrays."""
@@ -713,21 +542,6 @@ class _SlotRuntime:
         return [tuple(torch.from_numpy(np.array(a[s], np.float32)).to(self.device)
                       for a in fin)
                 for s in range(self.slots)]
-
-    def fin_result(self, carry, lam, iters):
-        r, primal, dual_sum = (self._fold([c[f] for c in carry]) for f in range(3))
-        dual = dual_sum + _pinned_dot(lam, self.budgets)
-        fin_hist = None
-        if self.cfg.postprocess:
-            ch, gh = (self._fold([c[f] for c in carry]) for f in (5, 6))
-            tau, removed_cons, removed_gain = threshold_and_removed(
-                ch, gh, self.pedges, r, self.budgets)
-            r = r - removed_cons
-            primal = primal - removed_gain
-            fin_hist = (ch, gh)
-        else:
-            tau = torch.tensor(float("-inf"), dtype=lam.dtype)
-        return StreamResult(lam, iters, r, primal, dual, tau, fin_hist)
 
 
 # --------------------------------------------------------------------------
@@ -775,10 +589,16 @@ def solve_streaming_host(source: HostChunkSource,
     ``tracer`` (an ``obs.Tracer``) journals the phase spans; it is not a
     config field and never enters the fingerprint.
 
-    Restrictions: ``cd_mode="cyclic"`` raises ``ValueError``, as in the
-    reference; ``record_history`` needs the unported ``metrics_every`` and
-    raises ``ValueError`` (ROADMAP A3); ``mesh`` (several GPUs) raises
-    ``NotImplementedError`` (ROADMAP A8).
+    ``cfg.stream_finalize="legacy"`` runs the three-pass finalize
+    (``iters + 3`` passes; one slot only). ``cfg.record_history`` with
+    ``cfg.metrics_every = m`` records the sampled history (one metrics
+    epoch every m-th iteration, the rows padded to ``max_iters`` with the
+    last one), bitwise the device-streamed driver's on the same bytes.
+
+    Restrictions (``ValueError``, as in the reference): ``cd_mode="cyclic"``;
+    ``record_history`` without ``metrics_every``, or with checkpoint or
+    resume; the legacy finalize with ``slots > 1``. ``mesh`` (several GPUs)
+    raises ``NotImplementedError`` (ROADMAP A8).
     """
     if mesh is not None:
         raise NotImplementedError("mesh is not ported yet: ROADMAP A8")
@@ -804,6 +624,11 @@ def solve_streaming_host(source: HostChunkSource,
             f"checkpoint_keep must be >= 1 (got {cfg.checkpoint_keep}): "
             "retaining zero resume states would leave nothing to resume "
             "from")
+    if (checkpointing or resume_from is not None) and cfg.record_history:
+        raise ValueError(
+            "record_history is an analysis mode and cannot be combined "
+            "with checkpoint/resume (the sampled rows are not part of "
+            "the constant-size resume state)")
 
     restored = _load_state(resume_from) if resume_from is not None else None
     if restored is not None:
@@ -816,6 +641,11 @@ def solve_streaming_host(source: HostChunkSource,
         S = 1 if slots is None else slots
     if S < 1:
         raise ValueError(f"slots must be >= 1, got {S}")
+    if S > 1 and cfg.stream_finalize == "legacy":
+        raise ValueError(
+            "sharded host feeding supports stream_finalize='fused' only "
+            "(the legacy three-pass finalize remains on the single-device "
+            "driver as the oracle/benchmark baseline)")
 
     dev = resolve_device(device)
     lam = (torch.ones((source.k,), dtype=cfg.dtype) if lam0 is None
@@ -850,25 +680,31 @@ def solve_streaming_host(source: HostChunkSource,
                                      seed=screen_init))
     fin_zeros = functools.partial(_fin_zeros_np, S, source.k,
                                   cfg.profit_buckets + 1, cfg.postprocess)
-
+    history = None
     if phase == _PHASE_ITER:
-        while iters < cfg.max_iters:
-            with tracer.span("solve.iterate", iter=iters):
-                lam, dprev, moved = rt.iter_epoch(lam, dprev)
-            iters += 1
-            if not moved:
-                break
-            if (checkpointing and iters % ckpt_every == 0
-                    and iters < cfg.max_iters):
-                _save_state(checkpoint_dir, iters, _PHASE_ITER, iters, 0, S,
-                            fp, lam, dprev, fin_zeros(),
-                            keep=cfg.checkpoint_keep)
+        on_iter = None
+        if checkpointing:
+            def on_iter(iters, lam, dprev):
+                if iters % ckpt_every == 0 and iters < cfg.max_iters:
+                    _save_state(checkpoint_dir, iters, _PHASE_ITER, iters, 0, S,
+                                fp, lam, dprev, fin_zeros(),
+                                keep=cfg.checkpoint_keep)
+
+        lam, dprev, iters, history = run_iterations(rt, lam, dprev, iters, on_iter)
         phase, cursor = _PHASE_FIN, 0
         if checkpointing:
             # Finalize entry: a kill in the finalize replays no iteration.
             _save_state(checkpoint_dir, cfg.max_iters + 1, _PHASE_FIN, iters,
                         0, S, fp, lam, dprev, fin_zeros(),
                         keep=cfg.checkpoint_keep)
+    scr_stats = rt.scr.stats() if rt.scr is not None else None
+
+    if cfg.stream_finalize == "legacy":
+        with tracer.span("solve.finalize", mode="legacy", iters=iters):
+            res = rt.legacy_result(lam, iters)
+        if stats is not None:
+            stats.resolve()
+        return res._replace(history=history, screen=scr_stats)
 
     on_col = None
     if checkpointing:
@@ -883,8 +719,6 @@ def solve_streaming_host(source: HostChunkSource,
     with tracer.span("solve.finalize", mode="fused", iters=iters):
         carry = rt.fin_run(carry, lam, cursor, on_col)
         res = rt.fin_result(carry, lam, iters)
-    if rt.scr is not None:
-        res = res._replace(screen=rt.scr.stats())
     if stats is not None:
         stats.resolve()
-    return res
+    return res._replace(history=history, screen=scr_stats)

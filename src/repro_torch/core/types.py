@@ -62,8 +62,6 @@ class SolverConfig:
     their plain PyTorch versions (``kernels/ref.py``), which have the same
     tile structure and addition order.
 
-    Options of the reference that no driver of this package carries yet
-    raise ``NotImplementedError`` naming the ROADMAP item that ports them.
     The checks that only the streaming drivers make live in
     ``chunked._validate_stream_cfg``, as in the reference.
     """
@@ -103,6 +101,9 @@ class SolverConfig:
     profit_ladder_lo: float = 1e-6
     profit_ladder_hi: float = 1e6
     postprocess: bool = True
+    # Streaming finalize: "fused" (one pass, fixed geometric ladder) or
+    # "legacy" (metrics, removable histogram against the (lo, hi) ladder,
+    # apply: three passes).
     stream_finalize: str = "fused"
     # Host-fed solve: safe lambda-interval active-set screening
     # (core/screening.py), bitwise the unscreened solve; each epoch
@@ -129,20 +130,12 @@ class SolverConfig:
     fetch_jitter: float = 0.25
     fetch_timeout: float = 0.0
     verify_refetch: bool = False
-    # Reference option not ported yet; any value but the default raises.
+    # Streaming solves with record_history: one metrics pass every this
+    # many iterations (0: no sampling, so record_history is refused there).
     metrics_every: int = 0
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
-        unported = [
-            (self.stream_finalize == "legacy",
-             "stream_finalize='legacy' (three-pass finalize): ROADMAP A3"),
-            (self.metrics_every != 0,
-             "metrics_every (sampled streaming history): ROADMAP A3"),
-        ]
-        for bad, what in unported:
-            if bad:
-                raise NotImplementedError(f"not ported yet: {what}")
         checks = [
             (self.algo in ("scd", "dd"),
              f"algo must be 'scd' or 'dd', got {self.algo!r}"),

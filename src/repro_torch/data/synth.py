@@ -1,9 +1,46 @@
-"""Synthetic host-side KP instances, restart-deterministic per chunk."""
+"""Synthetic KP instances, restart-deterministic per chunk: NumPy chunks
+for the host-fed driver, and chunks generated on the device for the
+device-streamed one."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..core.chunked import ChunkSource
 from ..core.prefetch import HostChunkSource
+from ..core.solver import resolve_device
+
+
+def sparse_chunk_source(seed, n, k, chunk, q=1, tightness=0.5, b_high=1.0,
+                        device="cuda") -> ChunkSource:
+    """§6 sparse instance generated on ``device``, chunk by chunk.
+
+    Chunk ``i`` is a pure function of ``(seed, i)`` on one device: a
+    ``torch.Generator`` there, seeded with ``seed * 2**32 + i``, draws
+    p ~ U[0, 1) and then b ~ U[0, b_high); rows past n are zero. The
+    (n, K) instance never exists anywhere, so the device-streamed solve
+    holds O(chunk x K) whatever n is. The bytes are not ``jax.random``'s
+    (nor the NumPy sources'), and a generator's stream may differ between
+    device types: compare solves on one device. Budgets follow the
+    reference's formula in float32, ``tightness * n * q * (b_high / 2) / k``.
+    """
+    dev = resolve_device(device)
+    budgets = torch.full((k,), tightness * n * q * (b_high / 2.0) / k,
+                         dtype=torch.float32)
+    gen = torch.Generator(device=dev)
+    rows = torch.arange(chunk, device=dev)
+
+    def fn(i):
+        i = int(i)
+        gen.manual_seed((seed & 0xFFFFFFFF) << 32 | (i & 0xFFFFFFFF))
+        p = torch.rand((chunk, k), generator=gen, device=dev)
+        b = torch.rand((chunk, k), generator=gen, device=dev) * b_high
+        if (i + 1) * chunk > n:
+            live = ((i * chunk + rows) < n)[:, None]
+            p, b = torch.where(live, p, 0.0), torch.where(live, b, 0.0)
+        return p, b
+
+    return ChunkSource(n=n, k=k, chunk=chunk, budgets=budgets, fn=fn)
 
 
 def sparse_host_chunk_source(seed, n, k, chunk, q=1, tightness=0.5,

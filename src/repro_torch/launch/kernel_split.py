@@ -1,6 +1,7 @@
 """Where a kernel call's time goes on the card.
 
     python -m repro_torch.launch.kernel_split [--case fused:10000000:8192 ...]
+    python -m repro_torch.launch.kernel_split --case streamed:10000000:65536
 
 Each ``--case kind:rows[:arg]`` calls one kernel wrapper of
 ``kernels.ops`` on ``rows`` random rows (K = 10, q = 1 unless the case
@@ -29,6 +30,16 @@ It prints one JSON line per case:
   per call beside them (below one where the trace dropped events);
 * ``gap_ms``: wall minus the device sum, the time the card waits on the host
   between the call's kernels and calls (launches, allocations, packing).
+
+``streamed:N[:CHUNK]`` times a whole device-streamed table1 solve instead
+(``core/chunked.solve_streaming`` over ``data/synth.sparse_chunk_source``,
+the launcher's ``--streaming``, chunk 65,536 by default): ``wall_s`` is the
+median of three untraced solves (host clock, synchronised), and one more
+solve under ``torch.profiler`` gives ``device_busy_s``, the union of the
+intervals of every device event it recorded (kernels of the generator, the
+solver and the copies). ``busy_share`` is that over ``wall_s`` and
+``idle_share`` the rest: the share of the solve the card spends waiting on
+the host. ``device_ms`` sums each kernel's traced time over the solve.
 
 Needs a CUDA card; the kernels are built at first use.
 """
@@ -143,10 +154,65 @@ def split(fn, reps):
             "gap_ms": wall - total if dev else None}
 
 
+def _union_s(intervals):
+    """Total length in seconds of the union of (start_us, end_us) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total / 1e6
+
+
+def streamed_busy(n, chunk=65536, reps=3):
+    """Wall and device-busy time of one device-streamed table1 solve."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..configs.paper_kp import WORKLOADS
+    from ..core.chunked import solve_streaming
+    from ..core.types import SolverConfig
+    from ..data.synth import sparse_chunk_source
+
+    dev = torch.device("cuda", 0)
+    wl = WORKLOADS["table1"]
+    src = sparse_chunk_source(0, n, wl.k, chunk, q=wl.q, tightness=wl.tightness,
+                              device=dev)
+    cfg = SolverConfig(max_iters=40)
+
+    def solve():
+        t0 = time.perf_counter()
+        res = solve_streaming(src, cfg, q=wl.q, device=dev)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    solve()
+    walls = sorted(solve()[1] for _ in range(reps))
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res, traced_wall = solve()
+    launches = dict(ops.LAUNCHES)
+    spans, per_kernel = [], {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((evt.time_range.start, evt.time_range.end))
+        name = _short(evt.name)
+        per_kernel[name] = per_kernel.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3
+    wall = walls[len(walls) // 2]
+    busy = _union_s(spans)
+    return {"n": n, "chunk": chunk, "iters": int(res.iters), "wall_s": wall,
+            "walls_s": walls, "traced_wall_s": traced_wall,
+            "device_busy_s": busy, "busy_share": busy / wall,
+            "idle_share": 1.0 - busy / wall, "device_events": len(spans),
+            "launches": launches,
+            "device_ms": dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12])}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--case", action="append", help="kind:rows[:arg] (kind fused, "
-                    "bucket, finalize, topc, cand or screen; default "
+                    "bucket, finalize, topc, cand, screen or streamed; default "
                     f"{' '.join(DEFAULT_CASES)})")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
@@ -157,6 +223,11 @@ def main(argv=None):
     for case in args.case or DEFAULT_CASES:
         kind, n, *arg = case.split(":")
         arg = int(arg[0]) if arg else None
+        if kind == "streamed":
+            row = streamed_busy(int(n), arg or 65536)
+            print(json.dumps({"case": case, "device": torch.cuda.get_device_name(0),
+                              **row}), flush=True)
+            continue
         fn = _rows(kind, int(n), gen, dev, arg)
         row = split(lambda: fn(arg), args.reps)
         print(json.dumps({"case": case, "device": torch.cuda.get_device_name(0),

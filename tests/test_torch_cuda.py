@@ -15,6 +15,11 @@ chunked DD. The resident solve on the card:
 chunked == unchunked and repeated runs bitwise, and within tolerance of
 the same solve on the CPU (lam rtol 1e-5 / atol 1e-6, iterations within
 one, primal and dual 1e-5 relative): its sums run in another order there.
+The device-streamed solve on the card: bitwise the host-fed solve of the
+same bytes and the same streamed solve on the CPU (fused and legacy, SCD
+and DD, the sampled history); the removable histogram bitwise its plain
+version; the generated source byte-stable per chunk. Serving on the card:
+generation records bitwise the CPU's, lookups equal ``decisions_chunk``.
 """
 import numpy as np
 import pytest
@@ -579,3 +584,111 @@ def test_chaos_on_card(cuda_device, slots):
         cfg.replace(fetch_retries=8, fetch_backoff=1e-4, fetch_backoff_cap=1e-3,
                     verify_refetch=True), q=1, slots=slots, device=cuda_device)
     assert _same_result(chaos, clean)
+
+
+# --------------------------------------------------------------------------
+# The device-streamed solve, the legacy finalize and the serving layer.
+# --------------------------------------------------------------------------
+
+def _rows_kp(n, k, seed, device):
+    from repro_torch.core.types import SparseKP
+    src = sparse_host_chunk_source(seed, n, k, 4096)
+    p = np.concatenate([src.fn(i)[0] for i in range(-(-n // 4096))])[:n]
+    b = np.concatenate([src.fn(i)[1] for i in range(-(-n // 4096))])[:n]
+    return SparseKP(torch.tensor(p), torch.tensor(b), torch.tensor(src.budgets)), src
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("finalize", ["fused", "legacy"])
+@pytest.mark.parametrize("algo", ["scd", "dd"])
+def test_streamed_on_card_equals_host_fed_and_cpu(cuda_device, finalize, algo):
+    """``solve_streaming`` over ``array_source`` on the card == the host-fed
+    solve of the same bytes on the card == the streamed solve on the CPU,
+    bitwise (the sampled history too)."""
+    from repro_torch.core.chunked import array_source, solve_streaming
+    kp, _ = _rows_kp(40_000, 10, 2, "cpu")
+    cfg = SolverConfig(max_iters=30, algo=algo, stream_finalize=finalize,
+                       record_history=True, metrics_every=4)
+    dev = solve_streaming(array_source(kp, 8192, device=cuda_device), cfg, q=1,
+                          device=cuda_device)
+    host = tpf.solve_streaming_host(
+        tpf.host_array_source(kp.p.numpy(), kp.b.numpy(), kp.budgets.numpy(), 8192),
+        cfg, q=1, device=cuda_device)
+    cpu = solve_streaming(array_source(kp, 8192, device="cpu"), cfg, q=1, device="cpu")
+    for other in (host, cpu):
+        assert dev.iters == other.iters
+        for f in ("lam", "r", "primal", "dual", "tau"):
+            assert torch.equal(getattr(dev, f), getattr(other, f)), f
+        for key in dev.history:
+            np.testing.assert_array_equal(dev.history[key].numpy(),
+                                          other.history[key].numpy())
+
+
+@pytest.mark.cuda
+def test_removable_hist_on_card_equals_plain(cuda_device):
+    from repro_torch.core.postprocess import profit_edges, removable_hist
+    g = np.random.default_rng(4)
+    for k in (1, 8, 10, 16, 53):
+        pt = torch.tensor(g.random(20_001).astype(np.float32) * 3)
+        cons = torch.tensor(g.random((20_001, k)).astype(np.float32))
+        edges = profit_edges(0.1, 2.9, 512)
+        seed = torch.tensor(g.random((k, 513)).astype(np.float32))
+        want = removable_hist(pt, cons, edges, init=seed)
+        got = removable_hist(pt.to(cuda_device), cons.to(cuda_device),
+                             edges.to(cuda_device), init=seed.to(cuda_device))
+        assert torch.equal(got.cpu(), want), k
+
+
+@pytest.mark.cuda
+def test_generated_source_on_card(cuda_device):
+    """Chunk i is the same bytes on every call, in any order; the streamed
+    solve over it is feasible and repeats bitwise; screened == unscreened."""
+    from repro_torch.core.chunked import solve_streaming
+    from repro_torch.data.synth import sparse_chunk_source
+    src = sparse_chunk_source(1, 300_000, 10, 65_536, device=cuda_device)
+    a3, a0, b3 = src.fn(3), src.fn(0), src.fn(3)
+    assert torch.equal(a3[0], b3[0]) and torch.equal(a3[1], b3[1])
+    assert not torch.equal(a0[0], a3[0])
+    assert torch.all(b3[0][300_000 - 3 * 65_536:] == 0)
+    cfg = SolverConfig(max_iters=40)
+    one = solve_streaming(src, cfg, q=1, device=cuda_device)
+    two = solve_streaming(src, cfg.replace(screening=True), q=1, device=cuda_device)
+    assert one.iters == two.iters
+    for f in ("lam", "r", "primal", "dual", "tau"):
+        assert torch.equal(getattr(one, f), getattr(two, f)), f
+    assert float(torch.max(one.r - src.budgets)) <= 1e-4 * float(src.budgets[0])
+
+
+@pytest.mark.cuda
+def test_serving_on_card_equals_cpu(cuda_device, tmp_path):
+    """Generation records on the card == on the CPU, bitwise; lookups on
+    the card equal ``decisions_chunk`` over the owning chunk."""
+    from repro_torch.core.chunked import array_source, decisions_chunk
+    from repro_torch.serve import RefreshEngine, WorkloadSpec, synthetic_source
+    spec = WorkloadSpec(seed=3, n=40_000, k=8, chunk=4096, q=2, tightness=0.4)
+    cfg = SolverConfig(max_iters=60, checkpoint_every=4)
+    gens = {}
+    for dev in (cuda_device, "cpu"):
+        eng = RefreshEngine(tmp_path / str(dev), spec, cfg=cfg, device=dev, slots=2)
+        gens[str(dev)] = [eng.refresh(budget_scale=s) for s in (1.0, 0.9)]
+    for a, b in zip(*gens.values()):
+        for f in ("lam", "tau", "iters", "r", "primal", "dual", "fingerprint"):
+            np.testing.assert_array_equal(np.asarray(getattr(a, f)),
+                                          np.asarray(getattr(b, f)), err_msg=f)
+        for x, y in zip(a.fin_hist, b.fin_hist):
+            np.testing.assert_array_equal(x, y)
+    gen = gens[str(cuda_device)][1]
+    svc = eng.decision_service(gen)
+    card = RefreshEngine(tmp_path / str(cuda_device), spec, cfg=cfg,
+                         device=cuda_device).decision_service(gen)
+    users = np.random.default_rng(0).integers(0, spec.n, 500)
+    src = synthetic_source(gen.spec)
+    from repro_torch.core.types import SparseKP
+    c = -(-spec.n // spec.chunk)
+    kp = SparseKP(*(torch.tensor(np.concatenate([src.fn(i)[j] for i in range(c)])[:spec.n])
+                    for j in (0, 1)), torch.tensor(src.budgets))
+    asrc = array_source(kp, spec.chunk, device=cuda_device)
+    want = np.concatenate([decisions_chunk(asrc, gen.lam, 2, i, tau=gen.tau)[0].cpu().numpy()
+                           for i in range(c)])[:spec.n]
+    np.testing.assert_array_equal(card.decide_batch(users), want[users])
+    np.testing.assert_array_equal(svc.decide_batch(users), want[users])

@@ -159,13 +159,13 @@ def test_entry_points_raise_without_cuda(inst, monkeypatch):
 
 
 def test_unported_options_raise(inst):
-    """Options no driver ports yet raise at construction, naming their
-    ROADMAP item (A3: the legacy finalize and the sampled history; A8: the
-    straggler mask and the mesh); the host-fed driver refuses cyclic CD
-    and the exact reduce with the reference's ValueError."""
+    """Options no driver ports yet raise, naming their ROADMAP item (A8:
+    the straggler mask and the mesh); the host-fed driver refuses cyclic
+    CD and the exact reduce with the reference's ValueError. The legacy
+    finalize, the sampled history and the launcher's ``--streaming``
+    (ROADMAP A3) are ported: accepted and run."""
     for kw in ({"stream_finalize": "legacy"}, {"metrics_every": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-            SolverConfig(**kw)
+        assert getattr(SolverConfig(**kw), next(iter(kw))) == next(iter(kw.values()))
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         config_from_reference(dataclasses.asdict(JCfg(partial_fraction=0.5)))
     p, b, budgets = inst
@@ -174,10 +174,14 @@ def test_unported_options_raise(inst):
         tpf.solve_streaming_host(src, SolverConfig(cd_mode="cyclic"), device="cpu")
     with pytest.raises(ValueError, match="bucketed"):
         tpf.solve_streaming_host(src, SolverConfig(reduce="exact"), device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP A3"):
+    with pytest.raises(ValueError, match="metrics_every"):
         tpf.solve_streaming_host(src, SolverConfig(record_history=True),
                                  device="cpu")
+    res = tpf.solve_streaming_host(
+        src, SolverConfig(max_iters=3, record_history=True, metrics_every=2,
+                          stream_finalize="legacy", kernel_tile=TILE), device="cpu")
+    assert res.history["lam"].shape == (3, K) and res.fin_hist is None
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         tpf.solve_streaming_host(src, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        tlaunch.main(["--streaming", "--chunk-size", "1024"])
+    with pytest.raises(SystemExit, match="chunk-size"):
+        tlaunch.main(["--streaming", "--device", "cpu"])
