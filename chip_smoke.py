@@ -19,7 +19,10 @@ check raises, so the script exits non-zero and prints no result line:
    bound and the plain version's time, after a line with each call's
    profiler split (``launch/kernel_split.py``);
 3. determinism: repeated kernel runs bitwise; a host-fed solve at chunk
-   65,536 and 131,072 (tile 512) bitwise;
+   65,536 and 131,072 (tile 512): lam, iterations and the finalize's
+   histograms bitwise, and each chunking's (r, primal, dual, tau) bitwise
+   its chunk-grouped fold (each chunk's sums from 0.0, added chunk by
+   chunk, as the reference's default path groups them);
 4. the same host-fed solve (n = 262,144) on the card and on the CPU;
 5. host-fed end to end: the §6 table1 shape (K = 10, Q = 1, tightness
    0.5) at N = 10,000,000 (``--scale 0.1``), chunk 65,536, through the
@@ -110,8 +113,21 @@ check raises, so the script exits non-zero and prints no result line:
    SIGKILLed in a fresh interpreter and recovered here, its record bitwise
    the uninterrupted one; ``run_chaos`` at n = 262,144 (chaos == clean);
    and the card's generation records bitwise the CPU's there;
-16. the ``kernels`` line (launches summed over the paths run in phases 5,
-   7, 8, 11, 12, 13, 14 and 15, with the split), the card's
+16. operations at the serving shape (N = 2^22, 8 slots, 3 generations):
+   ``launch/supervisor.run_chaos_soak``, its references in this process
+   and the supervised solve and refresh in worker processes on the card
+   under one SIGKILL and one SIGSTOP each plus a fetch-level fault plan,
+   both records bitwise the references', the poisoned task contained in
+   ``FAILED.json`` with LIVE unmoved, the exercised counters (no degrade
+   on one card), recovery times and the card's free memory before and
+   after; then ``launch/front.run_front_scenario`` with 2 replica processes
+   on the card under concurrent ``/decide_batch`` traffic while the engine
+   refreshes with ``keep=2``: every answered row bitwise the
+   materialisation of the generation that answered it, ``/diff`` the
+   brute-force comparison at one grouped fill pass per replica and zero on
+   the repeat, lookups per second and the p50/p99 of ``/decide``;
+17. the ``kernels`` line (launches summed over the paths run in phases 5,
+   7, 8, 11, 12, 13, 14, 15 and 16, with the split), the card's
    ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -160,6 +176,12 @@ N_HISTORY = 1_000_000               # the sampled history, host-fed against stre
 SERVE = dict(k=8, q=2, tightness=0.4)   # the reference's serving shape (launch/refresh.py)
 N_SERVE, SERVE_SLOTS, SERVE_GENS = 1 << 22, 8, 3   # 64 chunks, cut from 10^8
 SERVE_CKPT_EVERY = 2
+# Phase 16: the soak's kill/stop thresholds on the lease's progress (chunk
+# reads, two a fetch under verify_refetch): 1-3.5 epochs of 64 chunks,
+# inside the first worker life of a cold solve of ~10 epochs (1,280 reads)
+# at phase 15's ladder (bucket_half 24; the soak's 16 runs to max_iters).
+SOAK_LO, SOAK_HI = 128, 448
+FRONT_REPLICAS, FRONT_DIFF_STRIDE = 2, 64   # /diff asks about 65,536 users
 HOST_RESULTS = {}                   # host-fed results later phases compare against
 
 
@@ -381,6 +403,30 @@ def host_instance(np, n, seed):
     return np.concatenate(ps)[:n], np.concatenate(bs)[:n], src.budgets
 
 
+def chunk_grouped(torch, res, src, q, tile, dev):
+    """(r, primal, dual, tau) of a host-fed solve as its finalize groups
+    the scalar sums: each chunk's finalize at the solved lam from 0.0 on
+    the card, the chunks added onto the carry in order, then the §5.4
+    projection off the run's removable histograms."""
+    from repro_torch.core.postprocess import profit_edges_fixed, threshold_and_removed
+    from repro_torch.kernels import ops
+
+    pedges, lam = profit_edges_fixed(device=dev), res.lam.to(dev)
+    r = torch.zeros(src.k, device=dev)
+    primal, dual = torch.zeros((), device=dev), torch.zeros((), device=dev)
+    for i in range(-(-src.n // src.chunk)):
+        p_c, b_c = (torch.from_numpy(a).to(dev) for a in src.fn(i))
+        _, _, r_c, primal_c, dual_c, _, _ = ops.scd_finalize_hist(
+            p_c, b_c, lam, pedges, q, tile_n=tile)
+        r, primal, dual = r + r_c, primal + primal_c, dual + dual_c
+    budgets = torch.from_numpy(src.budgets)
+    r, primal = r.cpu(), primal.cpu()
+    dual = dual.cpu() + torch.sum(res.lam * budgets)
+    tau, rm_cons, rm_gain = threshold_and_removed(*res.fin_hist, profit_edges_fixed(),
+                                                  r, budgets)
+    return {"r": r - rm_cons, "primal": primal - rm_gain, "dual": dual, "tau": tau}
+
+
 def same(a, b):
     import torch
     fields = [a.iters == b.iters] + [
@@ -413,10 +459,21 @@ def phase_determinism_and_cpu(torch, np, dev):
     for chunk in (C_MAIN, 2 * C_MAIN):
         runs[chunk] = solve_streaming_host(host_array_source(ph, bh, budgets, chunk),
                                            cfg, q=Q_MAIN, device=dev)
-    check(same(runs[C_MAIN], runs[2 * C_MAIN]),
-          "host-fed solve differs between chunk 65536 and 131072")
-    emit("determinism", kernel_reruns_bitwise=True, chunk_invariance_bitwise=True,
-         n=n, iters=runs[C_MAIN].iters)
+    a, b = runs[C_MAIN], runs[2 * C_MAIN]
+    check(a.iters == b.iters and torch.equal(a.lam, b.lam)
+          and all(torch.equal(x, y) for x, y in zip(a.fin_hist, b.fin_hist)),
+          "host-fed iteration or finalize histograms differ between chunk 65536 "
+          "and 131072")
+    # The scalar sums group by chunk (the reference's default path): each
+    # chunking's are bitwise its own chunk-grouped fold.
+    for chunk, res in runs.items():
+        want = chunk_grouped(torch, res, host_array_source(ph, bh, budgets, chunk),
+                             Q_MAIN, 512, dev)
+        check(all(torch.equal(getattr(res, f), w) for f, w in want.items()),
+              f"chunk {chunk}: the finalize's scalar sums are not its chunk-grouped fold")
+    emit("determinism", kernel_reruns_bitwise=True, iteration_chunk_invariance_bitwise=True,
+         chunk_grouped_sums_bitwise=True, n=n, iters=a.iters,
+         primal_by_chunk={c: float(r.primal) for c, r in runs.items()})
 
     t0 = time.perf_counter()
     cpu = solve_streaming_host(host_array_source(ph, bh, budgets, C_MAIN), cfg,
@@ -1695,6 +1752,84 @@ def phase_serving(torch, np, dev):
     return {"serving": launches}
 
 
+def phase_operations(torch, np, dev):
+    """Operations (phase 16) at the serving phase's shape: the supervised
+    chaos soak (workers on the card) and the HTTP front over replica
+    processes on the card."""
+    from repro_torch.core.types import SolverConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.front import run_front_scenario
+    from repro_torch.launch.supervisor import SoakShape, run_chaos_soak
+    from repro_torch.serve import WorkloadSpec
+
+    work = ROOT / "build" / "smoke_ops"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    paths = {}
+
+    # 1. The soak. The references run here (their launches are this path's
+    # count); the supervised solve and refresh run in worker processes.
+    shape = SoakShape(n=N_SERVE, chunk=C_MAIN, generations=SERVE_GENS, max_iters=60,
+                      lo=SOAK_LO, hi=SOAK_HI, slots=SERVE_SLOTS, bucket_half=24)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info(dev)[0]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ok, rep = run_chaos_soak(work / "soak", seed=0, device="cuda", shape=shape)
+    soak_s = time.perf_counter() - t0
+    paths["operations_soak"] = dict(ops.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free1 = torch.cuda.mem_get_info(dev)[0]
+    emit("operations_soak", n=N_SERVE, chunk=C_MAIN, slots=SERVE_SLOTS,
+         generations=SERVE_GENS, thresholds=[SOAK_LO, SOAK_HI], wall_s=soak_s,
+         walls_s=rep["walls_s"], iters=rep["iters"], solve=rep.get("solve"),
+         refresh=rep.get("refresh"),
+         poison=rep.get("poison"), exercised=rep["exercised"], degrade=rep["degrade"],
+         solve_recovery_s=rep.get("solve_recovery_s"),
+         refresh_recovery_s=rep.get("refresh_recovery_s"),
+         free_gb_before=free0 / 1e9, free_gb_after=free1 / 1e9,
+         launches_in_process=paths["operations_soak"], diffs=rep["diffs"])
+    check(ok, f"chaos soak failed: {rep['diffs']}")
+    check(free1 >= free0 - (256 << 20),
+          f"the card's free memory did not come back after the soak: "
+          f"{free0 / 1e9:.3f} GB before, {free1 / 1e9:.3f} GB after")
+    check(paths["operations_soak"]["scd_fused_hist"] > 0
+          and paths["operations_soak"]["scd_finalize_hist"] > 0,
+          f"the soak's references launched no solve kernel: {paths['operations_soak']}")
+
+    # 2. The front: replicas on the card, refresh churn under HTTP traffic.
+    spec = WorkloadSpec(seed=0, n=N_SERVE, chunk=C_MAIN, **SERVE)
+    chunks = -(-N_SERVE // C_MAIN)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = run_front_scenario(spec, SERVE_GENS, work / "front",
+                             SolverConfig(max_iters=60, checkpoint_every=0),
+                             replicas=FRONT_REPLICAS, slots=SERVE_SLOTS, device="cuda",
+                             cache_chunks=2 * chunks, diff_stride=FRONT_DIFF_STRIDE)
+    front_s = time.perf_counter() - t0
+    paths["operations_front"] = dict(ops.LAUNCHES)
+    emit("operations_front", n=N_SERVE, chunk=C_MAIN, replicas=FRONT_REPLICAS,
+         generations=SERVE_GENS, wall_s=front_s, sustained=out["sustained"],
+         generations_served=out["generations_served"], rebinds=out["rebinds"],
+         parity=out["parity"], stale_rows=out["stale_rows"], diff=out["diff"],
+         front_stats=out["front_stats"], metrics_consistent=out["metrics"]["consistent"],
+         launches_in_process=paths["operations_front"])
+    check(out["parity"], "front: an answered row differs from its generation's "
+          "materialisation (or was served stale)")
+    check(out["diff"]["parity"], f"front: /diff differs from the brute force or its "
+          f"fill passes: {out['diff']['passes']}")
+    check(all(r >= 1 for r in out["rebinds"]), f"front: a replica never rebound: "
+          f"{out['rebinds']}")
+    check(out["metrics"]["consistent"], f"front: /metrics disagrees with /health: "
+          f"{out['metrics']['failures']}")
+    check(paths["operations_front"]["scd_fused_hist"] > 0,
+          f"the front's refreshes launched no solve kernel: {paths['operations_front']}")
+    shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
 def main():
     import numpy as np
     import torch
@@ -1737,6 +1872,7 @@ def main():
     streamed_paths, kern["bucket_hist"]["legacy_shape"] = phase_streamed(torch, np, dev)
     paths.update(streamed_paths)
     paths.update(phase_serving(torch, np, dev))
+    paths.update(phase_operations(torch, np, dev))
 
     rows = [{"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name],

@@ -173,24 +173,28 @@ def finalize_chunk_accumulate(p_c, b_c, lam, q, cfg, carry, pedges=None):
 
     ``carry`` is ``(r (K,), primal (), dual_sum (), lo (), hi ())``, with
     the removable ``(cons_hist (K, E+1), gain_hist (E+1,))`` appended when
-    ``pedges`` (the fixed §5.4 ladder) is given. Every accumulator seeds
-    the kernel's tile fold, so a chunked finalize is bitwise the one-pass
-    finalize (chunk a multiple of the tile).
+    ``pedges`` (the fixed §5.4 ladder) is given. The scalar sums group by
+    chunk, as on the reference's default path: the kernel folds the
+    chunk's tiles onto 0.0, and the chunk's r, primal and dual sum are
+    then added onto the carry, one float32 add each. (Seeding the kernel
+    with the running sums would add every tile record onto a float32
+    carry, which drifts at 10^9 rows.) lo/hi and the histograms seed the
+    kernel: a max is exact in any order, and both reference paths seed the
+    histograms, so those stay bitwise the one-pass finalize's (chunk a
+    multiple of the tile).
     """
     tile = _finalize_tile(cfg, p_c.shape[0])
     if pedges is None:
         r, primal, dual_sum, lo, hi = carry
-        out = ops.scd_finalize_hist(
-            p_c, b_c, lam, None, q, tile_n=tile, with_hist=False, r_init=r,
-            sums_init=torch.stack([primal, dual_sum]),
+        _, _, r_c, primal_c, dual_c, lo, hi = ops.scd_finalize_hist(
+            p_c, b_c, lam, None, q, tile_n=tile, with_hist=False,
             maxs_init=torch.stack([hi, -lo]))
-        return out[2:]
+        return r + r_c, primal + primal_c, dual_sum + dual_c, lo, hi
     r, primal, dual_sum, lo, hi, ch, gh = carry
-    ch, gh, r, primal, dual_sum, lo, hi = ops.scd_finalize_hist(
+    ch, gh, r_c, primal_c, dual_c, lo, hi = ops.scd_finalize_hist(
         p_c, b_c, lam, pedges, q, tile_n=tile, cons_hist_init=ch,
-        gain_hist_init=gh, r_init=r, sums_init=torch.stack([primal, dual_sum]),
-        maxs_init=torch.stack([hi, -lo]))
-    return r, primal, dual_sum, lo, hi, ch, gh
+        gain_hist_init=gh, maxs_init=torch.stack([hi, -lo]))
+    return r + r_c, primal + primal_c, dual_sum + dual_c, lo, hi, ch, gh
 
 
 def removable_chunk_accumulate(p_c, b_c, lam, q, edges, hist):

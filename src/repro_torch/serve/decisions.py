@@ -44,7 +44,7 @@ fallback's decisions with an explicit ``stale=True`` flag, and
 degradation is observable, never silent.
 
 Thread safety: the service is safe to hammer from concurrent request
-threads (the reference's HTTP/RPC front, ROADMAP A7, does exactly
+threads (the HTTP/RPC front's replicas, ``serve/front.py``, do exactly
 that) while :meth:`rebind` follows pointer flips underneath. Every
 lookup snapshots the ``(current, fallback)`` binding pair **once**
 under the service lock and answers entirely from that snapshot — a
@@ -137,7 +137,7 @@ class DecisionService:
         self.fault_policy = fault_policy
         self.verify = verify
         # Optional supervision surface: a directory whose SUPERVISOR.json
-        # (written by a supervisor, ROADMAP A7) is merged into health() —
+        # (written by ``launch/supervisor.py``) is merged into health() —
         # restarts, takeovers and lease ages next to the serving counters.
         self.supervisor_root = supervisor_root
         # One LRU across generations: entries are keyed by (generation

@@ -290,8 +290,8 @@ class RefreshEngine:
         """An engine over an *existing* root, spec taken from the live
         generation.
 
-        The replica-process entry point (the reference's
-        ``serve/front.py``, ROADMAP A7): a
+        The replica-process entry point (``launch/front.py --replica``
+        over :class:`~repro_torch.serve.front.ReplicaServer`): a
         serving replica knows only the generation root it shares with
         the refresh writer, not the workload that seeded it — the live
         generation's spec IS the base spec. Waits up to ``timeout``
@@ -644,7 +644,7 @@ class RefreshEngine:
 
         The service's :meth:`~repro_torch.serve.decisions.DecisionService.
         health` also reports this root's supervision status: a supervisor
-        (the reference's ``launch/supervisor.py``, ROADMAP A7) publishes
+        (:class:`~repro_torch.launch.supervisor.Supervisor`) publishes
         ``SUPERVISOR.json`` into the same root, and the service surfaces it.
         Its chunk fills run on the engine's device.
         """

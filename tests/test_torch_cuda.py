@@ -20,6 +20,9 @@ same bytes and the same streamed solve on the CPU (fused and legacy, SCD
 and DD, the sampled history); the removable histogram bitwise its plain
 version; the generated source byte-stable per chunk. Serving on the card:
 generation records bitwise the CPU's, lookups equal ``decisions_chunk``.
+Operations on the card: a supervised solve SIGKILLed once publishes the
+in-process record bitwise; a ``ReplicaServer`` answers like the in-process
+``DecisionService``; ``env.worker_env(1)`` gives a child one card.
 """
 import numpy as np
 import pytest
@@ -692,3 +695,75 @@ def test_serving_on_card_equals_cpu(cuda_device, tmp_path):
                            for i in range(c)])[:spec.n]
     np.testing.assert_array_equal(card.decide_batch(users), want[users])
     np.testing.assert_array_equal(svc.decide_batch(users), want[users])
+
+
+# --------------------------------------------------------------------------
+# Operations: the supervisor, the front's replica and the worker environment.
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_supervised_solve_on_card_survives_a_kill(cuda_device, tmp_path):
+    """A supervised solve whose worker (on the card) is SIGKILLed mid-solve
+    publishes the in-process card solve's record, bitwise."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.supervisor import (ChaosSchedule, Supervisor,
+                                               SupervisorConfig, run_solve_task)
+    from repro_torch.serve import WorkloadSpec
+    spec = WorkloadSpec(seed=3, n=65_536, k=8, chunk=4096, q=2, tightness=0.4)
+    task = {"kind": "solve", "spec": spec.to_json(), "slots": 2, "device": "cuda",
+            "cfg": dict(max_iters=60, checkpoint_every=2, bucket_half=16)}
+    ref = run_solve_task(tmp_path / "ref", task)
+    sup = Supervisor(tmp_path / "sup", task,
+                     cfg=SupervisorConfig(ttl=5.0, poll=0.05, grace=300.0,
+                                          max_restarts=3),
+                     chaos=ChaosSchedule(events=(("kill", 40),)))
+    out = sup.run()
+    assert out["ok"] and out["kills_injected"] == 1 and out["crash_restarts"] == 1
+    got = ckpt.restore_auto(tmp_path / "sup" / "result", 0)
+    for f in ("lam", "tau", "iters", "r", "primal", "dual", "fin_ch", "fin_gh"):
+        assert np.asarray(ref[f]).tobytes() == np.asarray(got[f]).tobytes(), f
+
+
+@pytest.mark.cuda
+def test_replica_server_on_card_answers_like_the_service(cuda_device, tmp_path):
+    from repro_torch.serve import RefreshEngine, ReplicaClient, ReplicaServer, WorkloadSpec
+    from repro_torch.serve.front import unpack_array
+    spec = WorkloadSpec(seed=5, n=40_000, k=8, chunk=4096, q=2, tightness=0.4)
+    eng = RefreshEngine(tmp_path, spec, cfg=SolverConfig(max_iters=60),
+                        device=cuda_device)
+    eng.refresh(budget_scale=1.0)
+    gen = eng.refresh(budget_scale=0.9)
+    rep = ReplicaServer(RefreshEngine.attach(tmp_path, device=cuda_device),
+                        cache_chunks=16, poll_s=0.02)
+    rc = ReplicaClient("127.0.0.1", rep.start())
+    try:
+        svc = eng.decision_service()
+        users = np.random.default_rng(1).integers(0, spec.n, 300)
+        for u in users[:20]:
+            r = rc.call({"op": "lookup", "user": int(u)})
+            want = svc.lookup(int(u))
+            assert unpack_array(r["x"]).tobytes() == want.x.tobytes()
+            assert r["gen"] == want.gen == gen.gen and not r["stale"]
+        b = rc.call({"op": "decide_batch", "users": users.tolist()})
+        x, stale, gens = svc.lookup_batch(users)
+        assert unpack_array(b["x"]).tobytes() == x.tobytes()
+        assert unpack_array(b["stale"]).tobytes() == stale.tobytes()
+        assert unpack_array(b["gens"]).tobytes() == gens.tobytes()
+    finally:
+        rc.close()
+        rep.stop()
+
+
+@pytest.mark.cuda
+def test_worker_env_child_sees_exactly_one_card(cuda_device):
+    import subprocess
+    import sys
+    from repro_torch.launch import env
+    wenv = env.worker_env(1, device="cuda")
+    code = "import torch; print(torch.cuda.device_count(), torch.cuda.get_device_name(0))"
+    out = subprocess.run([sys.executable, "-c", code], env=wenv, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    count, name = out.stdout.strip().split(" ", 1)
+    assert count == "1" and name == torch.cuda.get_device_name(0)
+    assert len(wenv[env.VISIBLE].split(",")) == 1

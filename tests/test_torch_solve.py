@@ -4,8 +4,10 @@ Both packages' ``host_array_source`` serve the same numpy rows (n = 20,000,
 K = 10, chunk 4096, kernel tile 512). Against the reference, with its
 kernels on and off: lam allclose (rtol 1e-5, atol 1e-6), iterations
 within one, primal and dual within 1e-5 relative, tau equal; decisions
-equal row for row at the same (lam, tau). Within the port: chunk 4096 and
-8192, and double buffering on and off, give bitwise-equal results.
+equal row for row at the same (lam, tau). Within the port: double buffering
+on and off gives bitwise-equal results; chunk 4096 and 8192 give bitwise
+equal iterations and histograms, and each chunking's scalar sums are
+bitwise its chunk-grouped fold.
 """
 import dataclasses
 
@@ -23,12 +25,14 @@ from repro.core.types import SolverConfig as JCfg  # noqa: E402
 from repro.data import synth as jsynth  # noqa: E402
 from repro.launch import solve as jlaunch  # noqa: E402
 from repro_torch.core import chunked as tchunked  # noqa: E402
+from repro_torch.core import postprocess as tpost  # noqa: E402
 from repro_torch.core import prefetch as tpf  # noqa: E402
 from repro_torch.core.carry import (  # noqa: E402
     config_from_reference,
     state_from_reference,
 )
 from repro_torch.core.types import SolverConfig  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import solve as tlaunch  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
@@ -124,9 +128,42 @@ def _assert_bitwise(a, b):
         assert torch.equal(x, y)
 
 
+def _chunk_grouped(inst, res, chunk):
+    """(r, primal, dual, tau) as the streamed finalize groups its scalar
+    sums, written out: each chunk's finalize at the solved lam from 0.0
+    (the kernel's tile order), the chunks added onto the carry in order
+    (one float32 add each, the reference's default path), then the §5.4
+    projection off the run's removable histograms."""
+    p, b, budgets = inst
+    src = tpf.host_array_source(p, b, budgets, chunk)
+    pedges = tpost.profit_edges_fixed()
+    r, primal, dual = torch.zeros(K), torch.zeros(()), torch.zeros(())
+    for i in range(-(-N // chunk)):
+        pc, bc = (torch.from_numpy(a) for a in src.fn(i))
+        _, _, rc, primal_c, dual_c, _, _ = ops.scd_finalize_hist(
+            pc, bc, res.lam, pedges, 1, tile_n=TILE)
+        r, primal, dual = r + rc, primal + primal_c, dual + dual_c
+    budgets = torch.from_numpy(budgets)
+    dual = dual + torch.sum(res.lam * budgets)
+    tau, rm_cons, rm_gain = tpost.threshold_and_removed(*res.fin_hist, pedges,
+                                                        r, budgets)
+    return {"r": r - rm_cons, "primal": primal - rm_gain, "dual": dual,
+            "tau": tau}
+
+
 def test_chunk_size_invariance_bitwise(inst, port_default):
+    """Chunk 4096 and 8192: the iteration and the finalize's removable
+    histograms are bitwise equal. The scalar sums group by chunk, as the
+    reference's default path adds them, so each chunking's (r, primal,
+    dual, tau) is bitwise its own chunk-grouped fold."""
     other = _port(inst, SolverConfig(max_iters=40, kernel_tile=TILE), chunk=2 * CHUNK)
-    _assert_bitwise(port_default, other)
+    assert port_default.iters == other.iters
+    assert torch.equal(port_default.lam, other.lam)
+    for x, y in zip(port_default.fin_hist, other.fin_hist):
+        assert torch.equal(x, y)
+    for res, chunk in ((port_default, CHUNK), (other, 2 * CHUNK)):
+        for f, want in _chunk_grouped(inst, res, chunk).items():
+            assert torch.equal(getattr(res, f), want), (chunk, f)
 
 
 def test_double_buffer_invariance_bitwise(inst, port_default):

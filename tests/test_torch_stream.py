@@ -417,3 +417,45 @@ def test_float32_seed_fold_bias_is_the_reference_s():
     added = float(one[3])
     drift = (float(got[3]) - float(seed[0])) / added - 1.0
     assert abs(drift) > 1e-3, drift
+
+
+@pytest.mark.parametrize("with_hist", [False, True], ids=["metrics", "fused"])
+def test_finalize_chunk_accumulate_groups_by_chunk_as_reference(with_hist):
+    """The streamed finalize's scalar sums group by chunk, as the
+    reference's default path (``use_kernels=False``) adds them: each
+    chunk's r, primal and dual sum from 0.0, then one float32 add onto the
+    carry. Carried at the size the running sums reach near 10^9 rows
+    (primal 8e8, a float32 step of 64), a dyadic 8,192-row chunk (every
+    chunk sum exact on both sides) gives the reference's bits in every
+    accumulator, and the primal lands within half a float32 step of the
+    seed plus the exact chunk sum."""
+    p, b, _ = _dyadic(n=8192, seed=3)
+    lam = np.full((K,), 0.5, np.float32)
+    g = np.random.default_rng(5)
+    carry = [(8.0e7 + 64.0 * np.arange(K)).astype(np.float32),
+             np.float32(8.0e8), np.float32(7.9e8), np.float32(0.25),
+             np.float32(3.0)]
+    pedges = None
+    if with_hist:
+        pedges = tpost.profit_edges_fixed().numpy()
+        e1 = pedges.shape[0] + 1
+        carry += [(g.integers(0, 256, (K, e1)) / 64).astype(np.float32),
+                  (g.integers(0, 256, (e1,)) / 64).astype(np.float32)]
+    ref = jchunked.finalize_chunk_accumulate(
+        jnp.asarray(p), jnp.asarray(b), jnp.asarray(lam), Q, JCfg(),
+        tuple(jnp.asarray(c) for c in carry),
+        None if pedges is None else jnp.asarray(pedges))
+    got = tchunked.finalize_chunk_accumulate(
+        torch.tensor(p), torch.tensor(b), torch.tensor(lam), Q, SolverConfig(),
+        tuple(torch.tensor(c) for c in carry),
+        None if pedges is None else torch.tensor(pedges))
+    assert len(got) == len(ref) == len(carry)
+    names = ["r", "primal", "dual_sum", "lo", "hi", "cons_hist", "gain_hist"]
+    for name, want, have in zip(names, ref, got):
+        np.testing.assert_array_equal(have.numpy(), np.asarray(want),
+                                      err_msg=name)
+    x, _ = tops.adjusted_topc(torch.tensor(p), torch.tensor(b),
+                              torch.tensor(lam), Q)
+    exact = float(carry[1]) + float(np.sum(np.where(x.numpy(), p, 0.0),
+                                           dtype=np.float64))
+    assert abs(float(got[1]) - exact) <= np.spacing(np.float32(8.0e8)) / 2
