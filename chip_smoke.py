@@ -126,11 +126,34 @@ check raises, so the script exits non-zero and prints no result line:
    materialisation of the generation that answered it, ``/diff`` the
    brute-force comparison at one grouped fill pass per replica and zero on
    the repeat, lookups per second and the p50/p99 of ``/decide``;
-17. the ``kernels`` line (launches summed over the paths run in phases 5,
-   7, 8, 11, 12, 13, 14, 15 and 16, with the split), the card's
-   ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
+17. a world of ranks (``launch/mesh.run_local_world``): 4 rank processes
+   sharing the card, gloo over host tensors. In one world of 4: the
+   host-fed table1 N = 10^7 at 4 slots bitwise phase 13's in-process row
+   (lam, iterations, r, primal, dual, tau, ``fin_hist``; rank 0 launching
+   the fused kernel iters x 39 times and the finalize 39); the same bytes
+   device-streamed, one shard a rank, bitwise that; generated on the card
+   at N = 10^8, each rank's peak memory flat against phase 14's, lam within
+   the stopping rule's ``tol * (1 + max lam)`` of phase 14's one-shard run
+   and iterations within one; ``solve_sharded`` at 10^7 bucketed against
+   phase 7 (the same rule), chunked at 65,536 bitwise unchunked, and exact
+   at 10^6 against the single-device exact solve; banded N = 10^7
+   screened == unscreened == the in-process 4-slot solve (and within the
+   rule of phase 11's single slot); ``partial_fraction=0.5`` at 10^6
+   bitwise the in-process 4-slot solve, feasible. Then a checkpointed
+   world of 4 at 10^6 whose every rank is SIGKILLed mid-iterate, resumed
+   on a world of 2 and in process, both bitwise the uninterrupted solve;
+   beside it, a world of 2 whose rank 1 cannot fetch a chunk (no retries)
+   failing well within its timeout with ``ChunkFetchError`` naming it;
+   worlds of 1 (one rank, in this process), 2 and 4 on one host-fed solve
+   at 16 chunks, bitwise, with their walls and seconds in collectives
+   (recorded, not claimed: the ranks share one card);
+18. the smoke's wall beside its 900 s budget, the ``kernels`` line
+   (launches summed over the paths run in phases 5, 7, 8, 11, 12, 13, 14,
+   15 and 16, and rank 0's of each world of phase 17, with the split), the
+   card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 """
 import json
+import os
 import shutil
 import signal
 import statistics
@@ -140,6 +163,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor cores.
@@ -195,7 +219,9 @@ def check(ok, msg):
 
 
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line of a phase's facts; ``at_s`` is the smoke's wall so far."""
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": time.perf_counter() - T_START}), flush=True)
 
 
 def nvidia_smi():
@@ -713,6 +739,7 @@ def phase_resident_end_to_end(torch, dev, host_fed):
         same_as_host_fed = None
         if reduce == "bucketed":
             res = solver.solve(kp, cfg, q=q, device=dev)
+            HOST_RESULTS["resident_bucketed"] = res._replace(x=None)
             same_as_host_fed = (res.iters == host_fed["iterations"]
                                 and res.lam.tolist() == host_fed["lam"])
             check(same_as_host_fed, "the default resident bucketed solve differs from "
@@ -1181,6 +1208,7 @@ def phase_slots(torch, np, dev, host_fed_row):
     ops.reset_launches()
     base, wall = solve(src, cfg, stats=stats)
     launches = dict(ops.LAUNCHES)
+    HOST_RESULTS["slots4"], HOST_RESULTS["slots4_wall"] = base, wall
     iters = base.iters
     m = solve_metrics(torch, base, budgets)
     single = {"lam": np.asarray(host_fed_row["lam"], np.float32),
@@ -1471,6 +1499,7 @@ def phase_streamed(torch, np, dev):
         launches = dict(ops.LAUNCHES)
         iters = row["iterations"]
         peaks[n] = row["peak_device_gb"] - base_gb
+        HOST_RESULTS[f"streamed_{n}"] = dict(row, peak_over_before_gb=peaks[n])
         emit("streamed_end_to_end", workload="table1", source="generated on the card",
              n=n, chunk=C_MAIN, chunks=chunks, iters=iters, primal=row["primal"],
              dual=row["dual"], gap=row["duality_gap"],
@@ -1830,6 +1859,413 @@ def phase_operations(torch, np, dev):
     return paths
 
 
+# --------------------------------------------------------------------------
+# Phase 17: a world of ranks on the one card (launch/mesh.py).
+# --------------------------------------------------------------------------
+
+WORLD = 4
+N_WORLD_SMALL = 1_000_000           # the exact reduce, the straggler mask, kill, fault
+WORLD_TIMEOUT = 300
+WORLD_CKPT_EVERY = 2
+# A rank of the killed world reads the fingerprint probe, then S / D * cps =
+# 4 chunks an epoch (16 chunks, 4 slots): it dies in iteration 6, after the
+# save at iteration 4.
+WORLD_KILL_AFTER = 1 + 4 * 5
+WORLD_FAULT_CHUNK = 12              # slot 1 of 2 (8 columns): rank 1's
+N_WALLS = 16 * C_MAIN               # worlds 1, 2 and 4 on one host-fed solve
+
+
+def _rank_array_source(torch, mesh, src, cps):
+    """Rank r's chunks [r*cps, (r+1)*cps) of a host source, on its device, as
+    a ``ChunkSource`` (the rows of phase 5 without the whole instance on any
+    rank); other indices are inert zeros."""
+    from repro_torch.core.chunked import ChunkSource
+    lo = mesh.rank * cps
+    c = -(-src.n // src.chunk)
+    mine = [i for i in range(lo, lo + cps) if i < c]
+    p = torch.stack([torch.from_numpy(src.fn(i)[0]) for i in mine]).to(mesh.device)
+    b = torch.stack([torch.from_numpy(src.fn(i)[1]) for i in mine]).to(mesh.device)
+    zero = torch.zeros((src.chunk, src.k), dtype=torch.float32, device=mesh.device)
+
+    def fn(i):
+        i = int(i)
+        return (p[i - lo], b[i - lo]) if lo <= i < lo + len(mine) else (zero, zero)
+
+    return ChunkSource(n=src.n, k=src.k, chunk=src.chunk,
+                       budgets=torch.as_tensor(src.budgets), fn=fn)
+
+
+def _world_host_fed(mesh, n=N_RES, **cfg_kw):
+    from repro_torch.core.prefetch import FeedStats, solve_streaming_host
+    from repro_torch.core.types import SolverConfig
+    src, q = table1_source(n)
+    stats = FeedStats()
+    res = solve_streaming_host(src, SolverConfig(max_iters=40, **cfg_kw), q=q,
+                               slots=SLOTS, mesh=mesh, stats=stats)
+    it = [e for e in stats.epochs if e["kind"] == "iterate"]
+    keys = ("fetch_s", "stage_s", "comm_s", "wall_s")
+    return res, {"iterate_epoch_mean": {k: statistics.mean(e[k] for e in it)
+                                        for k in keys},
+                 "finalize_epoch": {k: stats.epochs[-1][k] for k in keys}}
+
+
+def world_main(mesh, tasks, resume_dir=None):
+    """Phase 17 on every rank of a world on the card: ``tasks`` in order,
+    each with its wall, its seconds in collectives and this rank's launches;
+    rank 0's view comes back."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_kp import WORKLOADS, KPWorkload
+    from repro_torch.core.chunked import solve_streaming
+    from repro_torch.core.instances import sparse_instance
+    from repro_torch.core.prefetch import solve_streaming_host
+    from repro_torch.core.solver import solve_shard
+    from repro_torch.core.types import SolverConfig
+    from repro_torch.data.synth import banded_host_chunk_source
+    from repro_torch.kernels import ops
+    from repro_torch.launch.solve import run_streaming
+
+    t_enter = time.time()
+    check(mesh.device.type == "cuda", f"rank {mesh.rank} runs on {mesh.device}")
+    wl = WORKLOADS["table1"]
+    cfg = SolverConfig(max_iters=40)
+    out, launches = {}, {name: 0 for name in ops.LAUNCHES}
+
+    def rows(n):
+        d = mesh.size
+        return sparse_instance(0, n, wl.k, wl.q, tightness=wl.tightness,
+                               device=mesh.device, chunk=C_MAIN,
+                               rows=(mesh.rank * n // d, (mesh.rank + 1) * n // d))[0]
+
+    def task(name):
+        if name == "host_fed":
+            return _world_host_fed(mesh)
+        if name == "walls":
+            return _world_host_fed(mesh, N_WALLS)
+        if name == "streamed_same_bytes":
+            src, q = table1_source(N_RES)
+            cps = -(-(-(-src.n // src.chunk)) // mesh.size)
+            dsrc = _rank_array_source(torch, mesh, src, cps)
+            res = solve_streaming(dsrc, cfg, q=q, mesh=mesh)
+            del dsrc
+            return res, {}
+        if name == "generated_1e8":
+            torch.cuda.synchronize(mesh.device)
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(mesh.device) / 1e9
+            row = run_streaming(KPWorkload(wl.name, N_STREAM, wl.k, wl.q, wl.tightness),
+                                cfg, C_MAIN, host_feed=False, mesh=mesh)
+            over = mesh.gather(torch.tensor(
+                [torch.cuda.max_memory_allocated(mesh.device) / 1e9 - base],
+                dtype=torch.float64))[:, 0].tolist()
+            return row, {"peak_over_before_gb_by_rank": over}
+        if name == "sharded":
+            kp = rows(N_RES)
+            one = solve_shard(kp, mesh, cfg, q=wl.q)
+            chunked = solve_shard(kp, mesh, cfg.replace(chunk_size=C_MAIN), q=wl.q)
+            x_same = mesh.gather(torch.tensor([int(torch.equal(one.x, chunked.x))]))
+            del kp
+            exact = solve_shard(rows(N_WORLD_SMALL), mesh, cfg.replace(reduce="exact"),
+                                q=wl.q)
+            strip = {"x": None}
+            return {"bucketed": one._replace(**strip), "chunked": chunked._replace(**strip),
+                    "exact": exact._replace(**strip)}, {"x_equal_by_rank": x_same.tolist()}
+        if name == "banded":
+            bsrc = banded_host_chunk_source(7, N_RES, BANDED["k"], C_MAIN, q=BANDED["q"],
+                                            tightness=BANDED["tightness"],
+                                            band=BANDED["band"])
+            scfg = SolverConfig(max_iters=30, bucket_half=12)
+            return {s: solve_streaming_host(bsrc, scfg.replace(screening=s),
+                                            q=BANDED["q"], slots=SLOTS, mesh=mesh)
+                    for s in (False, True)}, {}
+        if name == "straggler":
+            return _world_host_fed(mesh, N_WORLD_SMALL, partial_fraction=0.5)
+        if name == "resume":
+            src, q = table1_source(N_WORLD_SMALL)
+            return solve_streaming_host(
+                src, SolverConfig(max_iters=40, checkpoint_every=WORLD_CKPT_EVERY), q=q,
+                mesh=mesh, resume_from=resume_dir), {}
+        raise ValueError(name)
+
+    for name in tasks:
+        torch.cuda.synchronize(mesh.device)
+        ops.reset_launches()
+        comm0, t0 = mesh.comm_s, time.perf_counter()
+        res, extra = task(name)
+        torch.cuda.synchronize(mesh.device)
+        wall = time.perf_counter() - t0
+        mesh.barrier()
+        out[name] = {"result": res, "wall_s": wall, "collective_s": mesh.comm_s - comm0,
+                     "launches": dict(ops.LAUNCHES), **extra}
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+    out["launches"] = launches
+    out["t_enter"], out["t_exit"] = t_enter, time.time()
+    return out
+
+
+def world_killed(mesh, ckpt_dir):
+    """The checkpointed host-fed solve at N = 10^6, 4 slots; every rank
+    SIGKILLs itself at its (WORLD_KILL_AFTER + 1)-th chunk read."""
+    from repro_torch.core.prefetch import solve_streaming_host
+    from repro_torch.core.types import SolverConfig
+    src, q = table1_source(N_WORLD_SMALL)
+    inner, calls = src.fn, [0]
+
+    def fn(i):
+        calls[0] += 1
+        if calls[0] > WORLD_KILL_AFTER:
+            os.kill(os.getpid(), signal.SIGKILL)
+        return inner(i)
+
+    solve_streaming_host(src._replace(fn=fn),
+                         SolverConfig(max_iters=40, checkpoint_every=WORLD_CKPT_EVERY),
+                         q=q, slots=SLOTS, mesh=mesh, checkpoint_dir=ckpt_dir)
+
+
+def world_fault(mesh):
+    """A host-fed solve at N = 10^6 over 2 slots whose chunk WORLD_FAULT_CHUNK
+    never fetches, with no retries: rank 1 raises ``ChunkFetchError``."""
+    from repro_torch.core.faults import FaultPlan, faulty_source
+    from repro_torch.core.prefetch import solve_streaming_host
+    from repro_torch.core.types import SolverConfig
+    src, q = table1_source(N_WORLD_SMALL)
+    src = faulty_source(src, FaultPlan(offenders=(WORLD_FAULT_CHUNK,),
+                                       offender_failures=10 ** 6))
+    solve_streaming_host(src, SolverConfig(max_iters=40, fetch_timeout=60.0), q=q,
+                         mesh=mesh)
+
+
+def world_walls(out, t_start):
+    """A world's start (to rank 0 entering its tasks) and its wall to rank 0
+    leaving them, on the host clock."""
+    return {"start_s": out["t_enter"] - t_start, "to_exit_s": out["t_exit"] - t_start}
+
+
+def within_stop(a_lam, b_lam, cfg_tol=1e-3):
+    """lam within the stopping rule's tol * (1 + max lam) of b's."""
+    import numpy as np
+    a, b = np.asarray(a_lam, np.float64), np.asarray(b_lam, np.float64)
+    return float(np.abs(a - b).max()), cfg_tol * (1.0 + float(b.max()))
+
+
+def phase_world(torch, np, dev):
+    """A world of 4 ranks on the one card, and the worlds that die (phase
+    17). The ranks share the card; nothing here measures several cards."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.instances import sparse_instance
+    from repro_torch.core.prefetch import solve_streaming_host
+    from repro_torch.core.solver import solve
+    from repro_torch.core.types import SolverConfig
+    from repro_torch.configs.paper_kp import WORKLOADS
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.data.synth import banded_host_chunk_source
+    from repro_torch.launch.mesh import WorldError, run_local_world, start_local_world
+
+    wl = WORKLOADS["table1"]
+    work = ROOT / "build" / "smoke_world"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    paths, walls = {}, {}
+    tasks = ["host_fed", "streamed_same_bytes", "generated_1e8", "sharded", "banded",
+             "straggler", "walls"]
+
+    # The world of 4 runs; this process computes the in-process references
+    # beside it.
+    t_start = time.time()
+    four = start_local_world(world_main, WORLD, (tasks,), timeout=WORLD_TIMEOUT)
+    try:
+        src_small, q = table1_source(N_WORLD_SMALL)
+        kp_small, _ = sparse_instance(0, N_WORLD_SMALL, wl.k, wl.q, tightness=wl.tightness,
+                                      device=dev, chunk=C_MAIN)
+        exact_one = solve(kp_small, SolverConfig(max_iters=40, reduce="exact"), q=q,
+                          device=dev)
+        del kp_small
+        bsrc = banded_host_chunk_source(7, N_RES, BANDED["k"], C_MAIN, q=BANDED["q"],
+                                        tightness=BANDED["tightness"], band=BANDED["band"])
+        banded_slots = solve_streaming_host(
+            bsrc, SolverConfig(max_iters=30, bucket_half=12, screening=True),
+            q=BANDED["q"], slots=SLOTS, device=dev)
+        straggler_slots = solve_streaming_host(
+            src_small, SolverConfig(max_iters=40, partial_fraction=0.5), q=q,
+            slots=SLOTS, device=dev)
+        plain_small = solve_streaming_host(src_small, SolverConfig(max_iters=40), q=q,
+                                           slots=SLOTS, device=dev)
+    finally:
+        w4 = four.wait()
+    walls[WORLD] = world_walls(w4, t_start)
+    paths["world4_rank0"] = w4["launches"]
+
+    def summary(name, r):
+        return {k: v for k, v in r.items() if k != "result"}
+
+    emit("world_runs", world=WORLD, world_wall_s=walls[WORLD]["to_exit_s"],
+         start_s=walls[WORLD]["start_s"],
+         tasks={name: summary(name, w4[name]) for name in tasks})
+
+    # 1. Host-fed N = 10^7, 4 slots over 4 ranks: bitwise phase 13's row.
+    hf = w4["host_fed"]["result"]
+    cps = -(-(-(-N_RES // C_MAIN)) // SLOTS)
+    l0 = w4["host_fed"]["launches"]
+    facts = {"bitwise_phase13_slots4": same_stream(hf, HOST_RESULTS["slots4"]),
+             "fused_launches_rank0": l0["scd_fused_hist"] == hf.iters * cps,
+             "finalize_launches_rank0": l0["scd_finalize_hist"] == cps}
+    # 2. The same bytes through the device-streamed solve, one shard a rank.
+    ds = w4["streamed_same_bytes"]["result"]
+    facts["streamed_bitwise_host_fed"] = same_stream(ds, hf)
+    emit("world_host_fed", n=N_RES, slots=SLOTS, world=WORLD, iters=hf.iters,
+         primal=float(hf.primal), dual=float(hf.dual), **facts)
+    check(all(facts.values()), f"world host-fed: {facts}")
+
+    # 3. Generated on the card at N = 10^8, a shard a rank: flat memory, lam
+    # within the stopping rule of phase 14's one-shard run.
+    g = w4["generated_1e8"]
+    row, one = g["result"], HOST_RESULTS[f"streamed_{N_STREAM}"]
+    diff, tol = within_stop(row["lam"], one["lam"])
+    peak_cap = 1.05 * one["peak_over_before_gb"] + 0.01
+    emit("world_generated", n=N_STREAM, world=WORLD, iters=row["iterations"],
+         one_shard_iters=one["iterations"], lam_max_abs_diff=diff, stopping_tolerance=tol,
+         primal=row["primal"], dual=row["dual"], max_violation=row["max_violation"],
+         wall_s=g["wall_s"], one_shard_wall_s=one["wall_s"], collective_s=g["collective_s"],
+         peak_over_before_gb_by_rank=g["peak_over_before_gb_by_rank"],
+         one_shard_peak_over_before_gb=one["peak_over_before_gb"])
+    check(diff <= tol and abs(row["iterations"] - one["iterations"]) <= 1,
+          "world generated 10^8: lam or iterations off phase 14's one-shard run")
+    check(max(g["peak_over_before_gb_by_rank"]) <= peak_cap,
+          f"world generated 10^8: a rank's peak memory is not flat: {g}")
+    check(row["max_violation"] <= 1e-4 and row["dual"] >= row["primal"],
+          "world generated 10^8: infeasible or dual below primal")
+
+    # 4. solve_sharded: bucketed at 10^7 against phase 7, chunked bitwise
+    # unchunked; exact at 10^6 against the single-device exact solve.
+    sh = w4["sharded"]["result"]
+    res7 = HOST_RESULTS["resident_bucketed"]
+    d_b, tol_b = within_stop(sh["bucketed"].lam, res7.lam)
+    d_e, tol_e = within_stop(sh["exact"].lam, exact_one.lam)
+    chunked_same = (all(w4["sharded"]["x_equal_by_rank"])
+                    and sh["bucketed"].iters == sh["chunked"].iters
+                    and all(torch.equal(getattr(sh["bucketed"], f), getattr(sh["chunked"], f))
+                            for f in ("lam", "r", "primal", "dual")))
+    emit("world_sharded", world=WORLD, n_bucketed=N_RES, n_exact=N_WORLD_SMALL,
+         iters={"bucketed": sh["bucketed"].iters, "phase7": res7.iters,
+                "exact": sh["exact"].iters, "exact_one_device": exact_one.iters},
+         lam_max_abs_diff={"bucketed": d_b, "exact": d_e},
+         stopping_tolerance={"bucketed": tol_b, "exact": tol_e},
+         primal={"bucketed": float(sh["bucketed"].primal), "phase7": float(res7.primal)},
+         chunked_bitwise=chunked_same, wall_s=w4["sharded"]["wall_s"],
+         collective_s=w4["sharded"]["collective_s"])
+    check(d_b <= tol_b and abs(sh["bucketed"].iters - res7.iters) <= 1,
+          "solve_sharded 10^7 not within the stopping rule of phase 7")
+    check(d_e <= tol_e and abs(sh["exact"].iters - exact_one.iters) <= 1,
+          "solve_sharded exact 10^6 not within the stopping rule of one device")
+    check(chunked_same, "chunked solve_sharded differs from unchunked")
+    for name, n in (("bucketed", N_RES), ("exact", N_WORLD_SMALL)):
+        budgets = torch.as_tensor(table1_source(n)[0].budgets)
+        v = float(torch.max((sh[name].r - budgets) / budgets))
+        check(v <= 1e-4 and float(sh[name].dual) >= float(sh[name].primal),
+              f"solve_sharded {name}: max_violation {v} or dual below primal")
+
+    # 5. Screened banded: world screened == world unscreened == this
+    # process's 4 slots; phase 11's single slot within the stopping rule.
+    bd = w4["banded"]["result"]
+    d_11, tol_11 = within_stop(bd[True].lam, HOST_RESULTS["banded_screened"].lam)
+    facts = {"screened_bitwise_unscreened": same_stream(bd[True], bd[False]),
+             "bitwise_in_process_slots4": same_stream(bd[True], banded_slots),
+             "streamed_profile_equal": bd[True].screen["streamed_chunks"].tolist()
+             == banded_slots.screen["streamed_chunks"].tolist()}
+    emit("world_banded", n=N_RES, world=WORLD, slots=SLOTS, iters=bd[True].iters,
+         streamed_chunks=bd[True].screen["streamed_chunks"].tolist(),
+         phase11_single_slot={"iters": HOST_RESULTS["banded_screened"].iters,
+                              "lam_max_abs_diff": d_11, "stopping_tolerance": tol_11},
+         wall_s=w4["banded"]["wall_s"], **facts)
+    check(all(facts.values()), f"world banded: {facts}")
+    check(d_11 <= tol_11 and abs(bd[True].iters - HOST_RESULTS["banded_screened"].iters) <= 1,
+          "world banded not within the stopping rule of phase 11's single slot")
+
+    # 6. The straggler mask at 10^6: bitwise this process's 4 slots, feasible.
+    st = w4["straggler"]["result"]
+    budgets = torch.as_tensor(src_small.budgets)
+    facts = {"bitwise_in_process_slots4": same_stream(st, straggler_slots),
+             "feasible": bool(torch.all(st.r <= budgets)),
+             "differs_from_unmasked": not torch.equal(st.lam, plain_small.lam)}
+    emit("world_straggler", n=N_WORLD_SMALL, partial_fraction=0.5, iters=st.iters,
+         primal=float(st.primal), plain_primal=float(plain_small.primal), **facts)
+    check(all(facts.values()), f"world straggler: {facts}")
+
+    # 7. Every rank SIGKILLed mid-iterate; resumed on a world of 2 (which
+    # then times the walls' host-fed solve) and in process: bitwise. The
+    # world whose rank 1 cannot fetch (check 8) dies beside it.
+    ck = work / "ckpt"
+    t0 = time.perf_counter()
+    killed = start_local_world(world_killed, WORLD, (str(ck),), timeout=WORLD_TIMEOUT)
+    try:
+        try:
+            start_local_world(world_fault, 2, timeout=WORLD_TIMEOUT).wait()
+            raise SmokeFailure("the faulted world finished")
+        except WorldError as e:
+            fault = e
+        fault_s = time.perf_counter() - t0
+        try:
+            killed.wait()
+            raise SmokeFailure("the killed world finished")
+        except WorldError as e:
+            codes = e.returncodes
+    finally:
+        killed.kill()
+    killed_s = time.perf_counter() - t0
+    step = ckpt.latest_step(ck)
+    check(step is not None, "the killed world left no state")
+    st0 = ckpt.restore_auto(ck, step)
+    state = {k: int(st0[k]) for k in ("phase", "iters", "slots")}
+    for d in ("two", "here"):
+        shutil.copytree(ck, work / d)
+    t_start = time.time()
+    w2 = run_local_world(world_main, 2, (["resume", "walls"],),
+                         {"resume_dir": str(work / "two")}, timeout=WORLD_TIMEOUT)
+    walls[2] = world_walls(w2, t_start)
+    paths["world2_rank0"] = w2["launches"]
+    here = solve_streaming_host(src_small, SolverConfig(max_iters=40,
+                                                        checkpoint_every=WORLD_CKPT_EVERY),
+                                q=q, device=dev, resume_from=str(work / "here"))
+    facts = {"killed_by_sigkill": codes == [-signal.SIGKILL] * WORLD,
+             "state_mid_iterate": state == {"phase": 0, "iters": 4, "slots": SLOTS},
+             "world2_bitwise": same_stream(w2["resume"]["result"], plain_small),
+             "in_process_bitwise": same_stream(here, plain_small)}
+    emit("world_resume", n=N_WORLD_SMALL, killed_world=WORLD, returncodes=codes,
+         killed_world_wall_s=killed_s, state=state, resumed_world=2,
+         resumed_wall_s=w2["resume"]["wall_s"], **facts)
+    check(all(facts.values()), f"world resume: {facts}")
+
+    # 8. A rank whose fetch fails fails the world, naming the chunk.
+    facts = {"rank1_failed": fault.rank == 1,
+             "chunk_named": "ChunkFetchError" in fault.detail
+             and f"chunk {WORLD_FAULT_CHUNK}" in fault.detail,
+             "well_within_timeout": fault_s < WORLD_TIMEOUT / 4}
+    emit("world_fault", world=2, wall_s=fault_s, timeout_s=WORLD_TIMEOUT,
+         returncodes=fault.returncodes, error=fault.detail.strip().splitlines()[-1][:300],
+         **facts)
+    check(all(facts.values()), f"world fault: {facts}")
+
+    # 9. One rank, in this process (a world of 1 has no collectives): the
+    # walls' solve again. Worlds 1, 2 and 4: bitwise.
+    t_start = time.time()
+    w1 = world_main(Mesh(0, 1, dev), ["walls"])
+    walls[1] = world_walls(w1, t_start)
+    paths["world1_rank0"] = w1["launches"]
+    runs = {1: w1["walls"], 2: w2["walls"], WORLD: w4["walls"]}
+    check(all(same_stream(r["result"], runs[WORLD]["result"]) for r in runs.values()),
+          "the host-fed solve differs between worlds of 1, 2 and 4")
+    emit("world_walls", n=N_WALLS, slots=SLOTS, note="the ranks share one card and "
+         "this host's cores; recorded, not claimed",
+         host_fed_wall_s={d: r["wall_s"] for d, r in runs.items()},
+         host_fed_collective_s={d: r["collective_s"] for d, r in runs.items()},
+         iterate_epoch_mean={d: r["iterate_epoch_mean"] for d, r in runs.items()},
+         phase13_in_process_slots4_wall_s_at_n_res=HOST_RESULTS["slots4_wall"],
+         world_walls_s=walls)
+    shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
 def main():
     import numpy as np
     import torch
@@ -1873,6 +2309,7 @@ def main():
     paths.update(streamed_paths)
     paths.update(phase_serving(torch, np, dev))
     paths.update(phase_operations(torch, np, dev))
+    paths.update(phase_world(torch, np, dev))
 
     rows = [{"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name],
@@ -1882,6 +2319,8 @@ def main():
             for name in REPLACES]
     for r in rows:
         check(r["launches"] > 0, f"{r['name']} was launched on no path")
+    wall = time.perf_counter() - T_START
+    emit("smoke_wall", seconds=wall, budget_s=900)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ import torch
 
 __all__ = ["make_edges", "bucket_histogram", "hist_crossings",
            "threshold_from_hist", "exact_threshold", "ordered_cumsum",
-           "ordered_colsum"]
+           "ordered_colsum", "ordered_fold"]
 
 _SCAN_BLOCK = 2048
 
@@ -44,6 +44,21 @@ def ordered_cumsum(x, dim=-1):
     off = torch.nn.functional.pad(run[:-1, :r].T, (1, 0))     # exclusive, (R, B)
     out = (within + off[..., None]).reshape(r, blocks * _SCAN_BLOCK)[:, :n]
     return out.to(x.dtype).reshape(lead + (n,)).movedim(-1, dim)
+
+
+def ordered_fold(x, dim=0):
+    """Sum ``x`` over ``dim`` in strict index order: the float32 left fold
+    ``x[0] + x[1] + ... + x[S-1]``, one elementwise add at a time.
+
+    The streamed drivers combine their per-slot partials with it on the
+    host, and a mesh its per-rank ones, so the combined sums depend only on
+    the slot (or rank) count, never on how a reduction kernel or a
+    collective would group the additions.
+    """
+    acc = x.select(dim, 0).clone()
+    for i in range(1, x.shape[dim]):
+        acc = acc + x.select(dim, i)
+    return acc
 
 
 def ordered_colsum(x):

@@ -17,11 +17,6 @@ import torch
 
 from .types import DenseKP, SolverConfig, SparseKP
 
-# Reference fields the port does not carry: their reference defaults, and
-# the ROADMAP item that ports them. Any other value raises.
-_UNPORTED = {
-    "partial_fraction": (1.0, "A8 (straggler mask)"),
-}
 _DTYPES = {"float32": torch.float32}
 
 
@@ -29,10 +24,8 @@ def config_from_reference(fields: dict) -> SolverConfig:
     """A port ``SolverConfig`` from ``dataclasses.asdict`` of a reference one.
 
     ``dtype`` maps by name; ``use_kernels`` is dropped (the device picks
-    the implementation). Fields the port does not carry must hold the
-    reference's default, and ported fields a supported value; otherwise
-    this raises (``NotImplementedError`` naming the ROADMAP item for an
-    unported option).
+    the implementation). Every other field crosses as it is; an unknown
+    field or an unsupported value raises ``ValueError``.
     """
     ported = {f.name for f in dataclasses.fields(SolverConfig)}
     kw = {}
@@ -46,11 +39,6 @@ def config_from_reference(fields: dict) -> SolverConfig:
             kw["dtype"] = _DTYPES[dname]
         elif name in ported:
             kw[name] = value
-        elif name in _UNPORTED:
-            default, item = _UNPORTED[name]
-            if value != default:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet: ROADMAP {item}")
         else:
             raise ValueError(f"unknown reference SolverConfig field {name!r}")
     return SolverConfig(**kw)

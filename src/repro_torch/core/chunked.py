@@ -41,7 +41,7 @@ import torch
 from ..kernels import ops
 from ..obs import NULL_TRACER
 from ..kernels.ref import row_sum
-from .bucketing import make_edges, ordered_colsum, threshold_from_hist
+from .bucketing import make_edges, ordered_colsum, ordered_fold, threshold_from_hist
 from .postprocess import (
     profit_edges,
     profit_edges_fixed,
@@ -49,14 +49,18 @@ from .postprocess import (
     threshold_and_removed,
     threshold_from_removable_hist,
 )
+from .mesh import check_mesh
 from .screening import HostScreen, chunk_bound, crossing_trusted
 from .solver import (
     _finalize_tile,
     damped_multiplier_step,
     dd_proposal,
+    hist_scale,
     resolve_device,
     scd_chunk_accumulate,
     solve,
+    solve_shard,
+    straggler_mask,
 )
 from .sparse_scd import select_sparse
 from .types import SolverConfig, SparseKP
@@ -218,20 +222,6 @@ def apply_chunk_accumulate(p_c, b_c, lam, q, tau, carry):
             primal2 + ordered_colsum(gain[:, None])[0])
 
 
-def ordered_fold(x, dim=0):
-    """Sum ``x`` over ``dim`` in strict index order: the float32 left fold
-    ``x[0] + x[1] + ... + x[S-1]``, one elementwise add at a time.
-
-    The host-fed driver combines its per-slot partials with it on the
-    host, so the combined sums depend only on the slot count, never on how
-    a reduction kernel would group the additions.
-    """
-    acc = x.select(dim, 0).clone()
-    for i in range(1, x.shape[dim]):
-        acc = acc + x.select(dim, i)
-    return acc
-
-
 def _pinned_dot(a, b):
     """lam . budgets as an elementwise multiply and then a sum."""
     return torch.sum(a * b)
@@ -307,6 +297,16 @@ class PassRunner:
     damped step, the screening guard, the §5.4 thresholds) runs on the host
     CPU in float32, so ``lam``, ``dprev`` and the results are CPU tensors.
 
+    Over a mesh (``core.mesh.Mesh`` of D ranks, D dividing S) rank r runs
+    only its slots [r*S/D, (r+1)*S/D); every fold gathers all S partials
+    and folds them in slot order on every rank, so the bits depend on S and
+    never on D, and every rank takes the same host decisions. With a mesh
+    or S > 1 (the reference's sharded runtime), ``cfg.partial_fraction <
+    1`` drops the slots past that fraction: each
+    slot's SCD histogram is scaled by ``keep * scale`` before the fold
+    (linear in v2, as the reference's kernel path), DD's r by ``keep``
+    before it and by ``scale`` after; top stays unmasked.
+
     A driver provides how chunks arrive: :meth:`_chunk_of` (one slot's
     chunk), ``zero`` (the inert chunk fed to a retired slot) and
     :meth:`_run_epoch` (``state = step(state, p_c, b_c, item)`` over the
@@ -316,25 +316,33 @@ class PassRunner:
     buffer. Everything else is shared, so the two drivers perform the same
     arithmetic on the same bytes.
 
-    With a :class:`HostScreen` installed (over the S * cps chunk slots) the
-    SCD passes are screened: a column whose chunk slots are all retired is
-    skipped and a retired slot of a streamed column is fed a zero chunk.
-    The certificates are computed on the device, by ``screen_bound`` on
-    the chunk the step reads, into row g of ``bound_d`` (S * cps, K); the
-    rows noted in a pass reach the host once, before ``retire``.
+    With a :class:`HostScreen` installed (over the S * cps chunk slots, on
+    every rank) the SCD passes are screened: a column whose chunk slots are
+    all retired is skipped and a retired slot of a streamed column is fed a
+    zero chunk. The certificates are computed on the device, by
+    ``screen_bound`` on the chunk the step reads, into row g of ``bound_d``
+    (S * cps, K); the rows noted in a pass reach the host once (gathered
+    from their ranks), before ``retire``.
     """
 
     tracer = NULL_TRACER
 
-    def __init__(self, source, cfg, q, slots, device):
+    def __init__(self, source, cfg, q, slots, device, mesh=None):
         self.source, self.cfg, self.q = source, cfg, q
         self.slots = slots
         self.device = device
+        self.mesh = mesh
+        self.spd = slots // (mesh.size if mesh is not None else 1)
+        self.s0 = self.spd * (mesh.rank if mesh is not None else 0)
         self.c = _num_chunks(source.n, source.chunk)
         self.cps = -(-self.c // slots)
         self.budgets = torch.as_tensor(np.asarray(source.budgets), dtype=cfg.dtype)
         self.pedges = profit_edges_fixed(cfg.profit_buckets, cfg.profit_ladder_lo,
                                          cfg.profit_ladder_hi, cfg.dtype)
+        self.mask = None
+        if (mesh is not None or slots > 1) and cfg.partial_fraction < 1.0:
+            self.mask = [straggler_mask(cfg.partial_fraction, s, slots)
+                         for s in self._slots()]
         self.scr = None
         self.bound_d = None
         self.active_counts = []
@@ -354,6 +362,39 @@ class PassRunner:
     def _sync(self):
         """Wait for the queued steps (the host-fed feeder's compute stream)."""
 
+    # -- this rank's slots and the collectives -------------------------------
+
+    def _slots(self):
+        return range(self.s0, self.s0 + self.spd)
+
+    def _gather(self, local):
+        """This rank's (spd, ...) slot partials -> all S, (S, ...) on the host."""
+        local = torch.stack([x.cpu() for x in local])
+        if self.mesh is None:
+            return local
+        out = self.mesh.gather(local)
+        return out.reshape((self.slots,) + tuple(local.shape[1:]))
+
+    def _max(self, local):
+        out = torch.amax(torch.stack([x.cpu() for x in local]), dim=0)
+        return out if self.mesh is None else self.mesh.amax(out)
+
+    def _min(self, local):
+        out = torch.amin(torch.stack([x.cpu() for x in local]), dim=0)
+        return out if self.mesh is None else self.mesh.amin(out)
+
+    def _fold(self, parts):
+        """One field's slot partials (this rank's), folded over all S slots
+        in slot order on the host."""
+        return ordered_fold(self._gather(parts))
+
+    def _fold_hist(self, parts):
+        """The SCD histograms' fold, each slot's scaled by the straggler
+        mask first."""
+        if self.mask is not None:
+            parts = [h.cpu() * hist_scale(*m) for h, m in zip(parts, self.mask)]
+        return self._fold(parts)
+
     # -- the passes --------------------------------------------------------
 
     def install_screen(self, scr):
@@ -363,7 +404,7 @@ class PassRunner:
                                   device=self.device)
 
     def _items(self, cols):
-        return [(s, int(j)) for j in cols for s in range(self.slots)]
+        return [(s, int(j)) for j in cols for s in self._slots()]
 
     def _fetch(self, item):
         return self._chunk_of(*item)
@@ -374,28 +415,28 @@ class PassRunner:
             return self.zero, self.zero
         return self._chunk_of(s, j)
 
-    def _fold(self, parts):
-        """The slots' (S, ...) partials of one field, on the host, folded
-        in slot order."""
-        return ordered_fold(torch.stack([x.cpu() for x in parts]))
-
     def iter_epoch(self, lam, dprev):
         """One sync-SCD, cyclic-CD or DD iteration: (lam_new, delta, moved).
         Cyclic CD runs K SCD passes, the k-th moving coordinate k."""
         t0 = time.perf_counter()
-        cfg, dev = self.cfg, self.device
+        cfg, dev, s0 = self.cfg, self.device, self.s0
         lam_d = lam.to(dev)
         if cfg.algo == "dd":
             def step(rs, p_c, b_c, item):
-                s = item[0]
-                rs[s] = rs[s] + ordered_colsum(
+                i = item[0] - s0
+                rs[i] = rs[i] + ordered_colsum(
                     ops.adjusted_topc(p_c, b_c, lam_d, self.q)[1])
                 return rs
 
             rs = self._run_epoch(step, [torch.zeros_like(lam_d)
-                                        for _ in range(self.slots)],
+                                        for _ in range(self.spd)],
                                  "iterate", self._items(range(self.cps)))
-            prop = dd_proposal(lam, self._fold(rs), self.budgets, cfg)
+            if self.mask is None:
+                r = self._fold(rs)
+            else:
+                r = self._fold([x.cpu() * m[0] for x, m in zip(rs, self.mask)])
+                r = r * self.mask[0][1]
+            prop = dd_proposal(lam, r, self.budgets, cfg)
         elif cfg.cd_mode == "cyclic":
             prop = lam.clone()
             for kk in range(self.source.k):
@@ -420,28 +461,36 @@ class PassRunner:
         """(hist, top) on the host from one pass over ``items`` (default
         every column); the chunk slots in ``noted`` also get their
         certificate."""
-        k, cps = self.source.k, self.cps
+        k, cps, s0 = self.source.k, self.cps, self.s0
         noted = set(noted)
         carry = [(torch.zeros((k, edges_d.shape[-1] + 1), dtype=torch.float32,
                               device=self.device),
                   torch.full((k,), float("-inf"), dtype=torch.float32,
                              device=self.device))
-                 for _ in range(self.slots)]
+                 for _ in range(self.spd)]
 
         def step(carry, p_c, b_c, item):
             s, j = item
             if s * cps + j in noted:
                 chunk_bound(p_c, b_c, out=self.bound_d[s * cps + j])
-            carry[s] = scd_chunk_accumulate(p_c, b_c, lam_d, edges_d, self.q,
-                                            self.cfg, *carry[s])
+            carry[s - s0] = scd_chunk_accumulate(p_c, b_c, lam_d, edges_d, self.q,
+                                                 self.cfg, *carry[s - s0])
             return carry
 
         if items is None:
             items = self._items(range(cps))
         carry = self._run_epoch(step, carry, kind, items, fetch)
-        hist = self._fold([h for h, _ in carry])
-        top = torch.amax(torch.stack([t.cpu() for _, t in carry]), dim=0)
-        return hist, top
+        return self._fold_hist([h for h, _ in carry]), self._max([t for _, t in carry])
+
+    def _noted_rows(self, noted):
+        """The certificate rows ``noted`` (chunk slots of every rank), each
+        from the rank that computed it: (len(noted), K) on the host."""
+        rows = self.bound_d[noted].cpu()
+        if self.mesh is None:
+            return rows
+        every = self.mesh.gather(rows)                      # (D, L, K)
+        owner = torch.tensor([g // self.cps // self.spd for g in noted])
+        return every[owner, torch.arange(len(noted))]
 
     def _scd_pass_screened(self, lam, lam_d, edges_d, t0):
         """The reference's screened iteration: the floor protocol
@@ -453,12 +502,11 @@ class PassRunner:
         scr, cps = self.scr, self.cps
         scr.begin_iter(lam.numpy())
         cols = np.flatnonzero(scr.active.reshape(self.slots, cps).any(axis=0))
-        items = self._items(cols)
-        noted = [s * cps + j for s, j in items
+        noted = [s * cps + j for j in cols for s in range(self.slots)
                  if scr.active[s * cps + j] and scr.needs_bound(s * cps + j)]
         streamed = int(np.count_nonzero(scr.active[:self.c]))
-        hist, top = self._scd_pass(lam_d, edges_d, "iterate", items, noted,
-                                   self._fetch_screened)
+        hist, top = self._scd_pass(lam_d, edges_d, "iterate", self._items(cols),
+                                   noted, self._fetch_screened)
         scr.record_streamed(streamed)
         self.active_counts.append(streamed)
         self.tracer.event("screen.skip", streamed=streamed,
@@ -468,7 +516,7 @@ class PassRunner:
             hist, top = self._scd_pass(lam_d, edges_d, "fallback")
             scr.record_streamed(self.c, fallback=True)
         if noted:
-            scr.note_bounds(noted, self.bound_d[noted].cpu().numpy())
+            scr.note_bounds(noted, self._noted_rows(noted).numpy())
         scr.retire()
         return hist, top, t0
 
@@ -476,20 +524,20 @@ class PassRunner:
         """One metrics pass at lam, the slot partials folded in slot order:
         (r, primal, dual, lo, hi) on the host. Legacy finalize pass 1, and
         the sampled-history pass."""
-        lam_d = lam.to(self.device)
+        lam_d, s0 = lam.to(self.device), self.s0
 
         def step(carry, p_c, b_c, item):
-            s = item[0]
-            carry[s] = finalize_chunk_accumulate(p_c, b_c, lam_d, self.q, self.cfg,
-                                                 carry[s])
+            i = item[0] - s0
+            carry[i] = finalize_chunk_accumulate(p_c, b_c, lam_d, self.q, self.cfg,
+                                                 carry[i])
             return carry
 
         carry = self._run_epoch(
             step, [fin_zeros(self.source.k, 0, False, self.device)
-                   for _ in range(self.slots)], kind, self._items(range(self.cps)))
+                   for _ in range(self.spd)], kind, self._items(range(self.cps)))
         r, primal, dual_sum = (self._fold([c[f] for c in carry]) for f in range(3))
-        lo = torch.amin(torch.stack([c[3].cpu() for c in carry]))
-        hi = torch.amax(torch.stack([c[4].cpu() for c in carry]))
+        lo = self._min([c[3] for c in carry])
+        hi = self._max([c[4] for c in carry])
         return r, primal, dual_sum + _pinned_dot(lam, self.budgets), lo, hi
 
     def metrics_record(self, lam):
@@ -525,23 +573,24 @@ class PassRunner:
         return StreamResult(lam, iters, r2.cpu(), primal2.cpu(), dual, tau)
 
     def fin_init(self):
-        """Per-slot fused-finalize carries, from zeros (lo = +inf, hi = -inf)."""
+        """This rank's per-slot fused-finalize carries, from zeros (lo = +inf,
+        hi = -inf)."""
         return [fin_zeros(self.source.k, self.pedges.shape[0] + 1,
                           self.cfg.postprocess, self.device)
-                for _ in range(self.slots)]
+                for _ in range(self.spd)]
 
     def fin_run(self, carry, lam, start=0, on_col=None):
         """The fused finalize over columns [start, cps); ``on_col(j, carry)``
-        after each column's last slot."""
+        after each column's last slot (on every rank)."""
         t0 = time.perf_counter()
         pedges = self.pedges.to(self.device) if self.cfg.postprocess else None
-        lam_d = lam.to(self.device)
-        last = self.slots - 1
+        lam_d, s0 = lam.to(self.device), self.s0
+        last = s0 + self.spd - 1
 
         def step(carry, p_c, b_c, item):
-            s = item[0]
-            carry[s] = finalize_chunk_accumulate(p_c, b_c, lam_d, self.q,
-                                                 self.cfg, carry[s], pedges)
+            i = item[0] - s0
+            carry[i] = finalize_chunk_accumulate(p_c, b_c, lam_d, self.q,
+                                                 self.cfg, carry[i], pedges)
             return carry
 
         on_step = None
@@ -609,18 +658,22 @@ def run_iterations(rt, lam, dprev, iters, on_iter=None):
 # --------------------------------------------------------------------------
 
 class _DeviceRunner(PassRunner):
-    """The passes over a :class:`ChunkSource` on one device, one slot: a
-    Python loop over the chunk indices."""
+    """The passes over a :class:`ChunkSource` on the device: a Python loop
+    over the chunk indices, one slot per rank (over a mesh of D ranks, D
+    slots: rank s takes chunks [s*cps, (s+1)*cps))."""
 
-    # One slot: a column holds one chunk, so a retired chunk's column is
-    # skipped whole and no zero chunk is ever fed (nor held on the device).
-    zero = None
-
-    def __init__(self, source, cfg, q, device):
-        super().__init__(source, cfg, q, 1, device)
+    def __init__(self, source, cfg, q, device, mesh=None):
+        slots = mesh.size if mesh is not None else 1
+        super().__init__(source, cfg, q, slots, device, mesh)
+        # One slot: a column holds one chunk, so a retired chunk's column is
+        # skipped whole and no zero chunk is ever fed (nor held). Over a
+        # mesh a retired slot of a streamed column is fed zeros, as the
+        # host-fed driver feeds them.
+        self.zero = (torch.zeros((source.chunk, source.k), dtype=torch.float32,
+                                 device=device) if slots > 1 else None)
 
     def _chunk_of(self, s, j):
-        return _chunk(self.source, j, self.device)
+        return _chunk(self.source, s * self.cps + j, self.device)
 
     def _run_epoch(self, step, state, kind, items, fetch=None, on_step=None):
         fetch = fetch or self._fetch
@@ -632,20 +685,25 @@ class _DeviceRunner(PassRunner):
         return state
 
 
-def _presolve_stream(source, lam0, q, cfg, dev):
-    """§5.3 warm start: the first ``presolve_samples`` rows of the leading
-    chunks, solved resident on the device with the budgets scaled by their
-    fraction."""
+def _presolve_stream(rt, lam0):
+    """§5.3 warm start: the first ``presolve_samples`` rows of the shard's
+    leading chunks, solved resident on the device with the budgets scaled
+    by their fraction; over a mesh the shards' samples solve together
+    (``solver.solve_shard``), as in the reference."""
+    source, cfg = rt.source, rt.cfg
     if cfg.presolve_samples <= 0:
         return lam0
-    s = min(cfg.presolve_samples, source.n)
-    parts = [_chunk(source, i, dev) for i in range(-(-s // source.chunk))]
+    s = min(cfg.presolve_samples, rt.cps * source.chunk, source.n)
+    i0 = rt.s0 * rt.cps
+    parts = [_chunk(source, i0 + i, rt.device) for i in range(-(-s // source.chunk))]
     small = SparseKP(p=torch.cat([pp for pp, _ in parts])[:s],
                      b=torch.cat([bb for _, bb in parts])[:s],
-                     budgets=source.budgets * (s / source.n))
+                     budgets=source.budgets * (s * rt.slots / source.n))
     sub = cfg.replace(presolve_samples=0, record_history=False,
                       postprocess=False, chunk_size=None)
-    return solve(small, sub, q=q, lam0=lam0, device=dev).lam
+    if rt.mesh is None:
+        return solve(small, sub, q=rt.q, lam0=lam0, device=rt.device).lam
+    return solve_shard(small, rt.mesh, sub, q=rt.q, lam0=lam0).lam
 
 
 def solve_streaming(source: ChunkSource, cfg: SolverConfig = SolverConfig(),
@@ -665,24 +723,36 @@ def solve_streaming(source: ChunkSource, cfg: SolverConfig = SolverConfig(),
     leading chunks. ``cfg.chunk_size`` is ignored: the source's chunk is
     the chunk.
 
+    ``mesh`` (a ``core.mesh.Mesh`` of D ranks; every rank calls this with
+    a source of the same instance on its own device, ``mesh.device``, which
+    replaces ``device``): shard s scans chunks [s*cps, (s+1)*cps), cps =
+    ceil(c / D), and every pass ends in the slot fold across the ranks; the
+    presolve samples each shard's leading chunks and ``cfg.partial_fraction``
+    drops the shards past that fraction. The legacy finalize stays on one
+    process (``ValueError`` over a mesh); ``axes`` raises ``ValueError``.
+
     Bitwise equal to ``prefetch.solve_streaming_host`` over a host source
-    of the same bytes and chunk (lam, iters, r, primal, dual, tau,
-    fin_hist, history); (lam, iters) equal the resident ``solve`` with
-    ``chunk_size=source.chunk`` on the SCD bucketed path when the map tile
-    divides the chunk. ``mesh`` (several GPUs) raises
-    ``NotImplementedError`` (ROADMAP A8); SCD needs the bucketed reduce
+    of the same bytes and chunk, with as many slots as shards (lam, iters,
+    r, primal, dual, tau, fin_hist, history); (lam, iters) equal the
+    resident ``solve`` with ``chunk_size=source.chunk`` on the SCD bucketed
+    path when the map tile divides the chunk. SCD needs the bucketed reduce
     and ``record_history`` needs ``metrics_every`` (``ValueError``).
     """
-    if mesh is not None or axes is not None:
-        raise NotImplementedError("mesh is not ported yet: ROADMAP A8")
+    check_mesh(mesh)
+    if axes is not None:
+        raise ValueError("axes: the port's mesh is one flat world of ranks")
     _validate_stream_cfg(cfg)
-    dev = resolve_device(device)
+    if mesh is not None and cfg.stream_finalize == "legacy":
+        raise ValueError(
+            "the sharded streaming solve supports stream_finalize='fused' only "
+            "(the legacy three-pass finalize stays on one process)")
+    dev = mesh.device if mesh is not None else resolve_device(device)
     lam0 = (torch.ones((source.k,), dtype=cfg.dtype) if lam0 is None
             else torch.as_tensor(lam0, dtype=cfg.dtype).cpu())
-    lam = _presolve_stream(source, lam0, q, cfg, dev)
-    rt = _DeviceRunner(source, cfg, q, dev)
+    rt = _DeviceRunner(source, cfg, q, dev, mesh)
+    lam = _presolve_stream(rt, lam0)
     if cfg.screening:
-        rt.install_screen(HostScreen(rt.c, source.k, cfg, lam.numpy()))
+        rt.install_screen(HostScreen(rt.slots * rt.cps, source.k, cfg, lam.numpy()))
     lam, _, iters, history = run_iterations(rt, lam, torch.zeros_like(lam), 0)
     if cfg.stream_finalize == "legacy":
         res = rt.legacy_result(lam, iters)

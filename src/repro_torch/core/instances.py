@@ -19,21 +19,25 @@ __all__ = ["sparse_instance", "dense_instance"]
 
 
 def sparse_instance(seed, n, k, q=1, tightness=0.5, b_high=1.0, device="cpu",
-                    chunk=65536):
+                    chunk=65536, rows=None):
     """Section 5.1 sparse instance on ``device``; returns (SparseKP, q).
 
     The rows are those of ``data.synth.sparse_host_chunk_source(seed, n, k,
     chunk, ...)``, so one seed and chunk give the same instance resident
-    and host-fed. Budgets ``tightness * n * q * (b_high / 2) / k``.
+    and host-fed. Budgets ``tightness * n * q * (b_high / 2) / k`` (of the
+    whole instance). ``rows=(lo, hi)`` draws only the chunks that hold
+    rows [lo, hi) and returns those rows (a rank's shard of a world).
     """
     src = sparse_host_chunk_source(seed, n, k, chunk, q=q, tightness=tightness,
                                    b_high=b_high)
-    p = np.empty((n, k), np.float32)
-    b = np.empty((n, k), np.float32)
-    for i in range(-(-n // chunk)):
+    lo, hi = (0, n) if rows is None else rows
+    p = np.empty((hi - lo, k), np.float32)
+    b = np.empty((hi - lo, k), np.float32)
+    for i in range(lo // chunk, -(-hi // chunk)):
         pc, bc = src.fn(i)
-        lo, hi = i * chunk, min((i + 1) * chunk, n)
-        p[lo:hi], b[lo:hi] = pc[:hi - lo], bc[:hi - lo]
+        a, z = max(i * chunk, lo), min((i + 1) * chunk, hi)
+        p[a - lo:z - lo], b[a - lo:z - lo] = pc[a - i * chunk:z - i * chunk], \
+            bc[a - i * chunk:z - i * chunk]
     return SparseKP(p=torch.from_numpy(p).to(device),
                     b=torch.from_numpy(b).to(device),
                     budgets=torch.from_numpy(src.budgets).to(device)), q

@@ -1,0 +1,86 @@
+"""This process's place in a world of ranks, and the collectives the solvers use.
+
+The reference's mesh is one JAX process driving many devices. The port's is
+a ``torch.distributed`` world: rank r runs the same program on its own
+device over its own share of users or chunks, and every rank ends with the
+same replicated multipliers and scalars. ``mesh=None`` everywhere means one
+process. ``launch.mesh`` starts a world and builds each rank's :class:`Mesh`.
+
+The collectives are gloo's, over host tensors: what crosses ranks is the
+constant-size partials of each pass (a few KB), already on the host for the
+fold. No float sum relies on the order inside a collective: a sum across
+ranks is :meth:`Mesh.gather` of the per-rank (or per-slot) partials and then
+``bucketing.ordered_fold`` in slot order on every rank, the addition chain
+of the reference's CPU ``psum`` (DESIGN.md §7). Maxima and minima are exact
+in any order and go through :meth:`Mesh.amax` / :meth:`Mesh.amin`.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["Mesh", "check_mesh"]
+
+
+class Mesh:
+    """This process's place in a world: ``rank``, ``size``, its ``device``
+    and the process ``group`` of the collectives. ``comm_s`` counts the
+    seconds spent in collectives (the gather behind every fold, the
+    maxima, the barriers)."""
+
+    def __init__(self, rank: int, size: int, device: torch.device, group=None):
+        self.rank, self.size, self.device, self.group = rank, size, device, group
+        self.comm_s = 0.0
+
+    def __repr__(self):
+        return f"Mesh(rank={self.rank}, size={self.size}, device={self.device})"
+
+    def _timed(self, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        self.comm_s += time.perf_counter() - t0
+        return out
+
+    def gather(self, t) -> torch.Tensor:
+        """Every rank's ``t`` (same shape and dtype on each), stacked in rank
+        order: a (size, ...) CPU tensor."""
+        t = torch.as_tensor(t).detach().cpu().contiguous()
+        if self.size == 1:
+            return t[None].clone()
+
+        def run():
+            out = [torch.empty_like(t) for _ in range(self.size)]
+            dist.all_gather(out, t, group=self.group)
+            return torch.stack(out)
+
+        return self._timed(run)
+
+    def _reduce(self, t, op):
+        t = torch.as_tensor(t).detach().cpu().clone()
+        if self.size > 1:
+            self._timed(lambda: dist.all_reduce(t, op=op, group=self.group))
+        return t
+
+    def amax(self, t) -> torch.Tensor:
+        """Elementwise maximum over the ranks (exact in any order), on the CPU."""
+        return self._reduce(t, dist.ReduceOp.MAX)
+
+    def amin(self, t) -> torch.Tensor:
+        """Elementwise minimum over the ranks, on the CPU."""
+        return self._reduce(t, dist.ReduceOp.MIN)
+
+    def barrier(self):
+        if self.size > 1:
+            self._timed(lambda: dist.barrier(group=self.group))
+
+
+def check_mesh(mesh):
+    """``mesh`` as given, when it is None (one process) or a
+    :class:`Mesh`; raises ``TypeError`` otherwise."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError("mesh must be a repro_torch.core.mesh.Mesh (a world "
+                        f"of ranks, from launch.mesh.init_mesh) or None, got "
+                        f"{type(mesh).__name__}")
+    return mesh

@@ -24,7 +24,7 @@ import torch
 from ..kernels import ops
 from ..kernels._wrap import MAX_SMEM
 from ..kernels.ref import HIST_RUN, HIST_SUB, row_sum
-from .bucketing import ordered_cumsum
+from .bucketing import ordered_cumsum, ordered_fold
 from .greedy import fma_dot
 
 __all__ = ["group_profit", "feasibility_threshold_exact",
@@ -131,14 +131,22 @@ def threshold_from_removable_hist(hist, edges, r_total, budgets):
     return edges[int(torch.argmax(feas_e.to(torch.int32)))]
 
 
-def feasibility_threshold_bucketed(ptilde, cons, r_total, budgets, n_edges=512):
+def feasibility_threshold_bucketed(ptilde, cons, r_total, budgets, n_edges=512,
+                                   mesh=None):
     """tau of a resident shard by the legacy pieces: :func:`profit_edges`
-    over the shard's (min, max) p~, :func:`removable_hist`, then
-    :func:`threshold_from_removable_hist` (the reference's single-shard
-    form; its ``axis`` collectives are ROADMAP A8)."""
-    edges = profit_edges(torch.min(ptilde).item(), torch.max(ptilde).item(), n_edges)
-    hist = removable_hist(ptilde, cons, edges.to(ptilde.device))
-    return threshold_from_removable_hist(hist.cpu(), edges, r_total.cpu(),
+    over the (min, max) p~, :func:`removable_hist`, then
+    :func:`threshold_from_removable_hist`. ``r_total`` is the global
+    consumption. Over a mesh (``core.mesh.Mesh``) lo and hi are the
+    ranks' min and max and the ranks' histograms are gathered and folded in
+    rank order, so every rank gets the same tau."""
+    lo, hi = torch.min(ptilde).cpu(), torch.max(ptilde).cpu()
+    if mesh is not None:
+        lo, hi = mesh.amin(lo), mesh.amax(hi)
+    edges = profit_edges(lo.item(), hi.item(), n_edges)
+    hist = removable_hist(ptilde, cons, edges.to(ptilde.device)).cpu()
+    if mesh is not None:
+        hist = ordered_fold(mesh.gather(hist))
+    return threshold_from_removable_hist(hist, edges, r_total.cpu(),
                                          budgets.cpu())
 
 

@@ -26,7 +26,12 @@ unscreened solve's.
   chunks and run, as the reference runs them. The (K, E+1)-size slot
   partials are combined on the host by :func:`chunked.ordered_fold`, so
   the result depends on S and not on the device. ``slots=1`` (the
-  default) is the plain single-slot solve.
+  default without a mesh) is the plain single-slot solve.
+* **A world of ranks.** ``mesh=`` (``launch.mesh``) spreads the S slots
+  over D processes, S / D each, every rank with its own device, feeder and
+  fetching thread; each pass's slot partials are gathered across the ranks
+  and folded in slot order on every rank, so the bits depend on S and
+  never on D, and a checkpoint resumes on any world whose size divides S.
 * **Fault layer.** With ``cfg.fetch_retries`` (or ``fetch_timeout``,
   ``verify_refetch``) the source is wrapped once, at entry, in
   :func:`faults.resilient_source`: every fetch (the epochs, the presolve's
@@ -66,6 +71,7 @@ from .chunked import (
     run_iterations,
 )
 from .faults import policy_from_cfg, resilient_source
+from .mesh import check_mesh
 from .screening import HostScreen
 from .solver import resolve_device, solve
 from .types import SolverConfig, SparseKP
@@ -201,20 +207,23 @@ class FeedStats:
     One record per pass over chunks, of kind ``iterate``, ``fallback`` (the
     full pass a screened epoch repeats when its guard fails) or
     ``finalize``, with the count of chunks it fed (with slots, every chunk
-    slot, inert and zero-fed ones included). Host clock: ``fetch_s``
-    (``source.fn``), ``stage_s`` (copy into the pinned buffer) and
-    ``wall_s`` (the epoch, up to its host sync). On a
-    CUDA device, CUDA events give ``h2d_ms`` (copies on the side stream)
-    and ``step_ms`` (the per-chunk steps, kernels included, on the compute
-    stream). :meth:`resolve` turns the recorded events into these sums.
+    slot, inert and zero-fed ones included; over a mesh, this rank's).
+    Host clock: ``fetch_s`` (``source.fn``), ``stage_s`` (copy into the
+    pinned buffer), ``wall_s`` (the epoch, up to its host sync) and
+    ``comm_s`` (the share of that wall spent in collectives across a
+    mesh's ranks). On a CUDA device, CUDA events give ``h2d_ms`` (copies
+    on the side stream) and ``step_ms`` (the per-chunk steps, kernels
+    included, on the compute stream). :meth:`resolve` turns the recorded
+    events into these sums.
     """
 
     epochs: list = dataclasses.field(default_factory=list)
 
     def begin(self, kind):
         self.epochs.append({"kind": kind, "chunks": 0, "fetch_s": 0.0,
-                            "stage_s": 0.0, "wall_s": 0.0, "h2d_ms": 0.0,
-                            "step_ms": 0.0, "_h2d": [], "_step": []})
+                            "stage_s": 0.0, "wall_s": 0.0, "comm_s": 0.0,
+                            "h2d_ms": 0.0, "step_ms": 0.0, "_h2d": [],
+                            "_step": []})
         return self.epochs[-1]
 
     def resolve(self):
@@ -254,7 +263,8 @@ class _Feeder:
         if self.stats is not None:
             self.ep = self.stats.begin(kind)
         elif timed:
-            self.ep = {"kind": kind, "chunks": 0, "fetch_s": 0.0, "stage_s": 0.0}
+            self.ep = {"kind": kind, "chunks": 0, "fetch_s": 0.0, "stage_s": 0.0,
+                       "comm_s": 0.0}
         else:
             self.ep = None
         return self.ep
@@ -367,12 +377,12 @@ _FIN_KEYS = ["fin_r", "fin_primal", "fin_dual", "fin_lo", "fin_hi",
 # The SolverConfig fields whose values steer the multiplier trajectory or
 # the finalize arithmetic: hashed, in this order, into the resume-state
 # fingerprint, with ``str(cfg.dtype)``. The reference's list without its
-# ``partial_fraction`` and ``use_kernels``, which the port has not.
+# ``use_kernels``, which the port has not.
 _FINGERPRINT_CFG_FIELDS = (
     "algo", "cd_mode", "reduce", "tol", "cd_damping", "dd_lr",
     "bucket_half", "bucket_delta", "bucket_growth", "presolve_samples",
-    "stream_finalize", "profit_buckets", "profit_ladder_lo",
-    "profit_ladder_hi", "kernel_tile", "postprocess",
+    "partial_fraction", "stream_finalize", "profit_buckets",
+    "profit_ladder_lo", "profit_ladder_hi", "kernel_tile", "postprocess",
 )
 
 # Fields deliberately EXCLUDED from the fingerprint: changing any of them
@@ -500,48 +510,57 @@ def _presolve_host(source, lam0, q, cfg, device):
 # --------------------------------------------------------------------------
 
 class _SlotRuntime(PassRunner):
-    """The passes of ``chunked.PassRunner`` over S virtual slots on one
-    device, each chunk uploaded from the host through the one double buffer
-    (:class:`_Feeder`); a retired chunk slot is fed a host zero chunk. The
-    feeder times every epoch (``FeedStats``) and the tracer records the
-    phase spans."""
+    """The passes of ``chunked.PassRunner`` over S virtual slots (this
+    rank's S / D over a mesh) on one device, each chunk uploaded from the
+    host through the one double buffer (:class:`_Feeder`); a retired chunk
+    slot is fed a host zero chunk. The feeder times every epoch
+    (``FeedStats``) and the tracer records the phase spans."""
 
     def __init__(self, source, cfg, q, slots, double_buffer, device, stats,
-                 tracer):
-        super().__init__(source, cfg, q, slots, device)
+                 tracer, mesh=None):
+        super().__init__(source, cfg, q, slots, device, mesh)
         self.double_buffer = double_buffer
         self.tracer = tracer
         self.subs = sharded_source(source, slots)
         self.zero = np.zeros((source.chunk, source.k), np.float32)
         self.feeder = _Feeder(source.chunk, source.k, device, stats)
+        self.comm0 = 0.0
 
     def _chunk_of(self, s, j):
         return self.subs[s].fn(j)
 
+    def _comm_s(self):
+        return 0.0 if self.mesh is None else self.mesh.comm_s
+
     def _run_epoch(self, step, state, kind, items, fetch=None, on_step=None):
+        self.comm0 = self._comm_s()
         return _epoch(fetch or self._fetch, self.feeder, step, state,
                       self.double_buffer, items, kind, on_step, self.tracer)
 
     def _note_wall(self, t0):
-        """Set the current epoch's wall from ``t0``; returns the time now."""
+        """Set the current epoch's wall from ``t0`` and its collectives'
+        seconds since the epoch began; returns the time now."""
         now = time.perf_counter()
         if self.feeder.ep is not None:
             self.feeder.ep["wall_s"] = now - t0
+            self.feeder.ep["comm_s"] = self._comm_s() - self.comm0
         return now
 
     def _sync(self):
         self.feeder.sync()
 
     def fin_to_np(self, carry):
-        """Per-slot carries -> a tuple of (S, ...) host arrays."""
-        return tuple(np.stack([c[f].cpu().numpy() for c in carry])
+        """This rank's per-slot carries -> a tuple of (S, ...) host arrays of
+        every slot (gathered across a mesh)."""
+        return tuple(self._gather([c[f] for c in carry]).numpy()
                      for f in range(len(carry[0])))
 
     def fin_from_np(self, fin):
-        """A tuple of (S, ...) host arrays -> per-slot device carries."""
+        """A tuple of (S, ...) host arrays -> this rank's per-slot device
+        carries."""
         return [tuple(torch.from_numpy(np.array(a[s], np.float32)).to(self.device)
                       for a in fin)
-                for s in range(self.slots)]
+                for s in self._slots()]
 
 
 # --------------------------------------------------------------------------
@@ -595,13 +614,25 @@ def solve_streaming_host(source: HostChunkSource,
     epoch every m-th iteration, the rows padded to ``max_iters`` with the
     last one), bitwise the device-streamed driver's on the same bytes.
 
+    ``mesh`` (a ``core.mesh.Mesh`` of D ranks; every rank calls this with
+    the same source, cfg and lam0, and runs on ``mesh.device``, which
+    replaces ``device``) spreads the slots over the ranks: ``slots``
+    (default D) must be a positive multiple of D, and rank r feeds slots
+    [r*S/D, (r+1)*S/D) through its own feeder. The slot partials of every
+    pass are gathered and folded in slot order on every rank, so the result
+    is bitwise the one-process solve at the same ``slots`` whatever D is.
+    With a mesh or ``slots > 1`` the straggler mask applies per slot
+    (``cfg.partial_fraction``). Rank 0 writes the checkpoints (every rank
+    meets a barrier after each save), and a state resumes on any world
+    whose size divides its slot count, each rank taking its slots' rows.
+
     Restrictions (``ValueError``, as in the reference): ``cd_mode="cyclic"``;
     ``record_history`` without ``metrics_every``, or with checkpoint or
-    resume; the legacy finalize with ``slots > 1``. ``mesh`` (several GPUs)
-    raises ``NotImplementedError`` (ROADMAP A8).
+    resume; the legacy finalize with ``slots > 1`` or a mesh; ``slots`` not
+    a multiple of the world size. A ``mesh`` that is not a ``Mesh`` raises
+    ``TypeError``.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh is not ported yet: ROADMAP A8")
+    check_mesh(mesh)
     _validate_stream_cfg(cfg)
     if cfg.algo == "scd" and cfg.cd_mode != "sync":
         raise ValueError(
@@ -638,16 +669,20 @@ def solve_streaming_host(source: HostChunkSource,
                 f"checkpoint was written with slots={S}; asked for "
                 f"slots={slots} (the slot count is fixed at first launch)")
     else:
-        S = 1 if slots is None else slots
+        S = slots if slots is not None else (mesh.size if mesh is not None else 1)
     if S < 1:
         raise ValueError(f"slots must be >= 1, got {S}")
-    if S > 1 and cfg.stream_finalize == "legacy":
+    if mesh is not None and S % mesh.size:
+        raise ValueError(
+            f"slots={S} must be a positive multiple of the mesh device count "
+            f"{mesh.size} (elastic resume divides slots over devices)")
+    if (S > 1 or mesh is not None) and cfg.stream_finalize == "legacy":
         raise ValueError(
             "sharded host feeding supports stream_finalize='fused' only "
             "(the legacy three-pass finalize remains on the single-device "
             "driver as the oracle/benchmark baseline)")
 
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     lam = (torch.ones((source.k,), dtype=cfg.dtype) if lam0 is None
            else torch.as_tensor(lam0, dtype=cfg.dtype).cpu())
     fp = (_fingerprint(source, cfg, q, lam.numpy())
@@ -659,7 +694,7 @@ def solve_streaming_host(source: HostChunkSource,
             "(source, cfg, q, lam0) — refusing to resume")
 
     tracer = NULL_TRACER if tracer is None else tracer
-    rt = _SlotRuntime(source, cfg, q, S, double_buffer, dev, stats, tracer)
+    rt = _SlotRuntime(source, cfg, q, S, double_buffer, dev, stats, tracer, mesh)
     dprev = torch.zeros_like(lam)
     iters, phase, cursor, fin_carry = 0, _PHASE_ITER, 0, None
     if restored is not None:
@@ -673,6 +708,8 @@ def solve_streaming_host(source: HostChunkSource,
                 restored[k] for k in _FIN_KEYS if k in restored))
     else:
         lam = _presolve_host(source, lam, q, cfg, dev)
+        if mesh is not None:
+            lam = mesh.gather(lam)[0]         # every rank starts from rank 0's bits
 
     if cfg.screening:
         # Rebuilt on every (re)start: screening never steers the trajectory.
@@ -680,23 +717,28 @@ def solve_streaming_host(source: HostChunkSource,
                                      seed=screen_init))
     fin_zeros = functools.partial(_fin_zeros_np, S, source.k,
                                   cfg.profit_buckets + 1, cfg.postprocess)
+
+    def save(step, phase, iters, cursor, lam, dprev, fin):
+        # Rank 0 writes; every rank waits for the write.
+        if mesh is None or mesh.rank == 0:
+            _save_state(checkpoint_dir, step, phase, iters, cursor, S, fp, lam,
+                        dprev, fin, keep=cfg.checkpoint_keep)
+        if mesh is not None:
+            mesh.barrier()
+
     history = None
     if phase == _PHASE_ITER:
         on_iter = None
         if checkpointing:
             def on_iter(iters, lam, dprev):
                 if iters % ckpt_every == 0 and iters < cfg.max_iters:
-                    _save_state(checkpoint_dir, iters, _PHASE_ITER, iters, 0, S,
-                                fp, lam, dprev, fin_zeros(),
-                                keep=cfg.checkpoint_keep)
+                    save(iters, _PHASE_ITER, iters, 0, lam, dprev, fin_zeros())
 
         lam, dprev, iters, history = run_iterations(rt, lam, dprev, iters, on_iter)
         phase, cursor = _PHASE_FIN, 0
         if checkpointing:
             # Finalize entry: a kill in the finalize replays no iteration.
-            _save_state(checkpoint_dir, cfg.max_iters + 1, _PHASE_FIN, iters,
-                        0, S, fp, lam, dprev, fin_zeros(),
-                        keep=cfg.checkpoint_keep)
+            save(cfg.max_iters + 1, _PHASE_FIN, iters, 0, lam, dprev, fin_zeros())
     scr_stats = rt.scr.stats() if rt.scr is not None else None
 
     if cfg.stream_finalize == "legacy":
@@ -711,9 +753,8 @@ def solve_streaming_host(source: HostChunkSource,
         def on_col(j, carry):
             done = j + 1
             if done % ckpt_every == 0 and done < rt.cps:
-                _save_state(checkpoint_dir, cfg.max_iters + 1 + done,
-                            _PHASE_FIN, iters, done, S, fp, lam, dprev,
-                            rt.fin_to_np(carry), keep=cfg.checkpoint_keep)
+                save(cfg.max_iters + 1 + done, _PHASE_FIN, iters, done, lam,
+                     dprev, rt.fin_to_np(carry))
 
     carry = rt.fin_init() if fin_carry is None else fin_carry
     with tracer.span("solve.finalize", mode="fused", iters=iters):

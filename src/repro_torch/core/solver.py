@@ -1,4 +1,5 @@
-"""Single-device GKP solver: SCD (Alg 4) and DD (Alg 2), instance resident.
+"""The resident GKP solver: SCD (Alg 4) and DD (Alg 2), on one device or
+sharded over a world of ranks.
 
 The instance (``SparseKP`` or ``DenseKP``) lives on one device. Each
 iteration runs the map over the whole shard, or over user chunks with
@@ -34,6 +35,15 @@ ragged last chunk is padded with inert p = b = 0 users. The exact reduce
 cannot be chunked and raises ``ValueError``; chunked DD sums r per chunk,
 so it matches unchunked DD to float32 reduce order, not bitwise.
 
+Sharded (:func:`solve_sharded`): each rank of a ``launch.mesh`` world holds
+n / D users on its own device and runs the same map; the constant-size
+results of every pass are gathered and folded in rank order on the host
+(``bucketing.ordered_fold``, the reference's CPU ``psum``), top by max,
+so every rank takes the same host decisions from the same bits. The exact
+reduce gathers every rank's candidates, the presolve samples each shard,
+the §5.4 projection is the bucketed one, and ``cfg.partial_fraction``
+drops the ranks past that fraction (``straggler_mask``).
+
 On the card every reduction of this module has an order fixed by the
 shape alone (no atomics, and ``bucketing.ordered_cumsum`` for the scans),
 so repeated solves give the same bits. Against the same solve on the CPU
@@ -43,19 +53,24 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..kernels import ops
 from ..kernels.ref import row_sum
-from .bucketing import exact_threshold, make_edges, ordered_colsum, threshold_from_hist
+from .bucketing import (exact_threshold, make_edges, ordered_colsum, ordered_fold,
+                        threshold_from_hist)
 from .greedy import adjusted_profit, consumption, fma_dot, greedy_solve
-from .postprocess import feasibility_threshold_exact, group_profit
+from .mesh import check_mesh
+from .postprocess import (feasibility_threshold_bucketed, feasibility_threshold_exact,
+                          group_profit)
 from .scd import candidates_general
 from .types import DenseKP, SolverConfig, SparseKP
 
-__all__ = ["SolveResult", "solve", "dual_objective", "iterate_multipliers",
-           "damped_multiplier_step", "dd_proposal", "scd_chunk_accumulate",
-           "resolve_device"]
+__all__ = ["SolveResult", "solve", "solve_sharded", "solve_shard",
+           "dual_objective", "iterate_multipliers", "damped_multiplier_step",
+           "dd_proposal", "scd_chunk_accumulate", "resolve_device",
+           "straggler_mask", "hist_scale"]
 
 
 class SolveResult(NamedTuple):
@@ -102,6 +117,55 @@ def _finalize_tile(cfg, n):
 
 
 # --------------------------------------------------------------------------
+# Across a mesh: the collectives and the straggler mask.
+# --------------------------------------------------------------------------
+
+def _psum(x, mesh):
+    """The sum of every rank's ``x``: gathered and folded in rank order on
+    the host, the addition chain of the reference's CPU ``psum``. Without a
+    mesh, ``x`` itself."""
+    return x if mesh is None else ordered_fold(mesh.gather(x))
+
+
+def _pmax(x, mesh):
+    return x if mesh is None else mesh.amax(x)
+
+
+def _all_gather(t, mesh):
+    """Every rank's rows in rank order, on ``t``'s device (the reference's
+    tiled ``all_gather``); ``t`` itself without a mesh."""
+    if mesh is None:
+        return t
+    return mesh.gather(t).reshape((-1,) + tuple(t.shape[1:])).to(t.device)
+
+
+def straggler_mask(partial_fraction, index, size):
+    """(keep, scale) of shard ``index`` of ``size`` when a solve proceeds
+    with a fraction of its shards: the shards past ``partial_fraction *
+    size`` are dropped and the map results of the others are scaled by
+    1 / fraction (the §5.3 estimator). In float32, as the reference
+    computes it; (1.0, 1.0) at a fraction of 1."""
+    if partial_fraction >= 1.0:
+        return 1.0, 1.0
+    f32 = np.float32
+    keep = f32((f32(index) + f32(1.0)) <= f32(partial_fraction) * f32(size))
+    frac = max(f32(partial_fraction), f32(1.0) / f32(size))
+    return float(keep), float(f32(1.0) / frac)
+
+
+def hist_scale(keep, scale):
+    """The straggler mask's factor on an accumulated histogram (linear in
+    v2): ``keep * scale`` in float32."""
+    return float(np.float32(keep) * np.float32(scale))
+
+
+def _mask(cfg, mesh):
+    if mesh is None:
+        return 1.0, 1.0
+    return straggler_mask(cfg.partial_fraction, mesh.rank, mesh.size)
+
+
+# --------------------------------------------------------------------------
 # Maps and reduces: lam (K,) on the CPU -> proposed lam (K,) on the CPU.
 # --------------------------------------------------------------------------
 
@@ -120,9 +184,15 @@ def _edges(lam, cfg):
     return make_edges(lam, cfg.bucket_delta, cfg.bucket_growth, cfg.bucket_half)
 
 
-def _threshold(hist, edges, kp, top):
-    """The bucketed reduce's tail, on the host."""
-    return threshold_from_hist(hist.cpu(), edges, kp.budgets.cpu(), top.cpu())
+def _threshold(hist, edges, kp, top, mesh=None, scale=None):
+    """The bucketed reduce's tail, on the host. Over a mesh every rank's
+    histogram (times ``scale``, the straggler mask, when given) is gathered
+    and folded in rank order, and top is the ranks' max."""
+    hist, top = hist.cpu(), top.cpu()
+    if scale is not None:
+        hist = hist * scale
+    return threshold_from_hist(_psum(hist, mesh), edges, kp.budgets.cpu(),
+                               _pmax(top, mesh))
 
 
 def _scd_candidates(kp, lam, q):
@@ -136,24 +206,26 @@ def _scd_candidates(kp, lam, q):
             v2.transpose(1, 2).reshape(n * pp, k))
 
 
-def _scd_reduce(v1, v2, lam, kp, cfg):
-    """Alg 4 reduce over all K coordinates: exact or §5.2 bucketed."""
+def _scd_reduce(v1, v2, lam, kp, cfg, mesh=None):
+    """Alg 4 reduce over all K coordinates: exact (over a mesh, on every
+    rank's candidates gathered) or §5.2 bucketed."""
     if cfg.reduce == "exact":
+        v1, v2 = _all_gather(v1, mesh), _all_gather(v2, mesh)
         return exact_threshold(v1.T, v2.T, kp.budgets).cpu()
     edges = _edges(lam, cfg)
     hist = ops.bucket_hist(v1, v2, edges.to(v1.device),
                            tile_n=_map_tile(cfg))
-    return _threshold(hist, edges, kp, torch.amax(v1, dim=0))
+    return _threshold(hist, edges, kp, torch.amax(v1, dim=0), mesh)
 
 
-def _scd_step_fused(kp, lam, q, cfg):
+def _scd_step_fused(kp, lam, q, cfg, mesh=None, scale=None):
     """Map + bucketed reduce of the sparse shard in one kernel call: only
     the (K, E+1) histogram and the (K,) top leave the device."""
     edges = _edges(lam, cfg)
     dev = kp.p.device
     hist, top = ops.scd_fused_hist(kp.p, kp.b, lam.to(dev), edges.to(dev), q,
                                    tile_n=_map_tile(cfg))
-    return _threshold(hist, edges, kp, top)
+    return _threshold(hist, edges, kp, top, mesh, scale)
 
 
 def _chunk_xs(kp, chunk):
@@ -170,7 +242,7 @@ def _chunk_xs(kp, chunk):
         yield p_c, b_c
 
 
-def _scd_pass_chunked(kp, lam, q, cfg):
+def _scd_pass_chunked(kp, lam, q, cfg, mesh=None, mask=(1.0, 1.0)):
     """One SCD map + bucketed reduce with the user axis in chunks."""
     edges = _edges(lam, cfg)
     dev = kp.p.device
@@ -178,9 +250,12 @@ def _scd_pass_chunked(kp, lam, q, cfg):
     k = kp.budgets.shape[0]
     hist = torch.zeros((k, edges.shape[-1] + 1), dtype=torch.float32, device=dev)
     top = torch.full((k,), float("-inf"), dtype=torch.float32, device=dev)
+    dense = isinstance(kp, DenseKP)
     for p_c, b_c in _chunk_xs(kp, cfg.chunk_size):
-        if isinstance(kp, DenseKP):
+        if dense:
             v1, v2 = _scd_candidates(kp._replace(p=p_c, b=b_c), lam_d, q)
+            if mesh is not None:
+                v2 = v2 * mask[0] * mask[1]
             hist = ops.bucket_hist(v1, v2, edges_d,
                                    tile_n=_map_tile(cfg),
                                    hist_init=hist)
@@ -188,29 +263,37 @@ def _scd_pass_chunked(kp, lam, q, cfg):
         else:
             hist, top = scd_chunk_accumulate(p_c, b_c, lam_d, edges_d, q, cfg,
                                              hist, top)
-    return _threshold(hist, edges, kp, top)
+    scale = hist_scale(*mask) if mesh is not None and not dense else None
+    return _threshold(hist, edges, kp, top, mesh, scale)
 
 
-def _scd_pass(kp, lam, q, cfg):
-    """One full SCD map + reduce at ``lam`` -> proposed multipliers (K,)."""
+def _scd_pass(kp, lam, q, cfg, mesh=None, mask=(1.0, 1.0)):
+    """One full SCD map + reduce at ``lam`` -> proposed multipliers (K,).
+    The straggler mask scales the sparse kernel's histogram (linear in v2)
+    and, on the other maps, v2 itself, as the reference's kernel and
+    default paths do."""
     if cfg.chunk_size is not None:
-        return _scd_pass_chunked(kp, lam, q, cfg)
+        return _scd_pass_chunked(kp, lam, q, cfg, mesh, mask)
     if isinstance(kp, SparseKP) and cfg.reduce == "bucketed":
-        return _scd_step_fused(kp, lam, q, cfg)
+        scale = hist_scale(*mask) if mesh is not None else None
+        return _scd_step_fused(kp, lam, q, cfg, mesh, scale)
     v1, v2 = _scd_candidates(kp, lam.to(kp.p.device), q)
-    return _scd_reduce(v1, v2, lam, kp, cfg)
+    if mesh is not None:
+        v2 = v2 * mask[0] * mask[1]
+    return _scd_reduce(v1, v2, lam, kp, cfg, mesh)
 
 
-def _scd_update(kp, lam, q, cfg):
+def _scd_update(kp, lam, q, cfg, mesh=None):
     """One SCD iteration. ``sync``: every coordinate from one map pass
     (Alg 4). ``cyclic``: K passes, coordinate k re-mapped at the already
     updated multipliers."""
+    mask = _mask(cfg, mesh)
     if cfg.cd_mode == "cyclic":
         lam = lam.clone()
         for kk in range(kp.budgets.shape[0]):
-            lam[kk] = _scd_pass(kp, lam, q, cfg)[kk]
+            lam[kk] = _scd_pass(kp, lam, q, cfg, mesh, mask)[kk]
         return lam
-    return _scd_pass(kp, lam, q, cfg)
+    return _scd_pass(kp, lam, q, cfg, mesh, mask)
 
 
 def _solve_primal(kp, lam, q):
@@ -229,11 +312,12 @@ def dd_proposal(lam, r, budgets, cfg):
     return torch.clamp_min(lam + cfg.dd_lr * (r - budgets), 0.0)
 
 
-def _dd_update(kp, lam, q, cfg):
+def _dd_update(kp, lam, q, cfg, mesh=None):
     """Alg 2: projected sub-gradient step on the dual. Chunked, r is summed
     chunk by chunk, each chunk's rows by ``ordered_colsum`` (as the host-fed
     DD epoch sums them), so a chunked DD solve has the same bits on the
-    card and the CPU."""
+    card and the CPU. Over a mesh the ranks' r (a dropped straggler's as
+    zeros) fold in rank order and are then scaled."""
     lam_d = lam.to(kp.p.device)
     if cfg.chunk_size is None:
         r = torch.sum(_solve_primal(kp, lam_d, q)[1], dim=0)
@@ -241,12 +325,17 @@ def _dd_update(kp, lam, q, cfg):
         r = torch.zeros_like(lam_d)
         for p_c, b_c in _chunk_xs(kp, cfg.chunk_size):
             r = r + ordered_colsum(_solve_primal(kp._replace(p=p_c, b=b_c), lam_d, q)[1])
-    return dd_proposal(lam, r.cpu(), kp.budgets.cpu(), cfg)
+    r = r.cpu()
+    if mesh is not None:
+        keep, scale = _mask(cfg, mesh)
+        r = _psum(r * keep, mesh) * scale
+    return dd_proposal(lam, r, kp.budgets.cpu(), cfg)
 
 
-def dual_objective(kp, lam, q, primal=None):
+def dual_objective(kp, lam, q, primal=None, mesh=None):
     """g(lam) = sum_i max_x [p~ . x_i] + lam . B (an upper bound of the IP),
-    on kp's device. ``primal`` passes a precomputed ``(x, cons)`` at lam."""
+    on kp's device (over a mesh, on the host, the ranks' sums folded in rank
+    order). ``primal`` passes a precomputed ``(x, cons)`` at lam."""
     lam = lam.to(kp.p.device)
     x, _ = _solve_primal(kp, lam, q) if primal is None else primal
     if isinstance(kp, SparseKP):
@@ -254,7 +343,9 @@ def dual_objective(kp, lam, q, primal=None):
     else:
         ap = adjusted_profit(kp.p, kp.b, lam)
     per_user = row_sum(torch.where(x, ap, 0.0))
-    return torch.sum(per_user) + fma_dot(lam, kp.budgets)
+    if mesh is None:
+        return torch.sum(per_user) + fma_dot(lam, kp.budgets)
+    return _psum(torch.sum(per_user), mesh) + fma_dot(lam, kp.budgets).cpu()
 
 
 # --------------------------------------------------------------------------
@@ -308,48 +399,58 @@ def iterate_multipliers(update, lam0, cfg, metrics_fn=None):
     return lam, it, {key: torch.stack([r[key] for r in recs]) for key in recs[0]}
 
 
-def _metrics(kp, lam, q):
-    """x, cons, r, primal, dual and max_violation at lam, on kp's device."""
+def _metrics(kp, lam, q, mesh=None):
+    """x, cons, r, primal, dual and max_violation at lam, on kp's device
+    (over a mesh, the sums on the host, folded across the ranks)."""
     x, cons = _solve_primal(kp, lam, q)
-    r = torch.sum(cons, dim=0)
-    primal = torch.sum(torch.where(x, kp.p, 0.0))
-    dual = dual_objective(kp, lam, q, primal=(x, cons))
-    viol = torch.amax(torch.clamp_min(r - kp.budgets, 0.0) / kp.budgets)
+    r = _psum(torch.sum(cons, dim=0), mesh)
+    primal = _psum(torch.sum(torch.where(x, kp.p, 0.0)), mesh)
+    dual = dual_objective(kp, lam, q, primal=(x, cons), mesh=mesh)
+    budgets = kp.budgets if mesh is None else kp.budgets.cpu()
+    viol = torch.amax(torch.clamp_min(r - budgets, 0.0) / budgets)
     return x, cons, r, primal, dual, viol
 
 
-def _iterate(kp, lam0, q, cfg, metrics_fn=None):
+def _iterate(kp, lam0, q, cfg, metrics_fn=None, mesh=None):
     update = _scd_update if cfg.algo == "scd" else _dd_update
-    return iterate_multipliers(lambda lam: update(kp, lam, q, cfg), lam0, cfg,
-                               metrics_fn)
+    return iterate_multipliers(lambda lam: update(kp, lam, q, cfg, mesh), lam0,
+                               cfg, metrics_fn)
 
 
-def _solve_local(kp, lam0, q, cfg):
-    """Iterate, then the final primal, metrics and §5.4 exact projection
-    over the whole shard (also when the iteration map is chunked)."""
+def _solve_local(kp, lam0, q, cfg, mesh=None):
+    """Iterate, then the final primal, metrics and §5.4 projection over the
+    whole shard (also when the iteration map is chunked): exact on one
+    device, bucketed across a mesh (``feasibility_threshold_bucketed``), as
+    in the reference."""
     dev = kp.p.device
 
     def metrics_fn(lam, _it):
-        _, _, _, primal, dual, viol = _metrics(kp, lam.to(dev), q)
+        _, _, _, primal, dual, viol = _metrics(kp, lam.to(dev), q, mesh)
         return {"lam": lam, "primal": primal.cpu(), "dual": dual.cpu(),
                 "gap": (dual - primal).cpu(), "max_violation": viol.cpu()}
 
-    lam, iters, hist = _iterate(kp, lam0, q, cfg, metrics_fn)
+    lam, iters, hist = _iterate(kp, lam0, q, cfg, metrics_fn, mesh)
     lam_d = lam.to(dev)
-    x, cons, r, primal, dual, _ = _metrics(kp, lam_d, q)
+    x, cons, r, primal, dual, _ = _metrics(kp, lam_d, q, mesh)
     if cfg.postprocess:
         pt = group_profit(kp.p, cons, lam_d, x)
-        drop = pt <= feasibility_threshold_exact(pt, cons, kp.budgets)
+        if mesh is None:
+            tau = feasibility_threshold_exact(pt, cons, kp.budgets)
+        else:
+            tau = feasibility_threshold_bucketed(pt, cons, r, kp.budgets,
+                                                 mesh=mesh).to(dev)
+        drop = pt <= tau
         x = x & ~drop[:, None]
         cons = cons * (~drop[:, None]).to(cons.dtype)
-        r = torch.sum(cons, dim=0)
-        primal = torch.sum(torch.where(x, kp.p, 0.0))
+        r = _psum(torch.sum(cons, dim=0), mesh)
+        primal = _psum(torch.sum(torch.where(x, kp.p, 0.0)), mesh)
     return SolveResult(lam, x, iters, r.cpu(), primal.cpu(), dual.cpu(), hist)
 
 
-def _presolve(kp, lam0, q, cfg):
+def _presolve(kp, lam0, q, cfg, mesh=None):
     """§5.3: warm-start lam by solving the first ``presolve_samples`` users
-    with budgets scaled by the sample fraction."""
+    (of each shard, over a mesh) with budgets scaled by the sample fraction
+    of the shard."""
     s = cfg.presolve_samples
     if s <= 0:
         return lam0
@@ -357,7 +458,7 @@ def _presolve(kp, lam0, q, cfg):
     s = min(s, n)
     small = kp._replace(p=kp.p[:s], b=kp.b[:s], budgets=kp.budgets * (s / n))
     sub = cfg.replace(presolve_samples=0, record_history=False, postprocess=False)
-    return _iterate(small, lam0, q, sub)[0]
+    return _iterate(small, lam0, q, sub, mesh=mesh)[0]
 
 
 def _validate_cfg(cfg):
@@ -381,6 +482,11 @@ def _on_device(kp, dev):
     return out
 
 
+def _lam0(lam0, k, cfg):
+    return (torch.ones((k,), dtype=cfg.dtype) if lam0 is None
+            else torch.as_tensor(lam0, dtype=cfg.dtype).cpu())
+
+
 def solve(kp, cfg: SolverConfig = SolverConfig(), q: int = 1, lam0=None,
           device="cuda") -> SolveResult:
     """Single-device solve of a resident instance.
@@ -393,8 +499,57 @@ def solve(kp, cfg: SolverConfig = SolverConfig(), q: int = 1, lam0=None,
     """
     _validate_cfg(cfg)
     kp = _on_device(kp, resolve_device(device))
-    k = kp.budgets.shape[0]
-    lam0 = (torch.ones((k,), dtype=cfg.dtype) if lam0 is None
-            else torch.as_tensor(lam0, dtype=cfg.dtype).cpu())
-    lam0 = _presolve(kp, lam0, q, cfg)
+    lam0 = _presolve(kp, _lam0(lam0, kp.budgets.shape[0], cfg), q, cfg)
     return _solve_local(kp, lam0, q, cfg)
+
+
+def solve_shard(kp, mesh, cfg: SolverConfig = SolverConfig(), q: int = 1,
+                lam0=None) -> SolveResult:
+    """:func:`solve_sharded` from this rank's own rows: ``kp`` holds rank
+    r's n / D users (rows [r*n/D, (r+1)*n/D) of the instance) and the
+    global budgets, so no rank ever holds the whole instance (the
+    launcher draws only its own chunks). Every rank calls it, with the
+    same cfg, q and lam0."""
+    check_mesh(mesh)
+    if mesh is None:
+        raise TypeError("solve_shard needs a mesh (launch.mesh.init_mesh)")
+    _validate_cfg(cfg)
+    kp = _on_device(kp, mesh.device)
+    lam0 = _presolve(kp, _lam0(lam0, kp.budgets.shape[0], cfg), q, cfg, mesh)
+    return _solve_local(kp, lam0, q, cfg, mesh)
+
+
+def solve_sharded(kp, mesh, cfg: SolverConfig = SolverConfig(), q: int = 1,
+                  lam0=None, axes=None) -> SolveResult:
+    """Multi-device solve: the users sharded over the ranks of ``mesh``.
+
+    Every rank of the world (``launch.mesh``) calls it with the same global
+    instance; rank r moves only its rows [r*n/D, (r+1)*n/D) to its device
+    (D, the world size, must divide n). Each iteration runs the rank's map
+    and then a constant-size reduce across the ranks: the (K, E+1)
+    histograms (or DD's (K,) consumption) gathered and folded in rank
+    order, top by max; the exact reduce gathers every rank's (v1, v2)
+    instead (O(n K) through the host). ``cfg.partial_fraction < 1`` drops
+    the ranks past that fraction and scales the rest (the straggler mask).
+    The presolve samples each shard; the §5.4 projection is the bucketed
+    one (``postprocess.feasibility_threshold_bucketed``), as in the
+    reference; ``cfg.chunk_size`` chunks each rank's map, and chunked
+    equals unchunked bitwise on the SCD bucketed path.
+
+    Returns ``x`` as the rank's rows (on its device) and lam, iterations
+    and the scalars replicated (CPU), the same bits on every rank. ``axes``
+    other than None raises ``ValueError``: the port's mesh is flat.
+    """
+    check_mesh(mesh)
+    if mesh is None:
+        raise TypeError("solve_sharded needs a mesh (launch.mesh.init_mesh); "
+                        "for one device call solve")
+    if axes is not None:
+        raise ValueError("axes: the port's mesh is one flat world of ranks; "
+                         "users shard over all of it")
+    n = kp.p.shape[0]
+    if n % mesh.size:
+        raise ValueError(f"the user dimension ({n}) must divide the mesh size "
+                         f"({mesh.size})")
+    lo, hi = mesh.rank * n // mesh.size, (mesh.rank + 1) * n // mesh.size
+    return solve_shard(kp._replace(p=kp.p[lo:hi], b=kp.b[lo:hi]), mesh, cfg, q, lam0)

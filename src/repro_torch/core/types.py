@@ -92,6 +92,10 @@ class SolverConfig:
     bucket_growth: float = 1.6
     # §5.3 presolve on the first presolve_samples users (0 disables).
     presolve_samples: int = 0
+    # Straggler mitigation over a mesh (or virtual slots): proceed with the
+    # first partial_fraction of the shards, their map results scaled by
+    # 1 / fraction (1.0: every shard).
+    partial_fraction: float = 1.0
     # Resident solve: record (lam, primal, dual, gap, max_violation) after
     # every iteration, over a fixed max_iters loop with converged
     # iterations frozen.

@@ -1,0 +1,118 @@
+"""Rank functions of the port's world tests (``launch.mesh.run_local_world``).
+
+Each runs on every rank of a world and returns rank 0's view; the rank
+processes import this module, which imports no JAX. The instances are the
+NumPy sources', made from a seed, so every rank draws the same bytes.
+"""
+import os
+import signal
+
+import numpy as np
+import torch
+
+from repro_torch.core import chunked as tchunked
+from repro_torch.core import prefetch as tpf
+from repro_torch.core.faults import FaultPlan, faulty_source
+from repro_torch.core.solver import solve_sharded
+from repro_torch.core.types import SolverConfig, SparseKP
+from repro_torch.data.synth import banded_host_chunk_source, sparse_host_chunk_source
+
+N, K, Q, CHUNK, SLOTS = 20_000, 8, 2, 1024, 4
+BANDED_N = 24 * 1024
+
+
+def table_source(n=N):
+    return sparse_host_chunk_source(11, n, K, CHUNK, q=Q, tightness=0.4)
+
+
+def banded_source():
+    return banded_host_chunk_source(5, BANDED_N, K, CHUNK, q=Q, tightness=0.08)
+
+
+# The host-fed scenarios of the mesh tests: (source, cfg) by name.
+SCENARIOS = {
+    "scd": ("table", {}),
+    "screened": ("banded", {"screening": True, "bucket_half": 12}),
+    "unscreened": ("banded", {"bucket_half": 12}),
+    "dd": ("table", {"algo": "dd", "max_iters": 10}),
+    "history": ("table", {"record_history": True, "metrics_every": 3}),
+    "straggler": ("table", {"partial_fraction": 0.5}),
+}
+
+
+def scenario(name):
+    src, kw = SCENARIOS[name]
+    source = table_source() if src == "table" else banded_source()
+    return source, SolverConfig(**{"max_iters": 30, "kernel_tile": 256, **kw})
+
+
+def host_fed(name, mesh=None, slots=SLOTS, **kw):
+    source, cfg = scenario(name)
+    return tpf.solve_streaming_host(source, cfg, q=Q, slots=slots, mesh=mesh,
+                                    device="cpu", **kw)
+
+
+def resident_kp(source):
+    c = -(-source.n // source.chunk)
+    parts = [source.fn(i) for i in range(c)]
+    p = np.concatenate([a for a, _ in parts])[:source.n]
+    b = np.concatenate([a for _, a in parts])[:source.n]
+    return SparseKP(torch.from_numpy(p), torch.from_numpy(b),
+                    torch.from_numpy(source.budgets))
+
+
+def mesh_scenarios(mesh, names, streamed=False, resume_dir=None, resume_cfg=None,
+                   slots=SLOTS):
+    """Every host-fed scenario at ``slots`` slots over the world; with
+    ``streamed`` also the device-streamed "scd" solve (one shard a rank)
+    and the host-fed one at as many slots as ranks; with ``resume_dir`` the
+    resume of the state there."""
+    out = {name: host_fed(name, mesh, slots) for name in names}
+    if streamed:
+        source, cfg = scenario("scd")
+        kp = resident_kp(source)
+        out["streamed"] = tchunked.solve_streaming(
+            tchunked.array_source(kp, CHUNK, device=mesh.device), cfg, q=Q,
+            mesh=mesh)
+        out["host_fed_world_slots"] = host_fed("scd", mesh, slots=mesh.size)
+    if resume_dir is not None:
+        out["resumed"] = tpf.solve_streaming_host(
+            table_source(), resume_cfg, q=Q, mesh=mesh, device="cpu",
+            resume_from=resume_dir)
+    return out
+
+
+def killed_solve(mesh, cfg, ckpt_dir, kill_after):
+    """The checkpointed host-fed "scd" solve at ``SLOTS`` slots; every rank
+    SIGKILLs itself at its (kill_after + 1)-th chunk read."""
+    source = table_source()
+    inner, calls = source.fn, [0]
+
+    def fn(i):
+        calls[0] += 1
+        if calls[0] > kill_after:
+            os.kill(os.getpid(), signal.SIGKILL)
+        return inner(i)
+
+    return tpf.solve_streaming_host(source._replace(fn=fn), cfg, q=Q, slots=SLOTS,
+                                    mesh=mesh, device="cpu", checkpoint_dir=ckpt_dir)
+
+
+def failing_fetch(mesh, chunk):
+    """A host-fed solve whose chunk ``chunk`` always fails to fetch, with no
+    retries: the rank that owns it raises ``ChunkFetchError``."""
+    source = faulty_source(table_source(), FaultPlan(offenders=(chunk,),
+                                                     offender_failures=10 ** 6))
+    cfg = SolverConfig(max_iters=30, kernel_tile=256, fetch_timeout=60.0)
+    return tpf.solve_streaming_host(source, cfg, q=Q, mesh=mesh, device="cpu")
+
+
+def sharded_scenarios(mesh, instances, scenarios):
+    """``solve_sharded`` of each (instance name, cfg kwargs, q) scenario;
+    the ranks' x are gathered into the whole (n, ...) solution."""
+    out = {}
+    for name, (inst, kw, q) in scenarios.items():
+        res = solve_sharded(instances[inst], mesh, SolverConfig(**kw), q=q)
+        x = mesh.gather(res.x.cpu().to(torch.uint8))
+        out[name] = res._replace(x=x.reshape((-1,) + tuple(x.shape[2:])).bool())
+    return out

@@ -22,7 +22,9 @@ version; the generated source byte-stable per chunk. Serving on the card:
 generation records bitwise the CPU's, lookups equal ``decisions_chunk``.
 Operations on the card: a supervised solve SIGKILLed once publishes the
 in-process record bitwise; a ``ReplicaServer`` answers like the in-process
-``DecisionService``; ``env.worker_env(1)`` gives a child one card.
+``DecisionService``; ``env.worker_env(1)`` gives a child one card. A world
+of two ranks on the one card (``launch.mesh``): bitwise the in-process
+``slots=2`` host-fed solve.
 """
 import numpy as np
 import pytest
@@ -767,3 +769,20 @@ def test_worker_env_child_sees_exactly_one_card(cuda_device):
     count, name = out.stdout.strip().split(" ", 1)
     assert count == "1" and name == torch.cuda.get_device_name(0)
     assert len(wenv[env.VISIBLE].split(",")) == 1
+
+
+@pytest.mark.cuda
+def test_world_of_two_on_the_card_equals_in_process_slots(cuda_device):
+    """Two gloo ranks sharing the card (``launch.mesh``) feed one slot each:
+    bitwise the in-process ``slots=2`` host-fed solve on the card."""
+    import _torch_world as W
+    from repro_torch.launch.mesh import run_local_world
+    source, cfg = W.scenario("scd")
+    want = tpf.solve_streaming_host(source, cfg, q=W.Q, slots=2, device=cuda_device)
+    got = run_local_world(W.mesh_scenarios, 2, (["scd"],), {"slots": 2},
+                          device="cuda", timeout=600)["scd"]
+    assert got.iters == want.iters
+    for f in ("lam", "r", "primal", "dual", "tau"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for x, y in zip(got.fin_hist, want.fin_hist):
+        assert torch.equal(x, y)

@@ -196,15 +196,15 @@ def test_entry_points_raise_without_cuda(inst, monkeypatch):
 
 
 def test_unported_options_raise(inst):
-    """Options no driver ports yet raise, naming their ROADMAP item (A8:
-    the straggler mask and the mesh); the host-fed driver refuses cyclic
-    CD and the exact reduce with the reference's ValueError. The legacy
-    finalize, the sampled history and the launcher's ``--streaming``
-    (ROADMAP A3) are ported: accepted and run."""
+    """The host-fed driver refuses cyclic CD and the exact reduce with the
+    reference's ValueError, and a ``mesh`` that is not a ``core.mesh.Mesh``
+    with ``TypeError``. The legacy finalize, the sampled history, the
+    launcher's ``--streaming`` (ROADMAP A3) and the straggler mask
+    (``partial_fraction``, A8) are ported: accepted and run."""
     for kw in ({"stream_finalize": "legacy"}, {"metrics_every": 2}):
         assert getattr(SolverConfig(**kw), next(iter(kw))) == next(iter(kw.values()))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        config_from_reference(dataclasses.asdict(JCfg(partial_fraction=0.5)))
+    assert config_from_reference(
+        dataclasses.asdict(JCfg(partial_fraction=0.5))).partial_fraction == 0.5
     p, b, budgets = inst
     src = tpf.host_array_source(p, b, budgets, CHUNK)
     with pytest.raises(ValueError, match="cd_mode='sync'"):
@@ -218,7 +218,7 @@ def test_unported_options_raise(inst):
         src, SolverConfig(max_iters=3, record_history=True, metrics_every=2,
                           stream_finalize="legacy", kernel_tile=TILE), device="cpu")
     assert res.history["lam"].shape == (3, K) and res.fin_hist is None
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(TypeError, match="core.mesh.Mesh"):
         tpf.solve_streaming_host(src, device="cpu", mesh=object())
     with pytest.raises(SystemExit, match="chunk-size"):
         tlaunch.main(["--streaming", "--device", "cpu"])

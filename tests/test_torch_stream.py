@@ -290,7 +290,8 @@ def test_sampled_history_slots_and_refusals(rows, tmp_path):
     """Slot partials of the sampled rows fold in slot order (2 slots: the
     rows' lam is the 2-slot trajectory's); history with checkpoint or
     resume, legacy with slots > 1, and history without metrics_every
-    raise the reference's ValueErrors; mesh names A8."""
+    raise the reference's ValueErrors; a mesh that is not a
+    ``core.mesh.Mesh`` raises TypeError."""
     cfg = _cfg(record_history=True, metrics_every=2, kernel_tile=128)
     two = _host(rows, cfg, slots=2)
     plain = _host(rows, cfg.replace(record_history=False), slots=2)
@@ -303,7 +304,7 @@ def test_sampled_history_slots_and_refusals(rows, tmp_path):
         _host(rows, _cfg(stream_finalize="legacy"), slots=2)
     with pytest.raises(ValueError, match="metrics_every"):
         _stream(rows, _cfg(record_history=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(TypeError, match="core.mesh.Mesh"):
         _stream(rows, _cfg(), mesh=object())
 
 
