@@ -118,8 +118,9 @@ check raises, so the script exits non-zero and prints no result line:
    and the supervised solve and refresh in worker processes on the card
    under one SIGKILL and one SIGSTOP each plus a fetch-level fault plan,
    both records bitwise the references', the poisoned task contained in
-   ``FAILED.json`` with LIVE unmoved, the exercised counters (no degrade
-   on one card), recovery times and the card's free memory before and
+   ``FAILED.json`` with LIVE unmoved, the exercised counters (workers of
+   one rank: no degrade; phase 18 runs them as worlds), recovery times and
+   the card's free memory before and
    after; then ``launch/front.run_front_scenario`` with 2 replica processes
    on the card under concurrent ``/decide_batch`` traffic while the engine
    refreshes with ``keep=2``: every answered row bitwise the
@@ -147,10 +148,25 @@ check raises, so the script exits non-zero and prints no result line:
    worlds of 1 (one rank, in this process), 2 and 4 on one host-fed solve
    at 16 chunks, bitwise, with their walls and seconds in collectives
    (recorded, not claimed: the ranks share one card);
-18. the smoke's wall beside its 900 s budget, the ``kernels`` line
+18. serving and operations over a world of 4 ranks sharing the card, at
+   phase 15's shape (K = 8, Q = 2, 8 slots, chunk 65,536, N = 2^22): in
+   one world, the device-streamed legacy finalize against the fused one
+   (lam, iterations and dual bitwise; every field bitwise without the
+   projection; ``bucket_hist`` and ``adjusted_topc`` launched), screened
+   delta refreshes on the banded workload (a budget change inheriting
+   every chunk) bitwise this process's ``slots=8`` engine, and
+   ``launch/front.run_front_scenario`` whose 3 generations the world
+   publishes, bitwise phase 15's records, while 2 replica processes serve
+   them (every row bitwise its generation's); beside it a world of 4
+   whose warm refresh is SIGKILLed on every rank mid-solve, re-driven on
+   a world of 2 to phase 15's generation 1, bitwise; then a supervised
+   solve task starting as a world of 4, its lease holder SIGKILLed once,
+   respawned as a world of 2, its record bitwise phase 15's generation 0;
+19. the smoke's wall beside its 900 s budget, the ``kernels`` line
    (launches summed over the paths run in phases 5, 7, 8, 11, 12, 13, 14,
-   15 and 16, and rank 0's of each world of phase 17, with the split), the
-   card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
+   15 and 16, and rank 0's of each world of phases 17 and 18, with the
+   split), the card's ``nvidia-smi`` line and, last,
+   ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -1724,6 +1740,9 @@ def phase_serving(torch, np, dev):
     check(out["lookups_bitwise"], "serving: lookups differ from decisions_chunk")
     check(launches["scd_fused_hist"] > 0 and launches["scd_finalize_hist"] > 0,
           f"serving launched no solve kernel: {launches}")
+    scenario = RefreshEngine(work / "scenario", spec, cfg=cfg, device=dev)
+    HOST_RESULTS["serving_gens"] = [scenario.generation(g) for g in range(SERVE_GENS)]
+    HOST_RESULTS["serving_per_gen"] = out["per_generation"]
 
     # 2. A warm refresh SIGKILLed in a fresh interpreter mid-iterate, then
     # recovered here: the record is bitwise the scenario's generation 1.
@@ -1805,7 +1824,7 @@ def phase_operations(torch, np, dev):
     free0 = torch.cuda.mem_get_info(dev)[0]
     ops.reset_launches()
     t0 = time.perf_counter()
-    ok, rep = run_chaos_soak(work / "soak", seed=0, device="cuda", shape=shape)
+    ok, rep = run_chaos_soak(work / "soak", seed=0, device="cuda", shape=shape, world=1)
     soak_s = time.perf_counter() - t0
     paths["operations_soak"] = dict(ops.LAUNCHES)
     torch.cuda.synchronize()
@@ -2266,6 +2285,303 @@ def phase_world(torch, np, dev):
     return paths
 
 
+# --------------------------------------------------------------------------
+# Phase 18: serving and operations over a world of ranks on the one card.
+# --------------------------------------------------------------------------
+
+SERVE_WORLD = 4
+# A rank of the killed world refresh (8 slots over 4 ranks, 16 chunk reads
+# an epoch) reads the fingerprint probe, then dies half way through the
+# warm refresh's third epoch, as phase 15's refresh does in one process.
+SERVE_WORLD_KILL_AFTER = 1 + 2 * 16 + 8
+# The supervised world's kill: rank 0's progress (its chunk reads, 16 an
+# epoch at 4 ranks) in the cold solve's third or fourth epoch, after the
+# save at iteration 2.
+SUPERVISED_KILL_AT = 48
+SERVE_BANDED = dict(k=8, q=2, tightness=0.08, band=0.05)
+
+
+def _serve_spec():
+    from repro_torch.serve import WorkloadSpec
+    return WorkloadSpec(seed=0, n=N_SERVE, chunk=C_MAIN, **SERVE)
+
+
+def _serve_cfg():
+    from repro_torch.core.types import SolverConfig
+    return SolverConfig(max_iters=60, checkpoint_every=SERVE_CKPT_EVERY)
+
+
+def _screened_serving():
+    """The screened delta refreshes of phase 18: the banded workload at the
+    serving shape, then a budget change whose chunks are all inherited."""
+    from repro_torch.core.types import SolverConfig
+    from repro_torch.serve import WorkloadSpec
+    spec = WorkloadSpec(seed=0, n=N_SERVE, chunk=C_MAIN, **SERVE_BANDED)
+    cfg = SolverConfig(max_iters=30, bucket_half=12, checkpoint_every=SERVE_CKPT_EVERY,
+                       screening=True)
+    return spec, cfg, ({}, {"budget_scale": 0.95})
+
+
+def serve_world_main(mesh, work):
+    """Phase 18 on every rank of a world of 4 on the card: the legacy and
+    fused device-streamed finalizes, the screened delta refreshes, and the
+    front's scenario whose 3 generations the world publishes; rank 0's
+    results, walls and launches come back."""
+    import torch
+    from repro_torch.core.chunked import solve_streaming
+    from repro_torch.kernels import ops
+    from repro_torch.launch.front import run_front_scenario
+    from repro_torch.serve import RefreshEngine, synthetic_source
+
+    t_enter = time.time()
+    check(mesh.device.type == "cuda", f"rank {mesh.rank} runs on {mesh.device}")
+    spec, cfg = _serve_spec(), _serve_cfg()
+    out = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize(mesh.device)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(mesh.device)
+        out[name] = {"result": res, "wall_s": time.perf_counter() - t0,
+                     "launches": dict(ops.LAUNCHES)}
+        mesh.barrier()
+
+    def finalizes():
+        src = synthetic_source(spec)
+        cps = -(-(-(-src.n // src.chunk)) // mesh.size)
+        dsrc = _rank_array_source(torch, mesh, src, cps)
+        scfg = cfg.replace(checkpoint_every=0)
+        return {(fin, post): solve_streaming(
+                    dsrc, scfg.replace(stream_finalize=fin, postprocess=post),
+                    q=spec.q, mesh=mesh)
+                for fin in ("fused", "legacy") for post in (True, False)}
+
+    def screened():
+        bspec, bcfg, deltas = _screened_serving()
+        eng = RefreshEngine(Path(work) / "screened", bspec, cfg=bcfg, mesh=mesh,
+                            slots=SERVE_SLOTS)
+        return [eng.refresh(**d) for d in deltas]
+
+    def front():
+        chunks = -(-N_SERVE // C_MAIN)
+        return run_front_scenario(spec, SERVE_GENS, Path(work) / "front", cfg,
+                                  replicas=FRONT_REPLICAS, keep=SERVE_GENS,
+                                  slots=SERVE_SLOTS, cache_chunks=2 * chunks,
+                                  diff_stride=FRONT_DIFF_STRIDE, mesh=mesh)
+
+    timed("finalizes", finalizes)
+    timed("screened", screened)
+    timed("front", front)
+    out["launches"] = {k: sum(out[t]["launches"][k] for t in
+                              ("finalizes", "screened", "front"))
+                       for k in out["finalizes"]["launches"]}
+    out["t_enter"], out["t_exit"] = t_enter, time.time()
+    return out
+
+
+def serve_world_killed(mesh, root):
+    """Generation 0 of phase 15's scenario, then its warm refresh, over the
+    world; every rank SIGKILLs itself at its (SERVE_WORLD_KILL_AFTER + 1)-th
+    chunk read of the warm refresh."""
+    from repro_torch.launch.refresh import _budget_schedule
+    from repro_torch.serve import RefreshEngine, synthetic_source
+    spec = _serve_spec()
+    scales = _budget_schedule(SERVE_GENS, spec.seed)
+    calls = [0]
+
+    def make(s):
+        src = synthetic_source(s)
+        if s.budget_scale != scales[1]:
+            return src
+        inner = src.fn
+
+        def fn(i):
+            calls[0] += 1
+            if calls[0] > SERVE_WORLD_KILL_AFTER:
+                os.kill(os.getpid(), signal.SIGKILL)
+            return inner(i)
+
+        return src._replace(fn=fn)
+
+    eng = RefreshEngine(root, spec, cfg=_serve_cfg(), mesh=mesh, slots=SERVE_SLOTS,
+                        make_source=make)
+    eng.refresh(budget_scale=scales[0])
+    eng.refresh(budget_scale=scales[1])
+
+
+def serve_world_redrive(mesh, root):
+    """The killed warm refresh re-driven over this world: its record, wall
+    and rank 0's launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import RefreshEngine
+    torch.cuda.synchronize(mesh.device)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    eng = RefreshEngine(root, _serve_spec(), cfg=_serve_cfg(), mesh=mesh,
+                        slots=SERVE_SLOTS)
+    live_before = eng.live_gen_id()
+    rec = eng.recover()
+    torch.cuda.synchronize(mesh.device)
+    return {"record": rec, "live_before": live_before, "wall_s": time.perf_counter() - t0,
+            "launches": dict(ops.LAUNCHES)}
+
+
+def _same_record(np, a, b):
+    """Two published generations' records, every key bitwise."""
+    from repro_torch.checkpoint import ckpt
+    ra = ckpt.restore_auto(Path(a.path) / "record", 0)
+    rb = ckpt.restore_auto(Path(b.path) / "record", 0)
+    return sorted(ra) == sorted(rb) and all(
+        np.asarray(ra[k]).tobytes() == np.asarray(rb[k]).tobytes() for k in ra)
+
+
+def phase_world_serving(torch, np, dev):
+    """Serving and operations over a world of 4 ranks on the one card
+    (phase 18)."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.mesh import WorldError, run_local_world, start_local_world
+    from repro_torch.launch.supervisor import ChaosSchedule, Supervisor, SupervisorConfig
+    from repro_torch.serve import RefreshEngine
+
+    work = ROOT / "build" / "smoke_world_serve"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    paths = {}
+    want = HOST_RESULTS["serving_gens"]
+    t_phase = time.perf_counter()
+
+    # The serving world and the killed world start together; this process
+    # refreshes the screened references beside them.
+    t_start = time.time()
+    world = start_local_world(serve_world_main, SERVE_WORLD, (str(work / "world"),),
+                              timeout=WORLD_TIMEOUT)
+    killed = start_local_world(serve_world_killed, SERVE_WORLD, (str(work / "killed"),),
+                               timeout=WORLD_TIMEOUT)
+    try:
+        bspec, bcfg, deltas = _screened_serving()
+        t0 = time.perf_counter()
+        eng = RefreshEngine(work / "screened_here", bspec, cfg=bcfg, device=dev,
+                            slots=SERVE_SLOTS)
+        screened_here = [eng.refresh(**d) for d in deltas]
+        screened_here_s = time.perf_counter() - t0
+        try:
+            killed.wait()
+            raise SmokeFailure("the killed world refresh finished")
+        except WorldError as e:
+            codes = e.returncodes
+        killed_s = time.time() - t_start
+    finally:
+        killed.kill()
+        w = world.wait()
+    world_s = time.time() - t_start
+    paths["world_serving_rank0"] = w["launches"]
+
+    # 1. The legacy device-streamed finalize over the world against the fused.
+    fin = w["finalizes"]["result"]
+    fused, legacy = fin[("fused", True)], fin[("legacy", True)]
+    f0, l0 = fin[("fused", False)], fin[("legacy", False)]
+    facts = {"lam_iters_dual_bitwise": fused.iters == legacy.iters
+             and torch.equal(fused.lam, legacy.lam) and torch.equal(fused.dual, legacy.dual),
+             "no_projection_every_field_bitwise": same_stream(f0, l0),
+             "legacy_launched_bucket_hist_and_topc":
+                 w["finalizes"]["launches"]["bucket_hist"] > 0
+                 and w["finalizes"]["launches"]["adjusted_topc"] > 0}
+    emit("world_serving_legacy", world=SERVE_WORLD, n=N_SERVE, chunk=C_MAIN,
+         iters=legacy.iters, primal_fused=float(fused.primal),
+         primal_legacy=float(legacy.primal), tau_legacy=float(legacy.tau),
+         wall_s=w["finalizes"]["wall_s"], launches_rank0=w["finalizes"]["launches"],
+         **facts)
+    check(all(facts.values()), f"world legacy finalize: {facts}")
+
+    # 2. The screened delta refreshes: the world's records == this process's.
+    scr = w["screened"]["result"]
+    first = [int(np.asarray(ckpt.restore_auto(Path(g.path) / "record", 0)
+                            ["screen_streamed"])[0]) for g in screened_here]
+    facts = {"records_bitwise": all(_same_record(np, a, b)
+                                    for a, b in zip(scr, screened_here)),
+             "delta_inherited": first[1] < -(-N_SERVE // C_MAIN),
+             "screen_bound_launched": w["screened"]["launches"]["screen_bound"] > 0}
+    emit("world_serving_screened", world=SERVE_WORLD, n=N_SERVE, slots=SERVE_SLOTS,
+         iters=[g.iters for g in scr], first_epoch_streamed=first,
+         wall_s=w["screened"]["wall_s"], in_process_wall_s=screened_here_s,
+         launches_rank0=w["screened"]["launches"], **facts)
+    check(all(facts.values()), f"world screened delta refreshes: {facts}")
+
+    # 3. The front: the world published phase 15's 3 generations (bitwise)
+    # while 2 replica processes served them.
+    out = w["front"]["result"]
+    pub = RefreshEngine(work / "world" / "front", _serve_spec(), cfg=_serve_cfg(),
+                        device=dev)
+    gens = [pub.generation(g) for g in range(SERVE_GENS)]
+    facts = {"records_bitwise_phase15": all(same_generation(np, a, b)
+                                            for a, b in zip(gens, want)),
+             "rows_bitwise": out["parity"] and out["stale_rows"] == 0,
+             "diff_parity": out["diff"]["parity"],
+             "all_rebound": all(r >= 1 for r in out["rebinds"]),
+             "metrics_consistent": out["metrics"]["consistent"]}
+    emit("world_serving_front", world=SERVE_WORLD, n=N_SERVE, slots=SERVE_SLOTS,
+         replicas=FRONT_REPLICAS, generations=SERVE_GENS, iters=[g.iters for g in gens],
+         wall_s=w["front"]["wall_s"], refresh_wall_s=out["refresh_wall_s"],
+         phase15_refresh_wall_s=[g["wall_s"] for g in HOST_RESULTS["serving_per_gen"]],
+         sustained=out["sustained"],
+         generations_served=out["generations_served"], rebinds=out["rebinds"],
+         diff=out["diff"], launches_rank0=w["front"]["launches"],
+         world_start_s=w["t_enter"] - t_start, world_wall_s=world_s, **facts)
+    check(all(facts.values()), f"world front: {facts}")
+
+    # 4. The killed world refresh, re-driven on 2 ranks: phase 15's gen 1.
+    root = work / "killed"
+    left = ckpt.latest_step(root / "gen_000001" / "ckpt")
+    t0 = time.time()
+    r = run_local_world(serve_world_redrive, 2, (str(root),), timeout=WORLD_TIMEOUT)
+    redrive_s = time.time() - t0
+    paths["world_serving_redrive_rank0"] = r["launches"]
+    rec = r["record"]
+    facts = {"killed_by_sigkill": codes == [-signal.SIGKILL] * SERVE_WORLD,
+             "gen0_live_and_state_left": r["live_before"] == 0 and left is not None,
+             "record_bitwise_phase15": rec is not None and rec.gen == 1
+             and same_generation(np, rec, want[1])}
+    emit("world_serving_kill", killed_world=SERVE_WORLD, killed_after_reads=
+         SERVE_WORLD_KILL_AFTER, returncodes=codes, killed_wall_s=killed_s,
+         resume_step=left, redrive_world=2, redrive_wall_s=redrive_s,
+         recover_s=r["wall_s"], **facts)
+    check(all(facts.values()), f"world refresh kill: {facts}")
+
+    # 5. One supervised solve task: a world of 4, killed once (its lease
+    # holder), respawned on 2 ranks; its record is phase 15's generation 0
+    # (the same cold solve of the same workload).
+    task = {"kind": "solve", "spec": _serve_spec().to_json(),
+            "cfg": {"max_iters": 60, "checkpoint_every": SERVE_CKPT_EVERY},
+            "slots": SERVE_SLOTS, "device": "cuda"}
+    t0 = time.perf_counter()
+    sup = Supervisor(work / "supervised", task,
+                     cfg=SupervisorConfig(ttl=2.5, poll=0.05, grace=120.0, max_restarts=3,
+                                          progress_ttl=60.0),
+                     devices=SERVE_WORLD,
+                     chaos=ChaosSchedule(events=(("kill", SUPERVISED_KILL_AT),)))
+    s = sup.run()
+    sup_s = time.perf_counter() - t0
+    got = ckpt.restore_auto(work / "supervised" / "result", 0) if s["ok"] else {}
+    g0 = want[0]
+    same = bool(got) and int(got["iters"]) == g0.iters and all(
+        np.asarray(got[f]).tobytes() == np.asarray(getattr(g0, f)).tobytes()
+        for f in ("lam", "tau", "r", "primal", "dual")) and all(
+        np.asarray(got[k]).tobytes() == np.asarray(x).tobytes()
+        for k, x in zip(("fin_ch", "fin_gh"), g0.fin_hist))
+    facts = {"ok": s["ok"], "killed_once": s["kills_injected"] == 1 and s["restarts"] == 1,
+             "degraded_to_2": s["degraded_spawns"] == 1 and s["devices"] == 2,
+             "record_bitwise_phase15_gen0": same}
+    emit("world_serving_supervised", start_world=SERVE_WORLD, kill_at_progress=
+         SUPERVISED_KILL_AT, wall_s=sup_s, counters=s, recovery_s=sup.recovery_s, **facts)
+    check(all(facts.values()), f"supervised world: {facts}")
+    emit("world_serving_wall", seconds=time.perf_counter() - t_phase)
+    shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
 def main():
     import numpy as np
     import torch
@@ -2310,6 +2626,7 @@ def main():
     paths.update(phase_serving(torch, np, dev))
     paths.update(phase_operations(torch, np, dev))
     paths.update(phase_world(torch, np, dev))
+    paths.update(phase_world_serving(torch, np, dev))
 
     rows = [{"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name],

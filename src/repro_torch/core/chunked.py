@@ -548,9 +548,12 @@ class PassRunner:
         return metrics_row(r, primal, dual, lam, self.budgets)
 
     def legacy_result(self, lam, iters):
-        """The legacy three-pass finalize (one slot): the metrics pass, the
-        removable histogram against the (lo, hi) ladder, and the pass that
-        applies tau to (r, primal)."""
+        """The legacy three-pass finalize (one slot a rank): the metrics
+        pass, the removable histogram against the (lo, hi) ladder, and the
+        pass that applies tau to (r, primal). Over a mesh every pass ends
+        in the slot fold across the ranks, as the reference's ``psum``
+        (lo by min and hi by max), so every rank builds the same ladder
+        and takes the same tau."""
         cfg, dev, q = self.cfg, self.device, self.q
         items = self._items(range(self.cps))
         r, primal, dual, lo, hi = self.metrics(lam)
@@ -564,13 +567,15 @@ class PassRunner:
         hist = self._run_epoch(
             lambda h, p_c, b_c, item: removable_chunk_accumulate(
                 p_c, b_c, lam_d, q, edges_d, h), hist, "hist", items)
-        tau = threshold_from_removable_hist(hist.cpu(), edges, r, self.budgets)
+        tau = threshold_from_removable_hist(self._fold([hist]), edges, r,
+                                            self.budgets)
         tau_d = tau.to(dev)
         r2, primal2 = self._run_epoch(
             lambda c, p_c, b_c, item: apply_chunk_accumulate(
                 p_c, b_c, lam_d, q, tau_d, c),
             fin_zeros(self.source.k, 0, False, dev)[:2], "apply", items)
-        return StreamResult(lam, iters, r2.cpu(), primal2.cpu(), dual, tau)
+        return StreamResult(lam, iters, self._fold([r2]), self._fold([primal2]),
+                            dual, tau)
 
     def fin_init(self):
         """This rank's per-slot fused-finalize carries, from zeros (lo = +inf,
@@ -728,8 +733,8 @@ def solve_streaming(source: ChunkSource, cfg: SolverConfig = SolverConfig(),
     replaces ``device``): shard s scans chunks [s*cps, (s+1)*cps), cps =
     ceil(c / D), and every pass ends in the slot fold across the ranks; the
     presolve samples each shard's leading chunks and ``cfg.partial_fraction``
-    drops the shards past that fraction. The legacy finalize stays on one
-    process (``ValueError`` over a mesh); ``axes`` raises ``ValueError``.
+    drops the shards past that fraction (the finalize's sums stay
+    unmasked, as in the reference); ``axes`` raises ``ValueError``.
 
     Bitwise equal to ``prefetch.solve_streaming_host`` over a host source
     of the same bytes and chunk, with as many slots as shards (lam, iters,
@@ -742,10 +747,6 @@ def solve_streaming(source: ChunkSource, cfg: SolverConfig = SolverConfig(),
     if axes is not None:
         raise ValueError("axes: the port's mesh is one flat world of ranks")
     _validate_stream_cfg(cfg)
-    if mesh is not None and cfg.stream_finalize == "legacy":
-        raise ValueError(
-            "the sharded streaming solve supports stream_finalize='fused' only "
-            "(the legacy three-pass finalize stays on one process)")
     dev = mesh.device if mesh is not None else resolve_device(device)
     lam0 = (torch.ones((source.k,), dtype=cfg.dtype) if lam0 is None
             else torch.as_tensor(lam0, dtype=cfg.dtype).cpu())

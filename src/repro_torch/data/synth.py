@@ -7,7 +7,7 @@ import numpy as np
 import torch
 
 from ..core.chunked import ChunkSource
-from ..core.prefetch import HostChunkSource
+from ..core.prefetch import HostChunkSource, sharded_source
 from ..core.solver import resolve_device
 
 
@@ -61,6 +61,19 @@ def sparse_host_chunk_source(seed, n, k, chunk, q=1, tightness=0.5,
             np.where(live, b, 0.0).astype(np.float32)
 
     return HostChunkSource(n=n, k=k, chunk=chunk, budgets=budgets, fn=fn)
+
+
+def sparse_host_shard_sources(seed, n, k, chunk, slots, q=1, tightness=0.5,
+                              b_high=1.0):
+    """Per-slot host sources of one §6 instance: ``prefetch.sharded_source``
+    over :func:`sparse_host_chunk_source`. Slot ``s`` serves the chunk range
+    [s*cps, (s+1)*cps), cps = ceil(c / slots), and inert zero chunks past
+    the last one. The Philox counter is the global chunk index, so a worker
+    resumed on fewer ranks, owning other slots, regenerates the bytes the
+    lost worker streamed. Returns a list of ``slots`` HostChunkSources."""
+    return sharded_source(
+        sparse_host_chunk_source(seed, n, k, chunk, q=q, tightness=tightness,
+                                 b_high=b_high), slots)
 
 
 def banded_host_chunk_source(seed, n, k, chunk, q=1, tightness=0.5,

@@ -9,11 +9,14 @@ here, as XLA's host-device-count flag is in the reference's
 ``launch/env.py`` (whose flag surgery and x64 switch have no counterpart
 in the port):
 
-* :func:`worker_env` — the subprocess environment for one worker: the
-  base environment (default ``os.environ``) with ``CUDA_VISIBLE_DEVICES``
-  cut to the first ``devices`` of the parent's visible cards, or emptied
-  for a CPU worker, which then cannot touch a card. This is how the
-  supervisor respawns a takeover on a *degraded* device count.
+* :func:`worker_env` — the subprocess environment for one worker of
+  ``devices`` ranks: the base environment (default ``os.environ``) with
+  the world size in ``REPRO_WORKER_WORLD`` and ``CUDA_VISIBLE_DEVICES``
+  cut to the first ``devices`` of the parent's visible cards (all of them
+  when there are fewer: the ranks share them round-robin, as
+  ``launch/mesh.py`` places them), or emptied for a CPU worker, which then
+  cannot touch a card. This is how the supervisor respawns a takeover on
+  a *degraded* world, also on one card.
 * :func:`set_visible_devices` — the in-process setter for the same
   variable, guarded against the footgun of calling it after this process
   has initialised CUDA (it would silently do nothing).
@@ -25,10 +28,11 @@ import os
 import sys
 from typing import Mapping, Optional
 
-__all__ = ["VISIBLE", "visible_devices", "worker_env", "set_visible_devices",
-           "describe"]
+__all__ = ["VISIBLE", "WORLD", "visible_devices", "worker_env",
+           "set_visible_devices", "describe"]
 
 VISIBLE = "CUDA_VISIBLE_DEVICES"
+WORLD = "REPRO_WORKER_WORLD"            # a worker's rank count
 
 
 def visible_devices(base: Optional[Mapping] = None) -> list:
@@ -48,27 +52,30 @@ def visible_devices(base: Optional[Mapping] = None) -> list:
 
 def worker_env(devices: int, base: Optional[Mapping] = None,
                device: str = "cuda") -> dict:
-    """The environment for one spawned worker process.
+    """The environment for one spawned worker of ``devices`` ranks.
 
     ``base`` defaults to ``os.environ`` (the worker inherits PYTHONPATH,
-    locale, everything). For ``device="cuda"`` the child sees the first
-    ``devices`` of the cards visible under ``base``; raises ValueError if
-    fewer are visible. For ``device="cpu"`` it sees none
-    (``CUDA_VISIBLE_DEVICES=""``). The returned dict is a copy: mutating
-    it never touches the parent's environment.
+    locale, everything); ``REPRO_WORKER_WORLD`` carries ``devices``. For
+    ``device="cuda"`` the child sees the first ``devices`` of the cards
+    visible under ``base``, or all of them when fewer are visible (its
+    ranks then share them); raises ValueError when none is. For
+    ``device="cpu"`` it sees none (``CUDA_VISIBLE_DEVICES=""``). The
+    returned dict is a copy: mutating it never touches the parent's
+    environment.
     """
     if devices < 1:
         raise ValueError(f"devices must be >= 1, got {devices}")
     env = dict(os.environ if base is None else base)
+    env[WORLD] = str(devices)
     if device == "cpu":
         env[VISIBLE] = ""
         return env
     if device != "cuda":
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     ids = visible_devices(env)
-    if len(ids) < devices:
-        raise ValueError(f"a worker on {devices} card(s) needs as many "
-                         f"visible; {VISIBLE} gives {len(ids)} ({ids})")
+    if not ids:
+        raise ValueError(f"a worker on cuda needs at least one visible card; "
+                         f"{VISIBLE} gives none")
     env[VISIBLE] = ",".join(ids[:devices])
     return env
 

@@ -33,6 +33,13 @@ Two entry modes:
     PYTHONPATH=src python -m repro_torch.launch.front --smoke [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.front --users 65536 \
         --replicas 4 --root /tmp/front
+    PYTHONPATH=src python -m repro_torch.launch.front --smoke --world 2 --device cpu
+
+``--world D`` publishes the generations from a world of D rank processes
+(``launch/mesh.py``; ``--slots`` defaults to D): every rank refreshes,
+each refresh is one solve over the world, and rank 0 alone spawns the
+replicas, serves, verifies and prints. The replicas serve what the world
+published; their lookups are per chunk and need no world.
 
 Exit status 1 when any row, provenance flag or diff bit mismatches —
 this is the CI gate; ``chip_smoke.py`` runs :func:`run_front_scenario`
@@ -58,6 +65,7 @@ from ..checkpoint import ckpt
 from ..core.solver import resolve_device
 from ..core.types import SolverConfig
 from . import env as envmod
+from .mesh import init_mesh, run_local_world
 from .refresh import _budget_schedule
 from ..serve import Front, RefreshEngine, ReplicaClient, ReplicaServer, \
     WorkloadSpec
@@ -250,21 +258,30 @@ def run_front_scenario(spec: WorkloadSpec, generations: int, root,
                        client_threads: int = 4, batch: int = 128,
                        keep: int = 2, settle_s: float = 0.3,
                        slots=None, device: str = "cuda",
-                       cache_chunks: int = 32, diff_stride: int = 1) -> dict:
+                       cache_chunks: int = 32, diff_stride: int = 1,
+                       mesh=None) -> Optional[dict]:
     """Refresh churn under live HTTP traffic on ``device``; returns the
     accounting dict. ``cache_chunks`` sizes each replica's chunk LRU (the
     diff's zero-fill repeat needs it to hold every chunk); ``/diff`` asks
     about every ``diff_stride``-th user (at most ``spec.chunk``, so every
-    chunk is spanned)."""
+    chunk is spanned). Over a ``mesh`` every rank calls this and the
+    engine refreshes over the world; rank 0 runs everything else, and the
+    other ranks return None once the last generation is live."""
     if not 1 <= diff_stride <= spec.chunk:
         raise ValueError(f"diff_stride must be in [1, {spec.chunk}] so the "
                          f"diff spans every chunk, got {diff_stride}")
     root = pathlib.Path(root)
     engine = RefreshEngine(root, spec, cfg=cfg, slots=slots, keep=keep,
-                           device=device)
+                           device=device, mesh=mesh)
     scales = _budget_schedule(generations, spec.seed)
-    refs = {}
+    if mesh is not None and mesh.rank != 0:
+        for g in range(generations):
+            engine.refresh(budget_scale=scales[g])
+        return None
+    refs, refresh_s = {}, []
+    t0 = time.perf_counter()
     gen0 = engine.refresh(budget_scale=scales[0])
+    refresh_s.append(time.perf_counter() - t0)
     refs[gen0.gen] = _materialise(engine, gen0)
     print(f"[front] gen 0 published ({gen0.iters} iters); "
           f"spawning {replicas} replicas")
@@ -307,7 +324,9 @@ def run_front_scenario(spec: WorkloadSpec, generations: int, root,
         # replicas keep answering; the watchers rebind on each flip.
         try:
             for g in range(1, generations):
+                t1 = time.perf_counter()
                 gen = engine.refresh(budget_scale=scales[g])
+                refresh_s.append(time.perf_counter() - t1)
                 refs[gen.gen] = _materialise(engine, gen)
                 print(f"[front] gen {gen.gen} published "
                       f"({gen.iters} iters warm); retained "
@@ -429,6 +448,7 @@ def run_front_scenario(spec: WorkloadSpec, generations: int, root,
                           "single_qps": round(single_qps, 1),
                           "decide_p50_ms": p50, "decide_p99_ms": p99},
             "generations_served": sorted(gens_served),
+            "refresh_wall_s": refresh_s,
             "rebinds": rebinds,
             "parity": parity, "stale_rows": stale_rows,
             "diff": {"users": int(diff_users.size), "base_gen": base_gen,
@@ -480,8 +500,7 @@ def _check_metrics(text: str, health: dict, replicas: int) -> dict:
             "failures": failures}
 
 
-def main() -> None:
-    """CLI entry point; exits 1 on a failed gate."""
+def _parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=None)
     ap.add_argument("--replicas", type=int, default=2)
@@ -498,6 +517,12 @@ def main() -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu: the refresh engine and "
                          "every replica's lookups")
+    ap.add_argument("--world", type=int, default=None,
+                    help="refresh from a world of this many rank processes on "
+                         "this host (under torchrun, each process is a rank)")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="virtual feed slots of each refresh (default 1, or "
+                         "the world size)")
     ap.add_argument("--smoke", action="store_true",
                     help="small scenario (CI gate; exits 1 on any "
                          "parity failure)")
@@ -514,7 +539,49 @@ def main() -> None:
     ap.add_argument("--poison-chunk", type=int, default=0)
     ap.add_argument("--obs", action="store_true",
                     help="replica mode: trace spans to <root>/obs/")
-    args = ap.parse_args()
+    return ap
+
+
+def _execute(args, mesh=None) -> int:
+    """The orchestrated scenario of one parsed command line, on one process
+    or as one rank of ``mesh``: the exit code (rank 0's is the run's)."""
+    if args.smoke:
+        args.users, args.chunk, args.generations = 8192, 512, 3
+    spec = WorkloadSpec(seed=args.seed, n=args.users, k=args.k,
+                        chunk=args.chunk, q=args.q,
+                        tightness=args.tightness)
+    cfg = SolverConfig(reduce="bucketed", max_iters=args.max_iters,
+                       checkpoint_every=0)
+    device = mesh.device.type if mesh is not None else resolve_device(args.device).type
+    if mesh is None or mesh.rank == 0:
+        print(f"[front] root {args.root}; {args.replicas} replicas on {device}"
+              + (f"; generations from a world of {mesh.size}" if mesh else ""))
+    out = run_front_scenario(spec, args.generations, args.root, cfg,
+                             replicas=args.replicas,
+                             client_threads=args.client_threads,
+                             batch=args.batch, device=device,
+                             cache_chunks=args.cache_chunks, slots=args.slots,
+                             mesh=mesh)
+    if out is None:
+        return 0
+    ok = out["parity"] and out["diff"]["parity"] \
+        and all(r >= 1 for r in out["rebinds"]) \
+        and out["metrics"]["consistent"]
+    print(f"[front] {'OK' if ok else 'FAIL'}: "
+          f"{out['sustained']['batched_qps']:,.0f} lookups/s sustained, "
+          f"rebinds {out['rebinds']}")
+    return 0 if ok else 1
+
+
+def _world_rank(mesh, argv):
+    """One rank of ``--world``: the exit code of the parsed ``argv``."""
+    return _execute(_parser().parse_args(argv), mesh)
+
+
+def main(argv=None) -> None:
+    """CLI entry point; exits 1 on a failed gate."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
 
     if args.replica:
         if args.root is None:
@@ -526,28 +593,22 @@ def main() -> None:
                     device=resolve_device(args.device).type)
         return
 
-    if args.smoke:
-        args.users, args.chunk, args.generations = 8192, 512, 3
-    spec = WorkloadSpec(seed=args.seed, n=args.users, k=args.k,
-                        chunk=args.chunk, q=args.q,
-                        tightness=args.tightness)
-    cfg = SolverConfig(reduce="bucketed", max_iters=args.max_iters,
-                       checkpoint_every=0)
-    device = resolve_device(args.device).type
-    root = args.root or tempfile.mkdtemp(prefix="front_")
-    print(f"[front] root {root}; {args.replicas} replicas on {device}")
-    out = run_front_scenario(spec, args.generations, root, cfg,
-                             replicas=args.replicas,
-                             client_threads=args.client_threads,
-                             batch=args.batch, device=device,
-                             cache_chunks=args.cache_chunks)
-    ok = out["parity"] and out["diff"]["parity"] \
-        and all(r >= 1 for r in out["rebinds"]) \
-        and out["metrics"]["consistent"]
-    print(f"[front] {'OK' if ok else 'FAIL'}: "
-          f"{out['sustained']['batched_qps']:,.0f} lookups/s sustained, "
-          f"rebinds {out['rebinds']}")
-    sys.exit(0 if ok else 1)
+    mesh = init_mesh(args.device)
+    if mesh is not None and args.root is None:
+        raise SystemExit("under torchrun every rank needs the same --root")
+    if args.root is None:
+        args.root = tempfile.mkdtemp(prefix="front_")
+        argv += ["--root", args.root]
+    if args.world is not None:
+        if mesh is not None:
+            raise SystemExit("--world starts its own ranks: do not pass it "
+                             "under torchrun")
+        resolve_device(args.device)
+        code = run_local_world(_world_rank, args.world, (argv,),
+                               device=args.device, echo=True)
+    else:
+        code = _execute(args, mesh)
+    sys.exit(code)
 
 
 if __name__ == "__main__":

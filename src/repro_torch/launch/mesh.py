@@ -126,10 +126,10 @@ class LocalWorld:
     """The handle of a started local world: its rank processes (``procs``),
     :meth:`wait` for rank 0's result, :meth:`kill` to SIGKILL every rank."""
 
-    def __init__(self, procs, wdir, timeout):
+    def __init__(self, procs, wdir, wall):
         self.procs, self.wdir = procs, Path(wdir)
-        self.deadline = time.monotonic() + timeout
-        self.timeout = timeout
+        self.deadline = time.monotonic() + wall
+        self.wall = wall
 
     def kill(self):
         for p in self.procs:
@@ -177,7 +177,7 @@ class LocalWorld:
                     self.kill()
                     raise WorldError(
                         f"the world of {len(self.procs)} did not finish within "
-                        f"{self.timeout} s", None, [p.returncode for p in self.procs])
+                        f"{self.wall} s", None, [p.returncode for p in self.procs])
                 time.sleep(0.02)
             with open(self.wdir / "result.pkl", "rb") as f:
                 return pickle.load(f)
@@ -187,8 +187,11 @@ class LocalWorld:
 
 
 def start_local_world(target, world: int, args=(), kwargs=None, device="cuda",
-                      timeout: float = DEFAULT_TIMEOUT) -> LocalWorld:
-    """Start ``world`` rank processes on this host; see :func:`run_local_world`."""
+                      timeout: float = DEFAULT_TIMEOUT, echo: bool = False,
+                      wall: Optional[float] = None) -> LocalWorld:
+    """Start ``world`` rank processes on this host; see :func:`run_local_world`.
+    ``wall`` bounds the world's run (default ``timeout``; ``inf`` for none)
+    apart from each collective's ``timeout``."""
     if world < 1:
         raise ValueError(f"world must be >= 1, got {world}")
     wdir = Path(tempfile.mkdtemp(prefix="repro_world_"))
@@ -213,13 +216,14 @@ def start_local_world(target, world: int, args=(), kwargs=None, device="cuda",
         procs.append(subprocess.Popen(
             [sys.executable, "-c",
              "from repro_torch.launch.mesh import _rank_main; _rank_main()",
-             str(wdir)], env=rank_env, stdout=log, stderr=subprocess.STDOUT))
+             str(wdir)], env=rank_env, stdout=None if echo and r == 0 else log,
+            stderr=log))
         log.close()
-    return LocalWorld(procs, wdir, timeout)
+    return LocalWorld(procs, wdir, timeout if wall is None else wall)
 
 
 def run_local_world(target, world: int, args=(), kwargs=None, device="cuda",
-                    timeout: float = DEFAULT_TIMEOUT):
+                    timeout: float = DEFAULT_TIMEOUT, echo: bool = False):
     """Run ``target(mesh, *args, **kwargs)`` on every rank of a world of
     ``world`` fresh processes on this host; return rank 0's result.
 
@@ -230,8 +234,11 @@ def run_local_world(target, world: int, args=(), kwargs=None, device="cuda",
     whole: when a rank exits non-zero the others are killed and
     :class:`WorldError` names it with its traceback; past ``timeout``
     seconds (which also bounds every collective) every rank is killed.
+    With ``echo`` rank 0's standard output is this process's (a launcher's
+    report); every other stream goes to the rank's log.
     """
-    return start_local_world(target, world, args, kwargs, device, timeout).wait()
+    return start_local_world(target, world, args, kwargs, device, timeout,
+                             echo).wait()
 
 
 def _rank_main():
@@ -257,6 +264,7 @@ def _rank_main():
         err.write_text(f"{time.time()}\n{traceback.format_exc()}")
         sys.stderr.write(traceback.format_exc())
         sys.stderr.flush()
+        sys.stdout.flush()
         os._exit(1)
     sys.stdout.flush()
     os._exit(0)

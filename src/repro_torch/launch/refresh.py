@@ -17,7 +17,12 @@ materialisation (``chunked.decisions_chunk``) would produce.
 Exit status 1 when the warm path fails to beat cold in total
 iterations or a lookup mismatches materialisation — the serving smoke
 gate (``--smoke``). ``--slots`` feeds each solve through that many
-virtual slots on the one device.
+virtual slots. ``--world D`` runs the scenario over a world of D rank
+processes on this host (``launch/mesh.py``; under ``torchrun`` each
+process is a rank already, and ``--root`` must be given): every rank
+refreshes, each refresh is one solve over the world, ``--slots``
+defaults to D, and rank 0 alone writes the root, looks up, verifies and
+prints. The records are the one-process run's at the same ``--slots``.
 
 ``--chaos`` is the fault-domain gate: the scenario runs
 twice — once clean, once with every chunk fetch injected with
@@ -31,6 +36,7 @@ absorbed every fault, no reader ever saw a torn or stale byte.
 
     PYTHONPATH=src python -m repro_torch.launch.refresh --smoke [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.refresh --smoke --chaos
+    PYTHONPATH=src python -m repro_torch.launch.refresh --smoke --world 2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.refresh --users 1000000 \
         --generations 7 --root DIR
 """
@@ -56,6 +62,7 @@ from ..core.prefetch import solve_streaming_host
 from ..core.solver import resolve_device
 from ..core.types import SolverConfig, SparseKP
 from ..serve import RefreshEngine, WorkloadSpec, synthetic_source
+from .mesh import init_mesh, run_local_world
 
 
 def _budget_schedule(generations: int, seed: int):
@@ -70,8 +77,14 @@ def _cold_iters(engine: RefreshEngine, spec: WorkloadSpec) -> int:
     res = solve_streaming_host(
         engine.make_source(spec),
         engine.cfg.replace(checkpoint_every=0), q=spec.q,
-        device=engine.device, slots=engine.slots)
+        device=engine.device, mesh=engine.mesh, slots=engine.slots)
     return int(res.iters)
+
+
+def _printer(mesh):
+    """``print`` on one process and on rank 0 of a world; a no-op on the
+    other ranks."""
+    return print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
 
 
 def _verify_lookups(engine: RefreshEngine, svc, users) -> bool:
@@ -105,14 +118,21 @@ def _verify_lookups(engine: RefreshEngine, svc, users) -> bool:
 
 def run_scenario(spec: WorkloadSpec, generations: int, root,
                  cfg: SolverConfig, device="cuda", slots=None, lookups=512,
-                 verify=True, resume=False, make_source=synthetic_source):
-    """The multi-day loop on ``device``; returns the accounting dict."""
+                 verify=True, resume=False, make_source=synthetic_source,
+                 mesh=None):
+    """The multi-day loop on ``device``; returns the accounting dict.
+
+    Over a ``mesh`` every rank calls this and refreshes (the cold
+    reference solves too run over the world); rank 0 alone looks up,
+    verifies, prints and returns the dict, and the other ranks return None.
+    """
+    say = _printer(mesh)
     engine = RefreshEngine(root, spec, make_source=make_source, cfg=cfg,
-                           device=device, slots=slots)
+                           device=device, mesh=mesh, slots=slots)
     if resume:
         rec = engine.recover()
         if rec is not None:
-            print(f"[refresh] recovered pending generation {rec.gen}")
+            say(f"[refresh] recovered pending generation {rec.gen}")
     scales = _budget_schedule(generations, spec.seed)
     start = (engine.live_gen_id() + 1
              if engine.live_gen_id() is not None else 0)
@@ -126,13 +146,15 @@ def run_scenario(spec: WorkloadSpec, generations: int, root,
                         "warm_iters": gen.iters, "cold_iters": cold,
                         "wall_s": round(wall, 3)})
         tag = "cold (first)" if g == 0 else f"cold would take {cold}"
-        print(f"[refresh] gen {g}: budgets {scales[g] - 1.0:+.2%} -> "
+        say(f"[refresh] gen {g}: budgets {scales[g] - 1.0:+.2%} -> "
               f"{gen.iters} iters warm ({tag}), primal "
               f"{float(gen.primal):,.1f}, {wall:.2f}s")
 
     warm_entries = [e for e in per_gen if e["gen"] > 0]
     warm_total = sum(e["warm_iters"] for e in warm_entries)
     cold_total = sum(e["cold_iters"] for e in warm_entries)
+    if mesh is not None and mesh.rank != 0:
+        return None
     if warm_entries:
         print(f"[refresh] totals over {len(warm_entries)} refreshes: "
               f"warm {warm_total} vs cold {cold_total} iterations "
@@ -192,26 +214,33 @@ _RECORD_FIELDS = ["lam", "tau", "iters", "r", "primal", "dual",
 
 
 def run_chaos(spec: WorkloadSpec, generations: int, root,
-              cfg: SolverConfig, device="cuda", slots=None, lookups=256):
+              cfg: SolverConfig, device="cuda", slots=None, lookups=256,
+              mesh=None):
     """The fault-domain gate: chaos run bitwise-equals the clean run.
 
     Runs the scenario twice under ``root`` — ``clean/`` fault-free and
     ``chaos/`` with every chunk fetch going through
     :func:`~repro_torch.core.faults.faulty_source` injection absorbed by the
     retrying ingest — then compares every published generation's record
-    field-for-field. Returns ``(ok, accounting)``.
+    field-for-field. Returns ``(ok, accounting)``; over a ``mesh`` both
+    scenarios run over the world, and ranks other than 0 return
+    ``(None, None)``.
     """
     root = pathlib.Path(root)
-    print(f"[chaos] clean pass -> {root / 'clean'}")
+    say = _printer(mesh)
+    say(f"[chaos] clean pass -> {root / 'clean'}")
     clean_out = run_scenario(spec, generations, root / "clean", cfg,
-                             device=device, slots=slots, lookups=lookups)
+                             device=device, slots=slots, lookups=lookups,
+                             mesh=mesh)
     plan = FaultPlan(seed=spec.seed, **_CHAOS_PLAN_KW)
     chaos_cfg = cfg.replace(**_CHAOS_CFG_KW)
-    print(f"[chaos] injected pass -> {root / 'chaos'} ({plan})")
+    say(f"[chaos] injected pass -> {root / 'chaos'} ({plan})")
     chaos_out = run_scenario(
         spec, generations, root / "chaos", chaos_cfg, device=device,
-        slots=slots, lookups=lookups,
+        slots=slots, lookups=lookups, mesh=mesh,
         make_source=lambda s: faulty_source(synthetic_source(s), plan))
+    if mesh is not None and mesh.rank != 0:
+        return None, None
 
     clean_eng = RefreshEngine(root / "clean", spec, cfg=cfg, device=device)
     chaos_eng = RefreshEngine(root / "chaos", spec, cfg=chaos_cfg, device=device)
@@ -244,8 +273,7 @@ def run_chaos(spec: WorkloadSpec, generations: int, root,
     return ok, {"clean": clean_out, "chaos": chaos_out}
 
 
-def main(argv=None):
-    """CLI entry point; exits 1 on a failed gate."""
+def _parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--users", type=int, default=65536)
     ap.add_argument("--k", type=int, default=8)
@@ -257,7 +285,10 @@ def main(argv=None):
     ap.add_argument("--root", default=None,
                     help="generation root (default: a temp dir)")
     ap.add_argument("--slots", type=int, default=None,
-                    help="virtual feed slots on the one device (default 1)")
+                    help="virtual feed slots (default 1, or the world size)")
+    ap.add_argument("--world", type=int, default=None,
+                    help="run as a world of this many rank processes on this "
+                         "host (under torchrun, each process is a rank already)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--max-iters", type=int, default=60)
     ap.add_argument("--checkpoint-every", type=int, default=4)
@@ -287,8 +318,12 @@ def main(argv=None):
     ap.add_argument("--bucket-half", type=int, default=24,
                     help="bucket ladder half-width (smaller ladders "
                          "tighten the screening certificate)")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def _execute(args, mesh=None) -> int:
+    """One parsed command line, on one process or as one rank of ``mesh``:
+    the exit code (rank 0's is the run's; the others return 0)."""
     if args.smoke:
         args.users, args.chunk, args.generations = 8192, 512, 3
         args.lookups = 256
@@ -300,23 +335,53 @@ def main(argv=None):
                        screening=args.screening,
                        screening_floor=args.screening_floor,
                        bucket_half=args.bucket_half)
-    device = resolve_device(args.device)
-    root = args.root or tempfile.mkdtemp(prefix="refresh_")
-    print(f"[refresh] root {root}; device {device}, slots {args.slots or 1}")
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    world = mesh.size if mesh is not None else 1
+    _printer(mesh)(f"[refresh] root {args.root}; device {device}, world {world}, "
+                   f"slots {args.slots or world}")
     if args.chaos:
-        ok, _ = run_chaos(spec, args.generations, root, cfg, device=device,
-                          slots=args.slots, lookups=args.lookups)
-        sys.exit(0 if ok else 1)
-    out = run_scenario(spec, args.generations, root, cfg, device=device,
+        ok, _ = run_chaos(spec, args.generations, args.root, cfg, device=device,
+                          slots=args.slots, lookups=args.lookups, mesh=mesh)
+        return 1 if ok is False else 0
+    out = run_scenario(spec, args.generations, args.root, cfg, device=device,
                        slots=args.slots, lookups=args.lookups,
-                       verify=not args.no_verify, resume=args.resume)
+                       verify=not args.no_verify, resume=args.resume, mesh=mesh)
+    if out is None:
+        return 0
     if out["warm_refreshes"] \
             and out["warm_iters_total"] >= out["cold_iters_total"]:
         print("[refresh] FAIL: warm refreshes did not beat cold "
               f"({out['warm_iters_total']} >= {out['cold_iters_total']})")
-        sys.exit(1)
-    if not out["lookups_bitwise"]:
-        sys.exit(1)
+        return 1
+    return 0 if out["lookups_bitwise"] else 1
+
+
+def _world_rank(mesh, argv):
+    """One rank of ``--world``: the exit code of the parsed ``argv``."""
+    return _execute(_parser().parse_args(argv), mesh)
+
+
+def main(argv=None):
+    """CLI entry point; exits 1 on a failed gate."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
+    mesh = init_mesh(args.device)
+    if mesh is not None and args.root is None:
+        raise SystemExit("under torchrun every rank needs the same --root")
+    if args.root is None:
+        args.root = tempfile.mkdtemp(prefix="refresh_")
+        argv += ["--root", args.root]
+    if args.world is not None:
+        if mesh is not None:
+            raise SystemExit("--world starts its own ranks: do not pass it "
+                             "under torchrun")
+        resolve_device(args.device)
+        code = run_local_world(_world_rank, args.world, (argv,),
+                               device=args.device, echo=True)
+    else:
+        code = _execute(args, mesh)
+    if code:
+        sys.exit(code)
 
 
 if __name__ == "__main__":

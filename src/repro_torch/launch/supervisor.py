@@ -16,14 +16,23 @@ cadence, while the coordinator (:class:`Supervisor`) watches two signals:
   (:func:`repro_torch.core.heartbeat.claim_takeover`), killed, and
   respawned.
 
-Each respawn may run on a **degraded device count** (devices halve per
-restart, floor ``min_devices``). The lever is the child's
-``CUDA_VISIBLE_DEVICES`` (:func:`repro_torch.launch.env.worker_env`):
-every virtual slot of the port's solve runs on the worker's one device
-(a mesh is ROADMAP A8), so the device count never enters the bits, and
-on a host with one card the start count is 1 and nothing can degrade.
-A CPU worker sees no card whatever the count, which then stays a
-counter, halving as in the reference. A bounded crash-loop budget
+A worker's **count** is its world size: a worker of count D > 1 is a
+world of D rank processes (``launch/mesh.py``) that solves over the
+task's fixed ``slots`` (the widest world of at most D ranks that the
+slot count divides over, the reference's ``_task_mesh``), its ranks
+sharing the visible cards round-robin; a worker of count 1 runs in one
+process. Each respawn may run on a **degraded count** (halving per
+restart, floor ``min_devices``), carried by the child's environment
+(:func:`repro_torch.launch.env.worker_env`), on one card as on several:
+the bits depend on the slot count, never on the world's size, and a
+world-4 resume state resumes on 2 ranks. Rank 0 holds the heartbeat
+lease, and its chunk fetches are the lease's progress (the ranks move in
+step through every pass's collectives, so a stalled rank stalls rank 0's
+progress too). The worker runs in its own session: a takeover kills its
+process group, every rank with it. A chaos kill or stop hits the lease
+holder (rank 0); a world whose rank dies ends at once with
+``WorldError`` (the worker exits non-zero), and a rank stuck in a
+collective raises after the task's ``progress_ttl``. A bounded crash-loop budget
 (``max_restarts``) escalates to a root-level ``FAILED.json`` stamp —
 loud, durable, and the serving LIVE pointer untouched. Every transition
 publishes supervision counters (restarts, takeovers, injected chaos,
@@ -38,12 +47,15 @@ must publish records **bitwise identical** to undisturbed in-process
 reference runs, and a poisoned crash-looping task must exhaust its
 budget into ``FAILED.json`` while LIVE still points at the last good
 generation. The gate asserts the exercised counters (kills, stops,
-hang takeovers and, where more than ``min_devices`` devices start,
-degraded spawns) so a schedule that silently failed to fire cannot pass.
+hang takeovers and, where the workers start on more than
+``min_devices`` ranks, degraded spawns) so a schedule that silently
+failed to fire cannot pass.
 
-    PYTHONPATH=src python -m repro_torch.launch.supervisor --chaos-soak --smoke [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.supervisor --chaos-soak --smoke [--device cpu] [--world D]
     PYTHONPATH=src python -m repro_torch.launch.supervisor --supervise refresh \\
-        --root /tmp/sup --users 65536 --generations 3 --slots 4 [--device cpu]
+        --root /tmp/sup --users 65536 --generations 3 --slots 4 [--world D] [--device cpu]
+
+``--world`` is the workers' start count (default: the slot count).
 
 Workers run on the card unless the task says ``"device": "cpu"``.
 """
@@ -154,8 +166,8 @@ class Supervisor:
     ``task`` is the JSON-serialisable task description ``--worker``
     executes (see :func:`run_solve_task` / :func:`run_refresh_task`); its
     ``device`` ("cuda", the default, or "cpu") picks the child's cards.
-    ``devices`` is the start count: by default the task's slot count,
-    capped on "cuda" at the cards visible here. ``worker_cmd(root, term,
+    ``devices`` is the start count, the worker's world size: by default
+    the task's slot count. ``worker_cmd(root, term,
     devices) -> argv`` overrides the spawned command (tests drive the
     coordinator with scripted fake workers); ``env_extra`` is merged
     into every worker environment.
@@ -174,11 +186,11 @@ class Supervisor:
         self.cfg = cfg if cfg is not None else SupervisorConfig()
         self.task = dict(task)
         self.task.setdefault("ttl", self.cfg.ttl)
+        if self.cfg.progress_ttl is not None:
+            self.task.setdefault("progress_ttl", self.cfg.progress_ttl)
         self.device = self.task.get("device", "cuda")
         if devices is None:
             devices = self.task.get("slots") or 1
-            if self.device == "cuda":
-                devices = min(devices, len(envmod.visible_devices()))
         self.devices0 = int(devices)
         self.chaos = chaos
         self.worker_cmd = worker_cmd
@@ -243,8 +255,9 @@ class Supervisor:
         return wenv
 
     def _spawn(self, term: int, devices: int) -> subprocess.Popen:
+        # Its own session: the worker's ranks share its process group.
         return subprocess.Popen(self._argv(term, devices),
-                                env=self._env(devices))
+                                env=self._env(devices), start_new_session=True)
 
     def _next_term(self) -> int:
         """First unused term on this root (lease + claim debris aware).
@@ -283,8 +296,10 @@ class Supervisor:
     # -- the watch loop -----------------------------------------------------
 
     def _kill(self, proc: subprocess.Popen):
+        """SIGKILL the worker's process group (every rank of its world;
+        STOPped processes too) and reap the worker."""
         try:
-            os.kill(proc.pid, signal.SIGKILL)   # kills STOPped workers too
+            os.killpg(proc.pid, signal.SIGKILL)
         except ProcessLookupError:
             pass
         proc.wait()
@@ -313,6 +328,7 @@ class Supervisor:
             if rc is not None:
                 if rc == 0:
                     return "done", rc, None
+                self._kill(proc)                # ranks the worker left
                 return "crash", rc, injected or time.monotonic()
             if st["expired"]:
                 # The hang path: no liveness evidence for ttl (or the
@@ -321,16 +337,19 @@ class Supervisor:
                 # same treatment: kill, then re-drive from checkpoint.
                 self._kill(proc)
                 return "hang", None, injected or time.monotonic()
-            if events and st["state"] == "fresh" \
+            # One injection a life: a world whose rank 0 was just killed
+            # takes a moment to exit, and its lease reads fresh meanwhile.
+            if events and injected is None and st["state"] == "fresh" \
                     and st["progress"] is not None \
                     and st["progress"] >= events[0][1]:
                 kind, _ = events.pop(0)
+                holder = st["lease"].pid        # rank 0 of a world
                 try:
                     if kind == "kill":
-                        os.kill(proc.pid, signal.SIGKILL)
+                        os.kill(holder, signal.SIGKILL)
                         self._ctrs["kills_injected"].inc()
                     else:
-                        os.kill(proc.pid, signal.SIGSTOP)
+                        os.kill(holder, signal.SIGSTOP)
                         self._ctrs["stops_injected"].inc()
                     injected = time.monotonic()
                 except ProcessLookupError:
@@ -437,7 +456,14 @@ def _task_cfg(task: dict):
     return SolverConfig(**task.get("cfg", {}))
 
 
-def run_solve_task(root, task: dict, hb=None) -> dict:
+def _task_world(slots: Optional[int], count: int) -> int:
+    """The widest world of at most ``count`` ranks that the task's slot
+    count divides over (the reference's ``_task_mesh``)."""
+    s = slots or 1
+    return max(d for d in range(1, min(count, s) + 1) if s % d == 0)
+
+
+def run_solve_task(root, task: dict, hb=None, mesh=None) -> dict:
     """Execute (or resume) a ``kind == "solve"`` task under ``root``.
 
     Solves the task's workload on ``task["device"]`` (the card unless
@@ -446,7 +472,9 @@ def run_solve_task(root, task: dict, hb=None) -> dict:
     worker picks up where its predecessor died — and publishes the
     result record durably at ``root/result`` (ckpt protocol, step 0).
     Idempotent: a worker killed between the record save and its exit is
-    a no-op on the next life. Returns the record as NumPy arrays.
+    a no-op on the next life. Returns the record as NumPy arrays. Over a
+    ``mesh`` every rank calls this and solves over the world; rank 0
+    writes the checkpoints and the record, and every rank returns it.
     """
     import numpy as np
 
@@ -463,7 +491,7 @@ def run_solve_task(root, task: dict, hb=None) -> dict:
     ckdir = str(root / "ckpt")
     res = solve_streaming_host(
         _task_source(task, spec, hb), _task_cfg(task), q=spec.q,
-        device=task.get("device", "cuda"), slots=task.get("slots"),
+        device=task.get("device", "cuda"), mesh=mesh, slots=task.get("slots"),
         checkpoint_dir=ckdir, resume_from=ckdir)
     record = {
         "lam": res.lam.numpy(), "tau": res.tau.numpy(),
@@ -473,11 +501,14 @@ def run_solve_task(root, task: dict, hb=None) -> dict:
     if res.fin_hist is not None:
         record["fin_ch"] = np.asarray(res.fin_hist[0])
         record["fin_gh"] = np.asarray(res.fin_hist[1])
-    ckpt.save(result_dir, 0, record)
+    if mesh is None or mesh.rank == 0:
+        ckpt.save(result_dir, 0, record)
+    if mesh is not None:
+        mesh.barrier()
     return record
 
 
-def run_refresh_task(root, task: dict, hb=None) -> dict:
+def run_refresh_task(root, task: dict, hb=None, mesh=None) -> dict:
     """Execute (or resume) a ``kind == "refresh"`` task under ``root``.
 
     Drives a :class:`~repro_torch.serve.engine.RefreshEngine` over ``root``
@@ -485,7 +516,8 @@ def run_refresh_task(root, task: dict, hb=None) -> dict:
     ``generations`` generations are live. Re-entrant by construction:
     ``recover()`` finishes a preempted generation first, then the loop
     continues from the live pointer — the engine's two-step publication
-    makes every completed generation bitwise the undisturbed one.
+    makes every completed generation bitwise the undisturbed one. Over a
+    ``mesh`` every rank calls this, and the engine runs over the world.
     """
     from ..serve.engine import RefreshEngine, WorkloadSpec
 
@@ -493,7 +525,7 @@ def run_refresh_task(root, task: dict, hb=None) -> dict:
     engine = RefreshEngine(
         pathlib.Path(root), spec,
         make_source=lambda s: _task_source(task, s, hb),
-        cfg=_task_cfg(task), slots=task.get("slots"),
+        cfg=_task_cfg(task), mesh=mesh, slots=task.get("slots"),
         device=task.get("device", "cuda"))
     engine.recover()
     generations = int(task["generations"])
@@ -503,6 +535,31 @@ def run_refresh_task(root, task: dict, hb=None) -> dict:
     for g in range(start, generations):
         engine.refresh(budget_scale=scales[g])
     return {"live": engine.live_gen_id()}
+
+
+def _run_task(root: pathlib.Path, task: dict, term: int, mesh=None):
+    """The durable task under ``root``, with the heartbeat lease held by
+    this process (rank 0 of a world; the other ranks hold none)."""
+    if task["kind"] not in ("solve", "refresh"):
+        raise ValueError(f"unknown task kind {task['kind']!r} in "
+                         f"{root / _TASK}")
+    run = run_solve_task if task["kind"] == "solve" else run_refresh_task
+    if mesh is not None and mesh.rank != 0:
+        run(root, task, None, mesh)
+        return
+
+    from ..core.heartbeat import HeartbeatWriter
+
+    hb = HeartbeatWriter(root / _HEARTBEAT, worker=task.get("kind", "task"),
+                         term=term, ttl=float(task.get("ttl", 3.0)))
+    with hb:
+        run(root, task, hb, mesh)
+
+
+def _worker_rank(mesh, root: str, term: int):
+    """One rank of a worker's world."""
+    root = pathlib.Path(root)
+    _run_task(root, json.loads((root / _TASK).read_text()), term, mesh)
 
 
 def _worker_main(args) -> int:
@@ -516,24 +573,27 @@ def _worker_main(args) -> int:
     before it, with the ``repro_torch.core`` package, inside ``grace``:
     loading torch's CUDA libraries holds the interpreter lock, which
     would starve the renewer thread under a short ``ttl``.
+
+    A worker of count D > 1 (``REPRO_WORKER_WORLD``) starts a world of
+    ranks (:func:`_task_world` of them) and waits for it; rank 0 beats
+    once its world has joined. The world has no wall deadline (the
+    supervisor watches its lease), and each collective times out after
+    the task's ``progress_ttl`` (default the world's 600 s).
     """
     if os.environ.get("REPRO_WORKER_POISON"):
         return int(os.environ["REPRO_WORKER_POISON"])
     root = pathlib.Path(args.worker)
     task = json.loads((root / _TASK).read_text())
+    world = _task_world(task.get("slots"), int(os.environ.get(envmod.WORLD, "1")))
+    if world == 1:
+        _run_task(root, task, args.term)
+        return 0
+    from .mesh import DEFAULT_TIMEOUT, start_local_world
 
-    from ..core.heartbeat import HeartbeatWriter
-
-    hb = HeartbeatWriter(root / _HEARTBEAT, worker=task.get("kind", "task"),
-                         term=args.term, ttl=float(task.get("ttl", 3.0)))
-    with hb:
-        if task["kind"] == "solve":
-            run_solve_task(root, task, hb)
-        elif task["kind"] == "refresh":
-            run_refresh_task(root, task, hb)
-        else:
-            raise ValueError(f"unknown task kind {task['kind']!r} in "
-                             f"{root / _TASK}")
+    start_local_world(_worker_rank, world, (str(root), args.term),
+                      device=task.get("device", "cuda"),
+                      timeout=float(task.get("progress_ttl") or DEFAULT_TIMEOUT),
+                      wall=float("inf")).wait()
     return 0
 
 
@@ -620,7 +680,8 @@ def _sample_decisions(spec, record: dict, users, device):
 
 def run_chaos_soak(root, smoke: bool = False, seed: int = 0,
                    device: str = "cuda",
-                   shape: Optional[SoakShape] = None) -> tuple:
+                   shape: Optional[SoakShape] = None,
+                   world: Optional[int] = None) -> tuple:
     """The supervision gate; returns ``(ok, report)``.
 
     Proves, end to end on ``device``: a supervised solve and a
@@ -631,11 +692,12 @@ def run_chaos_soak(root, smoke: bool = False, seed: int = 0,
     crash-looping task exhausts its restart budget into a root-level
     ``FAILED.json`` while the serving LIVE pointer still names the last
     good generation. Every exercised path is counter-asserted: a soak in
-    which the schedule silently failed to fire fails the gate. Degraded
-    respawns are required where the workers start on more than
-    ``min_devices`` devices (on the CPU: devices = slots, halving; on one
-    card: none possible, and the report says so). ``shape`` overrides
-    the smoke or full :class:`SoakShape`.
+    which the schedule silently failed to fire fails the gate. The
+    workers start as worlds of ``world`` ranks (default: the slot count)
+    and halve per respawn; degraded respawns are required whenever they
+    start on more than ``min_devices`` ranks (on one card too), and
+    waived, with a note in the report, for a start count of 1. ``shape``
+    overrides the smoke or full :class:`SoakShape`.
     """
     import numpy as np
 
@@ -654,9 +716,11 @@ def run_chaos_soak(root, smoke: bool = False, seed: int = 0,
     chaos_cfg = {**base_cfg, **_SOAK_CFG_KW}
     plan = dict(seed=seed, **_SOAK_PLAN_KW)
     scales = _budget_schedule(generations, seed)
+    # progress_ttl: the deadline of a world whose rank stopped or hangs in
+    # a collective (the chaos stops hit rank 0, and expire its lease).
     sup_cfg = SupervisorConfig(ttl=2.5, poll=0.05, grace=120.0,
-                               max_restarts=10)
-    devices = slots if device == "cpu" else None
+                               max_restarts=10, progress_ttl=60.0)
+    devices = world
 
     report: dict = {"smoke": smoke, "seed": seed, "device": device,
                     "shape": shape._asdict()}
@@ -790,9 +854,9 @@ def run_chaos_soak(root, smoke: bool = False, seed: int = 0,
             ("hang_takeovers", hangs, 1), ("crash_restarts", crashes, 2)]
     if devices0 > sup_cfg.min_devices:
         need.append(("degraded_spawns", degraded, 1))
-        report["degrade"] = f"{devices0} devices at start: degrade required"
+        report["degrade"] = f"{devices0} ranks at start: degrade required"
     else:
-        report["degrade"] = (f"{devices0} device: no degrade possible "
+        report["degrade"] = (f"{devices0} rank at start: no degrade possible "
                              f"(min_devices {sup_cfg.min_devices})")
     print(f"[soak] degrade: {report['degrade']}")
     for name, got_n, need_n in need:
@@ -853,6 +917,9 @@ def main():
     ap.add_argument("--tightness", type=float, default=0.4)
     ap.add_argument("--generations", type=int, default=3)
     ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--world", type=int, default=None,
+                    help="the workers' start count, as worlds of ranks "
+                         "(default: the slot count; halves per respawn)")
     ap.add_argument("--max-iters", type=int, default=60)
     ap.add_argument("--checkpoint-every", type=int, default=4)
     ap.add_argument("--ttl", type=float, default=3.0)
@@ -870,7 +937,7 @@ def main():
     root = args.root or tempfile.mkdtemp(prefix="supervisor_")
     if args.chaos_soak:
         ok, _ = run_chaos_soak(root, smoke=args.smoke, seed=args.seed,
-                               device=device)
+                               device=device, world=args.world)
         sys.exit(0 if ok else 1)
     if args.supervise is not None:
         from ..serve.engine import WorkloadSpec
@@ -890,7 +957,7 @@ def main():
         sup = Supervisor(root, task,
                          cfg=SupervisorConfig(ttl=args.ttl,
                                               max_restarts=args.max_restarts),
-                         devices=args.slots if device == "cpu" else None)
+                         devices=args.world)
         out = sup.run()
         print(f"[supervisor] {out}")
         sys.exit(0 if out["ok"] else 1)

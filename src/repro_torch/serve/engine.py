@@ -1,9 +1,21 @@
 """Generation-based refresh engine: the solver as a daily-called service.
 
 The reference's ``serve/engine.py`` under the same names, over the port's
-host-fed driver on one card (``device=`` takes the place of the
-reference's ``mesh=``; several cards are ROADMAP A8). The on-disk layout
-and the two publication steps are the reference's.
+host-fed driver: on one device (``device=``), or over a world of ranks
+(``mesh=``, a ``core.mesh.Mesh``) where the reference takes a mesh of
+devices. The on-disk layout and the two publication steps are the
+reference's.
+
+Over a world every rank constructs the engine and makes the same calls.
+Each refresh is one ``solve_streaming_host(mesh=...)``, and the bits
+depend on ``slots``, never on the world's size: a world of D at
+``slots=S`` publishes the record of the one-process ``slots=S`` engine.
+Rank 0 alone writes (``spec.json``, the record, the ``LIVE.json`` flip,
+``prune`` and the discard of a pending generation; the solve's
+checkpoints too), between barriers: every rank reads the root's state
+after a barrier and before rank 0 writes, and no rank returns from a
+refresh before its record is live. The one exception is ``FAILED.json``:
+the rank whose fetch exhausted its retries writes it.
 
 The paper's deployment claim (§6) is not a single solve — "the system
 has been deployed to production and called on a daily basis": budgets
@@ -63,6 +75,7 @@ import torch
 
 from ..checkpoint import ckpt
 from ..core.faults import ChunkFetchError, policy_from_cfg
+from ..core.mesh import check_mesh
 from ..obs import null_obs
 from ..core.prefetch import (
     HostChunkSource,
@@ -234,10 +247,12 @@ class RefreshEngine:
 
     ``make_source`` maps a :class:`WorkloadSpec` to the
     :class:`~repro_torch.core.prefetch.HostChunkSource` to solve (default:
-    the §6 synthetic workload). ``cfg``/``device``/``slots`` are passed
-    straight to :func:`~repro_torch.core.prefetch.solve_streaming_host` (the
-    card unless ``device="cpu"``; ``mesh`` raises ``NotImplementedError``,
-    ROADMAP A8); give
+    the §6 synthetic workload). ``cfg``/``device``/``mesh``/``slots`` are
+    passed straight to :func:`~repro_torch.core.prefetch.solve_streaming_host`
+    (the card unless ``device="cpu"``; a ``mesh``, on every rank of its
+    world, replaces ``device`` with ``mesh.device`` and sets ``slots`` to
+    its size by default; anything but a ``core.mesh.Mesh`` raises
+    ``TypeError``); give
     ``cfg.checkpoint_every`` a value to make in-flight refreshes
     preemption-safe (the engine supplies the per-generation checkpoint
     directory either way). Engines are cheap handles: any number of
@@ -252,14 +267,15 @@ class RefreshEngine:
                  slots: Optional[int] = None, keep: Optional[int] = None,
                  chunk_diff: Optional[Callable] = None, obs=None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("mesh is not ported yet: ROADMAP A8")
+        self.mesh = check_mesh(mesh)
         self.root = pathlib.Path(root)
         self.base_spec = base_spec
         self.make_source = make_source
         self.cfg = cfg
-        self.device = device
+        self.device = mesh.device if mesh is not None else device
         self.slots = slots
+        # Over a world, rank 0 is the one writer of the root.
+        self.writer = mesh is None or mesh.rank == 0
         # Observability bundle (repro_torch.obs.Obs). Default: the shared
         # no-op. The tracer threads into the solver (refresh spans ride
         # next to solve.iterate/finalize in one journal) and into every
@@ -315,6 +331,11 @@ class RefreshEngine:
                     "run refresh() there first (or raise the attach "
                     "timeout past the first publication)")
             time.sleep(poll_s)
+
+    def _sync(self):
+        """A barrier of the world (nothing on one process)."""
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     # -- directory layout ---------------------------------------------------
 
@@ -389,13 +410,14 @@ class RefreshEngine:
         discard the pending generation first — two concurrent intents
         for the same generation id cannot both be honoured).
         """
+        self._sync()
         live = self.live()
         spec = (live.spec if live is not None else self.base_spec).replace(
             **deltas)
         gen_id = live.gen + 1 if live is not None else 0
         warm = bool(warm and live is not None)   # effective: gen 0 is cold
-
         pending = self._pending()
+        self._sync()             # every rank has read before rank 0 writes
         if pending is not None:
             pend_id, meta = pending
             pend_spec = WorkloadSpec.from_json(meta["spec"])
@@ -418,12 +440,14 @@ class RefreshEngine:
         pointer). The published record is bitwise the one the killed
         process would have produced.
         """
+        self._sync()
         pending = self._pending()
+        parent = self.live()
+        self._sync()
         if pending is None:
             return None
         gen_id, meta = pending
         spec = WorkloadSpec.from_json(meta["spec"])
-        parent = self.live()
         return self._run(gen_id, spec, bool(meta["warm"]), parent)
 
     def _parent_screen(self, parent: Generation) -> Optional[dict]:
@@ -459,12 +483,13 @@ class RefreshEngine:
             source = self.make_source(spec)
         # Durable intent, written before any solve work: the record a
         # killed refresh is replayed from. Idempotent on resume.
-        ckpt.write_json(gdir, "spec.json", {
-            "gen": gen_id,
-            "spec": spec.to_json(),
-            "warm": bool(warm and parent is not None),
-            "parent": None if parent is None else parent.gen,
-        })
+        if self.writer:
+            ckpt.write_json(gdir, "spec.json", {
+                "gen": gen_id,
+                "spec": spec.to_json(),
+                "warm": bool(warm and parent is not None),
+                "parent": None if parent is None else parent.gen,
+            })
 
         if not record_done:
             # Delta refresh: seed the new solve's active set from the
@@ -485,15 +510,18 @@ class RefreshEngine:
             try:
                 res = solve_streaming_host(
                     source, self.cfg, q=spec.q, lam0=lam0, device=self.device,
-                    slots=self.slots, checkpoint_dir=str(ckdir),
-                    resume_from=str(ckdir), screen_init=screen_init,
-                    tracer=self.obs.tracer)
+                    mesh=self.mesh, slots=self.slots,
+                    checkpoint_dir=str(ckdir), resume_from=str(ckdir),
+                    screen_init=screen_init, tracer=self.obs.tracer)
             except ChunkFetchError as e:
                 # Failure containment: the solve exhausted its retry
                 # budget. LIVE.json is untouched (readers keep serving
                 # the previous generation); the pending directory is
                 # stamped with the failure so operators — and recover()
-                # — can see what died and re-drive or discard it.
+                # — can see what died and re-drive or discard it. Over a
+                # world the stamp is written by the rank that raised
+                # (the owner of the chunk): the other ranks see their
+                # collective fail, not this error, and write nothing.
                 ckpt.write_json(gdir, _FAILED, {
                     "gen": gen_id,
                     "error": str(e),
@@ -503,6 +531,7 @@ class RefreshEngine:
                                 for a, err, slept in e.history],
                 })
                 raise
+        if not record_done and self.writer:
             record = {
                 "iters": np.int32(res.iters),
                 "warm": np.int32(lam0 is not None),
@@ -537,6 +566,14 @@ class RefreshEngine:
                     ckpt.save(gdir / "record", _RECORD_STEP, record)
             else:
                 ckpt.save(gdir / "record", _RECORD_STEP, record)
+        if self.writer:
+            self._publish(gdir, gen_id)
+        self._sync()             # no rank returns before the flip
+        return self.generation(gen_id)
+
+    def _publish(self, gdir: pathlib.Path, gen_id: int):
+        """The writer's end of a refresh whose record is saved: clear a
+        failure stamp, flip the pointer, sweep old generations."""
         # A re-driven refresh that succeeded clears any failure stamp a
         # previous attempt left: the generation is healthy now.
         failed = gdir / _FAILED
@@ -551,8 +588,7 @@ class RefreshEngine:
         else:
             ckpt.write_json(self.root, _POINTER, {"gen": gen_id})
         if self.keep is not None:
-            self.prune()
-        return self.generation(gen_id)
+            self._remove(self._prunable(self.keep))
 
     # -- failure surface + generation GC ------------------------------------
 
@@ -578,13 +614,18 @@ class RefreshEngine:
         complete (e.g. its source is permanently gone): removes the
         intent, checkpoints and failure stamp so the next refresh can
         claim the generation id afresh. Published generations are never
-        touched. None when nothing pends.
+        touched. None when nothing pends. Over a world every rank returns
+        the same id, and rank 0 deletes.
         """
+        self._sync()
         pending = self._pending()
+        self._sync()
         if pending is None:
             return None
         gen_id = pending[0]
-        shutil.rmtree(self._gen_dir(gen_id))
+        if self.writer:
+            shutil.rmtree(self._gen_dir(gen_id))
+        self._sync()
         return gen_id
 
     def generation_ids(self) -> list:
@@ -606,11 +647,22 @@ class RefreshEngine:
         its resume states. Readers of *older* generations race this
         sweep by design; they must treat a vanished generation as "the
         pointer moved on" and re-resolve (DecisionService lookups are
-        unaffected — they hold the record in memory).
+        unaffected — they hold the record in memory). Over a world every
+        rank returns the same ids, and rank 0 deletes.
         """
         keep = self.keep if keep is None else keep
         if keep is None or keep < 1:
             raise ValueError(f"prune needs keep >= 1, got {keep}")
+        self._sync()
+        removed = self._prunable(keep)
+        self._sync()
+        if self.writer:
+            self._remove(removed)
+        self._sync()
+        return removed
+
+    def _prunable(self, keep: int) -> list:
+        """The generation ids a sweep to ``keep`` would delete."""
         gens = self.generation_ids()
         live = self.live_gen_id()
         protected = set()
@@ -620,12 +672,11 @@ class RefreshEngine:
         if pending is not None:
             protected.add(pending[0])
         survivors = set(gens[-keep:]) | protected
-        removed = []
-        for g in gens:
-            if g not in survivors:
-                shutil.rmtree(self._gen_dir(g))
-                removed.append(g)
-        return removed
+        return [g for g in gens if g not in survivors]
+
+    def _remove(self, gen_ids):
+        for g in gen_ids:
+            shutil.rmtree(self._gen_dir(g))
 
     # -- lookups ------------------------------------------------------------
 

@@ -24,7 +24,10 @@ Operations on the card: a supervised solve SIGKILLed once publishes the
 in-process record bitwise; a ``ReplicaServer`` answers like the in-process
 ``DecisionService``; ``env.worker_env(1)`` gives a child one card. A world
 of two ranks on the one card (``launch.mesh``): bitwise the in-process
-``slots=2`` host-fed solve.
+``slots=2`` host-fed solve; its device-streamed legacy finalize bitwise the
+fused one in lam, iterations and dual (every field without the
+projection); ``RefreshEngine(mesh=)`` over it bitwise the in-process
+``slots=4`` engine on the card, cold, warm and screened delta.
 """
 import numpy as np
 import pytest
@@ -786,3 +789,38 @@ def test_world_of_two_on_the_card_equals_in_process_slots(cuda_device):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     for x, y in zip(got.fin_hist, want.fin_hist):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_world_legacy_finalize_on_the_card(cuda_device):
+    import _torch_world as W
+    from repro_torch.launch.mesh import run_local_world
+    kp = W.resident_kp(W.table_source(20 * W.CHUNK))
+    out = run_local_world(W.legacy_finalize, 2,
+                          (kp.p.numpy(), kp.b.numpy(), kp.budgets.numpy(), W.CHUNK,
+                           W.Q, {"max_iters": 30, "kernel_tile": 256}),
+                          device="cuda", timeout=600)
+    fused, legacy = out[("fused", True)], out[("legacy", True)]
+    assert fused.iters == legacy.iters
+    assert torch.equal(fused.lam, legacy.lam) and torch.equal(fused.dual, legacy.dual)
+    assert torch.equal(legacy.lam, out["sharded"].lam)
+    f0, l0 = out[("fused", False)], out[("legacy", False)]
+    for f in ("lam", "r", "primal", "dual", "tau"):
+        assert torch.equal(getattr(f0, f).cpu(), getattr(l0, f).cpu()), f
+
+
+@pytest.mark.cuda
+def test_world_refresh_on_the_card_equals_in_process_slots(cuda_device, tmp_path):
+    import _torch_world as W
+    from repro_torch.launch.mesh import run_local_world
+    roots = {name: str(tmp_path / f"world_{name}") for name in W.ENGINES}
+    got = run_local_world(W.serve_world_generations, 2, (roots,), device="cuda",
+                          timeout=600)
+    for name in W.ENGINES:
+        want = W.serve_generations(tmp_path / f"here_{name}", name, device=cuda_device)
+        for a, b in zip(got[name], want):
+            for f in ("lam", "tau", "iters", "r", "primal", "dual", "fingerprint"):
+                assert np.asarray(getattr(a, f)).tobytes() == \
+                    np.asarray(getattr(b, f)).tobytes(), (name, a.gen, f)
+            for x, y in zip(a.fin_hist, b.fin_hist):
+                assert np.asarray(x).tobytes() == np.asarray(y).tobytes()

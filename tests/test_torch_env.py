@@ -78,9 +78,10 @@ def test_describe_reports_effective_environment():
 
 
 def test_worker_env_raises_when_fewer_cards_are_visible():
-    with pytest.raises(ValueError, match="needs as many"):
-        env.worker_env(2, base={env.VISIBLE: "0"})
-    with pytest.raises(ValueError, match="needs as many"):
+    # Fewer cards than ranks: the world's ranks share the visible ones.
+    out = env.worker_env(2, base={env.VISIBLE: "0"})
+    assert (out[env.VISIBLE], out[env.WORLD]) == ("0", "2")
+    with pytest.raises(ValueError, match="at least one visible card"):
         env.worker_env(1, base={env.VISIBLE: ""})
 
 

@@ -315,7 +315,7 @@ def test_prune_discard_and_failed(tmp_path):
     assert eng.generation_ids() == [2] and eng.discard_pending() is None
     with pytest.raises(ValueError, match="keep"):
         _engine(root, keep=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(TypeError, match="Mesh"):
         RefreshEngine(root, SPEC, device="cpu", mesh=object())
 
 

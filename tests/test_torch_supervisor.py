@@ -5,7 +5,8 @@ The coordinator state machine is exercised with *scripted fake workers*
 (``worker_cmd`` override): tiny ``python -c`` subprocesses that speak the
 lease file format directly without importing torch, so crash restarts,
 lease-expiry hang takeovers, chaos injection, device degradation (read
-off each child's ``CUDA_VISIBLE_DEVICES``) and crash-loop containment all
+off each child's ``CUDA_VISIBLE_DEVICES`` and ``REPRO_WORKER_WORLD``, on
+four cards and on one) and crash-loop containment all
 run in well under a second of worker time each. One end-to-end test runs
 a real supervised solve worker on the CPU and pins the published record
 bitwise against an in-process run; the port's record is held against the
@@ -43,7 +44,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 # A scripted worker that renews leases without importing repro_torch (or
 # torch): argv = [python, -c, _FAKE, root, term, mode]. Each life first
-# records its CUDA_VISIBLE_DEVICES in env_<term>.txt. Modes:
+# records its CUDA_VISIBLE_DEVICES in env_<term>.txt and its world size in
+# world_<term>.txt. Modes:
 #   ok            beat a few times, exit 0
 #   crash-once    exit 5 in term 1, behave like "ok" afterwards
 #   crash-twice   exit 5 in terms 1 and 2, behave like "ok" afterwards
@@ -56,6 +58,8 @@ import hashlib, json, os, sys, time
 root, term, mode = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 with open(os.path.join(root, "env_%d.txt" % term), "w") as f:
     f.write(os.environ.get("CUDA_VISIBLE_DEVICES", "<unset>"))
+with open(os.path.join(root, "world_%d.txt" % term), "w") as f:
+    f.write(os.environ.get("REPRO_WORKER_WORLD", "<unset>"))
 path = os.path.join(root, "heartbeat.json")
 seq = 0
 def beat(progress):
@@ -129,17 +133,25 @@ def test_crash_restart_resumes_on_degraded_devices(tmp_path, monkeypatch):
         return [sys.executable, "-c", _FAKE, str(root), str(term),
                 "crash-twice"]
 
-    monkeypatch.setenv(envmod.VISIBLE, "0,1,2,3")
-    sup = Supervisor(tmp_path, {"kind": "noop", "device": "cuda"},
-                     cfg=_cfg(), devices=4, worker_cmd=cmd)
-    out = sup.run()
-    assert out["ok"] and out["crash_restarts"] == 2
-    assert out["last_rc"] == 5
-    assert out["degraded_spawns"] == 2
-    assert seen == [(1, 4), (2, 2), (3, 1)], "respawns must halve the devices"
-    # Each child's environment held the degraded card count: 4, 2, 1.
-    assert [(tmp_path / f"env_{t}.txt").read_text() for t in (1, 2, 3)] \
-        == ["0,1,2,3", "0,1", "0"]
+    # Four cards, then one card: a world of 4 ranks degrades on either.
+    for visible, cards in (("0,1,2,3", ["0,1,2,3", "0,1", "0"]),
+                           ("0", ["0", "0", "0"])):
+        root = tmp_path / f"cards_{visible.count(',') + 1}"
+        root.mkdir()
+        seen.clear()
+        monkeypatch.setenv(envmod.VISIBLE, visible)
+        sup = Supervisor(root, {"kind": "noop", "device": "cuda"},
+                         cfg=_cfg(), devices=4, worker_cmd=cmd)
+        out = sup.run()
+        assert out["ok"] and out["crash_restarts"] == 2
+        assert out["last_rc"] == 5
+        assert out["degraded_spawns"] == 2
+        assert seen == [(1, 4), (2, 2), (3, 1)], "respawns must halve the devices"
+        # Each child's environment held the degraded world size, 4, 2, 1,
+        # and the cards it shares.
+        assert [(root / f"env_{t}.txt").read_text() for t in (1, 2, 3)] == cards
+        assert [(root / f"world_{t}.txt").read_text() for t in (1, 2, 3)] \
+            == ["4", "2", "1"]
 
 
 def test_hang_detected_by_lease_expiry_and_taken_over(tmp_path):
