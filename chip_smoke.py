@@ -43,7 +43,7 @@ check raises, so the script exits non-zero and prints no result line:
    and dual >= primal, and the per-iteration and final-pass times; the
    default bucketed solve of the same rows equals phase 5's host-fed solve
    in lam and iterations (the map tile divides the chunk);
-8. dense end to end: ``dense_instance`` n = 100,000, M = 10, K = 10, C223,
+8. dense end to end: ``dense_instance`` n = 50,000, M = 10, K = 10, C223,
    mixed b, sync bucketed; ``bucket_hist`` launches == iterations, and
    chunk 16,384 (tile 512) bitwise equal to unchunked;
 9. contracts at n = 262,144: resident chunked == unchunked bitwise and ==
@@ -149,22 +149,39 @@ check raises, so the script exits non-zero and prints no result line:
    at 16 chunks, bitwise, with their walls and seconds in collectives
    (recorded, not claimed: the ranks share one card);
 18. serving and operations over a world of 4 ranks sharing the card, at
-   phase 15's shape (K = 8, Q = 2, 8 slots, chunk 65,536, N = 2^22): in
-   one world, the device-streamed legacy finalize against the fused one
+   phase 15's shape (K = 8, Q = 2, 8 slots, chunk 65,536) and half its N
+   (2^21), its references (the scenario's 3 generations at that N, and
+   the screened delta refreshes) refreshed in this process beside the
+   worlds: in one world, the device-streamed legacy finalize against the fused one
    (lam, iterations and dual bitwise; every field bitwise without the
    projection; ``bucket_hist`` and ``adjusted_topc`` launched), screened
    delta refreshes on the banded workload (a budget change inheriting
    every chunk) bitwise this process's ``slots=8`` engine, and
    ``launch/front.run_front_scenario`` whose 3 generations the world
-   publishes, bitwise phase 15's records, while 2 replica processes serve
-   them (every row bitwise its generation's); beside it a world of 4
+   publishes, bitwise the in-process records, while 2 replica processes
+   serve them (every row bitwise its generation's); beside it a world of 4
    whose warm refresh is SIGKILLed on every rank mid-solve, re-driven on
-   a world of 2 to phase 15's generation 1, bitwise; then a supervised
+   a world of 2 to the in-process generation 1, bitwise; then a supervised
    solve task starting as a world of 4, its lease holder SIGKILLed once,
-   respawned as a world of 2, its record bitwise phase 15's generation 0;
-19. the smoke's wall beside its 900 s budget, the ``kernels`` line
+   respawned as a world of 2, its record bitwise the in-process generation 0;
+19. the LM serving path (``models/``, ``launch/serve.py``) at
+   moonshot-v1-16b-a3b's full width and depth (48 layers, 64 experts, top-6,
+   bf16): the knapsack-priced router at the prefill's shape (4,096 tokens x
+   64 experts) on the card, every field bitwise the CPU's from the same
+   probabilities, ``scd_fused_hist`` and ``adjusted_topc`` bitwise their
+   plain versions there and timed; ``launch/serve.serve_loop`` (8 requests,
+   ``max_batch=4``, ``cache_len=256``) with its admitted sets, completion
+   order and admission iterations equal to the CPU port's on the smoke
+   reduction; one ``make_prefill_step`` at B = 4, S = 1,024 through the SCD
+   router, launching ``scd_fused_hist`` 4 x 48 and ``adjusted_topc`` 48 times
+   and nothing else; the decode step's wall at the serving shape beside its
+   weight-read floor, the peak memory; 16 decode steps against one
+   teacher-forced forward (top-k router on both) within ``LM_DECODE_REL``;
+   smoke moonshot and gemma in float32, prefill and decode, on the card
+   against the CPU with TF32 off;
+20. the smoke's wall beside its 900 s budget, the ``kernels`` line
    (launches summed over the paths run in phases 5, 7, 8, 11, 12, 13, 14,
-   15 and 16, and rank 0's of each world of phases 17 and 18, with the
+   15, 16 and 19, and rank 0's of each world of phases 17 and 18, with the
    split), the card's ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -187,7 +204,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 C_MAIN, K, Q_MAIN = 65536, 10, 1
 N_RES = 10_000_000                 # table1 at --scale 0.1
-DENSE_N, DENSE_M = 100_000, 10     # Figure 1 (C223, mixed b) at 100x its N
+DENSE_N, DENSE_M = 100_000, 10     # Figure 1 (C223, mixed b) at 100x its N: phase 6's shape
+DENSE_N_E2E = 50_000                # phase 8's solves at 50x (cut from 10^5 for phase 19)
 CSRC = "src/repro_torch/kernels/csrc/"
 N_HOST_DD = 1_000_000               # host-fed DD
 BANDED = dict(k=6, q=2, tightness=0.08, band=0.05)   # benchmarks/bench_screening.py
@@ -786,13 +804,13 @@ def phase_resident_end_to_end(torch, dev, host_fed):
 
 
 def phase_dense_end_to_end(torch, dev):
-    """Figure 1's dense setup at n = 10^5, sync bucketed, chunked and not."""
+    """Figure 1's dense setup at n = 5 x 10^4, sync bucketed, chunked and not."""
     from repro_torch.core import solver
     from repro_torch.core.instances import dense_instance
     from repro_torch.core.types import SolverConfig
     from repro_torch.kernels import ops
 
-    kp = dense_instance(0, DENSE_N, DENSE_M, K, local="C223", mixed_b=True, device=dev)
+    kp = dense_instance(0, DENSE_N_E2E, DENSE_M, K, local="C223", mixed_b=True, device=dev)
     cfg = SolverConfig(max_iters=40, kernel_tile=512)
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -810,7 +828,7 @@ def phase_dense_end_to_end(torch, dev):
     budgets = kp.budgets.cpu()
     check(bool(torch.all(res.r <= budgets)), "dense solve over budget")
     check(float(res.dual) >= float(res.primal), "dense dual below primal")
-    emit("dense_end_to_end", n=DENSE_N, m=DENSE_M, k=K, local="C223", mixed_b=True,
+    emit("dense_end_to_end", n=DENSE_N_E2E, m=DENSE_M, k=K, local="C223", mixed_b=True,
          iters=res.iters, primal=float(res.primal), dual=float(res.dual),
          gap=float(res.dual - res.primal),
          max_violation=float(torch.max((res.r - budgets) / budgets)),
@@ -1740,9 +1758,6 @@ def phase_serving(torch, np, dev):
     check(out["lookups_bitwise"], "serving: lookups differ from decisions_chunk")
     check(launches["scd_fused_hist"] > 0 and launches["scd_finalize_hist"] > 0,
           f"serving launched no solve kernel: {launches}")
-    scenario = RefreshEngine(work / "scenario", spec, cfg=cfg, device=dev)
-    HOST_RESULTS["serving_gens"] = [scenario.generation(g) for g in range(SERVE_GENS)]
-    HOST_RESULTS["serving_per_gen"] = out["per_generation"]
 
     # 2. A warm refresh SIGKILLed in a fresh interpreter mid-iterate, then
     # recovered here: the record is bitwise the scenario's generation 1.
@@ -2290,20 +2305,24 @@ def phase_world(torch, np, dev):
 # --------------------------------------------------------------------------
 
 SERVE_WORLD = 4
-# A rank of the killed world refresh (8 slots over 4 ranks, 16 chunk reads
-# an epoch) reads the fingerprint probe, then dies half way through the
-# warm refresh's third epoch, as phase 15's refresh does in one process.
-SERVE_WORLD_KILL_AFTER = 1 + 2 * 16 + 8
-# The supervised world's kill: rank 0's progress (its chunk reads, 16 an
-# epoch at 4 ranks) in the cold solve's third or fourth epoch, after the
-# save at iteration 2.
-SUPERVISED_KILL_AT = 48
+# Phase 15's serving shape at half its N (32 chunks; cut from 2^22 to give
+# phase 19 its time): the world's records are held bitwise to this
+# process's ``slots=8`` engine at the same N, refreshed beside the worlds.
+N_SERVE_WORLD = 1 << 21
+SERVE_WORLD_EPOCH = -(-N_SERVE_WORLD // C_MAIN) // SERVE_WORLD   # 8 chunk reads a rank
+# A rank of the killed world refresh (8 slots over 4 ranks) reads the
+# fingerprint probe, then dies half way through the warm refresh's third
+# epoch, as phase 15's refresh does in one process.
+SERVE_WORLD_KILL_AFTER = 1 + 2 * SERVE_WORLD_EPOCH + SERVE_WORLD_EPOCH // 2
+# The supervised world's kill: rank 0's progress (its chunk reads) at the
+# start of the cold solve's fourth epoch, after the save at iteration 2.
+SUPERVISED_KILL_AT = 3 * SERVE_WORLD_EPOCH
 SERVE_BANDED = dict(k=8, q=2, tightness=0.08, band=0.05)
 
 
 def _serve_spec():
     from repro_torch.serve import WorkloadSpec
-    return WorkloadSpec(seed=0, n=N_SERVE, chunk=C_MAIN, **SERVE)
+    return WorkloadSpec(seed=0, n=N_SERVE_WORLD, chunk=C_MAIN, **SERVE)
 
 
 def _serve_cfg():
@@ -2316,7 +2335,7 @@ def _screened_serving():
     serving shape, then a budget change whose chunks are all inherited."""
     from repro_torch.core.types import SolverConfig
     from repro_torch.serve import WorkloadSpec
-    spec = WorkloadSpec(seed=0, n=N_SERVE, chunk=C_MAIN, **SERVE_BANDED)
+    spec = WorkloadSpec(seed=0, n=N_SERVE_WORLD, chunk=C_MAIN, **SERVE_BANDED)
     cfg = SolverConfig(max_iters=30, bucket_half=12, checkpoint_every=SERVE_CKPT_EVERY,
                        screening=True)
     return spec, cfg, ({}, {"budget_scale": 0.95})
@@ -2365,7 +2384,7 @@ def serve_world_main(mesh, work):
         return [eng.refresh(**d) for d in deltas]
 
     def front():
-        chunks = -(-N_SERVE // C_MAIN)
+        chunks = -(-N_SERVE_WORLD // C_MAIN)
         return run_front_scenario(spec, SERVE_GENS, Path(work) / "front", cfg,
                                   replicas=FRONT_REPLICAS, keep=SERVE_GENS,
                                   slots=SERVE_SLOTS, cache_chunks=2 * chunks,
@@ -2382,7 +2401,7 @@ def serve_world_main(mesh, work):
 
 
 def serve_world_killed(mesh, root):
-    """Generation 0 of phase 15's scenario, then its warm refresh, over the
+    """Generation 0 of the serving scenario, then its warm refresh, over the
     world; every rank SIGKILLs itself at its (SERVE_WORLD_KILL_AFTER + 1)-th
     chunk read of the warm refresh."""
     from repro_torch.launch.refresh import _budget_schedule
@@ -2446,21 +2465,32 @@ def phase_world_serving(torch, np, dev):
     from repro_torch.launch.supervisor import ChaosSchedule, Supervisor, SupervisorConfig
     from repro_torch.serve import RefreshEngine
 
+    from repro_torch.launch.refresh import _budget_schedule
+
     work = ROOT / "build" / "smoke_world_serve"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     paths = {}
-    want = HOST_RESULTS["serving_gens"]
     t_phase = time.perf_counter()
 
     # The serving world and the killed world start together; this process
-    # refreshes the screened references beside them.
+    # refreshes the references beside them: the serving scenario's 3
+    # generations and the screened delta refreshes, in one process.
     t_start = time.time()
     world = start_local_world(serve_world_main, SERVE_WORLD, (str(work / "world"),),
                               timeout=WORLD_TIMEOUT)
     killed = start_local_world(serve_world_killed, SERVE_WORLD, (str(work / "killed"),),
                                timeout=WORLD_TIMEOUT)
     try:
+        t0 = time.perf_counter()
+        eng = RefreshEngine(work / "reference", _serve_spec(), cfg=_serve_cfg(), device=dev,
+                            slots=SERVE_SLOTS)
+        want, want_walls = [], []
+        for scale in _budget_schedule(SERVE_GENS, _serve_spec().seed):
+            t1 = time.perf_counter()
+            want.append(eng.refresh(budget_scale=scale))
+            want_walls.append(time.perf_counter() - t1)
+        reference_s = time.perf_counter() - t0
         bspec, bcfg, deltas = _screened_serving()
         t0 = time.perf_counter()
         eng = RefreshEngine(work / "screened_here", bspec, cfg=bcfg, device=dev,
@@ -2489,7 +2519,7 @@ def phase_world_serving(torch, np, dev):
              "legacy_launched_bucket_hist_and_topc":
                  w["finalizes"]["launches"]["bucket_hist"] > 0
                  and w["finalizes"]["launches"]["adjusted_topc"] > 0}
-    emit("world_serving_legacy", world=SERVE_WORLD, n=N_SERVE, chunk=C_MAIN,
+    emit("world_serving_legacy", world=SERVE_WORLD, n=N_SERVE_WORLD, chunk=C_MAIN,
          iters=legacy.iters, primal_fused=float(fused.primal),
          primal_legacy=float(legacy.primal), tau_legacy=float(legacy.tau),
          wall_s=w["finalizes"]["wall_s"], launches_rank0=w["finalizes"]["launches"],
@@ -2502,37 +2532,37 @@ def phase_world_serving(torch, np, dev):
                             ["screen_streamed"])[0]) for g in screened_here]
     facts = {"records_bitwise": all(_same_record(np, a, b)
                                     for a, b in zip(scr, screened_here)),
-             "delta_inherited": first[1] < -(-N_SERVE // C_MAIN),
+             "delta_inherited": first[1] < -(-N_SERVE_WORLD // C_MAIN),
              "screen_bound_launched": w["screened"]["launches"]["screen_bound"] > 0}
-    emit("world_serving_screened", world=SERVE_WORLD, n=N_SERVE, slots=SERVE_SLOTS,
+    emit("world_serving_screened", world=SERVE_WORLD, n=N_SERVE_WORLD, slots=SERVE_SLOTS,
          iters=[g.iters for g in scr], first_epoch_streamed=first,
          wall_s=w["screened"]["wall_s"], in_process_wall_s=screened_here_s,
          launches_rank0=w["screened"]["launches"], **facts)
     check(all(facts.values()), f"world screened delta refreshes: {facts}")
 
-    # 3. The front: the world published phase 15's 3 generations (bitwise)
-    # while 2 replica processes served them.
+    # 3. The front: the world published the in-process engine's 3
+    # generations (bitwise) while 2 replica processes served them.
     out = w["front"]["result"]
     pub = RefreshEngine(work / "world" / "front", _serve_spec(), cfg=_serve_cfg(),
                         device=dev)
     gens = [pub.generation(g) for g in range(SERVE_GENS)]
-    facts = {"records_bitwise_phase15": all(same_generation(np, a, b)
-                                            for a, b in zip(gens, want)),
+    facts = {"records_bitwise_in_process": all(same_generation(np, a, b)
+                                               for a, b in zip(gens, want)),
              "rows_bitwise": out["parity"] and out["stale_rows"] == 0,
              "diff_parity": out["diff"]["parity"],
              "all_rebound": all(r >= 1 for r in out["rebinds"]),
              "metrics_consistent": out["metrics"]["consistent"]}
-    emit("world_serving_front", world=SERVE_WORLD, n=N_SERVE, slots=SERVE_SLOTS,
+    emit("world_serving_front", world=SERVE_WORLD, n=N_SERVE_WORLD, slots=SERVE_SLOTS,
          replicas=FRONT_REPLICAS, generations=SERVE_GENS, iters=[g.iters for g in gens],
          wall_s=w["front"]["wall_s"], refresh_wall_s=out["refresh_wall_s"],
-         phase15_refresh_wall_s=[g["wall_s"] for g in HOST_RESULTS["serving_per_gen"]],
+         in_process_refresh_wall_s=want_walls, in_process_wall_s=reference_s,
          sustained=out["sustained"],
          generations_served=out["generations_served"], rebinds=out["rebinds"],
          diff=out["diff"], launches_rank0=w["front"]["launches"],
          world_start_s=w["t_enter"] - t_start, world_wall_s=world_s, **facts)
     check(all(facts.values()), f"world front: {facts}")
 
-    # 4. The killed world refresh, re-driven on 2 ranks: phase 15's gen 1.
+    # 4. The killed world refresh, re-driven on 2 ranks: the in-process gen 1.
     root = work / "killed"
     left = ckpt.latest_step(root / "gen_000001" / "ckpt")
     t0 = time.time()
@@ -2542,7 +2572,7 @@ def phase_world_serving(torch, np, dev):
     rec = r["record"]
     facts = {"killed_by_sigkill": codes == [-signal.SIGKILL] * SERVE_WORLD,
              "gen0_live_and_state_left": r["live_before"] == 0 and left is not None,
-             "record_bitwise_phase15": rec is not None and rec.gen == 1
+             "record_bitwise_in_process": rec is not None and rec.gen == 1
              and same_generation(np, rec, want[1])}
     emit("world_serving_kill", killed_world=SERVE_WORLD, killed_after_reads=
          SERVE_WORLD_KILL_AFTER, returncodes=codes, killed_wall_s=killed_s,
@@ -2551,8 +2581,8 @@ def phase_world_serving(torch, np, dev):
     check(all(facts.values()), f"world refresh kill: {facts}")
 
     # 5. One supervised solve task: a world of 4, killed once (its lease
-    # holder), respawned on 2 ranks; its record is phase 15's generation 0
-    # (the same cold solve of the same workload).
+    # holder), respawned on 2 ranks; its record is the in-process generation
+    # 0 (the same cold solve of the same workload).
     task = {"kind": "solve", "spec": _serve_spec().to_json(),
             "cfg": {"max_iters": 60, "checkpoint_every": SERVE_CKPT_EVERY},
             "slots": SERVE_SLOTS, "device": "cuda"}
@@ -2573,13 +2603,251 @@ def phase_world_serving(torch, np, dev):
         for k, x in zip(("fin_ch", "fin_gh"), g0.fin_hist))
     facts = {"ok": s["ok"], "killed_once": s["kills_injected"] == 1 and s["restarts"] == 1,
              "degraded_to_2": s["degraded_spawns"] == 1 and s["devices"] == 2,
-             "record_bitwise_phase15_gen0": same}
+             "record_bitwise_in_process_gen0": same}
     emit("world_serving_supervised", start_world=SERVE_WORLD, kill_at_progress=
          SUPERVISED_KILL_AT, wall_s=sup_s, counters=s, recovery_s=sup.recovery_s, **facts)
     check(all(facts.values()), f"supervised world: {facts}")
     emit("world_serving_wall", seconds=time.perf_counter() - t_phase)
     shutil.rmtree(work, ignore_errors=True)
     return paths
+
+
+# --------------------------------------------------------------------------
+# Phase 19: the LM serving path (models/, launch/serve.py) at
+# moonshot-v1-16b-a3b's full width and depth.
+# --------------------------------------------------------------------------
+
+LM_ARCH = "moonshot-v1-16b-a3b"     # src/repro_torch/configs/moonshot_v1_16b_a3b.py, not cut
+LM_PREFILL = (4, 1024)              # B x S: 4,096 tokens through the SCD router
+LM_SERVE = dict(n_requests=8, max_batch=4, cache_len=256)
+LM_DECODE = (2, 16)                 # decode against one teacher-forced forward
+LM_DECODE_STEPS = 8                 # timed decode steps at the serving shape
+# Decode against forward in bf16 at full width and depth, the top-k router
+# on both: bf16 keeps 8 significant bits, the two paths round attention and
+# the expert products at other places (one-token products against 16-token
+# ones, a normalised softmax against the online one), and the hard top-6
+# router flips an expert wherever two affinities sit within that rounding.
+# Held to a relative L2 error of each position's logits of at most 0.15
+# (unrelated logits give about 1.41).
+LM_DECODE_REL = 0.15
+LM_SMOKE = ("moonshot-v1-16b-a3b", "gemma-2b")
+# Card against the port's CPU in float32 with TF32 off: the card's matrix
+# products sum in another order than the CPU's BLAS.
+LM_SMOKE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _tree_bytes(lm, tree):
+    sizes = []
+    lm.tree_map(lambda a: sizes.append((a.numel(), a.numel() * a.element_size())), tree)
+    return sum(n for n, _ in sizes), sum(b for _, b in sizes)
+
+
+def _lm_router(torch, np, dev, cfg):
+    """Phase 19a: the knapsack-priced router at the prefill's shape on the
+    card, bitwise the CPU's from the same probabilities, and its two
+    kernels bitwise and timed there."""
+    from repro_torch.core.bucketing import make_edges
+    from repro_torch.core.moe_router import ROUTER_TILE, scd_route_probs
+    from repro_torch.kernels import ops, ref
+
+    moe, n = cfg.moe, LM_PREFILL[0] * LM_PREFILL[1]
+    g = np.random.default_rng(19)
+    logits = g.standard_normal((n, moe.n_experts)) * 2 + g.standard_normal(moe.n_experts)
+    probs = torch.softmax(torch.tensor(logits, dtype=torch.float32), dim=-1)
+    kw = dict(q=moe.topk, capacity_factor=moe.capacity_factor, iters=moe.scd_iters)
+    want = scd_route_probs(probs, **kw)
+    pc = probs.to(dev)
+    got = scd_route_probs(pc, **kw)
+    torch.cuda.synchronize()
+    facts = {f"{f}_bitwise_cpu": torch.equal(getattr(got, f).cpu(), getattr(want, f))
+             for f in ("lam", "mask", "load", "combine")}
+    ones, lam, q = torch.ones_like(pc), got.lam, moe.topk
+    edges = make_edges(lam, 1e-4, 1.8, 16)              # the router's ladder
+    fused = dict(tile_n=ROUTER_TILE)
+    kh, kt = ops.scd_fused_hist(pc, ones, lam, edges, q, **fused)
+    ph, pt = ref.scd_fused_hist_plain(pc, ones, lam, edges, q, **fused)
+    kx, kv = ops.adjusted_topc(pc, ones, lam, q)
+    px, pv = ref.adjusted_topc_plain(pc, ones, lam, q)
+    torch.cuda.synchronize()
+    facts["fused_bitwise_plain"] = torch.equal(kh, ph) and torch.equal(kt, pt)
+    facts["topc_bitwise_plain"] = torch.equal(kx, px) and torch.equal(kv, pv)
+    facts["capacity_binds"] = float(want.lam.max()) > 0
+    cap = moe.capacity_factor * q * n / moe.n_experts
+    emit("lm_router", tokens=n, experts=moe.n_experts, q=q, iters=moe.scd_iters,
+         capacity=cap, experts_priced=int((want.lam > 0).sum()),
+         load_max=float(want.load.max()), routed=int(want.mask.sum()), **facts)
+    check(all(facts.values()), f"router on the card: {facts}")
+    k, e = moe.n_experts, edges.shape[-1]
+    read = 4 * (2 * n * k + k)
+    shape = {"rows": n, "k": k, "q": q}
+    return {
+        "scd_fused_hist": {
+            **shape, "e": e, "tile": ROUTER_TILE,
+            "ms": time_ms(torch, lambda: ops.scd_fused_hist(pc, ones, lam, edges, q, **fused),
+                          reps=50),
+            "plain_ms": time_ms(torch, lambda: ref.scd_fused_hist_plain(
+                pc, ones, lam, edges, q, **fused), reps=5, warmup=1),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(read + 4 * (k * e + 2 * ref.fused_layout(k, e)[0]),
+                             n * k * (8 + e + q + 1))))},
+        "adjusted_topc": {
+            **shape,
+            "ms": time_ms(torch, lambda: ops.adjusted_topc(pc, ones, lam, q), reps=50),
+            "plain_ms": time_ms(torch, lambda: ref.adjusted_topc_plain(pc, ones, lam, q),
+                                reps=5, warmup=1),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(read + 5 * n * k, n * k * (2 + 2 * q))))}}
+
+
+def _lm_smoke_vs_cpu(torch, np, dev):
+    """Phase 19d: smoke moonshot and gemma in float32 on the card against
+    the port on the CPU, TF32 off: prefill and four decode steps."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm, model as M
+
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name in LM_SMOKE:
+            cfg = registry.get(name).smoke()
+            cpu = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+            card = lm.tree_map(lambda a: a.to(dev), cpu)
+            toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 64)))
+            step, dstep = M.make_prefill_step(cfg), M.make_decode_step(cfg)
+            with torch.no_grad():
+                pairs = [(step(card, {"tokens": toks.to(dev)}).cpu(), step(cpu, {"tokens": toks}))]
+                cc, gc = M.init_cache(cfg, cpu, 2, 16), M.init_cache(cfg, card, 2, 16)
+                for t in range(4):
+                    wl, cc = dstep(cpu, cc, toks[:, t:t + 1], t)
+                    gl, gc = dstep(card, gc, toks[:, t:t + 1].to(dev), t)
+                    pairs.append((gl.cpu(), wl))
+            err = max(float((a - b).abs().max()) for a, b in pairs)
+            out[name] = {"max_abs_err": err, "all_close": all(
+                torch.allclose(a, b, **LM_SMOKE_TOL) for a, b in pairs)}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    emit("lm_smoke_card_vs_cpu", tol=LM_SMOKE_TOL, tf32=False, **out)
+    check(all(v["all_close"] for v in out.values()), f"smoke LM card vs CPU: {out}")
+
+
+def phase_lm_serving(torch, np, dev):
+    """The LM serving path (phase 19): the router on the card, moonshot at
+    full width and depth through ``serve_loop`` and ``make_prefill_step``,
+    decode against forward, and the smoke configs against the CPU."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models import lm, model as M
+    from repro_torch.models.layers import unembed
+
+    t_phase = time.perf_counter()
+    cfg = registry.get(LM_ARCH)
+    kern = _lm_router(torch, np, dev, cfg)
+
+    # b. serve_loop at full width (its own seeded weights), its schedule
+    # equal to the CPU port's on the smoke reduction: the same numpy queue.
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    done, sets, stats = serve_loop(cfg, device=dev, **LM_SERVE)
+    serve_s = time.perf_counter() - t0
+    peak_serve = torch.cuda.max_memory_allocated(dev)
+    cpu_done, cpu_sets, cpu_stats = serve_loop(cfg.smoke(), device="cpu", **LM_SERVE)
+    facts = {"admitted_sets_equal_cpu_smoke": sets == cpu_sets,
+             "completion_order_equal_cpu_smoke":
+                 [r.rid for r in done] == [r.rid for r in cpu_done],
+             "admission_iters_equal_cpu_smoke":
+                 stats["admission_iters"] == cpu_stats["admission_iters"],
+             "all_completed": len(done) == LM_SERVE["n_requests"]}
+    emit("lm_serve_loop", arch=LM_ARCH, **LM_SERVE, wall_s=serve_s,
+         loop_wall_s=stats["wall_s"], admissions=len(sets), admitted_sets=sets,
+         completion_order=[r.rid for r in done], admission_iters=stats["admission_iters"],
+         peak_gb=peak_serve / 1e9, **facts)
+    check(all(facts.values()), f"serve_loop at full width: {facts}")
+
+    # The prefill through the SCD router, its kernel launches counted.
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params, param_bytes = _tree_bytes(lm, params)
+    b, s = LM_PREFILL
+    toks = torch.tensor(np.random.default_rng(20).integers(0, cfg.vocab, (b, s)),
+                        device=dev)
+    step = M.make_prefill_step(cfg)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits = step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill2_s = time.perf_counter() - t0
+    want = {name: 0 for name in launches}
+    want.update(scd_fused_hist=cfg.moe.scd_iters * cfg.n_layers, adjusted_topc=cfg.n_layers)
+    facts = {"launches_as_routed": launches == want,
+             "logits_finite": bool(torch.isfinite(logits).all()),
+             "logits_shape": tuple(logits.shape) == (b, cfg.vocab)}
+
+    # The decode step's wall at the serving shape, beside its weight-read
+    # floor: every weight but the embedding table (indexed), and the cache.
+    caches = M.init_cache(cfg, params, LM_SERVE["max_batch"], LM_SERVE["cache_len"])
+    _, cache_bytes = _tree_bytes(lm, caches)
+    dstep = M.make_decode_step(cfg)
+    tok = toks[:LM_SERVE["max_batch"], :1]
+    walls = []
+    with torch.no_grad():
+        for t in range(LM_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dstep(params, caches, tok, t)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    del caches
+    table = params["embed"]["e"]
+    floor_ms = (param_bytes - table.numel() * table.element_size() + cache_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    emit("lm_prefill", arch=LM_ARCH, params=n_params, param_gb=param_bytes / 1e9,
+         init_s=init_s, batch=b, seq=s, prefill_s=prefill_s, prefill_again_s=prefill2_s,
+         launches=launches, decode_batch=LM_SERVE["max_batch"],
+         decode_cache=LM_SERVE["cache_len"], decode_step_ms=walls,
+         decode_step_ms_median=statistics.median(walls[1:]),
+         weight_read_floor_ms=floor_ms, peak_gb=peak / 1e9, **facts)
+    check(all(facts.values()), f"prefill at full width: {facts} {launches}")
+
+    # c. Decode 16 tokens through the cache against one teacher-forced
+    # forward, the top-k router on both paths.
+    tcfg = cfg.replace(moe=dataclasses.replace(cfg.moe, router="topk"))
+    db, ds = LM_DECODE
+    dtoks = toks[:db, :ds]
+    with torch.no_grad():
+        ref_logits = unembed(lm.head_params(params), lm.forward(params, tcfg, dtoks)).float()
+        caches = M.init_cache(tcfg, params, db, ds)
+        dstep = M.make_decode_step(tcfg)
+        got = torch.stack([dstep(params, caches, dtoks[:, t:t + 1], t)[0][:, 0].float()
+                           for t in range(ds)], dim=1)
+    rel = ((got - ref_logits).norm(dim=-1) / ref_logits.norm(dim=-1)).flatten()
+    facts = {"rel_l2_within": float(rel.max()) <= LM_DECODE_REL,
+             "finite": bool(torch.isfinite(got).all())}
+    emit("lm_decode_vs_forward", arch=LM_ARCH, dtype="bfloat16", batch=db, tokens=ds,
+         rel_l2_max=float(rel.max()), rel_l2_median=float(rel.median()),
+         rel_l2_per_position=[round(float(x), 5) for x in rel],
+         max_abs_err=float((got - ref_logits).abs().max()),
+         logits_abs_max=float(ref_logits.abs().max()), bound=LM_DECODE_REL, **facts)
+    check(all(facts.values()), f"decode against forward at full width: {facts}")
+    del params, caches, logits, ref_logits, got
+    torch.cuda.empty_cache()
+
+    _lm_smoke_vs_cpu(torch, np, dev)
+    emit("lm_serving_wall", seconds=time.perf_counter() - t_phase)
+    return {"lm_prefill": launches}, kern
 
 
 def main():
@@ -2627,6 +2895,10 @@ def main():
     paths.update(phase_operations(torch, np, dev))
     paths.update(phase_world(torch, np, dev))
     paths.update(phase_world_serving(torch, np, dev))
+    lm_paths, lm_kern = phase_lm_serving(torch, np, dev)
+    paths.update(lm_paths)
+    kern["scd_fused_hist"]["router_shape"] = lm_kern["scd_fused_hist"]
+    kern["adjusted_topc"]["router_shape"] = lm_kern["adjusted_topc"]
 
     rows = [{"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name],

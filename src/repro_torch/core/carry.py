@@ -1,11 +1,13 @@
-"""What crosses from the JAX reference into the port: config, instance
-and state.
+"""What crosses from the JAX reference into the port: config, instance,
+state and model parameters.
 
-The system has no weights. A test carries the solver configuration (the
-``dataclasses.asdict`` of a reference ``SolverConfig``), the instance (the
-reference's ``SparseKP``/``DenseKP`` as numpy arrays, or numpy bytes
-through ``host_array_source``) and solver state (numpy arrays:
-multipliers, histograms, finalize carries) into the port.
+A test carries the solver configuration (the ``dataclasses.asdict`` of a
+reference ``SolverConfig``), the instance (the reference's
+``SparseKP``/``DenseKP`` as numpy arrays, or numpy bytes through
+``host_array_source``), solver state (numpy arrays: multipliers,
+histograms, finalize carries) and the LM stack's parameter tree (numpy
+arrays; the reference draws its weights from ``jax.random``, which torch
+cannot reproduce) into the port.
 """
 from __future__ import annotations
 
@@ -83,3 +85,45 @@ def state_from_reference(device, lam=None, dprev=None, hist=None, top=None,
 
     fin_t = None if fin is None else tuple(put(a) for a in fin)
     return SolverState(put(lam), put(dprev), put(hist), put(top), fin_t)
+
+
+_PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _leaf_to_torch(a, device):
+    a = np.asarray(a)
+    name = a.dtype.name
+    if name not in _PARAM_DTYPES:
+        raise ValueError(f"parameter dtype {name} is not supported")
+    if name == "bfloat16":       # numpy has no bfloat16 of its own: carry the bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_reference(tree, cfg, device="cpu"):
+    """The port's LM parameter tree on ``device`` from the reference's
+    (``jax.tree.map(np.asarray, params)``): the same nesting, values and
+    dtypes. Raises ``ValueError`` where a key, shape or dtype differs from
+    the port's own layout for ``cfg`` (``models.model.init`` on the meta
+    device)."""
+    from ..models import model
+
+    def carry(ref, want, path):
+        if isinstance(want, dict):
+            if not isinstance(ref, dict) or sorted(ref) != sorted(want):
+                raise ValueError(f"{path or 'params'}: keys "
+                                 f"{sorted(ref) if isinstance(ref, dict) else ref!r}, "
+                                 f"expected {sorted(want)}")
+            return {k: carry(ref[k], want[k], f"{path}/{k}") for k in want}
+        if isinstance(want, list):
+            if not isinstance(ref, (list, tuple)) or len(ref) != len(want):
+                raise ValueError(f"{path}: expected a list of {len(want)}")
+            return [carry(r, w, f"{path}/{i}") for i, (r, w) in enumerate(zip(ref, want))]
+        t = _leaf_to_torch(ref, device)
+        if tuple(t.shape) != tuple(want.shape) or t.dtype != want.dtype:
+            raise ValueError(f"{path}: {tuple(t.shape)} {t.dtype}, expected "
+                             f"{tuple(want.shape)} {want.dtype}")
+        return t
+
+    return carry(tree, model.init(cfg, None, device="meta"), "")

@@ -40,7 +40,16 @@ def fma_dot(a, w):
 
 def adjusted_profit(p, b, lam):
     """p~_ij = p_ij - sum_k lam_k b_ijk. p: (..., M), b: (..., M, K),
-    lam: (K,) -> (..., M)."""
+    lam: (K,) -> (..., M).
+
+    At K = 1 the subtraction joins the product in one rounding, as the
+    reference's einsum rounds there on the CPU (XLA turns the one-term dot
+    into a multiply and contracts it with the subtraction into an FMA): an
+    item whose ratio p / b equals lam is then decided by the exact sign of
+    p - lam*b, as in the reference, not by a product rounded onto p."""
+    if b.shape[-1] == 1:
+        exact = p.to(torch.float64) - b[..., 0].to(torch.float64) * lam.to(torch.float64)
+        return exact.to(torch.float32)
     return p - fma_dot(b, lam)
 
 

@@ -1,0 +1,140 @@
+"""Attention mixers: GQA/MQA with RoPE and qk-norm, chunked-causal softmax,
+sliding windows and KV-cache decode (``src/repro/models/attention.py``).
+
+Prefill runs the reference's online softmax over kv chunks, chunk by q
+chunk, in float32 with its ``NEG_INF`` masking, so the port holds to its
+arithmetic (no fused attention call: parity is held against these
+operations). Decode consumes a (B, S_max, KV, hd) cache, writes the step's
+k and v into it in place, and attends over the whole cache under the
+causal mask. MLA waits for its slice (ROADMAP A10).
+"""
+from __future__ import annotations
+
+import torch
+
+from .layers import init_rms, rms_norm, rope, truncnorm
+
+NEG_INF = -2.0 ** 30
+
+
+def init_attn(gen, cfg, device, periods=None):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = cfg.param_dtype
+    p = {
+        "wq": truncnorm(gen, (d, h, hd), dt, d ** -0.5, device, periods),
+        "wk": truncnorm(gen, (d, kv, hd), dt, d ** -0.5, device, periods),
+        "wv": truncnorm(gen, (d, kv, hd), dt, d ** -0.5, device, periods),
+        "wo": truncnorm(gen, (h, hd, d), dt, (h * hd) ** -0.5, device, periods),
+    }
+    if cfg.qk_norm:
+        p["qnorm"] = init_rms(hd, dt, device, periods)
+        p["knorm"] = init_rms(hd, dt, device, periods)
+    return p
+
+
+def _proj(x, w):
+    """einsum("bsd,dhk->bshk")."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k).to(x.dtype)).unflatten(-1, (h, k))
+
+
+def _out(o, w):
+    """einsum("bshk,hkd->bsd")."""
+    h, k, d = w.shape
+    return o.flatten(-2) @ w.reshape(h * k, d).to(o.dtype)
+
+
+def _qkv(p, cfg, x, positions):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(p["qnorm"], q, cfg.norm_eps)
+        k = rms_norm(p["knorm"], k, cfg.norm_eps)
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def _pick(s, c):
+    """Largest divisor of s that is <= c (falls back to s itself)."""
+    c = min(c, s)
+    while s % c:
+        c -= 1
+    return c
+
+
+def _chunked_attention(q, k, v, q_pos, kv_pos, chunk, causal, window=0):
+    """Online softmax over kv chunks, for each q chunk.
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); positions give the mask.
+    Returns (B, Sq, H, hd).
+    """
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    cq, ck = _pick(sq, chunk), _pick(skv, chunk)
+    scale = hd ** -0.5
+    # (b, g, r, s, hd) queries; (b, g, 1, hd, s) keys; (b, g, 1, s, hd) values
+    qg = q.reshape(b, sq, kvh, rep, hd).permute(0, 2, 3, 1, 4)
+    kg = k.permute(0, 2, 3, 1).unsqueeze(2)
+    vg = v.permute(0, 2, 1, 3).unsqueeze(2)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    outs = []
+    for i in range(0, sq, cq):
+        qblk, qpos = qg[..., i:i + cq, :], q_pos[i:i + cq]
+        m = torch.full((b, kvh, rep, cq), NEG_INF, **f32)
+        l = torch.zeros((b, kvh, rep, cq), **f32)
+        acc = torch.zeros((b, kvh, rep, cq, hd), **f32)
+        for j in range(0, skv, ck):
+            kpos = kv_pos[j:j + ck]
+            s = (qblk @ kg[..., j:j + ck]) * scale         # (b, g, r, cq, ck)
+            mask = torch.ones((cq, ck), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= qpos[:, None] >= kpos[None, :]
+            if window:
+                mask &= qpos[:, None] - kpos[None, :] < window
+            s = torch.where(mask, s.float(), NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + (p.to(v.dtype) @ vg[..., j:j + ck, :]).float()
+            m = m_new
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+    out = torch.cat(outs, dim=3)                           # (b, g, r, sq, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def attention(p, cfg, x, positions, causal=True):
+    """Full-sequence self-attention (prefill). x: (B, S, D); positions (S,)."""
+    q, k, v = _qkv(p, cfg, x, positions)
+    out = _chunked_attention(q, k, v, positions, positions, cfg.attn_chunk,
+                             causal, cfg.window)
+    return _out(out, p["wo"])
+
+
+# --- decode ------------------------------------------------------------------
+
+def init_kv_cache(cfg, batch, seq_len, dtype, device, periods=None):
+    shape = (batch, seq_len, cfg.n_kv_heads, cfg.hd)
+    full = shape if periods is None else (periods, *shape)
+    return {"k": torch.zeros(full, dtype=dtype, device=device),
+            "v": torch.zeros(full, dtype=dtype, device=device)}
+
+
+def decode_attention(p, cfg, x, cache, pos):
+    """One-token decode. x: (B, 1, D); pos: int, the cache index. Writes the
+    step's k and v into ``cache`` in place and returns (out, cache)."""
+    positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+    q, k, v = _qkv(p, cfg, x, positions)                   # (B, 1, H, hd)
+    cache["k"][:, pos] = k[:, 0]
+    cache["v"][:, pos] = v[:, 0]
+    b, s, kvh, hd = cache["k"].shape
+    rep = cfg.n_heads // kvh
+    qg = q.reshape(b, kvh, rep, hd)
+    s_ = (qg @ cache["k"].permute(0, 2, 3, 1)) * hd ** -0.5  # (b, g, r, s)
+    kv_pos = torch.arange(s, device=x.device)
+    mask = kv_pos <= pos
+    if cfg.window:
+        mask &= kv_pos > pos - cfg.window
+    s_ = torch.where(mask, s_.float(), NEG_INF)
+    w = torch.softmax(s_, dim=-1)
+    o = w.to(cache["v"].dtype) @ cache["v"].permute(0, 2, 1, 3)  # (b, g, r, hd)
+    return _out(o.reshape(b, 1, cfg.n_heads, hd), p["wo"]), cache

@@ -27,7 +27,10 @@ of two ranks on the one card (``launch.mesh``): bitwise the in-process
 ``slots=2`` host-fed solve; its device-streamed legacy finalize bitwise the
 fused one in lam, iterations and dual (every field without the
 projection); ``RefreshEngine(mesh=)`` over it bitwise the in-process
-``slots=4`` engine on the card, cold, warm and screened delta.
+``slots=4`` engine on the card, cold, warm and screened delta. The LM
+serving path: the knapsack-priced router through the two kernels bitwise
+its plain version on the CPU; smoke moonshot and gemma, prefill and
+decode, against the CPU in float32 with TF32 off.
 """
 import numpy as np
 import pytest
@@ -824,3 +827,65 @@ def test_world_refresh_on_the_card_equals_in_process_slots(cuda_device, tmp_path
                     np.asarray(getattr(b, f)).tobytes(), (name, a.gen, f)
             for x, y in zip(a.fin_hist, b.fin_hist):
                 assert np.asarray(x).tobytes() == np.asarray(y).tobytes()
+
+
+@pytest.fixture
+def no_tf32():
+    """Full float32 matrix products on the card (TF32 off), restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,e,q", [(4096, 64, 6), (1000, 8, 2)])
+def test_router_on_card_bitwise_plain(cuda_device, t, e, q):
+    """The knapsack-priced router through ``scd_fused_hist`` (one launch an
+    iteration) and ``adjusted_topc`` (one) on the card: every field bitwise
+    the plain versions' on the CPU from the same probabilities."""
+    from repro_torch.core.moe_router import scd_route_probs
+    g = np.random.default_rng(t + e)
+    logits = g.standard_normal((t, e)) * 2 + g.standard_normal(e)   # uneven experts
+    probs = torch.softmax(torch.tensor(logits, dtype=torch.float32), -1)
+    want = scd_route_probs(probs, q=q, capacity_factor=1.25, iters=4)
+    ops.reset_launches()
+    got = scd_route_probs(probs.to(cuda_device), q=q, capacity_factor=1.25, iters=4)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["scd_fused_hist"] == 4 and ops.LAUNCHES["adjusted_topc"] == 1
+    for f in ("combine", "mask", "lam", "load"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert float(want.lam.max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "gemma-2b"])
+def test_smoke_model_on_card_against_cpu(cuda_device, no_tf32, name):
+    """Prefill (the SCD router on moonshot) and four decode steps at
+    ``smoke()`` in float32 on the card against the port on the CPU, from the
+    same weights. rtol 1e-4, atol 1e-5: the card's matrix products sum in
+    another order than the CPU's, the router's bits are the same."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm, model as M
+    cfg = registry.get(name).smoke()
+    cpu = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = lm.tree_map(lambda a: a.to(cuda_device), cpu)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 64)))
+    step = M.make_prefill_step(cfg)
+    want = step(cpu, {"tokens": toks})
+    ops.reset_launches()
+    got = step(card, {"tokens": toks.to(cuda_device)})
+    torch.cuda.synchronize()
+    if cfg.moe.router == "scd":
+        assert ops.LAUNCHES["scd_fused_hist"] == cfg.moe.scd_iters * cfg.n_layers
+        assert ops.LAUNCHES["adjusted_topc"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    dstep = M.make_decode_step(cfg)
+    cc, gc = M.init_cache(cfg, cpu, 2, 16), M.init_cache(cfg, card, 2, 16)
+    for t in range(4):
+        wl, cc = dstep(cpu, cc, toks[:, t:t + 1], t)
+        gl, gc = dstep(card, gc, toks[:, t:t + 1].to(cuda_device), t)
+        torch.testing.assert_close(gl.cpu(), wl, rtol=1e-4, atol=1e-5)
+    for x, y in zip(lm.tree_map(lambda a: a.cpu(), gc)["slots"], cc["slots"]):
+        torch.testing.assert_close(x["k"], y["k"], rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(x["v"], y["v"], rtol=1e-4, atol=1e-5)

@@ -21,6 +21,41 @@ def _modules():
         yield ".".join(parts)
 
 
+# The LM serving slice: the model stack, the architecture configs, the
+# router and the serving launcher are among the modules walked below.
+LM_SLICE = ("repro_torch.core.moe_router", "repro_torch.launch.serve",
+            "repro_torch.configs.registry", "repro_torch.configs.moonshot_v1_16b_a3b",
+            "repro_torch.configs.gemma_2b", "repro_torch.models.config",
+            "repro_torch.models.layers", "repro_torch.models.attention",
+            "repro_torch.models.moe", "repro_torch.models.blocks",
+            "repro_torch.models.lm", "repro_torch.models.model")
+
+
+def test_walk_covers_the_lm_slice():
+    mods = set(_modules())
+    assert set(LM_SLICE) <= mods, sorted(set(LM_SLICE) - mods)
+    assert {m for m in mods if m.startswith("repro_torch.configs.")} >= {
+        f"repro_torch.configs.{f.stem}" for f in (PKG / "configs").glob("*.py")
+        if f.stem != "__init__"}
+
+
+def test_every_arch_config_resolves_without_jax():
+    code = ("import sys\n"
+            "from repro_torch.configs import registry\n"
+            "from repro_torch.models import model\n"
+            "for name in registry.names():\n"
+            "    registry.get(name).smoke()\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_importing_every_module_loads_neither_jax_nor_repro():
     code = ("import importlib, sys\n"
             f"for m in {list(_modules())!r}:\n"

@@ -1,0 +1,192 @@
+"""The port's LM stack against the reference (``src/repro/models``) on the
+CPU, at each ported arch's ``smoke()`` size in float32.
+
+The reference draws its weights from ``jax.random``, which torch cannot
+reproduce, so each arch's reference parameters cross into the port
+through ``carry.params_from_reference``. Prefill and decode logits and the
+updated caches are held at rtol 1e-4, atol 1e-5: the same float32
+operations, summed in other orders (BLAS against XLA, the router's
+softmax ``exp`` an ulp apart). The port's decode against its own
+teacher-forced forward is held at the reference's own bar (rtol 2e-2,
+atol 2e-3, ``tests/test_models.py``), with the top-k router on both paths
+as there. Configs: every field equal to the reference's, ``smoke()`` too.
+"""
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
+
+from repro.configs import registry as rreg  # noqa: E402
+from repro.models import model as RM  # noqa: E402
+from repro_torch.configs import registry as treg  # noqa: E402
+from repro_torch.core.carry import params_from_reference  # noqa: E402
+from repro_torch.models import lm as Tlm  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.models.layers import unembed  # noqa: E402
+
+jax.config.update("jax_platform_name", "cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """Smoke-size tensors gain nothing from threads, and the suite runs six
+    workers on the host's cores: one intra-op thread for this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+PORTED = ["gemma-2b", "qwen3-4b", "starcoder2-3b", "yi-34b", "internvl2-26b",
+          "moonshot-v1-16b-a3b"]
+DEFERRED = ["mamba2-370m", "jamba-v0.1-52b", "deepseek-v2-236b", "seamless-m4t-medium"]
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@functools.lru_cache(maxsize=None)
+def _arch(name):
+    """(reference cfg, port cfg, reference params, port params) at smoke()."""
+    rcfg, tcfg = rreg.get(name).smoke(), treg.get(name).smoke()
+    rp = RM.init(rcfg, jax.random.PRNGKey(0))
+    tp = params_from_reference(jax.tree.map(np.asarray, rp), tcfg, "cpu")
+    return rcfg, tcfg, rp, tp
+
+
+def _batch(cfg, seed, b=2, s=64):
+    g = np.random.default_rng(seed)
+    toks = g.integers(0, cfg.vocab, (b, s))
+    ref = {"tokens": jnp.asarray(toks, jnp.int32)}
+    port = {"tokens": torch.from_numpy(toks)}
+    if cfg.n_patches:
+        pat = g.standard_normal((b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        ref["patches"], port["patches"] = jnp.asarray(pat), torch.from_numpy(pat)
+    return ref, port
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_prefill_matches_reference(name):
+    rcfg, tcfg, rp, tp = _arch(name)
+    rb, tb = _batch(rcfg, 3)
+    want = np.asarray(jax.jit(RM.make_prefill_step(rcfg))(rp, rb))
+    got = TM.make_prefill_step(tcfg)(tp, tb)
+    assert got.shape == (2, tcfg.vocab)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_decode_steps_and_cache_match_reference(name):
+    """Three decode steps from zero caches: logits and every cache leaf."""
+    rcfg, tcfg, rp, tp = _arch(name)
+    toks = np.random.default_rng(5).integers(0, rcfg.vocab, (2, 3))
+    rc, tc = RM.init_cache(rcfg, rp, 2, 16), TM.init_cache(tcfg, tp, 2, 16)
+    rstep, tstep = jax.jit(RM.make_decode_step(rcfg)), TM.make_decode_step(tcfg)
+    for t, pos in enumerate((0, 1, 5)):
+        rl, rc = rstep(rp, rc, jnp.asarray(toks[:, t:t + 1], jnp.int32), jnp.int32(pos))
+        tl, tc = tstep(tp, tc, torch.from_numpy(toks[:, t:t + 1]), pos)
+        assert tl.shape == (2, 1, tcfg.vocab)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(rl), **TOL)
+    want = jax.tree.leaves(rc)
+    got = jax.tree.leaves(Tlm.tree_map(lambda a: a.numpy(), tc))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_decode_matches_forward(name):
+    """Token-by-token decode through the cache reproduces the port's own
+    teacher-forced forward logits."""
+    _, cfg, _, tp = _arch(name)
+    if cfg.moe.n_experts:
+        # decode always routes with top-k; align the prefill path
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, router="topk"))
+    b, s = 2, 16
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab, (b, s)))
+    want = unembed(Tlm.head_params(tp), Tlm.forward(tp, cfg, toks))
+    caches = TM.init_cache(cfg, tp, b, s)
+    step = TM.make_decode_step(cfg)
+    got = []
+    for t in range(s):
+        logits, caches = step(tp, caches, toks[:, t:t + 1], t)
+        got.append(logits[:, 0])
+    np.testing.assert_allclose(torch.stack(got, 1).numpy(), want.numpy(),
+                               rtol=2e-2, atol=2e-3)
+
+
+def _fields(cfg, dtype_name):
+    d = dataclasses.asdict(cfg)
+    d["dtype"], d["param_dtype"] = dtype_name(cfg.dtype), dtype_name(cfg.param_dtype)
+    return d
+
+
+@pytest.mark.parametrize("name", rreg.names())
+def test_configs_equal_reference(name):
+    assert treg.names() == rreg.names()
+    for pick in (lambda c: c, lambda c: c.smoke()):
+        r, t = pick(rreg.get(name)), pick(treg.get(name))
+        assert _fields(t, lambda d: str(d).split(".")[-1]) == \
+            _fields(r, lambda d: np.dtype(d).name)
+        assert (t.hd, t.n_periods) == (r.hd, r.n_periods)
+
+
+@pytest.mark.parametrize("name", DEFERRED)
+def test_deferred_archs_raise(name):
+    cfg = treg.get(name).smoke()
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        TM.init(cfg, gen, device="cpu")
+
+
+def test_shape_cells_equal_reference():
+    assert {k: dataclasses.asdict(v) for k, v in TM.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in RM.SHAPES.items()}
+    for name in rreg.names():
+        for cell in RM.SHAPES.values():
+            assert TM.cell_applicable(treg.get(name), TM.SHAPES[cell.name]) == \
+                RM.cell_applicable(rreg.get(name), cell)
+
+
+def test_params_from_reference_checks_the_layout():
+    rcfg, tcfg, rp, _ = _arch("gemma-2b")
+    tree = jax.tree.map(np.asarray, rp)
+    tree["final_norm"]["scale"] = tree["final_norm"]["scale"][:-1]
+    with pytest.raises(ValueError, match="final_norm/scale"):
+        params_from_reference(tree, tcfg)
+    tree = jax.tree.map(np.asarray, rp)
+    del tree["slots"][0]["norm2"]
+    with pytest.raises(ValueError, match="slots/0"):
+        params_from_reference(tree, tcfg)
+
+
+def test_init_draws_the_seeded_tree_in_param_dtype():
+    cfg = treg.get("moonshot-v1-16b-a3b").smoke().replace(param_dtype=torch.bfloat16,
+                                                          dtype=torch.bfloat16)
+    a = TM.init(cfg, torch.Generator().manual_seed(3), device="cpu")
+    b = TM.init(cfg, torch.Generator().manual_seed(3), device="cpu")
+    meta = TM.init(cfg, None, device="meta")
+    la, lb, lm_ = jax.tree.leaves(a), jax.tree.leaves(b), jax.tree.leaves(meta)
+    assert all(torch.equal(x, y) for x, y in zip(la, lb))
+    assert [(x.shape, x.dtype) for x in la] == [(m.shape, m.dtype) for m in lm_]
+    w = a["slots"][0]["ffn"]["wi"]
+    assert w.dtype == torch.bfloat16 and w.shape[0] == cfg.n_periods
+    assert float(w.float().abs().max()) <= 2.0 * cfg.d_model ** -0.5 * (1 + 2 ** -8)
+    assert a["slots"][0]["ffn"]["router"].dtype == torch.float32
+
+
+def test_params_from_reference_carries_bf16_bits():
+    """A bf16 reference tree (numpy has no bf16 of its own) crosses bit
+    for bit; the router stays float32 as in the reference."""
+    rcfg = rreg.get("moonshot-v1-16b-a3b").smoke().replace(param_dtype=jnp.bfloat16,
+                                                           dtype=jnp.bfloat16)
+    tcfg = treg.get("moonshot-v1-16b-a3b").smoke().replace(param_dtype=torch.bfloat16,
+                                                           dtype=torch.bfloat16)
+    rp = jax.tree.map(np.asarray, RM.init(rcfg, jax.random.PRNGKey(1)))
+    tp = params_from_reference(rp, tcfg)
+    for r, t in zip(jax.tree.leaves(rp), jax.tree.leaves(tp)):
+        assert t.dtype == (torch.bfloat16 if r.dtype.name == "bfloat16" else torch.float32)
+        assert np.array_equal(t.float().numpy(), r.astype(np.float32))
+    assert tp["slots"][0]["ffn"]["router"].dtype == torch.float32
