@@ -43,7 +43,7 @@ check raises, so the script exits non-zero and prints no result line:
    and dual >= primal, and the per-iteration and final-pass times; the
    default bucketed solve of the same rows equals phase 5's host-fed solve
    in lam and iterations (the map tile divides the chunk);
-8. dense end to end: ``dense_instance`` n = 50,000, M = 10, K = 10, C223,
+8. dense end to end: ``dense_instance`` n = 25,000, M = 10, K = 10, C223,
    mixed b, sync bucketed; ``bucket_hist`` launches == iterations, and
    chunk 16,384 (tile 512) bitwise equal to unchunked;
 9. contracts at n = 262,144: resident chunked == unchunked bitwise and ==
@@ -108,12 +108,12 @@ check raises, so the script exits non-zero and prints no result line:
    screened solve, with the active-chunk profile;
 15. the serving layer: ``launch/refresh.run_scenario`` at the reference's
    serving shape (K = 8, Q = 2, tightness 0.4, 8 slots, chunk 65,536,
-   N = 2^22, 3 generations): warm iterations below cold, 512 lookups
+   N = 2^21, 3 generations): warm iterations below cold, 512 lookups
    bitwise ``decisions_chunk``, batched and single QPS; a warm refresh
    SIGKILLed in a fresh interpreter and recovered here, its record bitwise
    the uninterrupted one; ``run_chaos`` at n = 262,144 (chaos == clean);
    and the card's generation records bitwise the CPU's there;
-16. operations at the serving shape (N = 2^22, 8 slots, 3 generations):
+16. operations at the serving shape (N = 2^21, 8 slots, 3 generations):
    ``launch/supervisor.run_chaos_soak``, its references in this process
    and the supervised solve and refresh in worker processes on the card
    under one SIGKILL and one SIGSTOP each plus a fetch-level fault plan,
@@ -179,9 +179,24 @@ check raises, so the script exits non-zero and prints no result line:
    teacher-forced forward (top-k router on both) within ``LM_DECODE_REL``;
    smoke moonshot and gemma in float32, prefill and decode, on the card
    against the CPU with TF32 off;
-20. the smoke's wall beside its 900 s budget, the ``kernels`` line
+20. the LM training path (``optim/``, ``models/model.make_train_step``,
+   ``launch/train.py``) at moonshot-v1-16b-a3b's full width and 4 of its 48
+   layers (bf16, SCD router, remat): ``train()`` for 4 steps at B = 4, S =
+   1,024, each step launching ``scd_fused_hist`` 2 x 4 x 4 and
+   ``adjusted_topc`` 2 x 4 times (forward and remat recompute) and nothing
+   else, its step walls beside the executed FLOPs over the bf16 peak, the
+   peak memory, the parameters moved, and a second ``train()`` from the same
+   seed bitwise in parameters and moments; one train step of smoke moonshot
+   and gemma in float32 on the card against the CPU (TF32 off): loss,
+   gradients, ``grad_norm``, the update from the same gradients and the
+   card's own step; 6 steps against 3, a resume and 3 more on the card,
+   bitwise, in float32 and with bf16 parameters; ``python -m
+   repro_torch.launch.train --arch gemma-2b --smoke ... --simulate-failure-at
+   5`` (in a thread from the phase's start) exits 42 at step 4 and its
+   rerun resumes from step 4 and finishes;
+21. the smoke's wall beside its 900 s budget, the ``kernels`` line
    (launches summed over the paths run in phases 5, 7, 8, 11, 12, 13, 14,
-   15, 16 and 19, and rank 0's of each world of phases 17 and 18, with the
+   15, 16, 19 and 20, and rank 0's of each world of phases 17 and 18, with the
    split), the card's ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -205,7 +220,7 @@ F32_OPS_PER_S = 67e12
 C_MAIN, K, Q_MAIN = 65536, 10, 1
 N_RES = 10_000_000                 # table1 at --scale 0.1
 DENSE_N, DENSE_M = 100_000, 10     # Figure 1 (C223, mixed b) at 100x its N: phase 6's shape
-DENSE_N_E2E = 50_000                # phase 8's solves at 50x (cut from 10^5 for phase 19)
+DENSE_N_E2E = 25_000                # phase 8's solves at 25x (cut from 10^5 for phases 19, 20)
 CSRC = "src/repro_torch/kernels/csrc/"
 N_HOST_DD = 1_000_000               # host-fed DD
 BANDED = dict(k=6, q=2, tightness=0.08, band=0.05)   # benchmarks/bench_screening.py
@@ -232,14 +247,14 @@ REPLACES = {"scd_fused_hist": "src/repro/kernels/scd_fused.py:93",
 N_STREAM = 100_000_000              # the device-streamed table1, uncut
 N_HISTORY = 1_000_000               # the sampled history, host-fed against streamed
 SERVE = dict(k=8, q=2, tightness=0.4)   # the reference's serving shape (launch/refresh.py)
-N_SERVE, SERVE_SLOTS, SERVE_GENS = 1 << 22, 8, 3   # 64 chunks, cut from 10^8
+N_SERVE, SERVE_SLOTS, SERVE_GENS = 1 << 21, 8, 3   # 32 chunks, cut from 10^8 (and from 2^22)
 SERVE_CKPT_EVERY = 2
 # Phase 16: the soak's kill/stop thresholds on the lease's progress (chunk
-# reads, two a fetch under verify_refetch): 1-3.5 epochs of 64 chunks,
-# inside the first worker life of a cold solve of ~10 epochs (1,280 reads)
+# reads, two a fetch under verify_refetch): 1-3.5 epochs of 32 chunks,
+# inside the first worker life of a cold solve of ~10 epochs (640 reads)
 # at phase 15's ladder (bucket_half 24; the soak's 16 runs to max_iters).
-SOAK_LO, SOAK_HI = 128, 448
-FRONT_REPLICAS, FRONT_DIFF_STRIDE = 2, 64   # /diff asks about 65,536 users
+SOAK_LO, SOAK_HI = 64, 224
+FRONT_REPLICAS, FRONT_DIFF_STRIDE = 2, 64   # /diff asks about 32,768 users
 HOST_RESULTS = {}                   # host-fed results later phases compare against
 
 
@@ -804,7 +819,7 @@ def phase_resident_end_to_end(torch, dev, host_fed):
 
 
 def phase_dense_end_to_end(torch, dev):
-    """Figure 1's dense setup at n = 5 x 10^4, sync bucketed, chunked and not."""
+    """Figure 1's dense setup at n = DENSE_N_E2E, sync bucketed, chunked and not."""
     from repro_torch.core import solver
     from repro_torch.core.instances import dense_instance
     from repro_torch.core.types import SolverConfig
@@ -2305,7 +2320,7 @@ def phase_world(torch, np, dev):
 # --------------------------------------------------------------------------
 
 SERVE_WORLD = 4
-# Phase 15's serving shape at half its N (32 chunks; cut from 2^22 to give
+# Phase 15's serving shape at its N (32 chunks; cut from 2^22 to give
 # phase 19 its time): the world's records are held bitwise to this
 # process's ``slots=8`` engine at the same N, refreshed beside the worlds.
 N_SERVE_WORLD = 1 << 21
@@ -2850,6 +2865,278 @@ def phase_lm_serving(torch, np, dev):
     return {"lm_prefill": launches}, kern
 
 
+# --------------------------------------------------------------------------
+# Phase 20: LM training (optim/, the train step, launch/train.py) at
+# moonshot-v1-16b-a3b's full width.
+# --------------------------------------------------------------------------
+
+# A trained parameter holds 12 bytes (bf16 weight and gradient, two float32
+# moments): 337 GB at the config's 48 layers, 35.4 GB at 4. Depth is cut to
+# 4 layers; every width stays the config's.
+LM_TRAIN_LAYERS = 4
+LM_TRAIN_BATCH = (4, 1024)          # 4,096 tokens: the router at (4,096, 64), q = 6
+LM_TRAIN_STEPS = 4
+# The reference CLI's lr without its warmup: bf16 keeps 8 significant bits,
+# so an update moves a weight only where it exceeds half an ulp (3e-4 moves
+# weights below 0.125, the init's d^-0.5 scale; a norm's 1.0 never moves).
+LM_TRAIN_OPT = dict(lr=3e-4, warmup=1)
+BF16_OPS_PER_S = 989e12             # H100 SXM data sheet, dense bf16
+# Card against CPU at smoke(), float32, TF32 off (the CPU tests' bars): the
+# loss rtol 1e-5, each gradient leaf a relative L2 error of 1e-4, the
+# update from the same gradients rtol 1e-6 of the leaf's largest element.
+LM_TRAIN_LOSS_RTOL, LM_TRAIN_GRAD_REL, LM_TRAIN_UPDATE_RTOL = 1e-5, 1e-4, 1e-6
+LM_TRAIN_CLI = ["--arch", "gemma-2b", "--smoke", "--steps", "8", "--batch", "2",
+                "--seq", "64", "--ckpt-every", "2"]
+
+
+def _train_flops(cfg, b, s):
+    """Executed FLOPs of one train step (2 a multiply-add): the port's MoE
+    runs every token through every expert (the reference's ``_moe_local``)
+    and its chunked softmax every key block; the backward is twice the
+    forward; remat recomputes each block and the loss each chunk's head."""
+    d, h, kv, hd, m = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.moe
+    layer = 2 * d * hd * (2 * h + 2 * kv) + 4 * s * h * hd
+    if cfg.ffn_pattern[0] == "moe":
+        layer += 4 * d * m.n_experts + 6 * d * m.d_ff * (m.n_experts + m.n_shared)
+    else:
+        layer += 6 * d * cfg.d_ff
+    fwd = b * s * (cfg.n_layers * layer + 2 * d * cfg.vocab)
+    return 4 * fwd if cfg.remat else 3 * fwd
+
+
+def _lm_train_full(torch, np, dev):
+    """Phase 20a: ``train()`` at full width, 4 layers, twice from one seed."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm, model as M
+    from repro_torch.optim import OptConfig
+    from repro_torch.models.lm import tree_leaves
+
+    cfg = registry.get(LM_ARCH).replace(n_layers=LM_TRAIN_LAYERS)
+    check(cfg.moe.router == "scd" and cfg.remat and cfg.param_dtype == torch.bfloat16,
+          f"phase 20's config: router {cfg.moe.router}, remat {cfg.remat}")
+    b, s = LM_TRAIN_BATCH
+
+    def run():
+        hist = []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        params, opt, _ = train(cfg, OptConfig(**LM_TRAIN_OPT), LM_TRAIN_STEPS, seed=0,
+                               batch_shape=LM_TRAIN_BATCH, log_every=0, device=dev,
+                               history=hist)
+        torch.cuda.synchronize()
+        return (params, opt, hist, time.perf_counter() - t0, dict(ops.LAUNCHES),
+                torch.cuda.max_memory_allocated(dev))
+
+    params, opt, hist, wall, launches, peak = run()
+    n_params, param_bytes = _tree_bytes(lm, params)
+    init = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    changed = [int((a != z).sum()) for a, z in zip(tree_leaves(params), tree_leaves(init))]
+    # The first run's weights and moments (29.5 GB) stay on the card beside
+    # the second run (peak ~43 GB): the card holds both.
+    first = [a.detach() for a in tree_leaves([params, opt.mu, opt.nu])]
+    del init, params, opt
+    params, opt, hist2, wall2, launches2, peak2 = run()
+    bitwise = all(torch.equal(a.detach(), b)
+                  for a, b in zip(tree_leaves([params, opt.mu, opt.nu]), first))
+    del params, opt, first
+    torch.cuda.empty_cache()
+
+    per_step = {name: 0 for name in launches}
+    per_step.update(scd_fused_hist=2 * cfg.moe.scd_iters * cfg.n_layers,
+                    adjusted_topc=2 * cfg.n_layers)
+    want = {k: v * LM_TRAIN_STEPS for k, v in per_step.items()}
+    walls = [r["wall_s"] for r in hist]
+    med = statistics.median(walls[1:])
+    flops = _train_flops(cfg, b, s)
+    facts = {"launches_as_routed": launches == want and launches2 == want,
+             "finite": all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                           for r in hist + hist2),
+             "params_moved": sum(changed) > 0,
+             "two_runs_bitwise": bitwise,
+             "same_losses": [r["loss"] for r in hist] == [r["loss"] for r in hist2]}
+    emit("lm_train", arch=LM_ARCH, layers=cfg.n_layers, layers_of_config=48,
+         dtype="bfloat16", remat=cfg.remat, router=cfg.moe.router, batch=b, seq=s,
+         steps=LM_TRAIN_STEPS, params=n_params, param_gb=param_bytes / 1e9,
+         state_gb=(2 * param_bytes + 8 * n_params) / 1e9,
+         losses=[r["loss"] for r in hist], grad_norms=[r["grad_norm"] for r in hist],
+         lrs=[r["lr"] for r in hist], step_wall_s=walls, step_wall_s_median=med,
+         second_run_step_wall_s=[r["wall_s"] for r in hist2], train_wall_s=wall,
+         second_train_wall_s=wall2, peak_gb=peak / 1e9,
+         peak_gb_beside_first_run=peak2 / 1e9, launches=launches,
+         launches_per_step=per_step, step_tflop=flops / 1e12,
+         bf16_peak_bound_ms=flops / BF16_OPS_PER_S * 1e3,
+         achieved_tflops=flops / med / 1e12,
+         opt=LM_TRAIN_OPT, moved_fraction=sum(changed) / n_params,
+         moved_leaves=sum(c > 0 for c in changed), leaves=len(changed), **facts)
+    check(all(facts.values()), f"training at full width: {facts} {launches}")
+    return launches
+
+
+def _grads(lm, M, tree_leaves, params, cfg, batch):
+    """The loss and the gradient tree of ``params`` on ``batch``."""
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+        p.grad = None
+    loss = M.loss_fn(params, cfg, batch)
+    loss.backward()
+    grads = lm.tree_map(lambda p: p.grad, params)
+    for p in tree_leaves(params):
+        p.grad = None
+        p.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def _lm_train_smoke_vs_cpu(torch, np, dev):
+    """Phase 20b: one train step of smoke moonshot and gemma in float32 on
+    the card against the port on the CPU, TF32 off."""
+    from repro_torch.configs import registry
+    from repro_torch.data.synth import lm_batch
+    from repro_torch.models import lm, model as M
+    from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+    from repro_torch.models.lm import tree_leaves
+
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name in LM_SMOKE:
+            cfg = registry.get(name).smoke()
+            opt_cfg = OptConfig(lr=1e-3, warmup=2)
+            cpu = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+            card = lm.tree_map(lambda a: a.to(dev), cpu)
+            same = lm.tree_map(lambda a: a.to(dev), cpu)
+            batch = lm_batch(cfg, (2, 64), 0, seed=1, device="cpu")
+            wl, wg = _grads(lm, M, tree_leaves, cpu, cfg, batch)
+            gl, gg = _grads(lm, M, tree_leaves, card, cfg,
+                            {k: v.to(dev) for k, v in batch.items()})
+            rel = [0.0 if not w.any() and not g.any() else
+                   float((g.cpu() - w).norm() / w.norm())
+                   for g, w in zip(tree_leaves(gg), tree_leaves(wg))]
+            _, _, wm = apply_updates(cpu, wg, init_opt_state(cpu, opt_cfg), opt_cfg)
+            _, _, gm = apply_updates(card, gg, init_opt_state(card, opt_cfg), opt_cfg)
+            apply_updates(same, lm.tree_map(lambda g: g.to(dev), wg),
+                          init_opt_state(same, opt_cfg), opt_cfg)
+            lr1 = float(wm["lr"])
+            upd = max(float((a.cpu() - w).abs().max() / w.abs().max())
+                      for a, w in zip(tree_leaves(same), tree_leaves(cpu)))
+            step_err = max(float((a.cpu() - w).abs().max())
+                           for a, w in zip(tree_leaves(card), tree_leaves(cpu)))
+            out[name] = {
+                "loss_rel": abs(float(gl) - float(wl)) / abs(float(wl)),
+                "grad_rel_l2_max": max(rel),
+                "grad_norm_rel": abs(float(gm["grad_norm"]) - float(wm["grad_norm"]))
+                / float(wm["grad_norm"]),
+                "update_same_grads_rel_max": upd,
+                # at step 1 an element moves by lr * (sign(g) + wd * p):
+                # a gradient near 0 whose sign differs moves it 2 lr apart
+                "step_abs_err_max": step_err, "step_bound": 2 * lr1 * (1 + 1e-3)}
+            v = out[name]
+            v["ok"] = (v["loss_rel"] <= LM_TRAIN_LOSS_RTOL
+                       and v["grad_rel_l2_max"] <= LM_TRAIN_GRAD_REL
+                       and v["grad_norm_rel"] <= LM_TRAIN_LOSS_RTOL
+                       and v["update_same_grads_rel_max"] <= LM_TRAIN_UPDATE_RTOL
+                       and v["step_abs_err_max"] <= v["step_bound"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    emit("lm_train_card_vs_cpu", tf32=False, loss_rtol=LM_TRAIN_LOSS_RTOL,
+         grad_rel_l2=LM_TRAIN_GRAD_REL, update_rtol=LM_TRAIN_UPDATE_RTOL, **out)
+    check(all(v["ok"] for v in out.values()), f"smoke train step card vs CPU: {out}")
+
+
+def _lm_train_resume(torch, np, dev):
+    """Phase 20c: resume on the card at smoke size (moonshot, its SCD router
+    on the card), bitwise, in float32 and with bf16 parameters."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import train
+    from repro_torch.optim import OptConfig
+    from repro_torch.models.lm import tree_leaves
+
+    work = ROOT / "build" / "smoke_train" / "resume"
+    facts = {}
+    opt_cfg = OptConfig(lr=1e-3, warmup=2)
+    kw = dict(seed=3, batch_shape=(2, 64), log_every=0, device=dev)
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = registry.get(LM_ARCH).smoke().replace(param_dtype=dtype)
+        full = train(cfg, opt_cfg, steps=6, **kw)
+        d = work / str(dtype).split(".")[-1]
+        train(cfg, opt_cfg, steps=3, ckpt_dir=str(d), ckpt_every=3, **kw)
+        res = train(cfg, opt_cfg, steps=6, ckpt_dir=str(d), ckpt_every=3, **kw)
+        a, r = tree_leaves(full[:2]), tree_leaves(res[:2])
+        facts[f"resume_bitwise_{str(dtype).split('.')[-1]}"] = (
+            len(a) == len(r) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                     for x, y in zip(a, r))
+            and res[2] == full[2][3:] and ckpt.latest_step(d) == 6)
+    resume_s = time.perf_counter() - t0
+
+    emit("lm_train_resume", arch=LM_ARCH, smoke=True, resume_wall_s=resume_s, **facts)
+    check(all(facts.values()), f"resume on the card: {facts}")
+
+
+def _lm_train_cli(d, out):
+    """Phase 20d: the training CLI on the card, killed after step 5 by
+    ``--simulate-failure-at``, then rerun (two cold interpreters, 16-30 s
+    each). ``out["proc"]`` is the running one, for the phase to kill if it
+    fails first."""
+    from repro_torch.checkpoint import ckpt
+
+    args = [sys.executable, "-m", "repro_torch.launch.train", *LM_TRAIN_CLI,
+            "--ckpt-dir", str(d)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for key, extra in (("first", ["--simulate-failure-at", "5"]), ("second", [])):
+        if out.get("stop"):
+            return
+        t0 = time.perf_counter()
+        proc = out["proc"] = subprocess.Popen(args + extra, env=env, text=True,
+                                              stdout=subprocess.PIPE,
+                                              stderr=subprocess.PIPE)
+        stdout, stderr = proc.communicate(timeout=300)
+        out[key] = (proc.returncode, stdout, stderr, time.perf_counter() - t0,
+                    ckpt.latest_step(d))
+
+
+def phase_lm_training(torch, np, dev):
+    """The LM training path (phase 20): moonshot at full width and 4 layers
+    through ``train()`` twice, the smoke step against the CPU, resume, and
+    the CLI killed and rerun in a thread from the phase's start (its cold
+    interpreters import torch while the full-width runs are timed; its
+    card work lands beside the smoke-size checks)."""
+    import threading
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    cli = {}
+    thread = threading.Thread(target=_lm_train_cli, args=(work / "cli", cli), daemon=True)
+    thread.start()
+    try:
+        launches = _lm_train_full(torch, np, dev)
+        _lm_train_smoke_vs_cpu(torch, np, dev)
+        _lm_train_resume(torch, np, dev)
+        thread.join(timeout=700)
+    finally:
+        cli["stop"] = True
+        if thread.is_alive() and cli.get("proc") is not None:
+            cli["proc"].kill()
+    (rc1, _, err1, s1, step1), (rc2, out2, err2, s2, step2) = \
+        cli.get("first", (None,) * 5), cli.get("second", (None, "", "", None, None))
+    facts = {"cli_exit_42": rc1 == 42, "cli_latest_after_kill_4": step1 == 4,
+             "cli_rerun_exit_0": rc2 == 0, "cli_resumed_from_4": "resumed from step 4" in out2,
+             "cli_done": "done" in out2, "cli_latest_8": step2 == 8}
+    emit("lm_train_cli", cli=LM_TRAIN_CLI, killed_wall_s=s1, rerun_wall_s=s2,
+         rerun_tail=out2.strip().splitlines()[-1:], **facts)
+    check(all(facts.values()),
+          f"the training CLI on the card: {facts} {(err1 or '')[-2000:]} {err2[-2000:]}")
+    shutil.rmtree(work, ignore_errors=True)
+    emit("lm_training_wall", seconds=time.perf_counter() - t_phase)
+    return {"lm_train": launches}
+
+
 def main():
     import numpy as np
     import torch
@@ -2899,6 +3186,7 @@ def main():
     paths.update(lm_paths)
     kern["scd_fused_hist"]["router_shape"] = lm_kern["scd_fused_hist"]
     kern["adjusted_topc"]["router_shape"] = lm_kern["adjusted_topc"]
+    paths.update(phase_lm_training(torch, np, dev))
 
     rows = [{"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name],

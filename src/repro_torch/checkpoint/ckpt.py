@@ -1,27 +1,35 @@
-"""Atomic, durable checkpoints of flat dicts of arrays.
+"""Atomic, durable checkpoints of trees of arrays.
 
 The reference's ``checkpoint/ckpt.py`` on the same on-disk layout, so a
-directory written by either package is read by the other's
-:func:`restore_auto` (one step per directory):
+directory written by either package is read by the other's ``restore``
+(and, for flat dicts, ``restore_auto``; one step per directory):
 
     <dir>/step_000042.tmp/...      (written first)
     <dir>/step_000042/             (atomic rename on completion)
         manifest.json              (leaf paths, shapes, dtypes, step)
-        arr_00000.npy ...          (one file per leaf, in sorted key order)
+        arr_00000.npy ...          (one file per leaf, in tree order)
 
-* A checkpoint is a flat ``dict[str, ndarray | Tensor]``. Leaf paths are
-  the ``['name']`` strings the reference's pytree paths give a flat dict,
-  and leaves are written in sorted key order, as the reference flattens
-  one.
+* A checkpoint is a tree of dicts, lists, tuples and ``NamedTuple``s whose
+  leaves are tensors or arrays, in the order of ``jax.tree.leaves`` (dict
+  keys sorted; a ``None`` holds no leaf). Leaf paths are the reference's
+  ``jax.tree_util.keystr``: ``['params']['slots'][0]['mixer']['wq']``,
+  ``['opt'].step``, ``['opt'].mu['embed']['e']``; a flat dict's are
+  ``['name']``.
+* bfloat16 leaves are written as the reference writes them: ``np.save``
+  of an ``ml_dtypes`` bfloat16 array, the descriptor ``<V2`` over the raw
+  bits and the manifest dtype ``"bfloat16"``; they restore as
+  ``torch.bfloat16`` (NumPy has no bfloat16 of its own).
 * Atomicity: a crash mid-save leaves only a ``.tmp`` directory, which
   restore ignores and the next save overwrites — a restart can never see a
   torn checkpoint.
 * Durability: leaf files and manifests are fsynced before the rename and
   the parent directory after it, so a published step (or pointer flip)
   survives power loss, not just SIGKILL — see ``fsync_dir``.
-* Placement: restored leaves come back as tensors on the host, or on the
-  device a ``device_tree`` names for them (``.to(device)``, where the
-  reference re-places with ``jax.device_put``).
+* Placement: each restored leaf goes to the device ``device_tree`` names
+  (one device for every leaf, or a dict of flat leaf name -> device), else
+  to the device of its ``like`` leaf where that is a tensor, else to the
+  host (``.to(device)``, where the reference re-places with
+  ``jax.device_put``).
 * Corruption is loud: a step directory whose manifest exists but cannot be
   parsed, or whose manifest names a leaf file that is missing or
   unreadable, raises an actionable ``ValueError`` naming the offending
@@ -45,19 +53,66 @@ import torch
 __all__ = ["save", "restore", "restore_auto", "latest_step", "write_json",
            "read_json", "prune", "fsync_dir"]
 
+_BF16 = "bfloat16"
+_KEY_RE = re.compile(r"\['([^']*)'\]")
 
-def _host(leaf) -> np.ndarray:
+
+def _host(leaf):
+    """(array to write, manifest dtype) of a leaf. A bfloat16 tensor gives
+    its raw bits as uint16."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.contiguous().view(torch.int16).numpy().view(np.uint16), _BF16
+        return t.numpy(), str(t.numpy().dtype)
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
 
 
-def _flat(tree: dict):
-    """(path string, leaf) pairs of a flat string-keyed dict, in sorted key
-    order."""
-    if not isinstance(tree, dict) or not all(isinstance(k, str) for k in tree):
-        raise TypeError("a checkpoint is a flat dict of arrays keyed by str")
-    return [(f"['{k}']", tree[k]) for k in sorted(tree)]
+def _shape(leaf):
+    return tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else np.shape(leaf)
+
+
+def _is_namedtuple(x):
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _leaves_with_paths(tree, path=""):
+    """(keystr path, leaf) pairs in the order of ``jax.tree.leaves``."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in _leaves_with_paths(tree[k], f"{path}[{k!r}]")]
+    if _is_namedtuple(tree):
+        return [pl for f in tree._fields
+                for pl in _leaves_with_paths(getattr(tree, f), f"{path}.{f}")]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree) for pl in _leaves_with_paths(v, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def _unflatten(like, leaves):
+    """``like``'s structure with its leaves taken in order from the
+    iterator ``leaves``."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    if _is_namedtuple(like):
+        return type(like)(*(_unflatten(getattr(like, f), leaves) for f in like._fields))
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(v, leaves) for v in like)
+    return next(leaves)
+
+
+def _write_leaf(f, arr, dtype):
+    if dtype == _BF16:
+        # np.save of an ml_dtypes bfloat16 array, header and bytes
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False, "shape": arr.shape})
+        f.write(np.ascontiguousarray(arr).tobytes())
+    else:
+        np.save(f, arr)
 
 
 def fsync_dir(path) -> None:
@@ -81,7 +136,7 @@ def fsync_dir(path) -> None:
         os.close(fd)
 
 
-def save(directory, step: int, tree: dict) -> str:
+def save(directory, step: int, tree) -> str:
     """Atomically AND durably write ``tree`` as checkpoint ``step``.
 
     Every leaf file and the manifest are fsynced before the directory
@@ -98,18 +153,18 @@ def save(directory, step: int, tree: dict) -> str:
         shutil.rmtree(tmp)
     tmp.mkdir()
     manifest = {"step": step, "leaves": []}
-    for i, (path, leaf) in enumerate(_flat(tree)):
-        arr = _host(leaf)
+    for i, (path, leaf) in enumerate(_leaves_with_paths(tree)):
+        arr, dtype = _host(leaf)
         fname = f"arr_{i:05d}.npy"
         with open(tmp / fname, "wb") as f:
-            np.save(f, arr)
+            _write_leaf(f, arr, dtype)
             f.flush()
             os.fsync(f.fileno())
         manifest["leaves"].append({
             "path": path,
             "file": fname,
             "shape": list(arr.shape),
-            "dtype": str(arr.dtype),
+            "dtype": dtype,
         })
     with open(tmp / "manifest.json", "w") as f:
         json.dump(manifest, f)
@@ -183,35 +238,46 @@ def latest_step(directory):
     return max(steps) if steps else None
 
 
-def _place(arr, device):
-    t = torch.from_numpy(arr)
+def _place(arr, meta, device):
+    if meta["dtype"] == _BF16:
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
     return t if device is None else t.to(device)
 
 
-def restore(directory, step: int, like: dict, device_tree=None) -> dict:
-    """Restore into the keys and shapes of ``like`` (a flat dict of arrays
-    or tensors). ``device_tree``: optional dict of leaf name -> device;
-    the other leaves stay on the host."""
+def _device_of(path, leaf, device_tree):
+    if isinstance(device_tree, (str, torch.device)):
+        return device_tree
+    if device_tree is not None:
+        keys = _KEY_RE.findall(path)
+        return device_tree.get(keys[0]) if len(keys) == 1 else None
+    if isinstance(leaf, torch.Tensor) and leaf.device.type != "meta":
+        return leaf.device
+    return None
+
+
+def restore(directory, step: int, like, device_tree=None):
+    """Restore into the structure and shapes of ``like`` (a tree of arrays
+    or tensors, on any device, ``meta`` included). ``device_tree``: one
+    device for every leaf, or a dict of flat leaf name -> device; else a
+    leaf goes to its ``like`` leaf's device, or to the host."""
     d = pathlib.Path(directory) / f"step_{step:08d}"
     manifest = _read_manifest(d)
-    flat_like = _flat(like)
+    flat_like = _leaves_with_paths(like)
     if len(flat_like) != len(manifest["leaves"]):
         raise ValueError(f"checkpoint {d} has {len(manifest['leaves'])} "
                          f"leaves, expected {len(flat_like)}")
-    out = {}
+    out = []
     for (path, leaf), meta in zip(flat_like, manifest["leaves"]):
         if path != meta["path"]:
             raise ValueError(f"tree mismatch: {path} vs {meta['path']}")
         arr = _load_leaf(d, meta)
-        if list(arr.shape) != list(_host(leaf).shape):
+        if tuple(arr.shape) != tuple(_shape(leaf)):
             raise ValueError(f"{path}: shape {arr.shape} on disk, "
-                             f"expected {tuple(_host(leaf).shape)}")
-        name = path[2:-2]
-        out[name] = _place(arr, (device_tree or {}).get(name))
-    return out
-
-
-_KEY_RE = re.compile(r"\['([^']*)'\]")
+                             f"expected {tuple(_shape(leaf))}")
+        out.append(_place(arr, meta, _device_of(path, leaf, device_tree)))
+    return _unflatten(like, iter(out))
 
 
 def restore_auto(directory, step: int, device_tree=None) -> dict:
@@ -233,7 +299,7 @@ def restore_auto(directory, step: int, device_tree=None) -> dict:
             raise ValueError(
                 "restore_auto supports flat dict checkpoints only, "
                 f"got leaf path {meta['path']!r}")
-        out[keys[0]] = _place(_load_leaf(d, meta),
+        out[keys[0]] = _place(_load_leaf(d, meta), meta,
                               (device_tree or {}).get(keys[0]))
     return out
 

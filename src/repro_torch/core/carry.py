@@ -1,13 +1,13 @@
 """What crosses from the JAX reference into the port: config, instance,
-state and model parameters.
+state, model parameters and optimizer state.
 
 A test carries the solver configuration (the ``dataclasses.asdict`` of a
 reference ``SolverConfig``), the instance (the reference's
 ``SparseKP``/``DenseKP`` as numpy arrays, or numpy bytes through
 ``host_array_source``), solver state (numpy arrays: multipliers,
-histograms, finalize carries) and the LM stack's parameter tree (numpy
+histograms, finalize carries), the LM stack's parameter tree (numpy
 arrays; the reference draws its weights from ``jax.random``, which torch
-cannot reproduce) into the port.
+cannot reproduce) and the optimizer's ``OptState`` into the port.
 """
 from __future__ import annotations
 
@@ -101,6 +101,27 @@ def _leaf_to_torch(a, device):
     return torch.from_numpy(np.array(a)).to(device)
 
 
+def _carry_tree(ref, want, path, device):
+    """``ref`` (numpy leaves) as tensors on ``device``, checked leaf for
+    leaf against the tree ``want`` (meta tensors: the port's layout)."""
+    if isinstance(want, dict):
+        if not isinstance(ref, dict) or sorted(ref) != sorted(want):
+            raise ValueError(f"{path or 'params'}: keys "
+                             f"{sorted(ref) if isinstance(ref, dict) else ref!r}, "
+                             f"expected {sorted(want)}")
+        return {k: _carry_tree(ref[k], want[k], f"{path}/{k}", device) for k in want}
+    if isinstance(want, list):
+        if not isinstance(ref, (list, tuple)) or len(ref) != len(want):
+            raise ValueError(f"{path}: expected a list of {len(want)}")
+        return [_carry_tree(r, w, f"{path}/{i}", device)
+                for i, (r, w) in enumerate(zip(ref, want))]
+    t = _leaf_to_torch(ref, device)
+    if tuple(t.shape) != tuple(want.shape) or t.dtype != want.dtype:
+        raise ValueError(f"{path}: {tuple(t.shape)} {t.dtype}, expected "
+                         f"{tuple(want.shape)} {want.dtype}")
+    return t
+
+
 def params_from_reference(tree, cfg, device="cpu"):
     """The port's LM parameter tree on ``device`` from the reference's
     (``jax.tree.map(np.asarray, params)``): the same nesting, values and
@@ -109,21 +130,25 @@ def params_from_reference(tree, cfg, device="cpu"):
     device)."""
     from ..models import model
 
-    def carry(ref, want, path):
-        if isinstance(want, dict):
-            if not isinstance(ref, dict) or sorted(ref) != sorted(want):
-                raise ValueError(f"{path or 'params'}: keys "
-                                 f"{sorted(ref) if isinstance(ref, dict) else ref!r}, "
-                                 f"expected {sorted(want)}")
-            return {k: carry(ref[k], want[k], f"{path}/{k}") for k in want}
-        if isinstance(want, list):
-            if not isinstance(ref, (list, tuple)) or len(ref) != len(want):
-                raise ValueError(f"{path}: expected a list of {len(want)}")
-            return [carry(r, w, f"{path}/{i}") for i, (r, w) in enumerate(zip(ref, want))]
-        t = _leaf_to_torch(ref, device)
-        if tuple(t.shape) != tuple(want.shape) or t.dtype != want.dtype:
-            raise ValueError(f"{path}: {tuple(t.shape)} {t.dtype}, expected "
-                             f"{tuple(want.shape)} {want.dtype}")
-        return t
+    return _carry_tree(tree, model.init(cfg, None, device="meta"), "", device)
 
-    return carry(tree, model.init(cfg, None, device="meta"), "")
+
+def opt_state_from_reference(state, cfg, device="cpu"):
+    """The port's ``optim.OptState`` on ``device`` from the reference's
+    (``jax.tree.map(np.asarray, opt_state)``): ``step`` an int32 scalar,
+    ``mu``, ``nu`` and ``err`` (None without compression) float32 trees of
+    the parameters' layout for ``cfg``. Raises ``ValueError`` where a key,
+    shape or dtype differs from ``optim.init_opt_state`` of the port's own
+    layout (on the meta device)."""
+    from ..models import model
+    from ..optim import OptConfig, OptState, init_opt_state
+
+    want = init_opt_state(model.init(cfg, None, device="meta"),
+                          OptConfig(compress_grads=state.err is not None))
+    step = np.asarray(state.step)
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"step: {step.shape} {step.dtype}, expected () int32")
+    trees = {f: None if getattr(want, f) is None else
+             _carry_tree(getattr(state, f), getattr(want, f), f, device)
+             for f in ("mu", "nu", "err")}
+    return OptState(step=torch.from_numpy(step.copy()).to(device), **trees)

@@ -15,7 +15,14 @@ import torch
 from ..data.synth import sparse_host_chunk_source
 from .types import DenseKP, SparseKP, cardinality_set, disjoint_partition_sets
 
-__all__ = ["sparse_instance", "dense_instance"]
+__all__ = ["shard_key", "sparse_instance", "dense_instance"]
+
+
+def shard_key(seed: int, shard: int = 0) -> int:
+    """The Philox key of shard ``shard`` of seed ``seed``: a pure function
+    of the two, different for each shard (the reference folds the shard
+    into a ``jax.random`` key)."""
+    return (seed & (2 ** 64 - 1)) << 64 | (shard & (2 ** 64 - 1))
 
 
 def sparse_instance(seed, n, k, q=1, tightness=0.5, b_high=1.0, device="cpu",

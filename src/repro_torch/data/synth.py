@@ -1,6 +1,14 @@
-"""Synthetic KP instances, restart-deterministic per chunk: NumPy chunks
-for the host-fed driver, and chunks generated on the device for the
-device-streamed one."""
+"""Synthetic data, restart-deterministic per (seed, step, shard): token
+batches for LM training, KP shards, NumPy chunks for the host-fed driver
+and chunks generated on the device for the device-streamed one
+(``src/repro/data/synth.py``).
+
+After a failure any worker regenerates exactly the byte-identical batch or
+shard it would have seen, so checkpoint and restart never replay or skip
+data. The reference draws ``jax.random``, which PyTorch cannot reproduce;
+these draw NumPy Philox (or a ``torch.Generator`` on the device), so a
+test carries one package's batch or instance into the other.
+"""
 from __future__ import annotations
 
 import numpy as np
@@ -9,6 +17,62 @@ import torch
 from ..core.chunked import ChunkSource
 from ..core.prefetch import HostChunkSource, sharded_source
 from ..core.solver import resolve_device
+
+
+def lm_batch(cfg, cell_or_shape, step, seed=0, device="cuda"):
+    """Token batch for ``train_step`` on ``device``. cell_or_shape:
+    ShapeCell or (b, s).
+
+    A pure function of ``(seed, step)`` (NumPy Philox keyed by both), with
+    the reference's structure: a learnable stream whose target is a fixed
+    affine function of the input token, ``(7 t + 3) % vocab``, with 10 % of
+    the targets replaced by uniform noise, so a model that learns anything
+    drives the loss well below ln(vocab) within tens of steps. Vision
+    configs get ``patches`` and audio ones ``frames``: N(0, 1) in
+    ``cfg.dtype``, times 0.02.
+    """
+    from ..models import model as M
+
+    dev = resolve_device(device)
+    if hasattr(cell_or_shape, "global_batch"):
+        b, s = cell_or_shape.global_batch, cell_or_shape.seq_len
+    else:
+        b, s = cell_or_shape
+    tl = M._text_len(cfg, s)
+    rng = np.random.Generator(np.random.Philox(
+        key=np.array([seed & (2 ** 64 - 1), step & (2 ** 64 - 1)], np.uint64)))
+    toks = rng.integers(0, cfg.vocab, (b, tl))
+    clean = (toks * 7 + 3) % cfg.vocab
+    noise = rng.integers(0, cfg.vocab, (b, tl))
+    flip = rng.random((b, tl)) < 0.1
+    put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    batch = {"tokens": put(toks), "targets": put(np.where(flip, noise, clean))}
+
+    def normal(shape):
+        x = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev, cfg.dtype)
+        return x * 0.02
+
+    if cfg.kind == "encdec":
+        batch["frames"] = normal((b, max(s // 2, 8), cfg.d_model))
+    if cfg.n_patches:
+        batch["patches"] = normal((b, cfg.n_patches, cfg.d_model))
+    return batch
+
+
+def kp_shard(workload, shard: int, n_shards: int, seed: int = 0, device="cuda"):
+    """Shard ``shard`` of ``n_shards`` of a paper-scale sparse instance (§6
+    setup) on ``device``: ``instances.sparse_instance`` at the shard's
+    ``n_users // n_shards`` rows, keyed by ``instances.shard_key(seed,
+    shard)``, so a pure function of ``(seed, shard)``, different for each
+    shard. Budgets are global: the shard-local ones times ``n_shards``.
+    Returns (SparseKP, q)."""
+    from ..core.instances import shard_key, sparse_instance
+
+    dev = resolve_device(device)
+    n_local = workload.n_users // n_shards
+    kp, q = sparse_instance(shard_key(seed, shard), n_local, workload.k, workload.q,
+                            tightness=workload.tightness, device=dev)
+    return kp._replace(budgets=kp.budgets * n_shards), q
 
 
 def sparse_chunk_source(seed, n, k, chunk, q=1, tightness=0.5, b_high=1.0,

@@ -32,7 +32,7 @@ def check_mixer(cfg, slot: str) -> str:
     if kind in _DEFERRED:
         raise NotImplementedError(
             f"{cfg.name}: {_DEFERRED[kind]} is not ported yet; it comes with "
-            "ROADMAP A10's slice after training (Mamba2, MLA, encoder-decoder)")
+            "ROADMAP A10's next slice (Mamba2, MLA, encoder-decoder)")
     if kind != "attn":
         raise ValueError(kind)
     return kind

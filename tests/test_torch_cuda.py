@@ -30,7 +30,12 @@ projection); ``RefreshEngine(mesh=)`` over it bitwise the in-process
 ``slots=4`` engine on the card, cold, warm and screened delta. The LM
 serving path: the knapsack-priced router through the two kernels bitwise
 its plain version on the CPU; smoke moonshot and gemma, prefill and
-decode, against the CPU in float32 with TF32 off.
+decode, against the CPU in float32 with TF32 off. The LM training path:
+one smoke train step of moonshot and gemma on the card against the CPU in
+float32 with TF32 off (the loss rtol 1e-5, each gradient within a
+relative L2 error of 1e-4, ``grad_norm`` rtol 1e-5, the update from the
+same gradients rtol 1e-6 of the leaf's largest element); a resumed run
+and two runs from one seed bitwise on the card.
 """
 import numpy as np
 import pytest
@@ -889,3 +894,80 @@ def test_smoke_model_on_card_against_cpu(cuda_device, no_tf32, name):
     for x, y in zip(lm.tree_map(lambda a: a.cpu(), gc)["slots"], cc["slots"]):
         torch.testing.assert_close(x["k"], y["k"], rtol=1e-4, atol=1e-5)
         torch.testing.assert_close(x["v"], y["v"], rtol=1e-4, atol=1e-5)
+
+
+def _loss_and_grads(params, cfg, batch):
+    from repro_torch.models import lm, model as M
+    from repro_torch.models.lm import tree_leaves
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    loss = M.loss_fn(params, cfg, batch)
+    loss.backward()
+    grads = lm.tree_map(lambda p: p.grad, params)
+    for p in tree_leaves(params):
+        p.grad = None
+        p.requires_grad_(False)
+    return loss.detach(), grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "gemma-2b"])
+def test_smoke_train_step_on_card_against_cpu(cuda_device, no_tf32, name):
+    """One train step at ``smoke()`` in float32 on the card against the
+    port on the CPU, from the same weights and batch: the loss, every
+    gradient, ``grad_norm``, and the update from the CPU's gradients."""
+    from repro_torch.configs import registry
+    from repro_torch.data.synth import lm_batch
+    from repro_torch.models import lm, model as M
+    from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+    from repro_torch.models.lm import tree_leaves
+    cfg = registry.get(name).smoke()
+    opt_cfg = OptConfig(lr=1e-3, warmup=2)
+    cpu = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = lm.tree_map(lambda a: a.to(cuda_device), cpu)
+    batch = lm_batch(cfg, (2, 64), 0, seed=1, device="cpu")
+    ops.reset_launches()
+    gl, gg = _loss_and_grads(card, cfg, {k: v.to(cuda_device) for k, v in batch.items()})
+    if cfg.moe.router == "scd":          # forward and remat recompute
+        assert ops.LAUNCHES["scd_fused_hist"] == 2 * cfg.moe.scd_iters * cfg.n_layers
+        assert ops.LAUNCHES["adjusted_topc"] == 2 * cfg.n_layers
+    wl, wg = _loss_and_grads(cpu, cfg, batch)
+    np.testing.assert_allclose(float(gl), float(wl), rtol=1e-5)
+    for g, w in zip(tree_leaves(gg), tree_leaves(wg)):
+        if not w.any():
+            assert not g.any()
+        else:
+            assert float((g.cpu() - w).norm() / w.norm()) <= 1e-4
+    _, _, gm = apply_updates(card, lm.tree_map(lambda g: g.to(cuda_device), wg),
+                             init_opt_state(card, opt_cfg), opt_cfg)
+    _, _, wm = apply_updates(cpu, wg, init_opt_state(cpu, opt_cfg), opt_cfg)
+    np.testing.assert_allclose(float(gm["grad_norm"]), float(wm["grad_norm"]), rtol=1e-5)
+    for a, w in zip(tree_leaves(card), tree_leaves(cpu)):
+        np.testing.assert_allclose(a.cpu().numpy(), w.numpy(), rtol=1e-6,
+                                   atol=1e-6 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_train_on_card_resumed_and_repeated_bitwise(cuda_device, tmp_path):
+    """Moonshot at ``smoke()`` (its SCD router on the card, remat): 6 steps
+    straight, again from the same seed, and 3 + a resume + 3, all bitwise
+    in parameters and optimizer state."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import train
+    from repro_torch.optim import OptConfig
+    from repro_torch.models.lm import tree_leaves
+    cfg = registry.get("moonshot-v1-16b-a3b").smoke()
+    opt_cfg = OptConfig(lr=1e-3, warmup=2)
+    kw = dict(seed=3, batch_shape=(2, 64), log_every=0, device=cuda_device)
+    ops.reset_launches()
+    full = train(cfg, opt_cfg, steps=6, **kw)
+    assert ops.LAUNCHES["scd_fused_hist"] == 6 * 2 * cfg.moe.scd_iters * cfg.n_layers
+    again = train(cfg, opt_cfg, steps=6, **kw)
+    train(cfg, opt_cfg, steps=3, ckpt_dir=str(tmp_path), ckpt_every=3, **kw)
+    res = train(cfg, opt_cfg, steps=6, ckpt_dir=str(tmp_path), ckpt_every=3, **kw)
+    want = tree_leaves(full[:2])
+    for other in (again, res):
+        got = tree_leaves(other[:2])
+        assert len(got) == len(want)
+        assert all(a.device == b.device and torch.equal(a, b) for a, b in zip(got, want))
+    assert res[2] == full[2][3:]

@@ -21,19 +21,25 @@ def _modules():
         yield ".".join(parts)
 
 
-# The LM serving slice: the model stack, the architecture configs, the
-# router and the serving launcher are among the modules walked below.
+# The LM slices: the model stack, the architecture configs, the router,
+# the serving launcher, and training's optimizer, data and launcher are
+# among the modules walked below.
 LM_SLICE = ("repro_torch.core.moe_router", "repro_torch.launch.serve",
             "repro_torch.configs.registry", "repro_torch.configs.moonshot_v1_16b_a3b",
             "repro_torch.configs.gemma_2b", "repro_torch.models.config",
             "repro_torch.models.layers", "repro_torch.models.attention",
             "repro_torch.models.moe", "repro_torch.models.blocks",
-            "repro_torch.models.lm", "repro_torch.models.model")
+            "repro_torch.models.lm", "repro_torch.models.model",
+            "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.launch.train",
+            "repro_torch.data", "repro_torch.data.synth", "repro_torch.checkpoint.ckpt")
 
 
 def test_walk_covers_the_lm_slice():
     mods = set(_modules())
     assert set(LM_SLICE) <= mods, sorted(set(LM_SLICE) - mods)
+    assert {m for m in mods if m.startswith("repro_torch.optim.")} >= {
+        f"repro_torch.optim.{f.stem}" for f in (PKG / "optim").glob("*.py")
+        if f.stem != "__init__"}
     assert {m for m in mods if m.startswith("repro_torch.configs.")} >= {
         f"repro_torch.configs.{f.stem}" for f in (PKG / "configs").glob("*.py")
         if f.stem != "__init__"}
