@@ -78,7 +78,8 @@ check raises, so the script exits non-zero and prints no result line:
    65,536 (153 chunks, 39 columns, 3 inert chunk slots): uninterrupted,
    with ``scd_fused_hist`` launched iters x 4 x 39 times and
    ``scd_finalize_hist`` 4 x 39, feasible, within tolerance of phase 5;
-   checkpointed every 4 iterations and columns with a ``Tracer`` journal,
+   then at N = 2^21 (32 chunks, 8 columns) against its own uninterrupted
+   solve: checkpointed every 4 iterations and columns with a ``Tracer`` journal,
    bitwise equal, with the journal's spans and at most ``checkpoint_keep``
    states left; SIGKILLed mid-iterate in a fresh interpreter and resumed
    here, bitwise equal; from the oldest state the checkpointed solve left,
@@ -194,10 +195,25 @@ check raises, so the script exits non-zero and prints no result line:
    repro_torch.launch.train --arch gemma-2b --smoke ... --simulate-failure-at
    5`` (in a thread from the phase's start) exits 42 at step 4 and its
    rerun resumes from step 4 and finishes;
-21. the smoke's wall beside its 900 s budget, the ``kernels`` line
+21. the other mixers (``models/mamba2.py``, ``models/encdec.py``):
+   jamba-v0.1-52b at full width and 16 of its 32 layers (two periods of its
+   8-slot pattern, 52.0 GB of bf16 weights): its router at 4,096 tokens x
+   16 experts, q = 2, bitwise the CPU's and both kernels bitwise their plain
+   versions and timed; ``serve_loop`` with phase 19's settings, its schedule
+   equal to the CPU port's on the smoke reduction; a prefill at B = 4, S =
+   1,024 launching ``scd_fused_hist`` 4 x 8 and ``adjusted_topc`` 8 times
+   (path ``lm_prefill_hybrid``), the decode step beside its weight-read
+   floor, the peak memory under 80 GB, 16 decode steps against one forward
+   within ``MIX_DECODE_REL``; mamba2-370m and seamless-m4t-medium at full
+   width and depth: the prefill (seamless: 1,024 frames encoded), the
+   decode step, decode against forward, ``train()`` for 4 steps twice from
+   one seed bitwise, mamba2's resumed from a checkpoint bitwise; the three
+   smoke configs in float32 on the card against the CPU (TF32 off):
+   prefill, decode and one train step;
+22. the smoke's wall beside its 900 s budget, the ``kernels`` line
    (launches summed over the paths run in phases 5, 7, 8, 11, 12, 13, 14,
-   15, 16, 19 and 20, and rank 0's of each world of phases 17 and 18, with the
-   split), the card's ``nvidia-smi`` line and, last,
+   15, 16, 19, 20 and 21, and rank 0's of each world of phases 17 and 18,
+   with the split), the card's ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -226,6 +242,9 @@ N_HOST_DD = 1_000_000               # host-fed DD
 BANDED = dict(k=6, q=2, tightness=0.08, band=0.05)   # benchmarks/bench_screening.py
 FIN_TILE = 512                      # ops.pick_tile at a 65,536-row chunk
 SLOTS, CKPT_EVERY = 4, 4            # the slot phase: 39 columns, 156 chunk slots
+# The slot phase's checkpointed, killed and resumed solves: 32 chunks, 8
+# columns (cut from N_RES for the smoke's time).
+N_SLOTS_CKPT = 1 << 21
 N_FAULTS = 1_000_000                # the fault-layer run of the slot phase
 N_VS_CPU = 262_144                  # card against CPU (phases 4, 9 and 13)
 BRANCH_K = (1, 8, 9, 16, 17, 64)    # each KC branch of the finalize and adjusted_topc
@@ -1199,12 +1218,12 @@ def counting(src):
     return src._replace(fn=fn), calls
 
 
-def run_killed(ckpt_dir, kill_after, resume):
-    """The slot solve in a fresh interpreter, SIGKILLed at its
-    (kill_after + 1)-th chunk read; returns its wall."""
+def run_killed(ckpt_dir, n, kill_after, resume):
+    """The slot solve of table1 at ``n`` rows in a fresh interpreter,
+    SIGKILLed at its (kill_after + 1)-th chunk read; returns its wall."""
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-c", _KILL_CHILD, str(ROOT / "src"),
-                          str(N_RES), str(kill_after), str(ckpt_dir),
+                          str(n), str(kill_after), str(ckpt_dir),
                           "1" if resume else "0", str(C_MAIN), str(CKPT_EVERY),
                           str(SLOTS)], capture_output=True, text=True, timeout=600)
     check(out.returncode == -signal.SIGKILL,
@@ -1316,6 +1335,15 @@ def phase_slots(torch, np, dev, host_fed_row):
           "the slots=4 solve is not within tolerance of phase 5's single slot (lam within "
           "tol * (1 + max lam), iterations within one, primal and dual 1e-5)")
 
+    # Steps 2-4 (checkpointed and traced, then killed twice and resumed) run
+    # at N_SLOTS_CKPT against their own uninterrupted solve, for the smoke's
+    # time; phase 17 holds its worlds against step 1's row at N_RES.
+    src, _ = table1_source(N_SLOTS_CKPT)
+    c = -(-N_SLOTS_CKPT // C_MAIN)
+    cps = -(-c // SLOTS)
+    base, wall = solve(src, cfg)
+    iters = base.iters
+
     # 2. Checkpointed every CKPT_EVERY iterations and columns, traced.
     saves = []
     real_save = ckpt.save
@@ -1340,7 +1368,8 @@ def phase_slots(torch, np, dev, host_fed_row):
     check(n_iter == iters and n_fin == 1,
           f"journal holds {n_iter} solve.iterate and {n_fin} solve.finalize spans")
     check(len(left) <= ckpt_cfg.checkpoint_keep, f"states left: {left}")
-    emit("slots_checkpointed", wall_s=ck_wall, plain_wall_s=wall, saves=len(saves),
+    emit("slots_checkpointed", n=N_SLOTS_CKPT, chunks=c, columns=cps, wall_s=ck_wall,
+         plain_wall_s=wall, saves=len(saves),
          save_mean_s=statistics.mean(saves), save_max_s=max(saves),
          states_left=left, spans={p: sum(s["phase"] == p for s in spans)
                                   for p in sorted({s["phase"] for s in spans})})
@@ -1352,7 +1381,7 @@ def phase_slots(torch, np, dev, host_fed_row):
 
     kill_epoch = max(CKPT_EVERY, iters // 2)
     d1, d2 = work / "kill1", work / "kill2"
-    kill1_wall = run_killed(d1, 1 + kill_epoch * c + c // 2, resume=False)
+    kill1_wall = run_killed(d1, N_SLOTS_CKPT, 1 + kill_epoch * c + c // 2, resume=False)
     step1, st1 = latest_state(ckpt, d1)
     check(st1["phase"] == 0 and 0 < st1["iters"] <= kill_epoch,
           f"not a mid-iterate state: {st1}")
@@ -1371,7 +1400,8 @@ def phase_slots(torch, np, dev, host_fed_row):
     c1 = c0 + CKPT_EVERY
     check(c1 < cps, f"no finalize save after column {c0}: {st0}")
     epochs_left = (iters - st0["iters"]) if st0["phase"] == 0 else 0
-    kill2_wall = run_killed(d2, 1 + epochs_left * c + real(range(c0, c1)) + 2, resume=True)
+    kill2_wall = run_killed(d2, N_SLOTS_CKPT, 1 + epochs_left * c + real(range(c0, c1)) + 2,
+                            resume=True)
     step2, st2 = latest_state(ckpt, d2)
     check(st2["phase"] == 1 and st2["cursor"] == c1,
           f"not the mid-finalize state at column {c1}: {st2}")
@@ -1382,7 +1412,7 @@ def phase_slots(torch, np, dev, host_fed_row):
     check(calls["n"] == 1 + left_real,
           f"the mid-finalize resume read {calls['n']} chunks, expected the probe and "
           f"the {left_real} real chunks of columns {c1}..{cps - 1}")
-    emit("slots_killed_and_resumed", kill_mid_iterate={
+    emit("slots_killed_and_resumed", n=N_SLOTS_CKPT, kill_mid_iterate={
         "killed_wall_s": kill1_wall, "state": {"step": step1, **st1},
         "resumed_wall_s": resume1_wall, "bitwise": True},
         kill_between_finalize_columns={
@@ -2657,10 +2687,10 @@ def _tree_bytes(lm, tree):
     return sum(n for n, _ in sizes), sum(b for _, b in sizes)
 
 
-def _lm_router(torch, np, dev, cfg):
-    """Phase 19a: the knapsack-priced router at the prefill's shape on the
-    card, bitwise the CPU's from the same probabilities, and its two
-    kernels bitwise and timed there."""
+def _lm_router(torch, np, dev, cfg, tag="lm_router"):
+    """Phase 19a (and 21a at jamba's K = 16): the knapsack-priced router at
+    the prefill's shape on the card, bitwise the CPU's from the same
+    probabilities, and its two kernels bitwise and timed there."""
     from repro_torch.core.bucketing import make_edges
     from repro_torch.core.moe_router import ROUTER_TILE, scd_route_probs
     from repro_torch.kernels import ops, ref
@@ -2688,7 +2718,7 @@ def _lm_router(torch, np, dev, cfg):
     facts["topc_bitwise_plain"] = torch.equal(kx, px) and torch.equal(kv, pv)
     facts["capacity_binds"] = float(want.lam.max()) > 0
     cap = moe.capacity_factor * q * n / moe.n_experts
-    emit("lm_router", tokens=n, experts=moe.n_experts, q=q, iters=moe.scd_iters,
+    emit(tag, tokens=n, experts=moe.n_experts, q=q, iters=moe.scd_iters,
          capacity=cap, experts_priced=int((want.lam > 0).sum()),
          load_max=float(want.load.max()), routed=int(want.mask.sum()), **facts)
     check(all(facts.values()), f"router on the card: {facts}")
@@ -2714,9 +2744,11 @@ def _lm_router(torch, np, dev, cfg):
                        bound(read + 5 * n * k, n * k * (2 + 2 * q))))}}
 
 
-def _lm_smoke_vs_cpu(torch, np, dev):
-    """Phase 19d: smoke moonshot and gemma in float32 on the card against
-    the port on the CPU, TF32 off: prefill and four decode steps."""
+def _lm_smoke_vs_cpu(torch, np, dev, names=LM_SMOKE, tag="lm_smoke_card_vs_cpu",
+                     tol=LM_SMOKE_TOL):
+    """Phase 19d (and 21e): smoke configs in float32 on the card against
+    the port on the CPU, TF32 off: prefill and four decode steps (an
+    encoder-decoder's from the same frames)."""
     from repro_torch.configs import registry
     from repro_torch.models import lm, model as M
 
@@ -2724,38 +2756,110 @@ def _lm_smoke_vs_cpu(torch, np, dev):
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     out = {}
     try:
-        for name in LM_SMOKE:
+        for name in names:
             cfg = registry.get(name).smoke()
             cpu = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
             card = lm.tree_map(lambda a: a.to(dev), cpu)
-            toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 64)))
+            g = np.random.default_rng(1)
+            batch = {"tokens": torch.from_numpy(g.integers(0, cfg.vocab, (2, 64)))}
+            if cfg.kind == "encdec":
+                batch["frames"] = torch.from_numpy(
+                    g.standard_normal((2, 32, cfg.d_model)).astype(np.float32))
+            toks, frames = batch["tokens"], batch.get("frames")
+            on_card = {k: v.to(dev) for k, v in batch.items()}
             step, dstep = M.make_prefill_step(cfg), M.make_decode_step(cfg)
             with torch.no_grad():
-                pairs = [(step(card, {"tokens": toks.to(dev)}).cpu(), step(cpu, {"tokens": toks}))]
-                cc, gc = M.init_cache(cfg, cpu, 2, 16), M.init_cache(cfg, card, 2, 16)
+                pairs = [(step(card, on_card).cpu(), step(cpu, batch))]
+                cc = M.init_cache(cfg, cpu, 2, 16, frames=frames)
+                gc = M.init_cache(cfg, card, 2, 16, frames=on_card.get("frames"))
                 for t in range(4):
                     wl, cc = dstep(cpu, cc, toks[:, t:t + 1], t)
                     gl, gc = dstep(card, gc, toks[:, t:t + 1].to(dev), t)
                     pairs.append((gl.cpu(), wl))
             err = max(float((a - b).abs().max()) for a, b in pairs)
             out[name] = {"max_abs_err": err, "all_close": all(
-                torch.allclose(a, b, **LM_SMOKE_TOL) for a, b in pairs)}
+                torch.allclose(a, b, **tol) for a, b in pairs)}
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-    emit("lm_smoke_card_vs_cpu", tol=LM_SMOKE_TOL, tf32=False, **out)
+    emit(tag, tol=tol, tf32=False, **out)
     check(all(v["all_close"] for v in out.values()), f"smoke LM card vs CPU: {out}")
+
+
+def _frames(torch, np, cfg, b, f, seed, dev):
+    """Encoder frames as ``lm_batch`` draws them: N(0, 1) x 0.02 in cfg.dtype."""
+    x = np.random.default_rng(seed).standard_normal((b, f, cfg.d_model), np.float32)
+    return torch.from_numpy(x).to(dev, cfg.dtype) * 0.02
+
+
+def _decode_vs_forward(torch, np, dev, params, cfg, tag, toks, bar):
+    """Decode ``toks`` (B, S) through the caches against one teacher-forced
+    forward in bf16 (the top-k router on both paths; an encoder-decoder's
+    decoder against the same frames); emits and checks the relative L2
+    error of each position's logits against ``bar``."""
+    import dataclasses
+    from repro_torch.models import encdec, lm, model as M
+    from repro_torch.models.layers import unembed
+
+    tcfg = cfg.replace(moe=dataclasses.replace(cfg.moe, router="topk"))
+    db, ds = toks.shape
+    frames = _frames(torch, np, cfg, db, 32, 0, dev) if cfg.kind == "encdec" else None
+    with torch.no_grad():
+        if cfg.kind == "encdec":
+            memory = encdec.encode(params, tcfg, frames)
+            want = unembed(params["head"], encdec.decode_train(params, tcfg, toks, memory))
+        else:
+            want = unembed(lm.head_params(params), lm.forward(params, tcfg, toks))
+        want = want.float()
+        caches = M.init_cache(tcfg, params, db, ds, frames=frames)
+        dstep = M.make_decode_step(tcfg)
+        got = torch.stack([dstep(params, caches, toks[:, t:t + 1], t)[0][:, 0].float()
+                           for t in range(ds)], dim=1)
+    rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).flatten()
+    facts = {"rel_l2_within": float(rel.max()) <= bar,
+             "finite": bool(torch.isfinite(got).all())}
+    emit(tag, arch=cfg.name, layers=cfg.n_layers, dtype="bfloat16", batch=db, tokens=ds,
+         rel_l2_max=float(rel.max()), rel_l2_median=float(rel.median()),
+         rel_l2_per_position=[round(float(x), 5) for x in rel],
+         max_abs_err=float((got - want).abs().max()),
+         logits_abs_max=float(want.abs().max()), bound=bar, **facts)
+    check(all(facts.values()), f"{cfg.name} decode against forward: {facts}")
+
+
+def _decode_walls(torch, np, dev, lm, M, params, cfg, tok):
+    """The decode step's walls at LM_SERVE's shape (``tok``: (max_batch, 1)),
+    and its weight-read floor: every weight but the embedding table
+    (indexed), and the caches."""
+    b = LM_SERVE["max_batch"]
+    frames = _frames(torch, np, cfg, b, 32, 3, dev) if cfg.kind == "encdec" else None
+    with torch.no_grad():
+        caches = M.init_cache(cfg, params, b, LM_SERVE["cache_len"], frames=frames)
+    _, cache_bytes = _tree_bytes(lm, caches)
+    _, param_bytes = _tree_bytes(lm, params)
+    table = params["embed"]["e"]
+    dstep = M.make_decode_step(cfg)
+    walls = []
+    with torch.no_grad():
+        for t in range(LM_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dstep(params, caches, tok, t)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    floor_ms = (param_bytes - table.numel() * table.element_size() + cache_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+    return {"decode_batch": b, "decode_cache": LM_SERVE["cache_len"], "decode_step_ms": walls,
+            "decode_step_ms_median": statistics.median(walls[1:]),
+            "weight_read_floor_ms": floor_ms}
 
 
 def phase_lm_serving(torch, np, dev):
     """The LM serving path (phase 19): the router on the card, moonshot at
     full width and depth through ``serve_loop`` and ``make_prefill_step``,
     decode against forward, and the smoke configs against the CPU."""
-    import dataclasses
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve_loop
     from repro_torch.models import lm, model as M
-    from repro_torch.models.layers import unembed
 
     t_phase = time.perf_counter()
     cfg = registry.get(LM_ARCH)
@@ -2810,54 +2914,19 @@ def phase_lm_serving(torch, np, dev):
              "logits_finite": bool(torch.isfinite(logits).all()),
              "logits_shape": tuple(logits.shape) == (b, cfg.vocab)}
 
-    # The decode step's wall at the serving shape, beside its weight-read
-    # floor: every weight but the embedding table (indexed), and the cache.
-    caches = M.init_cache(cfg, params, LM_SERVE["max_batch"], LM_SERVE["cache_len"])
-    _, cache_bytes = _tree_bytes(lm, caches)
-    dstep = M.make_decode_step(cfg)
-    tok = toks[:LM_SERVE["max_batch"], :1]
-    walls = []
-    with torch.no_grad():
-        for t in range(LM_DECODE_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            dstep(params, caches, tok, t)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-    del caches
-    table = params["embed"]["e"]
-    floor_ms = (param_bytes - table.numel() * table.element_size() + cache_bytes) \
-        / HBM_BYTES_PER_S * 1e3
+    walls = _decode_walls(torch, np, dev, lm, M, params, cfg, toks[:LM_SERVE["max_batch"], :1])
     peak = torch.cuda.max_memory_allocated(dev)
     emit("lm_prefill", arch=LM_ARCH, params=n_params, param_gb=param_bytes / 1e9,
          init_s=init_s, batch=b, seq=s, prefill_s=prefill_s, prefill_again_s=prefill2_s,
-         launches=launches, decode_batch=LM_SERVE["max_batch"],
-         decode_cache=LM_SERVE["cache_len"], decode_step_ms=walls,
-         decode_step_ms_median=statistics.median(walls[1:]),
-         weight_read_floor_ms=floor_ms, peak_gb=peak / 1e9, **facts)
+         launches=launches, **walls, peak_gb=peak / 1e9, **facts)
     check(all(facts.values()), f"prefill at full width: {facts} {launches}")
 
     # c. Decode 16 tokens through the cache against one teacher-forced
     # forward, the top-k router on both paths.
-    tcfg = cfg.replace(moe=dataclasses.replace(cfg.moe, router="topk"))
-    db, ds = LM_DECODE
-    dtoks = toks[:db, :ds]
-    with torch.no_grad():
-        ref_logits = unembed(lm.head_params(params), lm.forward(params, tcfg, dtoks)).float()
-        caches = M.init_cache(tcfg, params, db, ds)
-        dstep = M.make_decode_step(tcfg)
-        got = torch.stack([dstep(params, caches, dtoks[:, t:t + 1], t)[0][:, 0].float()
-                           for t in range(ds)], dim=1)
-    rel = ((got - ref_logits).norm(dim=-1) / ref_logits.norm(dim=-1)).flatten()
-    facts = {"rel_l2_within": float(rel.max()) <= LM_DECODE_REL,
-             "finite": bool(torch.isfinite(got).all())}
-    emit("lm_decode_vs_forward", arch=LM_ARCH, dtype="bfloat16", batch=db, tokens=ds,
-         rel_l2_max=float(rel.max()), rel_l2_median=float(rel.median()),
-         rel_l2_per_position=[round(float(x), 5) for x in rel],
-         max_abs_err=float((got - ref_logits).abs().max()),
-         logits_abs_max=float(ref_logits.abs().max()), bound=LM_DECODE_REL, **facts)
-    check(all(facts.values()), f"decode against forward at full width: {facts}")
-    del params, caches, logits, ref_logits, got
+    del logits
+    _decode_vs_forward(torch, np, dev, params, cfg, "lm_decode_vs_forward",
+                       toks[:LM_DECODE[0], :LM_DECODE[1]], LM_DECODE_REL)
+    del params
     torch.cuda.empty_cache()
 
     _lm_smoke_vs_cpu(torch, np, dev)
@@ -2990,8 +3059,8 @@ def _grads(lm, M, tree_leaves, params, cfg, batch):
     return loss.detach(), grads
 
 
-def _lm_train_smoke_vs_cpu(torch, np, dev):
-    """Phase 20b: one train step of smoke moonshot and gemma in float32 on
+def _lm_train_smoke_vs_cpu(torch, np, dev, names=LM_SMOKE, tag="lm_train_card_vs_cpu"):
+    """Phase 20b (and 21e): one train step of smoke configs in float32 on
     the card against the port on the CPU, TF32 off."""
     from repro_torch.configs import registry
     from repro_torch.data.synth import lm_batch
@@ -3003,7 +3072,7 @@ def _lm_train_smoke_vs_cpu(torch, np, dev):
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     out = {}
     try:
-        for name in LM_SMOKE:
+        for name in names:
             cfg = registry.get(name).smoke()
             opt_cfg = OptConfig(lr=1e-3, warmup=2)
             cpu = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -3042,7 +3111,7 @@ def _lm_train_smoke_vs_cpu(torch, np, dev):
                        and v["step_abs_err_max"] <= v["step_bound"])
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-    emit("lm_train_card_vs_cpu", tf32=False, loss_rtol=LM_TRAIN_LOSS_RTOL,
+    emit(tag, tf32=False, loss_rtol=LM_TRAIN_LOSS_RTOL,
          grad_rel_l2=LM_TRAIN_GRAD_REL, update_rtol=LM_TRAIN_UPDATE_RTOL, **out)
     check(all(v["ok"] for v in out.values()), f"smoke train step card vs CPU: {out}")
 
@@ -3137,6 +3206,245 @@ def phase_lm_training(torch, np, dev):
     return {"lm_train": launches}
 
 
+# --------------------------------------------------------------------------
+# Phase 21: the other mixers (models/mamba2.py, models/encdec.py): jamba's
+# hybrid prefill through the SCD router at full width, mamba2-370m and
+# seamless-m4t-medium served and trained at full width and depth.
+# --------------------------------------------------------------------------
+
+MIX_HYBRID = "jamba-v0.1-52b"       # src/repro_torch/configs/jamba_v01_52b.py
+# Two periods of the 8-slot pattern: 25,998,437,824 parameters, 52.0 GB in
+# bf16 (all 32 layers: 102.9 GB, above the card's 80 GB; one period would
+# never index the period stack past 0). Every width is the config's.
+MIX_HYBRID_LAYERS = 16
+MIX_HYBRID_PARAMS = 25_998_437_824
+MIX_SSM = "mamba2-370m"             # src/repro_torch/configs/mamba2_370m.py, not cut
+MIX_ENCDEC = "seamless-m4t-medium"  # src/repro_torch/configs/seamless_m4t_medium.py, not cut
+MIX_PARAMS = {MIX_SSM: 368_338_432, MIX_ENCDEC: 977_758_208}
+MIX_PREFILL = (4, 1024)             # B x S tokens (seamless: and 1,024 frames)
+MIX_FRAMES = 1024
+MIX_TRAIN_STEPS = 4
+# (B, S) of lm_batch: seamless splits S into frames and tokens, half each.
+MIX_TRAIN_BATCH = {MIX_SSM: (4, 1024), MIX_ENCDEC: (4, 2048)}
+MIX_SMOKE = (MIX_SSM, MIX_HYBRID, MIX_ENCDEC)
+# Card against the port's CPU at smoke() in float32, TF32 off, for the
+# mixers' configs: the prefill logits are unscaled (up to ~15), and float32
+# rounding along jamba's 16-layer residual stream reaches a few 1e-6 of its
+# scale; the reference's own eager and jitted prefills differ by up to
+# 5.0e-5 there (ROADMAP C). Measured on the card: 5.2e-5 (jamba), 1.3e-5
+# (mamba2), 1.1e-5 (seamless).
+MIX_SMOKE_TOL = dict(rtol=1e-4, atol=1e-4)
+# Decode against forward in bf16 at full width, the top-k router on both,
+# as phase 19: the relative L2 error of each position's logits. The SSD's
+# chunked scan and its one-token recurrence round in other places (bf16
+# products of the quadratic form against a float32 state): mamba2 measured
+# 0.038-0.064, seamless 0.011-0.013, held at phase 19's 0.15. jamba's
+# top-2 of 16 experts flips an expert where two affinities sit within the
+# bf16 rounding, and a flip moves half of that layer's FFN output:
+# measured median 0.035, 0.08-0.19 at six of 32 positions; held at 0.3
+# (unrelated logits give about 1.41).
+MIX_DECODE_REL = {MIX_SSM: 0.15, MIX_ENCDEC: 0.15, MIX_HYBRID: 0.3}
+
+
+def _mix_hybrid(torch, np, dev):
+    """Phase 21a-b: jamba at full width and 16 layers: its router at
+    (4,096, 16), ``serve_loop``, the prefill through both kernels, the
+    decode step beside its floor, decode against forward, peak memory."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models import lm, model as M
+
+    cfg = registry.get(MIX_HYBRID).replace(n_layers=MIX_HYBRID_LAYERS)
+    check(cfg.moe.router == "scd" and cfg.moe.n_experts == 16 and cfg.moe.topk == 2
+          and cfg.n_periods == 2, f"phase 21's jamba config: {cfg.moe} {cfg.n_periods}")
+    kern = _lm_router(torch, np, dev, cfg, tag="lm_router_hybrid")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    done, sets, stats = serve_loop(cfg, device=dev, **LM_SERVE)
+    serve_s = time.perf_counter() - t0
+    peak_serve = torch.cuda.max_memory_allocated(dev)
+    cpu_done, cpu_sets, cpu_stats = serve_loop(registry.get(MIX_HYBRID).smoke(),
+                                               device="cpu", **LM_SERVE)
+    facts = {"admitted_sets_equal_cpu_smoke": sets == cpu_sets,
+             "completion_order_equal_cpu_smoke":
+                 [r.rid for r in done] == [r.rid for r in cpu_done],
+             "admission_iters_equal_cpu_smoke":
+                 stats["admission_iters"] == cpu_stats["admission_iters"],
+             "all_completed": len(done) == LM_SERVE["n_requests"]}
+    emit("lm_serve_loop_hybrid", arch=MIX_HYBRID, layers=cfg.n_layers, **LM_SERVE,
+         wall_s=serve_s, loop_wall_s=stats["wall_s"], admissions=len(sets),
+         admitted_sets=sets, completion_order=[r.rid for r in done],
+         admission_iters=stats["admission_iters"], peak_gb=peak_serve / 1e9, **facts)
+    check(all(facts.values()), f"jamba serve_loop at full width: {facts}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params, param_bytes = _tree_bytes(lm, params)
+    b, s = MIX_PREFILL
+    toks = torch.tensor(np.random.default_rng(21).integers(0, cfg.vocab, (b, s)),
+                        device=dev)
+    step = M.make_prefill_step(cfg)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits = step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill2_s = time.perf_counter() - t0
+    moe_layers = cfg.ffn_pattern.count("moe") * cfg.n_periods
+    want = {name: 0 for name in launches}
+    want.update(scd_fused_hist=cfg.moe.scd_iters * moe_layers, adjusted_topc=moe_layers)
+    walls = _decode_walls(torch, np, dev, lm, M, params, cfg, toks[:LM_SERVE["max_batch"], :1])
+    peak = torch.cuda.max_memory_allocated(dev)
+    facts = {"params_as_counted": n_params == MIX_HYBRID_PARAMS,
+             "launches_as_routed": launches == want,
+             "logits_finite": bool(torch.isfinite(logits).all()),
+             "logits_shape": tuple(logits.shape) == (b, cfg.vocab),
+             "peak_under_80gb": peak < 80e9}
+    emit("lm_prefill_hybrid", arch=MIX_HYBRID, layers=cfg.n_layers, layers_of_config=32,
+         params=n_params, param_gb=param_bytes / 1e9, init_s=init_s, batch=b, seq=s,
+         prefill_s=prefill_s, prefill_again_s=prefill2_s, launches=launches,
+         moe_layers=moe_layers, **walls, peak_gb=peak / 1e9, **facts)
+    check(all(facts.values()), f"jamba prefill at full width: {facts} {launches}")
+    del logits
+    _decode_vs_forward(torch, np, dev, params, cfg, "lm_decode_vs_forward_hybrid",
+                       toks[:LM_DECODE[0], :LM_DECODE[1]], MIX_DECODE_REL[MIX_HYBRID])
+    del params
+    torch.cuda.empty_cache()
+    return launches, kern
+
+
+def _mix_train(torch, np, dev, name):
+    """Phase 21c-d: ``name`` at full width and depth: the prefill, the
+    decode step, decode against forward, ``train()`` twice from one seed
+    (bitwise) and, for mamba2, resumed from a checkpoint (bitwise)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm, model as M
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.optim import OptConfig
+
+    cfg, short = registry.get(name), name.split("-")[0]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params, param_bytes = _tree_bytes(lm, params)
+    b, s = MIX_PREFILL
+    batch = {"tokens": torch.tensor(np.random.default_rng(23).integers(0, cfg.vocab, (b, s)),
+                                    device=dev)}
+    if cfg.kind == "encdec":
+        batch["frames"] = _frames(torch, np, cfg, b, MIX_FRAMES, 23, dev)
+    step = M.make_prefill_step(cfg)
+    prefill_s = []
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = step(params, batch)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        encode_s = None
+        if cfg.kind == "encdec":
+            from repro_torch.models import encdec
+            t0 = time.perf_counter()
+            encdec.encode(params, cfg, batch["frames"])
+            torch.cuda.synchronize()
+            encode_s = time.perf_counter() - t0
+    walls = _decode_walls(torch, np, dev, lm, M, params, cfg,
+                          batch["tokens"][:LM_SERVE["max_batch"], :1])
+    peak_serve = torch.cuda.max_memory_allocated(dev)
+    facts = {"params_as_counted": n_params == MIX_PARAMS[name],
+             "logits_finite": bool(torch.isfinite(logits).all()),
+             "logits_shape": tuple(logits.shape) == (b, cfg.vocab)}
+    emit("lm_prefill_" + short, arch=name, layers=cfg.n_layers,
+         params=n_params, param_gb=param_bytes / 1e9, batch=b, seq=s,
+         frames=MIX_FRAMES if cfg.kind == "encdec" else None, prefill_s=prefill_s,
+         encode_s=encode_s, **walls, peak_gb=peak_serve / 1e9, **facts)
+    check(all(facts.values()), f"{name} prefill at full width: {facts}")
+    del logits
+    _decode_vs_forward(torch, np, dev, params, cfg, "lm_decode_vs_forward_" + short,
+                       batch["tokens"][:LM_DECODE[0], :LM_DECODE[1]], MIX_DECODE_REL[name])
+    del params
+    torch.cuda.empty_cache()
+
+    bshape = MIX_TRAIN_BATCH[name]
+    opt = OptConfig(**LM_TRAIN_OPT)
+
+    def run(steps=MIX_TRAIN_STEPS, **kw):
+        hist = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        p, o, _ = train(cfg, opt, steps, seed=0, batch_shape=bshape, log_every=0,
+                        device=dev, history=hist, **kw)
+        torch.cuda.synchronize()
+        return p, o, hist, time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev)
+
+    params, o, hist, wall, peak = run()
+    first = [a.detach() for a in tree_leaves([params, o.mu, o.nu])]
+    del params, o
+    params, o, hist2, wall2, peak2 = run()
+    bitwise = all(torch.equal(a.detach(), b)
+                  for a, b in zip(tree_leaves([params, o.mu, o.nu]), first))
+    del params, o
+    resume = {}
+    if cfg.kind != "encdec":
+        d = ROOT / "build" / "smoke_mixers" / name
+        shutil.rmtree(d, ignore_errors=True)
+        t0 = time.perf_counter()
+        run(2, ckpt_dir=str(d), ckpt_every=2)
+        params, o, hist3, _, _ = run(ckpt_dir=str(d), ckpt_every=0)
+        resume = {"resume_bitwise": all(torch.equal(a.detach(), b) for a, b in zip(
+            tree_leaves([params, o.mu, o.nu]), first))
+            and [r["loss"] for r in hist3] == [r["loss"] for r in hist[2:]],
+            "resume_wall_s": time.perf_counter() - t0}
+        del params, o
+        shutil.rmtree(d, ignore_errors=True)
+    del first
+    torch.cuda.empty_cache()
+    walls_s = [r["wall_s"] for r in hist]
+    facts = {"finite": all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                           for r in hist + hist2),
+             "two_runs_bitwise": bitwise,
+             "same_losses": [r["loss"] for r in hist] == [r["loss"] for r in hist2],
+             **{k: v for k, v in resume.items() if k.endswith("bitwise")}}
+    emit("lm_train_" + short, arch=name, layers=cfg.n_layers, dtype="bfloat16",
+         remat=cfg.remat, batch=bshape, steps=MIX_TRAIN_STEPS, params=n_params,
+         state_gb=(2 * param_bytes + 8 * n_params) / 1e9,
+         losses=[r["loss"] for r in hist], grad_norms=[r["grad_norm"] for r in hist],
+         step_wall_s=walls_s, step_wall_s_median=statistics.median(walls_s[1:]),
+         second_run_step_wall_s=[r["wall_s"] for r in hist2], train_wall_s=wall,
+         second_train_wall_s=wall2, peak_gb=peak / 1e9, peak_gb_beside_first_run=peak2 / 1e9,
+         resume_wall_s=resume.get("resume_wall_s"), opt=LM_TRAIN_OPT, **facts)
+    check(all(facts.values()), f"{name} training at full width: {facts}")
+
+
+def phase_lm_mixers(torch, np, dev):
+    """The other mixers (phase 21): jamba's hybrid prefill through the SCD
+    router at full width and 16 layers, mamba2-370m and seamless-m4t-medium
+    at full width and depth, and the three smoke configs against the CPU."""
+    t_phase = time.perf_counter()
+    launches, kern = _mix_hybrid(torch, np, dev)
+    for name in (MIX_SSM, MIX_ENCDEC):
+        _mix_train(torch, np, dev, name)
+    _lm_smoke_vs_cpu(torch, np, dev, MIX_SMOKE, tag="lm_mixers_smoke_card_vs_cpu",
+                     tol=MIX_SMOKE_TOL)
+    _lm_train_smoke_vs_cpu(torch, np, dev, MIX_SMOKE, tag="lm_mixers_train_card_vs_cpu")
+    emit("lm_mixers_wall", seconds=time.perf_counter() - t_phase)
+    return {"lm_prefill_hybrid": launches}, kern
+
+
 def main():
     import numpy as np
     import torch
@@ -3187,6 +3495,10 @@ def main():
     kern["scd_fused_hist"]["router_shape"] = lm_kern["scd_fused_hist"]
     kern["adjusted_topc"]["router_shape"] = lm_kern["adjusted_topc"]
     paths.update(phase_lm_training(torch, np, dev))
+    mix_paths, mix_kern = phase_lm_mixers(torch, np, dev)
+    paths.update(mix_paths)
+    kern["scd_fused_hist"]["router_shape_k16"] = mix_kern["scd_fused_hist"]
+    kern["adjusted_topc"]["router_shape_k16"] = mix_kern["adjusted_topc"]
 
     rows = [{"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name],

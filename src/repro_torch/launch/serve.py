@@ -84,7 +84,18 @@ def serve_loop(cfg, n_requests=8, cache_len=256, kv_budget=512.0, max_batch=4,
     Returns (completed requests, per-tick admitted sets, stats): the wall
     time and the per-tick admission iteration counts. The decode position
     ``tick % cache_len`` is shared by the whole batch, as in the reference.
+    Mamba slots carry their conv windows and SSM states across requests,
+    as the reference's loop carries every cache.
+
+    An encoder-decoder raises ``ValueError``: its cache holds the encoded
+    frames of a request, and the reference's loop has none to give it
+    (``init_cache`` without ``frames``).
     """
+    if cfg.kind == "encdec":
+        raise ValueError(
+            f"{cfg.name}: serve_loop cannot serve an encoder-decoder: its cache "
+            "holds the cross K/V of encoded frames, and the loop's requests carry "
+            "none (the reference's serve_loop calls init_cache without frames)")
     dev = resolve_device(device)
     params = M.init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
     dstep = M.make_decode_step(cfg)

@@ -1,5 +1,6 @@
 """Attention mixers: GQA/MQA with RoPE and qk-norm, chunked-causal softmax,
-sliding windows and KV-cache decode (``src/repro/models/attention.py``).
+sliding windows, cross attention and KV-cache decode
+(``src/repro/models/attention.py``).
 
 Prefill runs the reference's online softmax over kv chunks, chunk by q
 chunk, in float32 with its ``NEG_INF`` masking, so the port holds to its
@@ -102,10 +103,22 @@ def _chunked_attention(q, k, v, q_pos, kv_pos, chunk, causal, window=0):
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
-def attention(p, cfg, x, positions, causal=True):
-    """Full-sequence self-attention (prefill). x: (B, S, D); positions (S,)."""
-    q, k, v = _qkv(p, cfg, x, positions)
-    out = _chunked_attention(q, k, v, positions, positions, cfg.attn_chunk,
+def attention(p, cfg, x, positions, causal=True, kv=None, kv_pos=None):
+    """Full-sequence attention (prefill, training, encoder, cross).
+    x: (B, S, D); positions (S,).
+
+    kv: an optional (B, S_enc, D) encoder memory to attend to (cross
+    attention, ``kv_pos`` its positions): no RoPE on q or k, ``qk_norm``
+    where the config has it."""
+    if kv is None:
+        q, k, v = _qkv(p, cfg, x, positions)
+        kv_pos = positions
+    else:
+        q, k, v = _proj(x, p["wq"]), _proj(kv, p["wk"]), _proj(kv, p["wv"])
+        if cfg.qk_norm:
+            q = rms_norm(p["qnorm"], q, cfg.norm_eps)
+            k = rms_norm(p["knorm"], k, cfg.norm_eps)
+    out = _chunked_attention(q, k, v, positions, kv_pos, cfg.attn_chunk,
                              causal, cfg.window)
     return _out(out, p["wo"])
 

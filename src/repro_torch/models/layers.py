@@ -41,6 +41,21 @@ def ones(shape, dtype, device, periods=None):
     return out if out.device.type == "meta" else out.fill_(1.0)
 
 
+def zeros(shape, dtype, device, periods=None):
+    out = _stacked(shape, dtype, device, periods)
+    return out if out.device.type == "meta" else out.zero_()
+
+
+def filled(values, dtype, device, periods=None):
+    """``values`` (a float64 CPU tensor) rounded to float32, then to
+    ``dtype`` (the reference computes them in float32), in every period of
+    the stack."""
+    out = _stacked(values.shape, dtype, device, periods)
+    if out.device.type == "meta":
+        return out
+    return out.copy_(values.to(torch.float32).to(dtype).to(out.device))
+
+
 # --- norms -----------------------------------------------------------------
 
 def init_rms(d, dtype, device, periods=None):

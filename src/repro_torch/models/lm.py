@@ -4,7 +4,9 @@
 Layer stacking: each pattern slot's parameters are stacked along a leading
 period axis, as the reference stacks them for its ``lax.scan``; here a
 Python loop walks the periods through views of the stack. Decode caches
-are stacked the same way and updated in place through those views.
+(KV caches of attention slots, conv windows and SSM states of Mamba
+slots) are stacked the same way and updated in place through those views,
+so a hybrid pattern needs nothing of its own here.
 
 Remat: with ``cfg.remat`` and gradients on, each block runs under
 ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps
@@ -88,11 +90,12 @@ def _n_periods(params):
     return params["slots"][0]["norm1"]["scale"].shape[0]
 
 
-def _block(cfg):
-    """``block_apply``, recomputed in the backward under ``cfg.remat``."""
+def remat(fn, cfg):
+    """``fn``, recomputed in the backward under ``cfg.remat`` (when
+    gradients are on)."""
     if cfg.remat and torch.is_grad_enabled():
-        return lambda *a: checkpoint(block_apply, *a, use_reentrant=False)
-    return block_apply
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    return fn
 
 
 def forward(params, cfg, tokens, extra_embeds=None):
@@ -102,7 +105,7 @@ def forward(params, cfg, tokens, extra_embeds=None):
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(cfg.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
-    block = _block(cfg)
+    block = remat(block_apply, cfg)
     if params.get("block0") is not None:
         cfg0 = cfg.replace(d_ff=cfg.first_dense_ff or cfg.d_ff)
         x = block(params["block0"], cfg0, x, positions, cfg.pattern[0], "dense")
@@ -129,29 +132,36 @@ def _chunk_nll(e, h, targets, mask, softcap):
     return ((lse - gold) * mask).sum()
 
 
-def lm_loss(params, cfg, tokens, targets, mask=None, extra_embeds=None):
-    """Mean CE, chunked over the sequence. targets: (B, S) int; mask (B, S).
+def chunked_loss(e, h, targets, mask, chunk, softcap=0.0):
+    """Mean CE of hidden states ``h`` (B, S, D) against the head ``e``,
+    ``chunk`` positions at a time. targets: (B, S) int; mask (B, S) or None.
 
     The chunks' sums are added to a float32 carry in chunk order, then
     divided by ``max(sum(mask), 1)``."""
-    h = forward(params, cfg, tokens, extra_embeds)
-    if extra_embeds is not None:
-        h = h[:, extra_embeds.shape[1]:]                    # text positions only
     s = h.shape[1]
-    c = min(cfg.loss_chunk, s)
+    c = min(chunk, s)
     if s % c:
         raise ValueError(f"sequence {s} is not a multiple of loss_chunk {c}")
     mask = torch.ones(targets.shape, dtype=torch.float32, device=h.device) \
         if mask is None else mask
-    e = head_params(params)["e"]
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for j in range(0, s, c):
-        args = (e, h[:, j:j + c], targets[:, j:j + c], mask[:, j:j + c], cfg.logit_softcap)
+        args = (e, h[:, j:j + c], targets[:, j:j + c], mask[:, j:j + c], softcap)
         if torch.is_grad_enabled():
             total = total + checkpoint(_chunk_nll, *args, use_reentrant=False)
         else:
             total = total + _chunk_nll(*args)
     return total / torch.clamp_min(mask.sum(), 1.0)
+
+
+def lm_loss(params, cfg, tokens, targets, mask=None, extra_embeds=None):
+    """Mean CE, chunked over the sequence (``chunked_loss``). targets:
+    (B, S) int; mask (B, S)."""
+    h = forward(params, cfg, tokens, extra_embeds)
+    if extra_embeds is not None:
+        h = h[:, extra_embeds.shape[1]:]                    # text positions only
+    return chunked_loss(head_params(params)["e"], h, targets, mask, cfg.loss_chunk,
+                        cfg.logit_softcap)
 
 
 # ---------------------------------------------------------------------------

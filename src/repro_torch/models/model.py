@@ -10,6 +10,9 @@ steps (``src/repro/models/model.py``).
     caches = init_cache(cfg, params, batch, seq_len)
     logits, caches = make_decode_step(cfg)(params, caches, token, pos)
 
+An encoder-decoder (``cfg.kind == "encdec"``) takes ``frames`` (B, F,
+d_model) in its batches and in ``init_cache``.
+
 The steps are plain functions: PyTorch runs them eagerly. The train step
 updates the parameters (leaf tensors with ``requires_grad``) and the
 optimizer state in place, where the reference donates them to its jitted
@@ -26,6 +29,7 @@ import torch
 
 from ..core.solver import resolve_device
 from ..optim import OptConfig, apply_updates
+from . import encdec as ed
 from . import lm
 from .config import ModelConfig
 
@@ -64,23 +68,16 @@ def cell_applicable(cfg: ModelConfig, cell: ShapeCell) -> Optional[str]:
 # init / steps
 # ---------------------------------------------------------------------------
 
-def _check_kind(cfg):
-    if cfg.kind == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder model (src/repro/models/encdec.py) "
-            "is not ported yet; it comes with ROADMAP A10's next slice "
-            "(Mamba2, MLA, encoder-decoder)")
-
-
 def init(cfg: ModelConfig, gen: torch.Generator, device="cuda"):
     """The parameter tree on ``device``, drawn from ``gen`` (a generator on
     that device; the ``meta`` device gives shapes and dtypes only). Runs on
     the card unless asked for the CPU; raises without CUDA."""
-    _check_kind(cfg)
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     if dev.type != "meta" and gen.device.type != dev.type:
         raise ValueError(f"the generator lies on {gen.device}, the parameters "
                          f"go to {dev}")
+    if cfg.kind == "encdec":
+        return ed.init_encdec(gen, cfg, dev)
     return lm.init_lm(gen, cfg, dev)
 
 
@@ -99,8 +96,10 @@ def _text_len(cfg, seq_len):
 
 def loss_fn(params, cfg, batch):
     """Mean next-token cross-entropy of ``batch`` (tokens, targets, and
-    ``patches`` or ``mask`` where given)."""
-    _check_kind(cfg)
+    ``frames``, ``patches`` or ``mask`` where given)."""
+    if cfg.kind == "encdec":
+        return ed.encdec_loss(params, cfg, batch["frames"], batch["tokens"],
+                              batch["targets"])
     return lm.lm_loss(params, cfg, batch["tokens"], batch["targets"],
                       mask=batch.get("mask"), extra_embeds=batch.get("patches"))
 
@@ -109,7 +108,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig):
     """train_step(params, opt_state, batch) -> (params, opt_state, metrics):
     the loss's gradients, then one AdamW step, both in place. ``metrics``
     holds ``loss``, ``grad_norm`` and ``lr`` (0-dim tensors)."""
-    _check_kind(cfg)
 
     def train_step(params, opt_state, batch):
         leaves = lm.tree_leaves(params)
@@ -128,11 +126,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig):
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """prefill_step(params, batch) -> (B, V) logits at the last position."""
+    """prefill_step(params, batch) -> (B, V) logits at the last position
+    (an encoder-decoder encodes ``batch["frames"]`` and runs the decoder
+    teacher-forced over the tokens)."""
 
     def prefill_step(params, batch):
-        h = lm.forward(params, cfg, batch["tokens"],
-                       extra_embeds=batch.get("patches"))
+        if cfg.kind == "encdec":
+            memory = ed.encode(params, cfg, batch["frames"])
+            h = ed.decode_train(params, cfg, batch["tokens"], memory)
+        else:
+            h = lm.forward(params, cfg, batch["tokens"],
+                           extra_embeds=batch.get("patches"))
         return h[:, -1] @ lm.head_params(params)["e"].to(h.dtype).T
     return prefill_step
 
@@ -141,11 +145,16 @@ def make_decode_step(cfg: ModelConfig):
     """decode_step(params, caches, token, pos) -> (logits (B, 1, V), caches)."""
 
     def decode_step(params, caches, token, pos):
+        if cfg.kind == "encdec":
+            return ed.encdec_decode_step(params, cfg, caches, token, pos)
         return lm.decode_step(params, cfg, caches, token, pos)
     return decode_step
 
 
-def init_cache(cfg: ModelConfig, params, batch, seq_len):
+def init_cache(cfg: ModelConfig, params, batch, seq_len, frames=None):
     """Zero caches for ``batch`` sequences of ``seq_len``, on the params'
-    device."""
+    device; an encoder-decoder's also hold the cross K/V of ``frames``
+    encoded."""
+    if cfg.kind == "encdec":
+        return ed.init_encdec_cache(params, cfg, frames, batch, seq_len)
     return lm.init_cache(cfg, batch, seq_len, params["embed"]["e"].device)

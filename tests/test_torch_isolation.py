@@ -21,15 +21,18 @@ def _modules():
         yield ".".join(parts)
 
 
-# The LM slices: the model stack, the architecture configs, the router,
-# the serving launcher, and training's optimizer, data and launcher are
-# among the modules walked below.
+# The LM slices: the model stack (Mamba2 and the encoder-decoder too), the
+# architecture configs, the router, the serving launcher, and training's
+# optimizer, data and launcher are among the modules walked below.
 LM_SLICE = ("repro_torch.core.moe_router", "repro_torch.launch.serve",
             "repro_torch.configs.registry", "repro_torch.configs.moonshot_v1_16b_a3b",
             "repro_torch.configs.gemma_2b", "repro_torch.models.config",
             "repro_torch.models.layers", "repro_torch.models.attention",
             "repro_torch.models.moe", "repro_torch.models.blocks",
             "repro_torch.models.lm", "repro_torch.models.model",
+            "repro_torch.models.mamba2", "repro_torch.models.encdec",
+            "repro_torch.configs.mamba2_370m", "repro_torch.configs.jamba_v01_52b",
+            "repro_torch.configs.seamless_m4t_medium",
             "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.launch.train",
             "repro_torch.data", "repro_torch.data.synth", "repro_torch.checkpoint.ckpt")
 

@@ -25,6 +25,7 @@ from repro.configs import registry as rreg  # noqa: E402
 from repro.models import model as RM  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.core.carry import params_from_reference  # noqa: E402
+from repro_torch.models import encdec as Ted  # noqa: E402
 from repro_torch.models import lm as Tlm  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.layers import unembed  # noqa: E402
@@ -42,9 +43,15 @@ def _one_intra_op_thread():
     torch.set_num_threads(n)
 
 PORTED = ["gemma-2b", "qwen3-4b", "starcoder2-3b", "yi-34b", "internvl2-26b",
-          "moonshot-v1-16b-a3b"]
-DEFERRED = ["mamba2-370m", "jamba-v0.1-52b", "deepseek-v2-236b", "seamless-m4t-medium"]
+          "moonshot-v1-16b-a3b", "mamba2-370m", "jamba-v0.1-52b", "seamless-m4t-medium"]
+DEFERRED = ["deepseek-v2-236b"]
 TOL = dict(rtol=1e-4, atol=1e-5)
+# jamba-v0.1-52b at smoke() is 16 layers deep (two periods of 8): float32
+# rounding grows along the residual stream to ~3e-6 of its scale, and the
+# unscaled prefill logits reach ~15. The reference's own eager prefill and
+# its jitted one differ by up to 5.0e-5 there and fail atol 1e-5 on 7 of
+# 1,024 logits (ROADMAP C); the port's prefill is held at atol 1e-4.
+PREFILL_TOL = {"jamba-v0.1-52b": dict(rtol=1e-4, atol=1e-4)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,6 +71,9 @@ def _batch(cfg, seed, b=2, s=64):
     if cfg.n_patches:
         pat = g.standard_normal((b, cfg.n_patches, cfg.d_model)).astype(np.float32)
         ref["patches"], port["patches"] = jnp.asarray(pat), torch.from_numpy(pat)
+    if cfg.kind == "encdec":
+        fr = g.standard_normal((b, 32, cfg.d_model)).astype(np.float32)
+        ref["frames"], port["frames"] = jnp.asarray(fr), torch.from_numpy(fr)
     return ref, port
 
 
@@ -74,15 +84,18 @@ def test_prefill_matches_reference(name):
     want = np.asarray(jax.jit(RM.make_prefill_step(rcfg))(rp, rb))
     got = TM.make_prefill_step(tcfg)(tp, tb)
     assert got.shape == (2, tcfg.vocab)
-    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(got.numpy(), want, **PREFILL_TOL.get(name, TOL))
 
 
 @pytest.mark.parametrize("name", PORTED)
 def test_decode_steps_and_cache_match_reference(name):
-    """Three decode steps from zero caches: logits and every cache leaf."""
+    """Three decode steps from zero caches (an encoder-decoder's holding
+    the cross K/V of the same frames): logits and every cache leaf."""
     rcfg, tcfg, rp, tp = _arch(name)
     toks = np.random.default_rng(5).integers(0, rcfg.vocab, (2, 3))
-    rc, tc = RM.init_cache(rcfg, rp, 2, 16), TM.init_cache(tcfg, tp, 2, 16)
+    rb, tb = _batch(rcfg, 4)
+    rc = RM.init_cache(rcfg, rp, 2, 16, frames=rb.get("frames"))
+    tc = TM.init_cache(tcfg, tp, 2, 16, frames=tb.get("frames"))
     rstep, tstep = jax.jit(RM.make_decode_step(rcfg)), TM.make_decode_step(tcfg)
     for t, pos in enumerate((0, 1, 5)):
         rl, rc = rstep(rp, rc, jnp.asarray(toks[:, t:t + 1], jnp.int32), jnp.int32(pos))
@@ -99,15 +112,21 @@ def test_decode_steps_and_cache_match_reference(name):
 @pytest.mark.parametrize("name", PORTED)
 def test_decode_matches_forward(name):
     """Token-by-token decode through the cache reproduces the port's own
-    teacher-forced forward logits."""
-    _, cfg, _, tp = _arch(name)
+    teacher-forced forward logits (an encoder-decoder's decoder against the
+    same memory)."""
+    rcfg, cfg, _, tp = _arch(name)
     if cfg.moe.n_experts:
         # decode always routes with top-k; align the prefill path
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, router="topk"))
     b, s = 2, 16
     toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab, (b, s)))
-    want = unembed(Tlm.head_params(tp), Tlm.forward(tp, cfg, toks))
-    caches = TM.init_cache(cfg, tp, b, s)
+    frames = _batch(rcfg, 6)[1].get("frames")
+    if cfg.kind == "encdec":
+        memory = Ted.encode(tp, cfg, frames)
+        want = unembed(tp["head"], Ted.decode_train(tp, cfg, toks, memory))
+    else:
+        want = unembed(Tlm.head_params(tp), Tlm.forward(tp, cfg, toks))
+    caches = TM.init_cache(cfg, tp, b, s, frames=frames)
     step = TM.make_decode_step(cfg)
     got = []
     for t in range(s):
@@ -137,7 +156,7 @@ def test_configs_equal_reference(name):
 def test_deferred_archs_raise(name):
     cfg = treg.get(name).smoke()
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A10.*MLA|MLA.*ROADMAP A10"):
         TM.init(cfg, gen, device="cpu")
 
 
