@@ -8,7 +8,8 @@ kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per source, side
 by side) and runs these phases, each printing one JSON line; any failed
 check raises, so the script exits non-zero and prints no result line:
 
-1. environment: the card, its power limit, torch/CUDA versions, build time;
+1. environment: the card, its power limit, torch/CUDA versions, build time,
+   each kernel instance's ptxas registers, stack frame and spill bytes;
 2. the host-fed path's kernels against their plain versions on the card
    at its shapes (chunk 65,536 and 65,536 - 37, K = 10, q in {1, 3}, seeded
    carries, ``scd_fused_hist`` at its default tile ``MAP_TILE``, the
@@ -210,10 +211,24 @@ check raises, so the script exits non-zero and prints no result line:
    one seed bitwise, mamba2's resumed from a checkpoint bitwise; the three
    smoke configs in float32 on the card against the CPU (TF32 off):
    prefill, decode and one train step;
-22. the smoke's wall beside its 900 s budget, the ``kernels`` line
+22. MLA and the router's kernels at K = 160 (``models/attention.py``'s
+   ``mla_attention`` and ``decode_mla``; the ``KWIDE`` instances of
+   ``scd_fused_hist`` and ``adjusted_topc``): deepseek-v2-236b at full
+   width, its dense ``block0`` and 6 of its 60 MoE layers (50.4 GB of bf16
+   weights): its router at 4,096 tokens x 160 experts, q = 6, bitwise the
+   CPU's, both kernels bitwise their plain versions there and at a ragged
+   token count, and timed; ``serve_loop`` with phase 19's settings, its
+   schedule equal to the CPU port's on the smoke reduction; a prefill at
+   B = 4, S = 1,024 launching ``scd_fused_hist`` 4 x 6 and ``adjusted_topc``
+   6 times (path ``lm_prefill_mla``), the decode step beside its
+   weight-read floor, the peak memory under 80 GB, 16 decode steps against
+   one forward within ``MLA_DECODE_REL``; its smoke config and the smoke
+   config with the router kept at 160 experts, top-6, in float32 on the
+   card against the CPU (TF32 off): prefill and decode;
+23. the smoke's wall beside its 900 s budget, the ``kernels`` line
    (launches summed over the paths run in phases 5, 7, 8, 11, 12, 13, 14,
-   15, 16, 19, 20 and 21, and rank 0's of each world of phases 17 and 18,
-   with the split), the card's ``nvidia-smi`` line and, last,
+   15, 16, 19, 20, 21 and 22, and rank 0's of each world of phases 17 and
+   18, with the split), the card's ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -2688,11 +2703,12 @@ def _tree_bytes(lm, tree):
 
 
 def _lm_router(torch, np, dev, cfg, tag="lm_router"):
-    """Phase 19a (and 21a at jamba's K = 16): the knapsack-priced router at
-    the prefill's shape on the card, bitwise the CPU's from the same
-    probabilities, and its two kernels bitwise and timed there."""
+    """Phase 19a (and 21a at jamba's K = 16, 22a at deepseek's K = 160): the
+    knapsack-priced router at the prefill's shape on the card, bitwise the
+    CPU's from the same probabilities, and its two kernels bitwise there and
+    at a ragged token count, and timed at the shape."""
     from repro_torch.core.bucketing import make_edges
-    from repro_torch.core.moe_router import ROUTER_TILE, scd_route_probs
+    from repro_torch.core.moe_router import router_tile, scd_route_probs
     from repro_torch.kernels import ops, ref
 
     moe, n = cfg.moe, LM_PREFILL[0] * LM_PREFILL[1]
@@ -2708,17 +2724,22 @@ def _lm_router(torch, np, dev, cfg, tag="lm_router"):
              for f in ("lam", "mask", "load", "combine")}
     ones, lam, q = torch.ones_like(pc), got.lam, moe.topk
     edges = make_edges(lam, 1e-4, 1.8, 16)              # the router's ladder
-    fused = dict(tile_n=ROUTER_TILE)
-    kh, kt = ops.scd_fused_hist(pc, ones, lam, edges, q, **fused)
-    ph, pt = ref.scd_fused_hist_plain(pc, ones, lam, edges, q, **fused)
-    kx, kv = ops.adjusted_topc(pc, ones, lam, q)
-    px, pv = ref.adjusted_topc_plain(pc, ones, lam, q)
-    torch.cuda.synchronize()
-    facts["fused_bitwise_plain"] = torch.equal(kh, ph) and torch.equal(kt, pt)
-    facts["topc_bitwise_plain"] = torch.equal(kx, px) and torch.equal(kv, pv)
+    tile = router_tile(*edges.shape)
+    fused = dict(tile_n=tile)
+    # At the router's shape, and (ragged) with its last 37 tokens cut.
+    for rows in (n, n - 37):
+        pr, onr = pc[:rows], ones[:rows]
+        kh, kt = ops.scd_fused_hist(pr, onr, lam, edges, q, **fused)
+        ph, pt = ref.scd_fused_hist_plain(pr, onr, lam, edges, q, **fused)
+        kx, kv = ops.adjusted_topc(pr, onr, lam, q)
+        px, pv = ref.adjusted_topc_plain(pr, onr, lam, q)
+        torch.cuda.synchronize()
+        sfx = "" if rows == n else "_ragged"
+        facts["fused_bitwise_plain" + sfx] = torch.equal(kh, ph) and torch.equal(kt, pt)
+        facts["topc_bitwise_plain" + sfx] = torch.equal(kx, px) and torch.equal(kv, pv)
     facts["capacity_binds"] = float(want.lam.max()) > 0
     cap = moe.capacity_factor * q * n / moe.n_experts
-    emit(tag, tokens=n, experts=moe.n_experts, q=q, iters=moe.scd_iters,
+    emit(tag, tokens=n, experts=moe.n_experts, q=q, iters=moe.scd_iters, tile=tile,
          capacity=cap, experts_priced=int((want.lam > 0).sum()),
          load_max=float(want.load.max()), routed=int(want.mask.sum()), **facts)
     check(all(facts.values()), f"router on the card: {facts}")
@@ -2727,7 +2748,7 @@ def _lm_router(torch, np, dev, cfg, tag="lm_router"):
     shape = {"rows": n, "k": k, "q": q}
     return {
         "scd_fused_hist": {
-            **shape, "e": e, "tile": ROUTER_TILE,
+            **shape, "e": e, "tile": tile,
             "ms": time_ms(torch, lambda: ops.scd_fused_hist(pc, ones, lam, edges, q, **fused),
                           reps=50),
             "plain_ms": time_ms(torch, lambda: ref.scd_fused_hist_plain(
@@ -2744,6 +2765,19 @@ def _lm_router(torch, np, dev, cfg, tag="lm_router"):
                        bound(read + 5 * n * k, n * k * (2 + 2 * q))))}}
 
 
+def _smoke_cfg(registry, name):
+    """``smoke()`` of the arch; ``NAME@k160`` keeps its router at the full
+    config's expert count and top-k (deepseek: 160 and 6)."""
+    import dataclasses
+    arch, _, wide = name.partition("@")
+    cfg = registry.get(arch).smoke()
+    if wide:
+        full = registry.get(arch).moe
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, n_experts=full.n_experts,
+                                                  topk=full.topk))
+    return cfg
+
+
 def _lm_smoke_vs_cpu(torch, np, dev, names=LM_SMOKE, tag="lm_smoke_card_vs_cpu",
                      tol=LM_SMOKE_TOL):
     """Phase 19d (and 21e): smoke configs in float32 on the card against
@@ -2757,7 +2791,7 @@ def _lm_smoke_vs_cpu(torch, np, dev, names=LM_SMOKE, tag="lm_smoke_card_vs_cpu",
     out = {}
     try:
         for name in names:
-            cfg = registry.get(name).smoke()
+            cfg = _smoke_cfg(registry, name)
             cpu = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
             card = lm.tree_map(lambda a: a.to(dev), cpu)
             g = np.random.default_rng(1)
@@ -3445,6 +3479,120 @@ def phase_lm_mixers(torch, np, dev):
     return {"lm_prefill_hybrid": launches}, kern
 
 
+# --------------------------------------------------------------------------
+# Phase 22: MLA and the router's two kernels at K = 160: deepseek-v2-236b's
+# prefill and decode through the SCD router at full width.
+# --------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v2-236b"       # src/repro_torch/configs/deepseek_v2_236b.py
+# block0 (dense, d_ff 12,288) and 6 MoE blocks, cut from 60: 25,219,261,440
+# parameters, 50.4 GB in bf16 (one MoE block 3.97 G parameters, 7.9 GB, 95 %
+# of it the 160 experts). At 8 blocks the weights alone take 66.3 GB, and
+# the dense-over-experts prefill holds (160, 4,096, 3,072), (160, 4,096,
+# 1,536) and (160, 4,096, 5,120) bf16 transients (4.0, 2.0 and 6.7 GB)
+# beside them. Every width is the config's.
+MLA_LAYERS = 6
+MLA_PARAMS = 25_219_261_440
+MLA_PREFILL = (4, 1024)             # B x S: 4,096 tokens, the router at (4,096, 160), q = 6
+# Decode against forward in bf16, the top-k router on both, as phase 19:
+# measured on the card at a median of 0.015 and at most 0.061 over the 32
+# positions (the absorbed decode and the decompressed prefill round in
+# other places), held at phase 19's 0.15.
+MLA_DECODE_REL = 0.15
+MLA_SMOKE = (MLA_ARCH, MLA_ARCH + "@k160")
+
+
+def phase_lm_mla(torch, np, dev):
+    """Phase 22: deepseek-v2-236b at full width and MLA_LAYERS MoE blocks:
+    its router at (4,096, 160), q = 6 through the kernels' wide instances,
+    ``serve_loop``, the prefill through both kernels, the decode step beside
+    its floor, decode against forward, the peak memory; then its smoke
+    config and the wide-router smoke against the CPU."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models import lm, model as M
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    cfg = registry.get(MLA_ARCH).replace(n_layers=MLA_LAYERS)
+    check(cfg.use_mla and cfg.moe.router == "scd" and cfg.moe.n_experts == 160
+          and cfg.moe.topk == 6 and cfg.first_dense_ff == 12288,
+          f"phase 22's deepseek config: {cfg.moe} {cfg.mla}")
+    kern = _lm_router(torch, np, dev, cfg, tag="lm_router_mla")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    done, sets, stats = serve_loop(cfg, device=dev, **LM_SERVE)
+    serve_s = time.perf_counter() - t0
+    peak_serve = torch.cuda.max_memory_allocated(dev)
+    cpu_done, cpu_sets, cpu_stats = serve_loop(registry.get(MLA_ARCH).smoke(),
+                                               device="cpu", **LM_SERVE)
+    facts = {"admitted_sets_equal_cpu_smoke": sets == cpu_sets,
+             "completion_order_equal_cpu_smoke":
+                 [r.rid for r in done] == [r.rid for r in cpu_done],
+             "admission_iters_equal_cpu_smoke":
+                 stats["admission_iters"] == cpu_stats["admission_iters"],
+             "all_completed": len(done) == LM_SERVE["n_requests"]}
+    emit("lm_serve_loop_mla", arch=MLA_ARCH, layers=cfg.n_layers, **LM_SERVE,
+         wall_s=serve_s, loop_wall_s=stats["wall_s"], admissions=len(sets),
+         admitted_sets=sets, completion_order=[r.rid for r in done],
+         admission_iters=stats["admission_iters"], peak_gb=peak_serve / 1e9, **facts)
+    check(all(facts.values()), f"deepseek serve_loop at full width: {facts}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params, param_bytes = _tree_bytes(lm, params)
+    b, s = MLA_PREFILL
+    toks = torch.tensor(np.random.default_rng(22).integers(0, cfg.vocab, (b, s)),
+                        device=dev)
+    step = M.make_prefill_step(cfg)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits = step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill2_s = time.perf_counter() - t0
+    peak_prefill = torch.cuda.max_memory_allocated(dev)
+    want = {name: 0 for name in launches}
+    want.update(scd_fused_hist=cfg.moe.scd_iters * cfg.n_layers, adjusted_topc=cfg.n_layers)
+    walls = _decode_walls(torch, np, dev, lm, M, params, cfg, toks[:LM_SERVE["max_batch"], :1])
+    peak = torch.cuda.max_memory_allocated(dev)
+    facts = {"params_as_counted": n_params == MLA_PARAMS,
+             "launches_as_routed": launches == want,
+             "logits_finite": bool(torch.isfinite(logits).all()),
+             "logits_shape": tuple(logits.shape) == (b, cfg.vocab),
+             "peak_under_80gb": peak < 80e9}
+    emit("lm_prefill_mla", arch=MLA_ARCH, layers=cfg.n_layers, layers_of_config=60,
+         dense_block0=True, params=n_params, param_gb=param_bytes / 1e9,
+         held_before_gb=held_gb, init_s=init_s, batch=b, seq=s, prefill_s=prefill_s,
+         prefill_again_s=prefill2_s, launches=launches, **walls,
+         peak_prefill_gb=peak_prefill / 1e9, peak_gb=peak / 1e9, **facts)
+    check(all(facts.values()), f"deepseek prefill at full width: {facts} {launches}")
+    del logits
+    _decode_vs_forward(torch, np, dev, params, cfg, "lm_decode_vs_forward_mla",
+                       toks[:LM_DECODE[0], :LM_DECODE[1]], MLA_DECODE_REL)
+    del params
+    torch.cuda.empty_cache()
+
+    _lm_smoke_vs_cpu(torch, np, dev, MLA_SMOKE, tag="lm_mla_smoke_card_vs_cpu")
+    emit("lm_mla_wall", seconds=time.perf_counter() - t_phase)
+    return {"lm_prefill_mla": launches}, kern
+
+
 def main():
     import numpy as np
     import torch
@@ -3463,7 +3611,7 @@ def main():
     _build.load()
     build_s = time.perf_counter() - t0
     ptxas = [line.strip() for line in log.splitlines()
-             if "registers" in line or "Compiling entry" in line]
+             if "registers" in line or "Compiling entry" in line or "spill" in line]
     emit("env", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
          library=lib.name, ptxas=ptxas)
@@ -3499,6 +3647,10 @@ def main():
     paths.update(mix_paths)
     kern["scd_fused_hist"]["router_shape_k16"] = mix_kern["scd_fused_hist"]
     kern["adjusted_topc"]["router_shape_k16"] = mix_kern["adjusted_topc"]
+    mla_paths, mla_kern = phase_lm_mla(torch, np, dev)
+    paths.update(mla_paths)
+    kern["scd_fused_hist"]["router_shape_k160"] = mla_kern["scd_fused_hist"]
+    kern["adjusted_topc"]["router_shape_k160"] = mla_kern["adjusted_topc"]
 
     rows = [{"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name],

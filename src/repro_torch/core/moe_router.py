@@ -18,7 +18,9 @@ reference's ``stop_gradient``); gradients reach the chosen experts'
 combine weights as in top-k routing. The §5.4 projection per expert then
 keeps the capacity-many tokens with the largest adjusted affinity (two
 stable argsorts over the tokens). On CPU tensors ``kernels.ops`` runs the
-plain versions, on CUDA tensors the kernels.
+plain versions, on CUDA tensors the kernels, which take up to 256 experts
+(deepseek-v2-236b routes 160; above 64 through their wide instances, the
+fused one at the tile ``router_tile`` picks).
 
 The histogram adds in the kernel's tile order, not the reference's
 row-order scatter-add; with b = 1 every bucket mass is a count, which both
@@ -32,16 +34,29 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import ops
+from ..kernels._wrap import MAX_SMEM, hist_smem_bytes
 from .bucketing import make_edges, threshold_from_hist
 
-__all__ = ["RouterOut", "scd_route", "scd_route_probs", "topk_route", "ROUTER_TILE"]
+__all__ = ["RouterOut", "scd_route", "scd_route_probs", "topk_route", "router_tile"]
 
-# The fused kernel's tile on the router's path. A block stages its rows of
-# p and b in shared memory, at most HIST_SUB = 512 of them: at K = 64
-# experts that is 414 KB with the default ladder (E = 33), above a block's
-# 227 KB, while 128 rows take 110 KB and leave room for E up to 128. With
-# b = 1 the tile changes no result: every bucket mass is a count.
-ROUTER_TILE = 128
+# The fused kernel's tile on the router's path, chosen from K and the
+# ladder's E: the largest of ROUTER_TILES whose block fits in shared memory.
+# A block stages its rows of p and b there (at most HIST_SUB = 512 of
+# them): with the default ladder (E = 33) 128 rows take 110 KB at K = 64
+# (512 would take 414 KB, above a block's 227 KB), while K = 160 experts
+# need 275 KB at 128 rows and 148 KB at 64, and K = 256 136 KB at 32. With
+# b = 1 the tile changes no result: every bucket mass is a count, which any
+# addition order sums exactly.
+ROUTER_TILES = (128, 64, 32)
+
+
+def router_tile(k, e):
+    """The router's ``scd_fused_hist`` tile for K experts and E edges."""
+    for t in ROUTER_TILES:
+        if hist_smem_bytes(k, e, t, True) <= MAX_SMEM:
+            return t
+    raise ValueError(f"no router tile of {ROUTER_TILES} fits K = {k}, E = {e} "
+                     f"in {MAX_SMEM} bytes of shared memory")
 
 
 class RouterOut(NamedTuple):
@@ -58,7 +73,8 @@ def _scd_prices(p, capacity, q, iters, bucket_half, bucket_delta, bucket_growth)
     lam = torch.zeros((p.shape[-1],), dtype=p.dtype, device=p.device)
     for _ in range(iters):
         edges = make_edges(lam, bucket_delta, bucket_growth, bucket_half)
-        hist, top = ops.scd_fused_hist(p, ones, lam, edges, q, tile_n=ROUTER_TILE)
+        tile = router_tile(*edges.shape)
+        hist, top = ops.scd_fused_hist(p, ones, lam, edges, q, tile_n=tile)
         lam = threshold_from_hist(hist, edges, capacity, top)
     return lam
 

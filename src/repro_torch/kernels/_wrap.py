@@ -11,9 +11,13 @@ from __future__ import annotations
 
 import torch
 
-KMAX = 64
+KMAX = 64            # K bound of the kernels (csrc/scd_common.cuh) ...
+KWIDE = 256          # ... but the MoE router's two, scd_fused_hist and adjusted_topc
 MAX_TILE = 1024
 MAX_SMEM = 232448
+HIST_SUB, HIST_RUN = 512, 32   # csrc/hist_tile.cuh
+# Where K above KMAX waits for the other four kernels.
+NARROW = "ROADMAP B, 'The K <= 64 limit of the four other kernels'"
 
 LAUNCHES = {"scd_fused_hist": 0, "scd_finalize_hist": 0, "scd_candidates": 0,
             "bucket_hist": 0, "screen_bound": 0, "adjusted_topc": 0}
@@ -37,8 +41,8 @@ def check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_rows(fn, x, tile_n=None, max_tile=MAX_TILE):
-    """Raise unless ``x`` is an (n, K) CUDA tensor with n >= 1, 1 <= K <= KMAX
+def check_rows(fn, x, tile_n=None, max_tile=MAX_TILE, kmax=KMAX):
+    """Raise unless ``x`` is an (n, K) CUDA tensor with n >= 1, 1 <= K <= kmax
     (and, when given, 1 <= tile_n <= max_tile; None: no cap); returns (n, K)."""
     if not x.is_cuda:
         raise ValueError(f"{fn} launches a CUDA kernel and takes CUDA tensors; "
@@ -47,20 +51,32 @@ def check_rows(fn, x, tile_n=None, max_tile=MAX_TILE):
     if x.dim() != 2:
         raise ValueError(f"{fn} takes (n, K) rows, got shape {tuple(x.shape)}")
     n, k = x.shape
-    if n < 1 or not 1 <= k <= KMAX:
-        raise ValueError(f"{fn} takes 1 <= K <= {KMAX} and n >= 1, got {(n, k)}")
+    if n < 1 or not 1 <= k <= kmax:
+        wait = f" (K above {KMAX} waits for {NARROW})" if kmax == KMAX else ""
+        raise ValueError(f"{fn} takes 1 <= K <= {kmax} and n >= 1, got {(n, k)}{wait}")
     if tile_n is not None and (tile_n < 1 or (max_tile and tile_n > max_tile)):
         raise ValueError(f"tile_n must be in [1, {max_tile or 'any'}], got {tile_n}")
     return n, k
 
 
-def check_p_b_lam(fn, p, b, lam, tile_n=None, max_tile=MAX_TILE):
+def check_p_b_lam(fn, p, b, lam, tile_n=None, max_tile=MAX_TILE, kmax=KMAX):
     """``check_rows`` of p, then p, b (n, K) and lam (K,); returns (n, K)."""
-    n, k = check_rows(fn, p, tile_n, max_tile)
+    n, k = check_rows(fn, p, tile_n, max_tile, kmax)
     check("p", p, (n, k), p.device)
     check("b", b, (n, k), p.device)
     check("lam", lam, (k,), p.device)
     return n, k
+
+
+def hist_smem_bytes(k, e, tile_n, fused):
+    """Dynamic shared memory of one block of the histogram kernels
+    (``hist_smem_floats`` of csrc/hist_tile.cuh, which the library's
+    ``hist_smem_bytes`` returns): the two staged row buffers, the run
+    histograms, the edges and, fused, lam and the per-warp maxima."""
+    rows = min(tile_n, HIST_SUB)
+    runs, warps = -(-rows // HIST_RUN), -(-rows // 32)
+    floats = 2 * (-(-rows * k // 4) * 4) + runs * k * (e + 1) + k * e
+    return 4 * (floats + (k + warps * k if fused else 0))
 
 
 def check_smem(smem, tile_n, k, e):

@@ -14,15 +14,15 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._wrap import check_p_b_lam, launched, stream_of
+from ._wrap import KWIDE, check_p_b_lam, launched, stream_of
 
 __all__ = ["adjusted_topc"]
 
 
 def adjusted_topc(p, b, lam, q):
-    """Greedy primal on the card: p, b (n, K) f32 CUDA, lam (K,) ->
-    (x (n, K) bool, v (n, K) f32)."""
-    n, k = check_p_b_lam("adjusted_topc", p, b, lam)
+    """Greedy primal on the card: p, b (n, K) f32 CUDA with K <= 256, lam
+    (K,) -> (x (n, K) bool, v (n, K) f32)."""
+    n, k = check_p_b_lam("adjusted_topc", p, b, lam, kmax=KWIDE)
     lib = _build.load()
     x = torch.empty((n, k), dtype=torch.bool, device=p.device)
     v = torch.empty((n, k), dtype=torch.float32, device=p.device)

@@ -26,17 +26,25 @@
 //   3. the block stores both tiles with 16-byte vector stores, consecutive
 //      threads on consecutive addresses.
 // So every global access is coalesced and 16 bytes wide, where one thread
-// per row read and wrote at a stride of K. KC (8, 16 or KMAX) is the
+// per row read and wrote at a stride of K. KC (8, 16, KMAX or KWIDE) is the
 // compile-time bound on K under which the row's work array stays in
-// registers. TOPC_ROWS = 256 makes each tile's byte ranges a multiple of 16
-// (256 * K), so every tile's copies and stores stay aligned; at K = 10 a
-// block stages 20 KB and TOPC_MIN_BLOCKS blocks share an SM, which keeps
-// some 80 KB of loads in flight per SM. It equals the plain version
-// (kernels/ref.py, adjusted_topc_plain) bit for bit on any input.
+// registers (in local memory at KWIDE). A block stages ROWS rows: 256 at
+// K <= KMAX, which makes each tile's byte ranges a multiple of 16 (256 * K),
+// so every tile's copies and stores stay aligned; at K = 10 a block stages
+// 20 KB and TOPC_MIN_BLOCKS blocks share an SM, which keeps some 80 KB of
+// loads in flight per SM. Above KMAX (the MoE router's expert counts, K <=
+// KWIDE) 256 rows need more shared memory than a block may have (369,280
+// bytes at K = 160), so a block stages 128 (184,960 bytes at K = 160), or 64
+// where 128 do not fit either (K > 201); 128 * K and 64 * K bytes are still
+// multiples of 16. The pick mask has (KC + 63) / 64 words (TopqMask). It
+// equals the plain version (kernels/ref.py, adjusted_topc_plain) bit for
+// bit on any input.
 
 #include "scd_common.cuh"
 
-#define TOPC_ROWS 256        // rows per block, one thread each
+#define TOPC_ROWS 256        // rows per block at K <= KMAX, one thread each
+#define TOPC_ROWS_WIDE 128   // rows per block at KMAX < K <= KWIDE, where they fit
+#define TOPC_ROWS_MIN 64     // else
 #define TOPC_MIN_BLOCKS 4    // blocks per SM the registers are budgeted for
 
 namespace {
@@ -44,25 +52,24 @@ namespace {
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
 
-inline size_t topc_smem_bytes(int k) {
-  return sizeof(float) * (2 * (size_t)round4(TOPC_ROWS * k) + k) +
-         (size_t)round16(TOPC_ROWS * k);
+inline size_t topc_smem_bytes(int k, int rows) {
+  return sizeof(float) * (2 * (size_t)round4(rows * k) + k) + (size_t)round16(rows * k);
 }
 
-template <int KC>
-__global__ void __launch_bounds__(TOPC_ROWS, TOPC_MIN_BLOCKS)
+template <int KC, int ROWS>
+__global__ void __launch_bounds__(ROWS, TOPC_MIN_BLOCKS)
 adjusted_topc_tile(const float* __restrict__ p, const float* __restrict__ b,
                    const float* __restrict__ lam, unsigned char* __restrict__ x,
                    float* __restrict__ v, long long n, int k, int q) {
   extern __shared__ __align__(16) float smem[];
   const int kl = kc_loop<KC>(k);
-  const int span = TOPC_ROWS * k;
+  const int span = ROWS * k;
   float* s_p = smem;                                         // p
   float* s_b = s_p + round4(span);                           // b, then v
   unsigned char* s_x = reinterpret_cast<unsigned char*>(s_b + round4(span));
   float* s_lam = reinterpret_cast<float*>(s_x + round16(span));
-  const long long row0 = (long long)blockIdx.x * TOPC_ROWS;
-  const int live = (int)min((long long)TOPC_ROWS, n - row0);
+  const long long row0 = (long long)blockIdx.x * ROWS;
+  const int live = (int)min((long long)ROWS, n - row0);
   const int count = live * k;
   load_async(s_p, p + row0 * k, count, count);
   load_async(s_b, b + row0 * k, count, count);
@@ -78,11 +85,11 @@ adjusted_topc_tile(const float* __restrict__ p, const float* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < kl; ++j)
       if (j < k) work[j] = __fsub_rn(pr[j], __fmul_rn(s_lam[j], br[j]));
-    const unsigned long long sel = topq_row<KC>(work, k, q);
+    const TopqMask<KC> sel = topq_row<KC>(work, k, q);
 #pragma unroll
     for (int j = 0; j < kl; ++j) {
       if (j >= k) continue;
-      const bool xj = (sel >> j) & 1ull;
+      const bool xj = sel[j];
       s_x[r * k + j] = xj ? 1 : 0;
       if (!xj) br[j] = 0.f;
     }
@@ -92,15 +99,15 @@ adjusted_topc_tile(const float* __restrict__ p, const float* __restrict__ b,
   store_tile(x + row0 * k, s_x, count);
 }
 
-template <int KC>
+template <int KC, int ROWS = TOPC_ROWS>
 cudaError_t launch_topc(const float* p, const float* b, const float* lam, unsigned char* x,
                         float* v, long long n, int k, int q, cudaStream_t s) {
-  const size_t smem = topc_smem_bytes(k);
-  cudaError_t err = allow_smem(adjusted_topc_tile<KC>, smem);
+  const size_t smem = topc_smem_bytes(k, ROWS);
+  cudaError_t err = allow_smem(adjusted_topc_tile<KC, ROWS>, smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (n + TOPC_ROWS - 1) / TOPC_ROWS;
-  adjusted_topc_tile<KC><<<(unsigned)blocks, TOPC_ROWS, smem, s>>>(p, b, lam, x, v, n, k,
-                                                                    q);
+  const long long blocks = (n + ROWS - 1) / ROWS;
+  adjusted_topc_tile<KC, ROWS><<<(unsigned)blocks, ROWS, smem, s>>>(p, b, lam, x, v, n, k,
+                                                                   q);
   return cudaGetLastError();
 }
 
@@ -108,17 +115,21 @@ cudaError_t launch_topc(const float* p, const float* b, const float* lam, unsign
 
 extern "C" {
 
-// x: (n, K) bool (one byte each); v: (n, K) f32. Returns the launch's CUDA
-// error (0 on success).
+// x: (n, K) bool (one byte each); v: (n, K) f32; K <= KWIDE. Returns the
+// launch's CUDA error (0 on success).
 int adjusted_topc_launch(const float* p, const float* b, const float* lam,
                          unsigned char* x, float* v, long long n, int k, int q,
                          void* stream) {
-  if (n < 1 || k < 1 || k > KMAX || q < 0 || (n + TOPC_ROWS - 1) / TOPC_ROWS > 0x7fffffffLL)
+  if (n < 1 || k < 1 || k > KWIDE || q < 0 ||
+      (n + TOPC_ROWS_MIN - 1) / TOPC_ROWS_MIN > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k <= 8) return (int)launch_topc<8>(p, b, lam, x, v, n, k, q, s);
   if (k <= 16) return (int)launch_topc<16>(p, b, lam, x, v, n, k, q, s);
-  return (int)launch_topc<KMAX>(p, b, lam, x, v, n, k, q, s);
+  if (k <= KMAX) return (int)launch_topc<KMAX>(p, b, lam, x, v, n, k, q, s);
+  if (topc_smem_bytes(k, TOPC_ROWS_WIDE) <= SMEM_MAX)
+    return (int)launch_topc<KWIDE, TOPC_ROWS_WIDE>(p, b, lam, x, v, n, k, q, s);
+  return (int)launch_topc<KWIDE, TOPC_ROWS_MIN>(p, b, lam, x, v, n, k, q, s);
 }
 
 }  // extern "C"

@@ -32,7 +32,8 @@
 //      (exactly searchsorted-left, like bin_lift), writing the bin over v1; for
 //      K <= 16 the row's work arrays are registers (KC, kc_loop in
 //      scd_common.cuh), at most 64 a thread so that two blocks share an SM
-//      (three, at 42 registers, spilled and ran slower);
+//      (three, at 42 registers, spilled and ran slower); the fused map's
+//      KWIDE instance (K <= 256) keeps them in local memory;
 //   3. one thread per (run, k) loads its run's bins and masses eight rows
 //      ahead and adds them in row order into that run's histogram in shared
 //      memory: O(1) per (row, k);
@@ -257,8 +258,10 @@ cudaError_t launch_hist_kc(const HistArgs& A, size_t smem, int threads, cudaStre
 }
 
 // Fills in the layout fields of A from n and tile_n, carves the scratch and
-// launches the instance for the smallest of K <= 8, 16, KMAX that holds k;
-// returns the launch's CUDA error.
+// launches the instance for the smallest of K <= 8, 16, KMAX that holds k,
+// and for the fused map also KWIDE (the MoE router's expert counts; its
+// per-row ap, work and bin arrays live in local memory); returns the
+// launch's CUDA error.
 template <bool FUSED>
 cudaError_t launch_hist(HistArgs A, float* scratch, cudaStream_t s) {
   const int rec = A.k * (A.e + 1) + (FUSED ? A.k : 0);
@@ -271,7 +274,11 @@ cudaError_t launch_hist(HistArgs A, float* scratch, cudaStream_t s) {
   const int threads = (hist_sub_rows(A.tile_n) + 31) / 32 * 32;
   if (A.k <= 8) return launch_hist_kc<FUSED, 8>(A, smem, threads, s);
   if (A.k <= 16) return launch_hist_kc<FUSED, 16>(A, smem, threads, s);
-  return launch_hist_kc<FUSED, KMAX>(A, smem, threads, s);
+  if (A.k <= KMAX) return launch_hist_kc<FUSED, KMAX>(A, smem, threads, s);
+  if constexpr (FUSED) {
+    if (A.k <= KWIDE) return launch_hist_kc<FUSED, KWIDE>(A, smem, threads, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

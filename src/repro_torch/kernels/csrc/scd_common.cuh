@@ -15,7 +15,12 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+// KMAX bounds K for every kernel; KWIDE for the two on the MoE router's
+// path (scd_fused_hist, adjusted_topc), whose K is an expert count (160 for
+// deepseek-v2-236b). The other four stay at KMAX: _wrap.py sizes
+// screen_bound's scratch by KMAX * KMAX.
 #define KMAX 64
+#define KWIDE 256
 #define SMEM_DEFAULT 49152
 #define SMEM_MAX 232448
 
@@ -23,8 +28,9 @@ __device__ __forceinline__ float ninf() { return -CUDART_INF_F; }
 
 // Loop bound over a row's k items for a compile-time bound KC >= k: below
 // KMAX the loops run KC times with a `j < k` guard, so `#pragma unroll`
-// unrolls them fully and the per-row arrays live in registers; at KMAX they
-// run k times. Either way each item sees the same operations.
+// unrolls them fully and the per-row arrays live in registers; at KMAX and
+// KWIDE they run k times (at KWIDE the per-row arrays live in local memory).
+// Either way each item sees the same operations.
 template <int KC>
 __device__ __forceinline__ int kc_loop(int k) { return KC < KMAX ? KC : k; }
 
@@ -72,6 +78,28 @@ __device__ __forceinline__ void candidates_row(const float* pv, const float* bv,
   }
 }
 
+// The picks of topq_row over KC items: (KC + 63) / 64 words of bits, item
+// j at bit j % 64 of word j / 64. At KC <= 64 it is one word.
+template <int KC>
+struct TopqMask {
+  static constexpr int W = (KC + 63) / 64;
+  unsigned long long w[W];
+  __device__ __forceinline__ void set(int j) {
+    if constexpr (W == 1) w[0] |= 1ull << j;
+    else w[j >> 6] |= 1ull << (j & 63);
+  }
+  __device__ __forceinline__ bool operator[](int j) const {
+    if constexpr (W == 1) return (w[0] >> j) & 1ull;
+    else return (w[j >> 6] >> (j & 63)) & 1ull;
+  }
+  __device__ __forceinline__ bool any() const {
+    unsigned long long a = 0ull;
+#pragma unroll
+    for (int i = 0; i < W; ++i) a |= w[i];
+    return a != 0ull;
+  }
+};
+
 // Greedy top-Q of one row's strictly positive values, ties to the lower
 // index (the reference's _topq_mask): Q passes, each picking the largest
 // value if it is above zero and knocking it out of `work` (overwritten).
@@ -80,9 +108,11 @@ __device__ __forceinline__ void candidates_row(const float* pv, const float* bv,
 // finalize kernel and adjusted_topc both select through it, so their ties
 // cannot drift.
 template <int KC>
-__device__ __forceinline__ unsigned long long topq_row(float* work, int k, int q) {
+__device__ __forceinline__ TopqMask<KC> topq_row(float* work, int k, int q) {
   const int kl = kc_loop<KC>(k);
-  unsigned long long x = 0ull;
+  TopqMask<KC> x;
+#pragma unroll
+  for (int i = 0; i < TopqMask<KC>::W; ++i) x.w[i] = 0ull;
   for (int it = 0; it < q; ++it) {
     float m = ninf();
 #pragma unroll
@@ -92,7 +122,7 @@ __device__ __forceinline__ unsigned long long topq_row(float* work, int k, int q
     bool hit = false;
 #pragma unroll
     for (int j = 0; j < kl; ++j) {
-      if (j < k && !hit && work[j] == m) { x |= 1ull << j; work[j] = ninf(); hit = true; }
+      if (j < k && !hit && work[j] == m) { x.set(j); work[j] = ninf(); hit = true; }
     }
   }
   return x;

@@ -218,19 +218,19 @@ __global__ void __launch_bounds__(1024, 1) scd_finalize_tile(FinArgs A) {
 #pragma unroll
       for (int j = 0; j < kl; ++j)
         if (j < k) work[j] = ap[j] = __fsub_rn(pr[j], __fmul_rn(s_lam[j], cr[j]));
-      const unsigned long long x = topq_row<KC>(work, k, A.q);
+      const TopqMask<KC> x = topq_row<KC>(work, k, A.q);
       float gain = 0.f, pt = 0.f;
 #pragma unroll
       for (int j = 0; j < kl; ++j) {
         if (j >= k) continue;
-        const bool xj = (x >> j) & 1ull;
+        const bool xj = x[j];
         gain = __fadd_rn(gain, xj ? pr[j] : 0.f);
         pt = __fadd_rn(pt, xj ? ap[j] : 0.f);
         if (!xj) cr[j] = 0.f;
       }
       s_gain[r] = gain;
       s_pt[r] = pt;
-      if (x) { hi = pt; nlo = -pt; }
+      if (x.any()) { hi = pt; nlo = -pt; }
       if (nb) bin = bin_lift(s_edges, e, pt);
     }
   }
@@ -393,16 +393,17 @@ size_t scd_finalize_smem_bytes(int k, int e, int tile_n) {
   return sizeof(float) * fin_smem_floats(k, e, tile_n, sub ? sub : min(32, tile_n));
 }
 
-// One launch on `stream`; returns its CUDA error (0 on success). hist_init
-// (K*(E+1)) and top_init (K) may be null (zeros, -inf); scratch holds
-// hist_scratch(n, k, e, tile_n, 1) floats; tickets n_tiles + 1 zeroed ints,
-// which the kernel leaves at zero; out: [hist (K*(E+1)) | top (K)].
+// One launch on `stream`, K <= KWIDE; returns its CUDA error (0 on
+// success). hist_init (K*(E+1)) and top_init (K) may be null (zeros,
+// -inf); scratch holds hist_scratch(n, k, e, tile_n, 1) floats; tickets
+// n_tiles + 1 zeroed ints, which the kernel leaves at zero; out: [hist
+// (K*(E+1)) | top (K)].
 int scd_fused_hist_launch(const float* p, const float* b, const float* lam,
                           const float* edges, const float* hist_init,
                           const float* top_init, float* scratch, int* tickets,
                           float* out, long long n, int k, int e, int q, int tile_n,
                           void* stream) {
-  if (n < 1 || k < 1 || k > KMAX || e < 1 || q < 0 || tile_n < 1)
+  if (n < 1 || k < 1 || k > KWIDE || e < 1 || q < 0 || tile_n < 1)
     return (int)cudaErrorInvalidValue;
   HistArgs A{};
   A.a = p; A.b = b; A.lam = lam; A.edges = edges;

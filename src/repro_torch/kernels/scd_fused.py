@@ -18,8 +18,8 @@ from __future__ import annotations
 import torch
 
 from . import _build, ref
-from ._wrap import (check, check_p_b_lam, check_smem, flat_seed, hist_buffers, launched,
-                    ptr, stream_of)
+from ._wrap import (KWIDE, check, check_p_b_lam, check_smem, flat_seed, hist_buffers,
+                    launched, ptr, stream_of)
 
 __all__ = ["scd_fused_hist", "scd_finalize_hist"]
 
@@ -28,14 +28,15 @@ def scd_fused_hist(p, b, lam, edges, q, tile_n=ref.MAP_TILE, hist_init=None,
                    top_init=None):
     """Fused Alg-5 map + §5.2 histogram on the card, in one launch.
 
-    p, b: (n, K) f32 CUDA; lam: (K,); edges: (K, E) ascending per row;
-    tile_n: any size >= 1 (the unit of the addition order, ``ref`` module
-    doc). Returns (hist (K, E+1), top (K,)): the v2 mass per
+    p, b: (n, K) f32 CUDA, K <= 256 (the finalize takes K <= 64); lam:
+    (K,); edges: (K, E) ascending per row; tile_n: any size >= 1 (the unit
+    of the addition order, ``ref`` module doc) whose block fits in shared
+    memory (``_wrap.hist_smem_bytes``). Returns (hist (K, E+1), top (K,)): the v2 mass per
     searchsorted-left bucket of v1 and the max of v1, folded onto
     ``hist_init`` (zeros) and ``top_init`` (-inf) in tile order.
     """
     tile_n = min(tile_n, p.shape[0])
-    n, k = check_p_b_lam("scd_fused_hist", p, b, lam, tile_n, max_tile=None)
+    n, k = check_p_b_lam("scd_fused_hist", p, b, lam, tile_n, max_tile=None, kmax=KWIDE)
     e = edges.shape[-1]
     check("edges", edges, (k, e), p.device)
     hist_init = flat_seed("hist_init", hist_init, k * (e + 1), p.device)

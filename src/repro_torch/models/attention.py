@@ -1,5 +1,5 @@
 """Attention mixers: GQA/MQA with RoPE and qk-norm, chunked-causal softmax,
-sliding windows, cross attention and KV-cache decode
+sliding windows, cross attention, KV-cache decode, and DeepSeek-style MLA
 (``src/repro/models/attention.py``).
 
 Prefill runs the reference's online softmax over kv chunks, chunk by q
@@ -7,11 +7,19 @@ chunk, in float32 with its ``NEG_INF`` masking, so the port holds to its
 arithmetic (no fused attention call: parity is held against these
 operations). Decode consumes a (B, S_max, KV, hd) cache, writes the step's
 k and v into it in place, and attends over the whole cache under the
-causal mask. MLA waits for its slice (ROADMAP A10).
+causal mask.
+
+MLA (DeepSeek-V2) compresses k and v into a low-rank ``c_kv`` per token
+plus one headless RoPE key. Prefill decompresses them per head and runs
+the same chunked softmax (v padded to the q/k head dim, sliced after).
+Decode uses the absorbed form: scores and values go through the
+compressed cache directly, so a token's cache is ``kv_lora + rope_hd``
+values whatever the head count.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .layers import init_rms, rms_norm, rope, truncnorm
 
@@ -151,3 +159,88 @@ def decode_attention(p, cfg, x, cache, pos):
     w = torch.softmax(s_, dim=-1)
     o = w.to(cache["v"].dtype) @ cache["v"].permute(0, 2, 1, 3)  # (b, g, r, hd)
     return _out(o.reshape(b, 1, cfg.n_heads, hd), p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank compressed KV and a decoupled RoPE head.
+# ---------------------------------------------------------------------------
+
+def init_mla(gen, cfg, device, periods=None):
+    d, h, m, dt = cfg.d_model, cfg.n_heads, cfg.mla, cfg.param_dtype
+    qd = m.nope_head_dim + m.rope_head_dim
+    return {
+        # q path (low rank)
+        "wq_a": truncnorm(gen, (d, m.q_lora), dt, d ** -0.5, device, periods),
+        "q_norm": init_rms(m.q_lora, dt, device, periods),
+        "wq_b": truncnorm(gen, (m.q_lora, h, qd), dt, m.q_lora ** -0.5, device, periods),
+        # kv path: the compressed c_kv and the shared rope key
+        "wkv_a": truncnorm(gen, (d, m.kv_lora + m.rope_head_dim), dt, d ** -0.5, device,
+                           periods),
+        "kv_norm": init_rms(m.kv_lora, dt, device, periods),
+        "wk_b": truncnorm(gen, (m.kv_lora, h, m.nope_head_dim), dt, m.kv_lora ** -0.5,
+                          device, periods),
+        "wv_b": truncnorm(gen, (m.kv_lora, h, m.v_head_dim), dt, m.kv_lora ** -0.5,
+                          device, periods),
+        "wo": truncnorm(gen, (h, m.v_head_dim, d), dt, (h * m.v_head_dim) ** -0.5,
+                        device, periods),
+    }
+
+
+def _mla_qc(p, cfg, x, positions):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope), c_kv (B, S, kv_lora),
+    k_rope (B, S, rope)), both ropes rotated."""
+    m = cfg.mla
+    ql = rms_norm(p["q_norm"], x @ p["wq_a"].to(x.dtype), cfg.norm_eps)
+    q_nope, q_rope = _proj(ql, p["wq_b"]).split([m.nope_head_dim, m.rope_head_dim], -1)
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_rope = (x @ p["wkv_a"].to(x.dtype)).split([m.kv_lora, m.rope_head_dim], -1)
+    c_kv = rms_norm(p["kv_norm"], c_kv, cfg.norm_eps)
+    # the headless shared rope key, through a singleton head axis
+    k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_attention(p, cfg, x, positions):
+    """Prefill and training MLA: k and v decompressed per head, the chunked
+    softmax at the q/k head dim (scale (nope + rope)^-0.5)."""
+    m = cfg.mla
+    q_nope, q_rope, c_kv, k_rope = _mla_qc(p, cfg, x, positions)
+    k_nope, v = _proj(c_kv, p["wk_b"]), _proj(c_kv, p["wv_b"])
+    k_rope_h = k_rope[:, :, None, :].expand(-1, -1, cfg.n_heads, -1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    # v padded to the q/k head dim for the shared chunked softmax, sliced after
+    out = _chunked_attention(q, k, F.pad(v, (0, q.shape[-1] - v.shape[-1])),
+                             positions, positions, cfg.attn_chunk, True, cfg.window)
+    return _out(out[..., :m.v_head_dim], p["wo"])
+
+
+def init_mla_cache(cfg, batch, seq_len, dtype, device, periods=None):
+    m = cfg.mla
+    lead = (batch, seq_len) if periods is None else (periods, batch, seq_len)
+    return {"c_kv": torch.zeros((*lead, m.kv_lora), dtype=dtype, device=device),
+            "k_rope": torch.zeros((*lead, m.rope_head_dim), dtype=dtype, device=device)}
+
+
+def decode_mla(p, cfg, x, cache, pos):
+    """Absorbed-form MLA decode. x: (B, 1, D); pos: int, the cache index.
+    Writes the step's c_kv and k_rope into ``cache`` in place; scores and
+    values go through the compressed cache. Returns (out, cache)."""
+    m = cfg.mla
+    positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qc(p, cfg, x, positions)
+    cache["c_kv"][:, pos] = c_kv[:, 0]
+    cache["k_rope"][:, pos] = k_rope[:, 0]
+    ckv = cache["c_kv"]                                   # (B, S, L)
+    # W_uk absorbed into q: (H, B, nope) @ (H, nope, L) -> (B, H, L)
+    wk = p["wk_b"].to(x.dtype).permute(1, 2, 0)
+    q_abs = (q_nope[:, 0].transpose(0, 1) @ wk).transpose(0, 1)
+    s_c = q_abs @ ckv.transpose(1, 2)                     # (B, H, S)
+    s_r = q_rope[:, 0] @ cache["k_rope"].transpose(1, 2)
+    s = (s_c + s_r) * (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    kv_pos = torch.arange(ckv.shape[1], device=x.device)
+    w = torch.softmax(torch.where(kv_pos <= pos, s.float(), NEG_INF), dim=-1)
+    ctx = w.to(x.dtype) @ ckv                             # (B, H, L)
+    # W_uv: (H, B, L) @ (H, L, v) -> (B, H, v)
+    o = (ctx.transpose(0, 1) @ p["wv_b"].to(x.dtype).transpose(0, 1)).transpose(0, 1)
+    return _out(o[:, None], p["wo"]), cache

@@ -6,7 +6,8 @@ every expert with a combine mask, as the reference's single-device path
 ``_moe_local`` and its decode path ``moe_decode`` do: the expert products
 are one batched matrix product over the expert axis, so a step reads
 every expert's weights once. Decode always routes with top-k; only
-prefill reaches the SCD router. The expert-parallel a2a path
+prefill and training reach the SCD router, whose two kernels take up to
+256 experts on the card (``core/moe_router.py``). The expert-parallel a2a path
 (``_moe_a2a``) waits for the port's world slice (ROADMAP A10).
 
 Shared experts (DeepSeek-style) are ordinary dense MLPs handled by the

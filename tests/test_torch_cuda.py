@@ -29,11 +29,14 @@ fused one in lam, iterations and dual (every field without the
 projection); ``RefreshEngine(mesh=)`` over it bitwise the in-process
 ``slots=4`` engine on the card, cold, warm and screened delta. The LM
 serving path: the knapsack-priced router through the two kernels bitwise
-its plain version on the CPU (at moonshot's K = 64 and jamba's K = 16);
-smoke moonshot, gemma, mamba2, jamba and seamless, prefill and decode,
-against the CPU in float32 with TF32 off; the Mamba decode cache written
+its plain version on the CPU (at moonshot's K = 64, jamba's K = 16 and
+deepseek's K = 160); the two router kernels' wide instances (K = 65, 96,
+160, 256) bitwise their plain versions, the four other kernels refusing
+K = 65; smoke moonshot, gemma, mamba2, jamba, seamless and deepseek (also
+with its router kept at 160 experts, top-6), prefill and decode, against
+the CPU in float32 with TF32 off; the Mamba decode cache written
 in place on the card. The LM training path: one smoke train step of the
-same five archs on the card against the CPU in float32 with TF32 off (the loss rtol 1e-5, each gradient within a
+same seven configs on the card against the CPU in float32 with TF32 off (the loss rtol 1e-5, each gradient within a
 relative L2 error of 1e-4, ``grad_norm`` rtol 1e-5, the update from the
 same gradients rtol 1e-6 of the leaf's largest element); a resumed run
 and two runs from one seed bitwise on the card.
@@ -434,6 +437,77 @@ def test_adjusted_topc_branches_bitwise_on_card(cuda_device, k, q, dyadic):
         torch.cuda.synchronize()
         assert x.dtype == torch.bool and v.dtype == torch.float32
         assert torch.equal(x, px) and torch.equal(v, pv)
+
+
+# K above KMAX: the wide instances (KWIDE = 256) of the MoE router's two
+# kernels, at deepseek-v2-236b's 160 experts and around it.
+WIDE_K = [65, 96, 160, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dyadic", [False, True])
+@pytest.mark.parametrize("q", [1, 6])
+@pytest.mark.parametrize("k", WIDE_K)
+def test_router_kernels_wide_k_bitwise_on_card(cuda_device, k, q, dyadic):
+    """``scd_fused_hist`` at the router's tile for K (``router_tile``: 128,
+    64 or 32 rows) and ``adjusted_topc`` (128 or 64 rows a block), on rows
+    with b = 0 and all-tied rows and on the router's b = 1, ragged n
+    (4,096 - 37, and n below one tile): bitwise their plain versions."""
+    from repro_torch.core.moe_router import router_tile
+    for n in (4096 - 37, 50):
+        p, b, lam = _branch_rows(n, k, n + k + q, dyadic, cuda_device)
+        edges = make_edges(lam, 1e-4, 1.8, 16)
+        tile = router_tile(k, edges.shape[-1])
+        for bb in (b, torch.ones_like(b)):
+            ops.reset_launches()
+            h, top = ops.scd_fused_hist(p, bb, lam, edges, q, tile_n=tile)
+            x, v = ops.adjusted_topc(p, bb, lam, q)
+            ph, pt = ref.scd_fused_hist_plain(p, bb, lam, edges, q, tile_n=tile)
+            px, pv = ref.adjusted_topc_plain(p, bb, lam, q)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["scd_fused_hist"] == ops.LAUNCHES["adjusted_topc"] == 1
+            assert torch.equal(h, ph) and torch.equal(top, pt)
+            assert torch.equal(x, px) and torch.equal(v, pv)
+        assert int(torch.count_nonzero(_wrap.tickets(p, 1))) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["scd_finalize_hist", "scd_candidates", "bucket_hist",
+                                    "screen_bound"])
+def test_narrow_kernels_refuse_wide_k(cuda_device, kernel):
+    """The four kernels off the router's path keep K <= KMAX = 64: K = 65
+    raises ``ValueError`` naming the ROADMAP item that would widen them,
+    before any launch; the router's two refuse K = 257."""
+    p, b, lam = _inst(100, 65, 1, False, cuda_device)
+    calls = {
+        "scd_finalize_hist": lambda: scd_fused.scd_finalize_hist(
+            p, b, lam, profit_edges_fixed(device=cuda_device), 1),
+        "scd_candidates": lambda: scd_candidates.scd_candidates(p, b, lam, 1),
+        "bucket_hist": lambda: bucket_hist.bucket_hist(p, b, make_edges(lam, 1e-4, 1.6, 24)),
+        "screen_bound": lambda: screen_bound.screen_bound(p, b)}
+    ops.reset_launches()
+    with pytest.raises(ValueError, match=r"K <= 64 .*ROADMAP B"):
+        calls[kernel]()
+    p2, b2, lam2 = _inst(100, 257, 2, False, cuda_device)
+    with pytest.raises(ValueError, match=r"K <= 256"):
+        scd_fused.scd_fused_hist(p2, b2, lam2, make_edges(lam2, 1e-4, 1.8, 16), 1, tile_n=32)
+    with pytest.raises(ValueError, match=r"K <= 256"):
+        adjusted_topc.adjusted_topc(p2, b2, lam2, 1)
+    assert sum(ops.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+def test_hist_smem_bytes_mirror_equals_library(cuda_device):
+    """``_wrap.hist_smem_bytes``, which picks the router's tile without the
+    library, equals the library's ``hist_smem_bytes``."""
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    for k in (1, 10, 16, 64, 65, 160, 256):
+        for e in (33, 50, 512):
+            for tile in (1, 32, 64, 96, 128, 512, 8192):
+                for fused in (0, 1):
+                    assert lib.hist_smem_bytes(k, e, tile, fused) == \
+                        _wrap.hist_smem_bytes(k, e, tile, bool(fused)), (k, e, tile, fused)
 
 
 @pytest.mark.cuda
@@ -845,11 +919,13 @@ def no_tf32():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,e,q", [(4096, 64, 6), (4096, 16, 2), (1000, 8, 2)])
+@pytest.mark.parametrize("t,e,q", [(4096, 64, 6), (4096, 16, 2), (1000, 8, 2),
+                                   (4096, 160, 6)])
 def test_router_on_card_bitwise_plain(cuda_device, t, e, q):
     """The knapsack-priced router through ``scd_fused_hist`` (one launch an
     iteration) and ``adjusted_topc`` (one) on the card: every field bitwise
-    the plain versions' on the CPU from the same probabilities."""
+    the plain versions' on the CPU from the same probabilities (at K = 160
+    through the wide instances)."""
     from repro_torch.core.moe_router import scd_route_probs
     g = np.random.default_rng(t + e)
     logits = g.standard_normal((t, e)) * 2 + g.standard_normal(e)   # uneven experts
@@ -865,7 +941,22 @@ def test_router_on_card_bitwise_plain(cuda_device, t, e, q):
 
 
 LM_SMOKE_ARCHS = ["moonshot-v1-16b-a3b", "gemma-2b", "mamba2-370m", "jamba-v0.1-52b",
-                  "seamless-m4t-medium"]
+                  "seamless-m4t-medium", "deepseek-v2-236b", "deepseek-v2-236b@k160"]
+
+
+def _smoke_cfg(name):
+    """``smoke()`` of the arch; ``NAME@k160`` keeps its router at the full
+    config's 160 experts and top-6 (the kernels' wide instances under the
+    MLA model)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    arch, _, wide = name.partition("@")
+    cfg = registry.get(arch).smoke()
+    if wide:
+        full = registry.get(arch).moe
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, n_experts=full.n_experts,
+                                                  topk=full.topk))
+    return cfg
 # The mixers' unscaled prefill logits reach ~15, and float32 rounding along
 # jamba's 16 layers grows to a few 1e-6 of the residual stream: the
 # reference's own eager and jitted prefills differ by up to 5.0e-5 there
@@ -893,15 +984,14 @@ def _smoke_inputs(cfg, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", LM_SMOKE_ARCHS)
 def test_smoke_model_on_card_against_cpu(cuda_device, no_tf32, name):
-    """Prefill (the SCD router on moonshot and jamba) and four decode steps
+    """Prefill (the SCD router on moonshot, jamba and deepseek) and four decode steps
     at ``smoke()`` in float32 on the card against the port on the CPU, from
     the same weights (and frames), with every cache leaf after them. rtol
     1e-4, atol 1e-5 (logits of mamba2 and jamba: ``CARD_TOL``): the card's
     matrix products sum in another order than the CPU's, the router's bits
     are the same."""
-    from repro_torch.configs import registry
     from repro_torch.models import lm, model as M
-    cfg = registry.get(name).smoke()
+    cfg = _smoke_cfg(name)
     cpu = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     card = lm.tree_map(lambda a: a.to(cuda_device), cpu)
     batch = _smoke_inputs(cfg, 1)
@@ -999,12 +1089,11 @@ def test_smoke_train_step_on_card_against_cpu(cuda_device, no_tf32, name):
     """One train step at ``smoke()`` in float32 on the card against the
     port on the CPU, from the same weights and batch: the loss, every
     gradient, ``grad_norm``, and the update from the CPU's gradients."""
-    from repro_torch.configs import registry
     from repro_torch.data.synth import lm_batch
     from repro_torch.models import lm, model as M
     from repro_torch.optim import OptConfig, apply_updates, init_opt_state
     from repro_torch.models.lm import tree_leaves
-    cfg = registry.get(name).smoke()
+    cfg = _smoke_cfg(name)
     opt_cfg = OptConfig(lr=1e-3, warmup=2)
     cpu = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     card = lm.tree_map(lambda a: a.to(cuda_device), cpu)

@@ -33,6 +33,7 @@ LM_SLICE = ("repro_torch.core.moe_router", "repro_torch.launch.serve",
             "repro_torch.models.mamba2", "repro_torch.models.encdec",
             "repro_torch.configs.mamba2_370m", "repro_torch.configs.jamba_v01_52b",
             "repro_torch.configs.seamless_m4t_medium",
+            "repro_torch.configs.deepseek_v2_236b",
             "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.launch.train",
             "repro_torch.data", "repro_torch.data.synth", "repro_torch.checkpoint.ckpt")
 

@@ -28,7 +28,9 @@ from repro.core.sparse_scd import candidates_sparse as j_candidates  # noqa: E40
 from repro.core.types import SolverConfig as JCfg  # noqa: E402
 from repro.core.postprocess import profit_edges_fixed as j_pedges  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels._wrap import hist_smem_bytes  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -388,3 +390,40 @@ def test_finalize_plain_addition_order(q, with_hist):
             assert a is None
         else:
             np.testing.assert_array_equal(a.numpy(), np.asarray(c, np.float32))
+
+
+@pytest.mark.parametrize("k", [65, 160, 256])
+def test_plain_versions_wide_k_tie_order(k):
+    """The plain versions have no K limit. At the MoE router's widths
+    (above KMAX = 64, where the two router kernels take a wide instance),
+    on dyadic rows with all-tied rows (b = 0, equal p) and b = 1 rows:
+    ``adjusted_topc``'s mask picks the lowest indices first, bitwise the
+    reference's jnp version, and ``scd_fused_hist`` bitwise the
+    reference's jnp oracle."""
+    n, q = 300, 6
+    p, b, lam = _inst(n, k, seed=k, dyadic=True)
+    p[1::5], b[1::5] = 0.5, 0.0
+    b[2::5] = 1.0
+    x, v = ref.adjusted_topc_plain(_t(p), _t(b), _t(lam), q)
+    jx, jv = jref.adjusted_topc_ref(jnp.asarray(p), jnp.asarray(b), jnp.asarray(lam), q)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    tied = x.numpy()[1::5]
+    np.testing.assert_array_equal(tied, np.broadcast_to(np.arange(k) < q, tied.shape))
+    edges = np.asarray(j_make_edges(jnp.asarray(lam), 1e-4, 1.8, 16))
+    th, tt = ops.scd_fused_hist(_t(p), _t(b), _t(lam), _t(edges), q, tile_n=64)
+    jh, jt = jref.scd_fused_hist_ref(jnp.asarray(p), jnp.asarray(b), jnp.asarray(lam),
+                                     jnp.asarray(edges), q)
+    np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+
+
+def test_hist_smem_bytes_at_the_router_shapes():
+    """The wrapper's mirror of ``hist_smem_floats`` (csrc/hist_tile.cuh) at
+    the router's ladder (E = 33): K = 160 fits a block at tile 64 (148,480
+    bytes) and 96 (211,840), not at 128 (275,200; a block may have
+    232,448); K = 64 at tile 128 takes 110,080."""
+    assert [hist_smem_bytes(160, 33, t, True) for t in (128, 96, 64)] == \
+        [275200, 211840, 148480]
+    assert hist_smem_bytes(64, 33, 128, True) == 110080
+    assert hist_smem_bytes(10, 50, 8192, False) == 4 * (2 * 5120 + 16 * 10 * 51 + 500)

@@ -69,7 +69,7 @@ def test_admission_empty_queue_no_solve():
 
 
 @pytest.mark.parametrize("name", ["gemma-2b", "moonshot-v1-16b-a3b", "mamba2-370m",
-                                  "jamba-v0.1-52b"])
+                                  "jamba-v0.1-52b", "deepseek-v2-236b"])
 def test_serve_loop_matches_reference(name):
     kw = dict(n_requests=6, cache_len=128, kv_budget=400.0, max_batch=3, max_ticks=220)
     done_r, sets_r, stats_r = R.serve_loop(rreg.get(name).smoke(), **kw)

@@ -43,8 +43,8 @@ def _one_intra_op_thread():
     torch.set_num_threads(n)
 
 PORTED = ["gemma-2b", "qwen3-4b", "starcoder2-3b", "yi-34b", "internvl2-26b",
-          "moonshot-v1-16b-a3b", "mamba2-370m", "jamba-v0.1-52b", "seamless-m4t-medium"]
-DEFERRED = ["deepseek-v2-236b"]
+          "moonshot-v1-16b-a3b", "mamba2-370m", "jamba-v0.1-52b", "seamless-m4t-medium",
+          "deepseek-v2-236b"]
 TOL = dict(rtol=1e-4, atol=1e-5)
 # jamba-v0.1-52b at smoke() is 16 layers deep (two periods of 8): float32
 # rounding grows along the residual stream to ~3e-6 of its scale, and the
@@ -150,14 +150,6 @@ def test_configs_equal_reference(name):
         assert _fields(t, lambda d: str(d).split(".")[-1]) == \
             _fields(r, lambda d: np.dtype(d).name)
         assert (t.hd, t.n_periods) == (r.hd, r.n_periods)
-
-
-@pytest.mark.parametrize("name", DEFERRED)
-def test_deferred_archs_raise(name):
-    cfg = treg.get(name).smoke()
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.*MLA|MLA.*ROADMAP A10"):
-        TM.init(cfg, gen, device="cpu")
 
 
 def test_shape_cells_equal_reference():

@@ -144,3 +144,24 @@ def test_router_prices_carry_no_gradient():
     assert not out.lam.requires_grad and not out.mask.requires_grad
     out.combine.sum().backward()
     assert lg.grad is not None and torch.isfinite(lg.grad).all()
+
+
+def test_scd_route_wide_matches_reference():
+    """deepseek-v2-236b's router width: 1,024 tokens over 160 experts, q = 6
+    (the kernels' wide instances on the card, the fused one at the tile
+    ``router_tile`` picks, 64 rows), against the jitted reference at this
+    file's bars: from logits, lam rtol 1e-5, masks and loads equal, combine
+    weights rtol 1e-6."""
+    t, e, q = 1024, 160, 6
+    g = np.random.default_rng(160)
+    lg = (g.standard_normal((t, e)) * 2 + g.standard_normal(e)).astype(np.float32)
+    assert T.router_tile(e, 33) == 64
+    ref = R.scd_route(jnp.asarray(lg), q=q, capacity_factor=1.25, iters=4)
+    out = T.scd_route(torch.from_numpy(lg), q=q, capacity_factor=1.25, iters=4)
+    assert float(np.asarray(ref.lam).max()) > 0, "capacity binds: the prices moved"
+    np.testing.assert_allclose(out.lam.numpy(), np.asarray(ref.lam), rtol=1e-5, atol=0)
+    assert np.array_equal(out.mask.numpy(), np.asarray(ref.mask))
+    assert np.array_equal(out.load.numpy(), np.asarray(ref.load))
+    np.testing.assert_allclose(out.combine.numpy(), np.asarray(ref.combine),
+                               rtol=1e-6, atol=0)
+    assert float(out.load.max()) <= 1.25 * q * t / e + 1e-6
