@@ -115,8 +115,8 @@ check raises, so the script exits non-zero and prints no result line:
    SIGKILLed in a fresh interpreter and recovered here, its record bitwise
    the uninterrupted one; ``run_chaos`` at n = 262,144 (chaos == clean);
    and the card's generation records bitwise the CPU's there;
-16. operations at the serving shape (N = 2^21, 8 slots, 3 generations):
-   ``launch/supervisor.run_chaos_soak``, its references in this process
+16. operations at the serving shape (8 slots): ``launch/supervisor.run_chaos_soak``
+   at N = 2^20 and 2 generations, its references in this process
    and the supervised solve and refresh in worker processes on the card
    under one SIGKILL and one SIGSTOP each plus a fetch-level fault plan,
    both records bitwise the references', the poisoned task contained in
@@ -128,7 +128,8 @@ check raises, so the script exits non-zero and prints no result line:
    refreshes with ``keep=2``: every answered row bitwise the
    materialisation of the generation that answered it, ``/diff`` the
    brute-force comparison at one grouped fill pass per replica and zero on
-   the repeat, lookups per second and the p50/p99 of ``/decide``;
+   the repeat, lookups per second and the p50/p99 of ``/decide`` (N = 2^21,
+   3 generations);
 17. a world of ranks (``launch/mesh.run_local_world``): 4 rank processes
    sharing the card, gloo over host tensors. In one world of 4: the
    host-fed table1 N = 10^7 at 4 slots bitwise phase 13's in-process row
@@ -225,10 +226,28 @@ check raises, so the script exits non-zero and prints no result line:
    one forward within ``MLA_DECODE_REL``; its smoke config and the smoke
    config with the router kept at 160 experts, top-6, in float32 on the
    card against the CPU (TF32 off): prefill and decode;
-23. the smoke's wall beside its 900 s budget, the ``kernels`` line
+23. the MoE forward over a world of ranks (``models/sharding.py``,
+   ``moe_train``'s a2a path, ``scd_route_shmap``, ``Mesh.all_to_all``):
+   moonshot-v1-16b-a3b at full width and 8 of its 48 layers (10.5 GB of
+   bf16 weights), first in this process (a prefill at B = 4, S = 1,024 and
+   16 decode steps, the weights then freed), then over worlds of 2 and 4
+   gloo ranks sharing the card under the batch binding, each rank drawing
+   the same weights from the seed and keeping its E / D experts: the
+   world's lam from 4,096 x 64 probabilities bitwise the one-process lam;
+   rank 0 launching ``scd_fused_hist`` 4 x 8 and ``adjusted_topc`` 8 times
+   a prefill and nothing else (path ``lm_prefill_world``); each row's
+   last-position logits within ``WORLD_LM_REL`` and every decode step's
+   within ``WORLD_LM_DECODE_REL`` (relative L2) of the one-process run; the
+   prefill and decode walls
+   beside the one-process ones, rank 0's seconds in collectives, the pairs
+   dropped by ``cap_send`` and ``cap_e``, each rank's held and peak memory;
+   and the smoke config in float32 (TF32 off) over the card's world of 2
+   against a world of 2 on the CPU: ``moe_train``, the prefill and 4
+   decode steps;
+24. the smoke's wall beside its 900 s budget, the ``kernels`` line
    (launches summed over the paths run in phases 5, 7, 8, 11, 12, 13, 14,
-   15, 16, 19, 20, 21 and 22, and rank 0's of each world of phases 17 and
-   18, with the split), the card's ``nvidia-smi`` line and, last,
+   15, 16, 19, 20, 21, 22 and 23, and rank 0's of each world of phases 17,
+   18 and 23, with the split), the card's ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -283,11 +302,14 @@ N_HISTORY = 1_000_000               # the sampled history, host-fed against stre
 SERVE = dict(k=8, q=2, tightness=0.4)   # the reference's serving shape (launch/refresh.py)
 N_SERVE, SERVE_SLOTS, SERVE_GENS = 1 << 21, 8, 3   # 32 chunks, cut from 10^8 (and from 2^22)
 SERVE_CKPT_EVERY = 2
-# Phase 16: the soak's kill/stop thresholds on the lease's progress (chunk
-# reads, two a fetch under verify_refetch): 1-3.5 epochs of 32 chunks,
-# inside the first worker life of a cold solve of ~10 epochs (640 reads)
-# at phase 15's ladder (bucket_half 24; the soak's 16 runs to max_iters).
-SOAK_LO, SOAK_HI = 64, 224
+# Phase 16: the soak at half the serving N and 2 generations (cut from 2^21
+# and 3 for phase 23), and its kill/stop thresholds on the lease's progress
+# (chunk reads, two a fetch under verify_refetch): 1-3.5 epochs of 16
+# chunks, inside the first worker life of a cold solve of ~10 epochs (320
+# reads) at phase 15's ladder (bucket_half 24; the soak's 16 runs to
+# max_iters).
+N_SOAK, SOAK_GENS = 1 << 20, 2
+SOAK_LO, SOAK_HI = 32, 112
 FRONT_REPLICAS, FRONT_DIFF_STRIDE = 2, 64   # /diff asks about 32,768 users
 HOST_RESULTS = {}                   # host-fed results later phases compare against
 
@@ -1892,7 +1914,7 @@ def phase_operations(torch, np, dev):
 
     # 1. The soak. The references run here (their launches are this path's
     # count); the supervised solve and refresh run in worker processes.
-    shape = SoakShape(n=N_SERVE, chunk=C_MAIN, generations=SERVE_GENS, max_iters=60,
+    shape = SoakShape(n=N_SOAK, chunk=C_MAIN, generations=SOAK_GENS, max_iters=60,
                       lo=SOAK_LO, hi=SOAK_HI, slots=SERVE_SLOTS, bucket_half=24)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1905,8 +1927,8 @@ def phase_operations(torch, np, dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     free1 = torch.cuda.mem_get_info(dev)[0]
-    emit("operations_soak", n=N_SERVE, chunk=C_MAIN, slots=SERVE_SLOTS,
-         generations=SERVE_GENS, thresholds=[SOAK_LO, SOAK_HI], wall_s=soak_s,
+    emit("operations_soak", n=N_SOAK, chunk=C_MAIN, slots=SERVE_SLOTS,
+         generations=SOAK_GENS, thresholds=[SOAK_LO, SOAK_HI], wall_s=soak_s,
          walls_s=rep["walls_s"], iters=rep["iters"], solve=rep.get("solve"),
          refresh=rep.get("refresh"),
          poison=rep.get("poison"), exercised=rep["exercised"], degrade=rep["degrade"],
@@ -3593,6 +3615,300 @@ def phase_lm_mla(torch, np, dev):
     return {"lm_prefill_mla": launches}, kern
 
 
+# --------------------------------------------------------------------------
+# Phase 23: the MoE forward over a world of ranks (models/sharding.py, the
+# a2a expert-parallel MoE, scd_route_shmap): moonshot-v1-16b-a3b's prefill
+# and decode over worlds of 2 and 4 gloo ranks sharing the card.
+# --------------------------------------------------------------------------
+
+# One MoE layer's experts take 1.107 GB in bf16: the 48-layer model's
+# weights (56.1 GB) do not fit twice, let alone once a rank; at 8 layers
+# they take 10.5 GB, which each rank draws whole and cuts to its experts
+# (about 6.0 GB a rank in a world of 2, 3.8 GB in a world of 4). Every
+# width is the config's.
+WORLD_LM_LAYERS = 8
+WORLD_LM_SIZES = (2, 4)
+WORLD_LM_PREFILL = (4, 1024)        # B x S: each rank routes its B / D rows
+WORLD_LM_DECODE = (16, 256)         # decode steps, cache length
+WORLD_LM_TIMEOUT = 300
+# Against the one-process run in bf16 (relative L2 of each row's logits):
+# the world routes without the §5.4 projection and drops pairs past
+# cap_send and cap_e, its a2a sums k pairs where the one-process path sums
+# E experts, and its decode folds the ranks' partial outputs. Where nothing
+# drops, the decode-against-forward bar of phases 19-22 (0.15; the world
+# of 2 measured 0.0099 for the prefill, 0.065 for decode). In the world of
+# 4 each rank routes one sequence, whose tokens favour the same experts in
+# the deeper layers, and cap_send (1.25x a rank's average share a target)
+# drops 541 of its 24,576 pairs (2.2 %; the reference's rule): its prefill
+# rows measured 0.091 (median) and 0.164 (max), held at 0.3, the bar of a
+# router that flips experts (jamba's, phase 21). Decode drops nothing.
+WORLD_LM_REL = {2: 0.15, 4: 0.3}
+WORLD_LM_DECODE_REL = 0.15
+WORLD_LM_SMOKE_X = (4, 32)          # moe_train's tokens at smoke()
+
+
+def _world_rules():
+    """The batch binding: "batch" and "experts" on the world, nothing else."""
+    from repro_torch.models import sharding
+
+    return dict(sharding.DEFAULT_RULES, batch="model", seq=None, kv_seq=None, heads=None,
+                kv_heads=None, ffn=None, vocab=None)
+
+
+def _world_inputs(np, cfg):
+    """The router's probabilities (4,096 x 64, as phase 19 draws them) and
+    the prefill's tokens, the same in every process."""
+    g = np.random.default_rng(23)
+    n, e = WORLD_LM_PREFILL[0] * WORLD_LM_PREFILL[1], cfg.moe.n_experts
+    logits = g.standard_normal((n, e)) * 2 + g.standard_normal(e)
+    toks = g.integers(0, cfg.vocab, WORLD_LM_PREFILL)
+    return logits, toks
+
+
+def _rel_l2(torch, got, want):
+    """Relative L2 error of each row (last dim) of ``got`` against ``want``."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1)).flatten()
+
+
+def _lm_forward_and_decode(torch, M, params, cfg, toks, mesh=None):
+    """Two prefills (the first's kernel launches, dropped pairs and seconds
+    in collectives counted) and WORLD_LM_DECODE's decode steps from zero
+    caches: the prefill's last-position logits and every step's on the
+    host, and the walls."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+
+    step, dstep = M.make_prefill_step(cfg), M.make_decode_step(cfg)
+    comm = (lambda: mesh.comm_s) if mesh is not None else (lambda: 0.0)
+    out = {}
+    with torch.no_grad():
+        for key in ("prefill_s", "prefill_again_s"):
+            if mesh is not None:
+                mesh.barrier()
+            ops.reset_launches()
+            moe.reset_dropped()
+            c0 = comm()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = step(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            out[key] = time.perf_counter() - t0
+            if key == "prefill_s":
+                out.update(launches=dict(ops.LAUNCHES), dropped=dict(moe.DROPPED),
+                           prefill_comm_s=comm() - c0)
+        logits = logits.float().cpu()
+        n_steps, cache_len = WORLD_LM_DECODE
+        caches = M.init_cache(cfg, params, toks.shape[0], cache_len)
+        dec, walls = [], []
+        c0 = comm()
+        for t in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg = dstep(params, caches, toks[:, t:t + 1], t)[0]
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            dec.append(lg[:, 0].float().cpu())
+        out.update(decode_comm_s=comm() - c0, decode_step_ms=walls,
+                   decode_step_ms_median=statistics.median(walls[1:]))
+    return logits, torch.stack(dec), out
+
+
+def _world_smoke(torch, np, mesh, dev):
+    """moonshot's smoke() in float32 over ``mesh`` on ``dev`` (TF32 off):
+    moe_train's output under the batch binding, the prefill's logits and 4
+    decode steps', gathered in rank order, on the host."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm, model as M, moe, sharding
+
+    cfg = registry.get(LM_ARCH).smoke()
+    params = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = lm.tree_map(lambda a: a.to(dev), sharding.shard_experts(params, mesh))
+    g = np.random.default_rng(24)
+    x = torch.from_numpy(g.standard_normal(WORLD_LM_SMOKE_X + (cfg.d_model,)).astype(
+        np.float32)).to(dev)
+    toks = torch.from_numpy(g.integers(0, cfg.vocab, (4, 64))).to(dev)
+    lo, hi = sharding.rank_rows(x.shape[0], mesh)
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    sharding.set_rules(_world_rules(), mesh=mesh)
+    try:
+        with torch.no_grad():
+            p0 = lm.tree_map(lambda a: a[0], params["slots"][0]["ffn"])
+            y = moe.moe_train(p0, cfg, x[lo:hi])
+            logits = M.make_prefill_step(cfg)(params, {"tokens": toks})
+            caches = M.init_cache(cfg, params, toks.shape[0], 16)
+            dstep = M.make_decode_step(cfg)
+            dec = torch.stack([dstep(params, caches, toks[:, t:t + 1], t)[0][:, 0]
+                               for t in range(4)])
+    finally:
+        sharding.set_rules(None)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+    def joined(t, dim=0):
+        return torch.cat(list(mesh.gather(t.cpu()).unbind(0)), dim=dim)
+
+    return {"moe_train": joined(y), "prefill": joined(logits), "decode": joined(dec, 1)}
+
+
+def world_lm_main(mesh):
+    """Phase 23 on every rank of a world sharing the card: the world's lam
+    from phase 23's probabilities, then moonshot at WORLD_LM_LAYERS layers
+    drawn from the seed, cut to the rank's experts, through the prefill and
+    the decode steps under the batch binding; in a world of 2 also the smoke
+    config (``_world_smoke``). Rank 0 returns the gathered logits, its own
+    counts and every rank's memory."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.moe_router import scd_route_shmap_probs
+    from repro_torch.models import model as M, sharding
+
+    dev = mesh.device
+    check(dev.type == "cuda", f"rank {mesh.rank} runs on {dev}")
+    cfg = registry.get(LM_ARCH).replace(n_layers=WORLD_LM_LAYERS)
+    logits_np, toks_np = _world_inputs(np, cfg)
+    lo, hi = sharding.rank_rows(logits_np.shape[0], mesh)
+    probs = torch.softmax(torch.tensor(logits_np, dtype=torch.float32), dim=-1)[lo:hi]
+    lam = scd_route_shmap_probs(probs.to(dev), cfg.moe.topk, cfg.moe.capacity_factor,
+                                cfg.moe.scd_iters, mesh).lam.cpu()
+
+    # The whole tree from the seed, cut to this rank's experts at once.
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = sharding.shard_experts(
+        M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev), mesh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    held, peak_init = torch.cuda.memory_allocated(dev), torch.cuda.max_memory_allocated(dev)
+    experts = sorted({s["ffn"]["wi"].shape[1] for s in params["slots"]})
+    torch.cuda.reset_peak_memory_stats(dev)
+    sharding.set_rules(_world_rules(), mesh=mesh)
+    try:
+        logits, dec, walls = _lm_forward_and_decode(
+            torch, M, params, cfg, torch.tensor(toks_np, device=dev), mesh)
+    finally:
+        sharding.set_rules(None)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del params
+    torch.cuda.empty_cache()
+
+    def joined(t, dim=0):
+        return torch.cat(list(mesh.gather(t).unbind(0)), dim=dim)
+
+    stats = mesh.gather(torch.tensor([held / 1e9, peak_init / 1e9, peak / 1e9, init_s],
+                                     dtype=torch.float64))
+    drops = mesh.gather(torch.tensor([walls["dropped"]["cap_send"],
+                                      walls["dropped"]["cap_e"]])).sum(0)
+    walls["dropped"] = {"cap_send": int(drops[0]), "cap_e": int(drops[1])}
+    out = {"lam": lam, "logits": joined(logits), "decode": joined(dec, 1),
+           "walls": walls, "experts_held": experts,
+           "ranks": [dict(zip(("held_gb", "peak_init_gb", "peak_gb", "init_s"), s.tolist()))
+                     for s in stats]}
+    if mesh.size == 2:
+        out["smoke"] = _world_smoke(torch, np, mesh, dev)
+    return out
+
+
+def world_lm_smoke_cpu(mesh):
+    """The CPU world of 2 that phase 23's card world of 2 is held against."""
+    import numpy as np
+    import torch
+
+    return _world_smoke(torch, np, mesh, mesh.device)
+
+
+def phase_lm_world(torch, np, dev):
+    """Phase 23: the one-process prefill and decode of moonshot at
+    WORLD_LM_LAYERS layers, then the same over worlds of 2 and 4 ranks
+    sharing the card; the smoke config's world of 2 on the card against a
+    world of 2 on the CPU; the world's lam bitwise the one-process lam."""
+    from repro_torch.configs import registry
+    from repro_torch.core.moe_router import scd_route_probs
+    from repro_torch.launch.mesh import run_local_world, start_local_world
+    from repro_torch.models import lm, model as M
+
+    t_phase = time.perf_counter()
+    cpu_world = start_local_world(world_lm_smoke_cpu, 2, device="cpu",
+                                  timeout=WORLD_LM_TIMEOUT)
+    try:
+        cfg = registry.get(LM_ARCH).replace(n_layers=WORLD_LM_LAYERS)
+        check(cfg.moe.router == "scd" and cfg.moe.n_experts == 64 and cfg.moe.topk == 6
+              and not cfg.first_dense_ff, f"phase 23's moonshot config: {cfg.moe}")
+        logits_np, toks_np = _world_inputs(np, cfg)
+        probs = torch.softmax(torch.tensor(logits_np, dtype=torch.float32), dim=-1)
+        lam_one = scd_route_probs(probs.to(dev), q=cfg.moe.topk,
+                                  capacity_factor=cfg.moe.capacity_factor,
+                                  iters=cfg.moe.scd_iters).lam.cpu()
+
+        # The one-process reference, its weights freed before the worlds.
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        n_params, param_bytes = _tree_bytes(lm, params)
+        toks = torch.tensor(toks_np, device=dev)
+        one_logits, one_dec, one_walls = _lm_forward_and_decode(torch, M, params, cfg, toks)
+        one_peak = torch.cuda.max_memory_allocated(dev)
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        routed = {name: 0 for name in one_walls["launches"]}
+        routed.update(scd_fused_hist=cfg.moe.scd_iters * cfg.n_layers,
+                      adjusted_topc=cfg.n_layers)
+        emit("lm_world_one_process", arch=LM_ARCH, layers=cfg.n_layers, layers_of_config=48,
+             params=n_params, param_gb=param_bytes / 1e9, batch=WORLD_LM_PREFILL[0],
+             seq=WORLD_LM_PREFILL[1], **one_walls, peak_gb=one_peak / 1e9)
+        check(one_walls["launches"] == routed, f"one-process launches: {one_walls}")
+
+        paths, worlds = {}, {}
+        for d in WORLD_LM_SIZES:
+            t0 = time.perf_counter()
+            w = run_local_world(world_lm_main, d, timeout=WORLD_LM_TIMEOUT)
+            world_s = time.perf_counter() - t0
+            rel_prefill = _rel_l2(torch, w["logits"], one_logits)
+            rel_decode = _rel_l2(torch, w["decode"], one_dec)
+            launches = w["walls"].pop("launches")
+            facts = {"launches_as_routed": launches == routed,
+                     "lam_bitwise_one_process": torch.equal(w["lam"], lam_one),
+                     "experts_a_rank": w["experts_held"] == [cfg.moe.n_experts // d],
+                     "prefill_rel_l2_within": float(rel_prefill.max()) <= WORLD_LM_REL[d],
+                     "decode_rel_l2_within": float(rel_decode.max()) <= WORLD_LM_DECODE_REL,
+                     "finite": bool(torch.isfinite(w["logits"]).all()
+                                    and torch.isfinite(w["decode"]).all()),
+                     "shapes": tuple(w["logits"].shape) == tuple(one_logits.shape)
+                     and tuple(w["decode"].shape) == tuple(one_dec.shape)}
+            worlds[d] = w
+            paths[f"lm_prefill_world{d}"] = launches
+            emit(f"lm_world{d}", arch=LM_ARCH, layers=cfg.n_layers, world=d,
+                 batch=WORLD_LM_PREFILL[0], seq=WORLD_LM_PREFILL[1],
+                 world_wall_s=world_s, **w["walls"],
+                 one_process_prefill_s=one_walls["prefill_s"],
+                 one_process_prefill_again_s=one_walls["prefill_again_s"],
+                 one_process_decode_step_ms_median=one_walls["decode_step_ms_median"],
+                 rank0_launches=launches, ranks=w["ranks"],
+                 prefill_rel_l2_max=float(rel_prefill.max()),
+                 prefill_rel_l2_median=float(rel_prefill.median()),
+                 decode_rel_l2_max=float(rel_decode.max()),
+                 decode_rel_l2_median=float(rel_decode.median()),
+                 bound_prefill=WORLD_LM_REL[d], bound_decode=WORLD_LM_DECODE_REL, **facts)
+            check(all(facts.values()), f"moonshot over a world of {d}: {facts} {launches}")
+    finally:
+        cpu = cpu_world.wait()
+    card = worlds[2]["smoke"]
+    err = {k: float((card[k] - cpu[k]).abs().max()) for k in card}
+    facts = {f"{k}_close": torch.allclose(card[k], cpu[k], **LM_SMOKE_TOL) for k in card}
+    emit("lm_world_smoke_card_vs_cpu", world=2, tol=LM_SMOKE_TOL, tf32=False,
+         max_abs_err=err, **facts)
+    check(all(facts.values()), f"smoke world of 2, card against CPU: {err}")
+    # The kernels line's path: rank 0's launches over both worlds' prefills.
+    paths = {"lm_prefill_world": {name: sum(p[name] for p in paths.values())
+                                  for name in paths[f"lm_prefill_world{WORLD_LM_SIZES[0]}"]}}
+    emit("lm_world_wall", seconds=time.perf_counter() - t_phase)
+    return paths
+
+
 def main():
     import numpy as np
     import torch
@@ -3651,6 +3967,7 @@ def main():
     paths.update(mla_paths)
     kern["scd_fused_hist"]["router_shape_k160"] = mla_kern["scd_fused_hist"]
     kern["adjusted_topc"]["router_shape_k160"] = mla_kern["adjusted_topc"]
+    paths.update(phase_lm_world(torch, np, dev))
 
     rows = [{"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name],

@@ -8,7 +8,9 @@ process. ``launch.mesh`` starts a world and builds each rank's :class:`Mesh`.
 
 The collectives are gloo's, over host tensors: what crosses ranks is the
 constant-size partials of each pass (a few KB), already on the host for the
-fold. No float sum relies on the order inside a collective: a sum across
+fold, and the expert-parallel MoE's token rows (:meth:`Mesh.all_to_all`,
+``models/moe.py``), staged through the host too. No float sum relies on
+the order inside a collective: a sum across
 ranks is :meth:`Mesh.gather` of the per-rank (or per-slot) partials and then
 ``bucketing.ordered_fold`` in slot order on every rank, the addition chain
 of the reference's CPU ``psum`` (DESIGN.md §7). Maxima and minima are exact
@@ -28,7 +30,7 @@ class Mesh:
     """This process's place in a world: ``rank``, ``size``, its ``device``
     and the process ``group`` of the collectives. ``comm_s`` counts the
     seconds spent in collectives (the gather behind every fold, the
-    maxima, the barriers)."""
+    maxima, the barriers, the all-to-alls with their host copies)."""
 
     def __init__(self, rank: int, size: int, device: torch.device, group=None):
         self.rank, self.size, self.device, self.group = rank, size, device, group
@@ -54,6 +56,25 @@ class Mesh:
             out = [torch.empty_like(t) for _ in range(self.size)]
             dist.all_gather(out, t, group=self.group)
             return torch.stack(out)
+
+        return self._timed(run)
+
+    def all_to_all(self, t) -> torch.Tensor:
+        """Row r of ``t`` (size, ...) goes to rank r; row r of the result
+        came from rank r (the reference's ``all_to_all(t, axis, 0, 0,
+        tiled=True)``). Staged through the host, as every collective here
+        is, and returned on ``t``'s device; the copies count in ``comm_s``."""
+        if t.shape[0] != self.size:
+            raise ValueError(f"all_to_all takes ({self.size}, ...) rows, got "
+                             f"{tuple(t.shape)}")
+        if self.size == 1:
+            return t.clone()
+
+        def run():
+            src = t.detach().cpu().contiguous()
+            out = torch.empty_like(src)
+            dist.all_to_all_single(out, src, group=self.group)
+            return out.to(t.device)
 
         return self._timed(run)
 

@@ -24,8 +24,16 @@ fused one at the tile ``router_tile`` picks).
 
 The histogram adds in the kernel's tile order, not the reference's
 row-order scatter-add; with b = 1 every bucket mass is a count, which both
-orders add exactly. ``scd_route_shmap`` (the reference's token-sharded
-router) waits for the port's world slice (ROADMAP A10).
+orders add exactly.
+
+``scd_route_shmap`` is the reference's token-sharded router, over a world
+of ranks (``core.mesh.Mesh``): each rank holds its own tokens, the capacity
+is global (the rank's, times the world's size), and each price iteration
+gathers the ranks' histograms and folds them in rank order
+(``bucketing.ordered_fold``; counts, so exact) and takes the maximum
+candidate across ranks (``Mesh.amax``), so every rank prices the same lam,
+bitwise the one-process lam from the same probabilities wherever the
+capacities agree. Like the reference's, it applies no §5.4 projection.
 """
 from __future__ import annotations
 
@@ -35,9 +43,11 @@ import torch
 
 from ..kernels import ops
 from ..kernels._wrap import MAX_SMEM, hist_smem_bytes
-from .bucketing import make_edges, threshold_from_hist
+from .bucketing import make_edges, ordered_fold, threshold_from_hist
+from .mesh import check_mesh
 
-__all__ = ["RouterOut", "scd_route", "scd_route_probs", "topk_route", "router_tile"]
+__all__ = ["RouterOut", "scd_route", "scd_route_probs", "scd_route_shmap",
+           "scd_route_shmap_probs", "topk_route", "router_tile"]
 
 # The fused kernel's tile on the router's path, chosen from K and the
 # ladder's E: the largest of ROUTER_TILES whose block fits in shared memory.
@@ -66,15 +76,24 @@ class RouterOut(NamedTuple):
     load: torch.Tensor     # (E,) realised token counts (after the projection)
 
 
-def _scd_prices(p, capacity, q, iters, bucket_half, bucket_delta, bucket_growth):
+def _scd_prices(p, capacity, q, iters, bucket_half, bucket_delta, bucket_growth,
+                mesh=None):
     """SCD iterations on the routing GKP from lam = 0. p: (T, E) >= 0
-    float32, capacity: (E,). Returns lam (E,)."""
+    float32, capacity: (E,). Returns lam (E,).
+
+    ``mesh``: the world the tokens are cut over; the histograms are
+    gathered and folded in rank order and the maximum taken across ranks,
+    so lam is global (the reference's ``psum`` and ``pmax`` over ``axis``).
+    """
     ones = torch.ones_like(p)
     lam = torch.zeros((p.shape[-1],), dtype=p.dtype, device=p.device)
     for _ in range(iters):
         edges = make_edges(lam, bucket_delta, bucket_growth, bucket_half)
         tile = router_tile(*edges.shape)
         hist, top = ops.scd_fused_hist(p, ones, lam, edges, q, tile_n=tile)
+        if mesh is not None:
+            hist = ordered_fold(mesh.gather(hist)).to(p.device)
+            top = mesh.amax(top).to(p.device)
         lam = threshold_from_hist(hist, edges, capacity, top)
     return lam
 
@@ -114,6 +133,39 @@ def scd_route(logits, q=2, capacity_factor=1.25, iters=4, bucket_half=16,
     probs = torch.softmax(logits.float(), dim=-1)        # p_ik >= 0
     return scd_route_probs(probs, q, capacity_factor, iters, bucket_half,
                            bucket_delta, bucket_growth, dtype=logits.dtype)
+
+
+def scd_route_shmap_probs(probs, q, capacity_factor, iters, mesh,
+                          dtype=torch.float32):
+    """:func:`scd_route_shmap` from this rank's probabilities (T_local, E)
+    float32: a ``RouterOut`` whose ``combine`` is renormalised over the
+    chosen experts and cast to ``dtype``, ``lam`` the global prices and
+    ``load`` this rank's counts."""
+    if check_mesh(mesh) is None:
+        raise TypeError("scd_route_shmap needs a repro_torch.core.mesh.Mesh "
+                        "(one process: Mesh(0, 1, device))")
+    t_local, e = probs.shape
+    capacity = torch.full((e,), capacity_factor * q * t_local / e,
+                          dtype=torch.float32, device=probs.device) * mesh.size
+    with torch.no_grad():
+        p = probs.detach().contiguous()
+        lam = _scd_prices(p, capacity, q, iters, 16, 1e-4, 1.8, mesh=mesh)
+        mask = ops.adjusted_topc(p, torch.ones_like(p), lam, q)[0]
+        load = mask.sum(dim=0).to(torch.float32)
+    combine = torch.where(mask, probs, 0.0)
+    combine = combine / torch.clamp_min(combine.sum(-1, keepdim=True), 1e-9)
+    return RouterOut(combine=combine.to(dtype), mask=mask, lam=lam, load=load)
+
+
+def scd_route_shmap(logits, q, capacity_factor, iters, mesh):
+    """The token-sharded router over a world of ranks: ``logits`` (T_local,
+    E) are this rank's tokens; capacity and prices are global across
+    ``mesh`` (a ``core.mesh.Mesh``). Returns (combine, mask) with combine
+    weights renormalised over the chosen experts, in the logits' dtype."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    out = scd_route_shmap_probs(probs, q, capacity_factor, iters, mesh,
+                                dtype=logits.dtype)
+    return out.combine, out.mask
 
 
 def topk_route(logits, q=2):

@@ -15,8 +15,9 @@ Runs on the card unless asked for the CPU:
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --smoke --steps 8 \\
         --ckpt-dir /tmp/ck --ckpt-every 2 --simulate-failure-at 5
 
-The reference's multi-device mesh (``--mesh``) waits for the port's world
-slice of the LM stack (ROADMAP A10).
+The reference's multi-device mesh (``--mesh``) waits for training over a
+world of ranks (ROADMAP A10's second part); the forward over a world runs
+(``models/sharding.py``).
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ def train(cfg, opt_cfg, steps, ckpt_dir=None, ckpt_every=0, seed=0,
     if mesh is not None:
         raise NotImplementedError(
             "train(mesh=...): training over a mesh waits for ROADMAP A10's "
-            "world slice (models/sharding.py, the a2a MoE); pass mesh=None")
+            "second part (the backward through the a2a MoE); pass mesh=None")
     dev = resolve_device(device)
     start = 0
     last = ckpt.latest_step(ckpt_dir) if ckpt_dir else None

@@ -17,8 +17,17 @@ The steps are plain functions: PyTorch runs them eagerly. The train step
 updates the parameters (leaf tensors with ``requires_grad``) and the
 optimizer state in place, where the reference donates them to its jitted
 step. The port's entry points run on the card unless asked for the CPU.
-The reference's input specs and sharding rules are lowering helpers that
+The reference's input specs and sharding specs are lowering helpers that
 wait for the dry-run (ROADMAP A10).
+
+Over a world of ranks, every rank runs the same steps under
+``sharding.set_rules(rules, mesh=)`` with "batch" and "experts" bound to
+the world: each rank draws (or carries) the whole tree, keeps its experts
+(``sharding.shard_experts``), and gives the steps and ``init_cache`` the
+global batch, of which it takes its ``B / D`` rows; the steps return the
+logits of those rows, and ``init_cache`` builds caches of them. Bindings
+the port has not implemented raise ``NotImplementedError``
+(``sharding.check_step_rules``); training over a world is not ported.
 """
 from __future__ import annotations
 
@@ -30,7 +39,7 @@ import torch
 from ..core.solver import resolve_device
 from ..optim import OptConfig, apply_updates
 from . import encdec as ed
-from . import lm
+from . import lm, sharding
 from .config import ModelConfig
 
 
@@ -94,6 +103,18 @@ def _text_len(cfg, seq_len):
     return seq_len
 
 
+def _rank_rows(a):
+    """This rank's rows of ``a`` (a tensor or range whose first axis is the
+    global batch) where the rules bind "batch" to the world; ``a``
+    otherwise."""
+    sharding.check_step_rules()
+    mesh = sharding.get_mesh()
+    if a is None or mesh is None or not sharding.on_world("batch"):
+        return a
+    lo, hi = sharding.rank_rows(len(a), mesh)
+    return a[lo:hi]
+
+
 def loss_fn(params, cfg, batch):
     """Mean next-token cross-entropy of ``batch`` (tokens, targets, and
     ``frames``, ``patches`` or ``mask`` where given)."""
@@ -110,6 +131,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig):
     holds ``loss``, ``grad_norm`` and ``lr`` (0-dim tensors)."""
 
     def train_step(params, opt_state, batch):
+        if sharding.get_mesh() is not None:
+            raise NotImplementedError("training over a world of ranks is "
+                                      "ROADMAP A10's second part")
         leaves = lm.tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -131,6 +155,7 @@ def make_prefill_step(cfg: ModelConfig):
     teacher-forced over the tokens)."""
 
     def prefill_step(params, batch):
+        batch = {k: _rank_rows(v) for k, v in batch.items()}
         if cfg.kind == "encdec":
             memory = ed.encode(params, cfg, batch["frames"])
             h = ed.decode_train(params, cfg, batch["tokens"], memory)
@@ -145,6 +170,7 @@ def make_decode_step(cfg: ModelConfig):
     """decode_step(params, caches, token, pos) -> (logits (B, 1, V), caches)."""
 
     def decode_step(params, caches, token, pos):
+        token = _rank_rows(token)
         if cfg.kind == "encdec":
             return ed.encdec_decode_step(params, cfg, caches, token, pos)
         return lm.decode_step(params, cfg, caches, token, pos)
@@ -154,7 +180,9 @@ def make_decode_step(cfg: ModelConfig):
 def init_cache(cfg: ModelConfig, params, batch, seq_len, frames=None):
     """Zero caches for ``batch`` sequences of ``seq_len``, on the params'
     device; an encoder-decoder's also hold the cross K/V of ``frames``
-    encoded."""
+    encoded. Over a world of ranks, ``batch`` and ``frames`` are global
+    and the caches hold this rank's rows."""
+    frames, batch = _rank_rows(frames), len(_rank_rows(range(batch)))
     if cfg.kind == "encdec":
         return ed.init_encdec_cache(params, cfg, frames, batch, seq_len)
     return lm.init_cache(cfg, batch, seq_len, params["embed"]["e"].device)

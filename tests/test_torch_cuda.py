@@ -39,7 +39,10 @@ in place on the card. The LM training path: one smoke train step of the
 same seven configs on the card against the CPU in float32 with TF32 off (the loss rtol 1e-5, each gradient within a
 relative L2 error of 1e-4, ``grad_norm`` rtol 1e-5, the update from the
 same gradients rtol 1e-6 of the leaf's largest element); a resumed run
-and two runs from one seed bitwise on the card.
+and two runs from one seed bitwise on the card. The MoE forward over a
+world of two ranks on the card (``models/sharding.py``, the a2a path,
+``scd_route_shmap``, the steps under the batch binding) against a world of
+two on the CPU.
 """
 import numpy as np
 import pytest
@@ -1143,3 +1146,51 @@ def test_train_on_card_resumed_and_repeated_bitwise(cuda_device, tmp_path):
         assert len(got) == len(want)
         assert all(a.device == b.device and torch.equal(a, b) for a, b in zip(got, want))
     assert res[2] == full[2][3:]
+
+
+@pytest.fixture(scope="module")
+def moe_worlds():
+    """``tests/_torch_moe_world.port_cases`` over a world of 2 ranks on the
+    card and a world of 2 on the CPU, side by side (None without a card)."""
+    if not torch.cuda.is_available():
+        return None
+    import _torch_moe_world as W
+    from repro_torch.launch.mesh import run_local_world, start_local_world
+    cpu = start_local_world(W.port_cases, 2, device="cpu", timeout=600)
+    try:
+        card = run_local_world(W.port_cases, 2, device="cuda", timeout=600)
+    finally:
+        on_cpu = cpu.wait()
+    return card, on_cpu
+
+
+MOE_WORLD_KEYS = ["moe_seq", "moe_batch", "moe_seq_drop", "moe_batch_drop",
+                  "route_smoke", "route_wide", "lam",
+                  "prefill_moonshot-v1-16b-a3b", "decode_moonshot-v1-16b-a3b",
+                  "prefill_deepseek-v2-236b", "decode_deepseek-v2-236b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", MOE_WORLD_KEYS)
+def test_moe_world_on_card_against_cpu(cuda_device, moe_worlds, key):
+    """The MoE forward over a world of 2 ranks sharing the card against a
+    world of 2 on the CPU (smoke weights, float32, TF32 off): the world's
+    lam from the same probabilities bitwise; the a2a path's outputs, its
+    dropped pairs and zero rows, the router's masks and combine weights,
+    the prefill and 4 decode steps under the batch binding within rtol
+    1e-4, atol 1e-5 (the prefill's logits, |35| at most, atol 4e-5): the
+    card's matrix products sum in another order than the CPU's."""
+    card, cpu = moe_worlds
+    if key == "lam":
+        np.testing.assert_array_equal(card[key], cpu[key])
+        return
+    tol = dict(rtol=1e-4, atol=4e-5 if key.startswith("prefill") else 1e-5)
+    if key.startswith("route"):
+        np.testing.assert_array_equal(card[f"{key}_mask"], cpu[f"{key}_mask"])
+        np.testing.assert_allclose(card[f"{key}_combine"], cpu[f"{key}_combine"], **tol)
+        return
+    np.testing.assert_allclose(card[key], cpu[key], **tol)
+    if key.startswith("moe"):
+        case = key[len("moe_"):]
+        assert card[f"drops_{case}"] == cpu[f"drops_{case}"]
+        np.testing.assert_array_equal(~card[key].any(-1), ~cpu[key].any(-1))

@@ -23,7 +23,8 @@ def _modules():
 
 # The LM slices: the model stack (Mamba2 and the encoder-decoder too), the
 # architecture configs, the router, the serving launcher, and training's
-# optimizer, data and launcher are among the modules walked below.
+# optimizer, data and launcher, and the rules over a world of ranks are
+# among the modules walked below.
 LM_SLICE = ("repro_torch.core.moe_router", "repro_torch.launch.serve",
             "repro_torch.configs.registry", "repro_torch.configs.moonshot_v1_16b_a3b",
             "repro_torch.configs.gemma_2b", "repro_torch.models.config",
@@ -35,7 +36,8 @@ LM_SLICE = ("repro_torch.core.moe_router", "repro_torch.launch.serve",
             "repro_torch.configs.seamless_m4t_medium",
             "repro_torch.configs.deepseek_v2_236b",
             "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.launch.train",
-            "repro_torch.data", "repro_torch.data.synth", "repro_torch.checkpoint.ckpt")
+            "repro_torch.data", "repro_torch.data.synth", "repro_torch.checkpoint.ckpt",
+            "repro_torch.models.sharding")
 
 
 def test_walk_covers_the_lm_slice():
