@@ -86,9 +86,9 @@ check raises, so the script exits non-zero and prints no result line:
    here, bitwise equal; from the oldest state the checkpointed solve left,
    resumed and SIGKILLed between finalize columns in a fresh interpreter,
    then resumed here, bitwise equal, reading exactly the fingerprint probe
-   and the real chunks of the columns left; at N = 10^6 a ``FaultPlan`` run (drops,
+   and the real chunks of the columns left; at N = 2^18 a ``FaultPlan`` run (drops,
    corruption, ``verify_refetch``) bitwise the clean one and an exhausting
-   plan raising ``ChunkFetchError`` naming the chunk; at n = 262,144 the
+   plan raising ``ChunkFetchError`` naming the chunk; at n = 2^17 the
    card's SCD, screened banded, DD and presolve slot solves bitwise the
    CPU's (the screened profile too); walls, the per-epoch split and the
    cost of a save;
@@ -113,7 +113,7 @@ check raises, so the script exits non-zero and prints no result line:
    N = 2^21, 3 generations): warm iterations below cold, 512 lookups
    bitwise ``decisions_chunk``, batched and single QPS; a warm refresh
    SIGKILLed in a fresh interpreter and recovered here, its record bitwise
-   the uninterrupted one; ``run_chaos`` at n = 262,144 (chaos == clean);
+   the uninterrupted one; ``run_chaos`` at n = 2^17 (chaos == clean);
    and the card's generation records bitwise the CPU's there;
 16. operations at the serving shape (8 slots): ``launch/supervisor.run_chaos_soak``
    at N = 2^20 and 2 generations, its references in this process
@@ -243,11 +243,24 @@ check raises, so the script exits non-zero and prints no result line:
    dropped by ``cap_send`` and ``cap_e``, each rank's held and peak memory;
    and the smoke config in float32 (TF32 off) over the card's world of 2
    against a world of 2 on the CPU: ``moe_train``, the prefill and 4
-   decode steps;
+   decode steps; then, in the same world of 2, training over the world
+   (``launch/train.train(mesh=)``, the backward through the all-to-alls,
+   the replicated gradients folded in rank order): moonshot at phase 20's
+   config (4 layers), seed, batch (4 x 1,024, 2 x 1,024 a rank) and AdamW
+   settings for 3 steps, its losses within ``WORLD_TRAIN_LOSS_RTOL`` of
+   phase 20's first 3, rank 0 launching ``scd_fused_hist`` 32 and
+   ``adjusted_topc`` 8 times a step and nothing else (path
+   ``lm_train_world``), each step's wall, rank 0's seconds in collectives
+   by kind (the all-to-alls; the gathers, which the gradient fold
+   dominates), each rank's held and peak memory, the ranks' peaks together
+   under 80 GB; and the smoke config's 3 train steps over the card's world
+   against the CPU world's (float32, TF32 off, weights drawn on the CPU)
+   within rtol 1e-5, atol 1e-5, with ``train(mesh=)`` saved at step 2 and
+   resumed to step 3 bitwise on each;
 24. the smoke's wall beside its 900 s budget, the ``kernels`` line
    (launches summed over the paths run in phases 5, 7, 8, 11, 12, 13, 14,
    15, 16, 19, 20, 21, 22 and 23, and rank 0's of each world of phases 17,
-   18 and 23, with the split), the card's ``nvidia-smi`` line and, last,
+   18 and 23, training included, with the split), the card's ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -279,8 +292,13 @@ SLOTS, CKPT_EVERY = 4, 4            # the slot phase: 39 columns, 156 chunk slot
 # The slot phase's checkpointed, killed and resumed solves: 32 chunks, 8
 # columns (cut from N_RES for the smoke's time).
 N_SLOTS_CKPT = 1 << 21
-N_FAULTS = 1_000_000                # the fault-layer run of the slot phase
-N_VS_CPU = 262_144                  # card against CPU (phases 4, 9 and 13)
+# The fault-layer run of the slot phase (4 chunks, the exhausting plan's
+# offender the last; cut from 10^6 for phase 23's training over a world).
+N_FAULTS = 1 << 18
+# Card against CPU in the slot phase (13) and the serving phase (15): 2^17
+# rows (cut from 2^18 for phase 23's training over a world); phases 3, 4
+# and 9 keep n = 262,144.
+N_VS_CPU = 1 << 17
 BRANCH_K = (1, 8, 9, 16, 17, 64)    # each KC branch of the finalize and adjusted_topc
 CAND_K = (1, 8, 9, 10, 16, 17, 64)  # scd_candidates: each KC branch and row width
 SOURCE = {"scd_fused_hist": CSRC + "scd_fused.cu",
@@ -1458,7 +1476,7 @@ def phase_slots(torch, np, dev, host_fed_row):
         "formula_1_plus_cols_left_x_slots": 1 + (cps - st2["cursor"]) * SLOTS,
         "bitwise": True})
 
-    # 5. The fault layer at N = 10^6.
+    # 5. The fault layer at N = 2^18.
     fsrc, _ = table1_source(N_FAULTS)
     clean, clean_wall = solve(fsrc, cfg)
     retries = process_registry().counter("faults_retries_total")
@@ -1480,7 +1498,7 @@ def phase_slots(torch, np, dev, host_fed_row):
          fault_plan_wall_s=chaos_wall, retries=retries.value - before, bitwise=True,
          exhaustion="ChunkFetchError names chunk 3 after 3 attempts")
 
-    # 6. Card against CPU at n = 262,144.
+    # 6. Card against CPU at n = 2^17.
     from repro_torch.data.synth import banded_host_chunk_source
     n = N_VS_CPU
     rows, _ = table1_source(n, seed=1)
@@ -1871,7 +1889,7 @@ def phase_serving(torch, np, dev):
          resume_step=left, recover_s=recover_s, iters=rec.iters, bitwise=bitwise)
     check(bitwise, "the recovered refresh's record differs from the uninterrupted one")
 
-    # 3. Chaos == clean, and the card's records == the CPU's, at n = 262,144.
+    # 3. Chaos == clean, and the card's records == the CPU's, at n = 2^17.
     small = spec.replace(n=N_VS_CPU, chunk=N_VS_CPU // 16)
     t0 = time.perf_counter()
     ok, chaos = run_chaos(small, SERVE_GENS, work / "chaos", cfg, device=dev,
@@ -3098,7 +3116,7 @@ def _lm_train_full(torch, np, dev):
          opt=LM_TRAIN_OPT, moved_fraction=sum(changed) / n_params,
          moved_leaves=sum(c > 0 for c in changed), leaves=len(changed), **facts)
     check(all(facts.values()), f"training at full width: {facts} {launches}")
-    return launches
+    return launches, [r["loss"] for r in hist]
 
 
 def _grads(lm, M, tree_leaves, params, cfg, batch):
@@ -3240,7 +3258,7 @@ def phase_lm_training(torch, np, dev):
     thread = threading.Thread(target=_lm_train_cli, args=(work / "cli", cli), daemon=True)
     thread.start()
     try:
-        launches = _lm_train_full(torch, np, dev)
+        launches, losses = _lm_train_full(torch, np, dev)
         _lm_train_smoke_vs_cpu(torch, np, dev)
         _lm_train_resume(torch, np, dev)
         thread.join(timeout=700)
@@ -3259,7 +3277,7 @@ def phase_lm_training(torch, np, dev):
           f"the training CLI on the card: {facts} {(err1 or '')[-2000:]} {err2[-2000:]}")
     shutil.rmtree(work, ignore_errors=True)
     emit("lm_training_wall", seconds=time.perf_counter() - t_phase)
-    return {"lm_train": launches}
+    return {"lm_train": launches}, losses
 
 
 # --------------------------------------------------------------------------
@@ -3645,6 +3663,17 @@ WORLD_LM_TIMEOUT = 300
 WORLD_LM_REL = {2: 0.15, 4: 0.3}
 WORLD_LM_DECODE_REL = 0.15
 WORLD_LM_SMOKE_X = (4, 32)          # moe_train's tokens at smoke()
+# Training over the world of 2 (phase 23b): phase 20's config, seed, batch
+# (4 x 1,024 global, 2 x 1,024 a rank) and AdamW settings, 3 steps; its
+# losses against phase 20's first 3 on the same batches, in bf16, where the
+# world routes without the §5.4 projection and its a2a sums k pairs.
+WORLD_TRAIN_STEPS = 3
+WORLD_TRAIN_LOSS_RTOL = 1e-2
+# The smoke config's world training, card against CPU (float32, TF32 off):
+# 3 steps (the losses and grad norms), then 2 steps saved and resumed to 3.
+WORLD_TRAIN_SMOKE = dict(steps=3, save_at=2, batch=(4, 64), seed=3, opt=dict(lr=1e-3, warmup=2))
+WORLD_TRAIN_SMOKE_TOL = dict(rtol=1e-5, atol=1e-5)
+WORLD_TRAIN_DIR = ROOT / "build" / "smoke_world_train"
 
 
 def _world_rules():
@@ -3751,6 +3780,90 @@ def _world_smoke(torch, np, mesh, dev):
     return {"moe_train": joined(y), "prefill": joined(logits), "decode": joined(dec, 1)}
 
 
+def _world_train_full(torch, mesh, dev):
+    """Phase 23b on a rank of the world of 2: ``train(mesh=)`` of moonshot at
+    phase 20's config and batch for WORLD_TRAIN_STEPS steps from the seed:
+    the losses, rank 0's launches and seconds in collectives by kind, each
+    rank's held and peak memory."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.optim import OptConfig
+
+    cfg = registry.get(LM_ARCH).replace(n_layers=LM_TRAIN_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh.barrier()
+    comm0 = dict(mesh.comm_split)
+    ops.reset_launches()
+    hist = []
+    t0 = time.perf_counter()
+    params, opt, _ = train(cfg, OptConfig(**LM_TRAIN_OPT), WORLD_TRAIN_STEPS, seed=0,
+                           batch_shape=LM_TRAIN_BATCH, log_every=0, device=dev, mesh=mesh,
+                           history=hist)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    comm = {k: v - comm0.get(k, 0.0) for k, v in mesh.comm_split.items()}
+    held, peak = torch.cuda.memory_allocated(dev), torch.cuda.max_memory_allocated(dev)
+    n_local = sum(a.numel() for a in tree_leaves(params))
+    del params, opt
+    torch.cuda.empty_cache()
+    stats = mesh.gather(torch.tensor([held / 1e9, peak / 1e9, n_local], dtype=torch.float64))
+    return {"losses": [r["loss"] for r in hist], "grad_norms": [r["grad_norm"] for r in hist],
+            "lrs": [r["lr"] for r in hist], "step_wall_s": [r["wall_s"] for r in hist],
+            "train_wall_s": wall, "launches": launches, "comm_s_by_kind": comm,
+            "ranks": [dict(zip(("held_gb", "peak_gb", "params"), s.tolist())) for s in stats]}
+
+
+def _world_train_smoke(torch, mesh, dev, d):
+    """Phase 23c: moonshot's smoke() in float32 (TF32 off) over ``mesh`` on
+    ``dev``: WORLD_TRAIN_SMOKE's steps of the train step under the batch
+    binding from weights drawn on the CPU (the same on every device), the
+    losses and grad norms; then ``train(mesh=)`` from the seed straight,
+    saved at its step and resumed, and whether every rank's resumed state
+    is bitwise its straight run's."""
+    from repro_torch.configs import registry
+    from repro_torch.data.synth import lm_batch
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm, model as M, sharding
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    c = WORLD_TRAIN_SMOKE
+    cfg, opt = registry.get(LM_ARCH).smoke(), OptConfig(**c["opt"])
+    kw = dict(seed=c["seed"], batch_shape=c["batch"], log_every=0, device=dev, mesh=mesh)
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {"losses": [], "grad_norms": []}
+    try:
+        drawn = M.init(cfg, torch.Generator().manual_seed(c["seed"]), device="cpu")
+        params = lm.tree_map(lambda a: a.to(dev), sharding.shard_experts(drawn, mesh))
+        state, step = init_opt_state(params, opt), M.make_train_step(cfg, opt)
+        sharding.set_rules(sharding.BATCH_RULES, mesh=mesh)
+        try:
+            for i in range(c["steps"]):
+                params, state, m = step(params, state,
+                                        lm_batch(cfg, c["batch"], i, seed=c["seed"], device=dev))
+                out["losses"].append(float(m["loss"]))
+                out["grad_norms"].append(float(m["grad_norm"]))
+        finally:
+            sharding.set_rules(None)
+        full = train(cfg, opt, c["steps"], **kw)
+        train(cfg, opt, c["save_at"], ckpt_dir=str(d), ckpt_every=c["save_at"], **kw)
+        res = train(cfg, opt, c["steps"], ckpt_dir=str(d), **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    a, b = tree_leaves(full[:2]), tree_leaves(res[:2])
+    mine = (len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                     for x, y in zip(a, b))
+            and res[2] == full[2][c["save_at"]:])
+    out["resume_bitwise"] = bool(mesh.gather(torch.tensor(mine)).all())
+    return out
+
+
 def world_lm_main(mesh):
     """Phase 23 on every rank of a world sharing the card: the world's lam
     from phase 23's probabilities, then moonshot at WORLD_LM_LAYERS layers
@@ -3808,6 +3921,8 @@ def world_lm_main(mesh):
                      for s in stats]}
     if mesh.size == 2:
         out["smoke"] = _world_smoke(torch, np, mesh, dev)
+        out["train"] = _world_train_full(torch, mesh, dev)
+        out["smoke_train"] = _world_train_smoke(torch, mesh, dev, WORLD_TRAIN_DIR / "card")
     return out
 
 
@@ -3816,20 +3931,25 @@ def world_lm_smoke_cpu(mesh):
     import numpy as np
     import torch
 
-    return _world_smoke(torch, np, mesh, mesh.device)
+    return {"smoke": _world_smoke(torch, np, mesh, mesh.device),
+            "smoke_train": _world_train_smoke(torch, mesh, mesh.device,
+                                              WORLD_TRAIN_DIR / "cpu")}
 
 
-def phase_lm_world(torch, np, dev):
+def phase_lm_world(torch, np, dev, train_losses):
     """Phase 23: the one-process prefill and decode of moonshot at
     WORLD_LM_LAYERS layers, then the same over worlds of 2 and 4 ranks
-    sharing the card; the smoke config's world of 2 on the card against a
-    world of 2 on the CPU; the world's lam bitwise the one-process lam."""
+    sharing the card; in the world of 2 also training at phase 20's config
+    (its losses against phase 20's ``train_losses``); the smoke config's
+    world of 2 on the card against a world of 2 on the CPU, forward and
+    training; the world's lam bitwise the one-process lam."""
     from repro_torch.configs import registry
     from repro_torch.core.moe_router import scd_route_probs
     from repro_torch.launch.mesh import run_local_world, start_local_world
     from repro_torch.models import lm, model as M
 
     t_phase = time.perf_counter()
+    shutil.rmtree(WORLD_TRAIN_DIR, ignore_errors=True)
     cpu_world = start_local_world(world_lm_smoke_cpu, 2, device="cpu",
                                   timeout=WORLD_LM_TIMEOUT)
     try:
@@ -3897,14 +4017,51 @@ def phase_lm_world(torch, np, dev):
     finally:
         cpu = cpu_world.wait()
     card = worlds[2]["smoke"]
-    err = {k: float((card[k] - cpu[k]).abs().max()) for k in card}
-    facts = {f"{k}_close": torch.allclose(card[k], cpu[k], **LM_SMOKE_TOL) for k in card}
+    err = {k: float((card[k] - cpu["smoke"][k]).abs().max()) for k in card}
+    facts = {f"{k}_close": torch.allclose(card[k], cpu["smoke"][k], **LM_SMOKE_TOL)
+             for k in card}
     emit("lm_world_smoke_card_vs_cpu", world=2, tol=LM_SMOKE_TOL, tf32=False,
          max_abs_err=err, **facts)
     check(all(facts.values()), f"smoke world of 2, card against CPU: {err}")
-    # The kernels line's path: rank 0's launches over both worlds' prefills.
+
+    # Training over the world of 2 at full width, against phase 20.
+    t = worlds[2]["train"]
+    routed = {name: 0 for name in t["launches"]}
+    routed.update(scd_fused_hist=2 * cfg.moe.scd_iters * LM_TRAIN_LAYERS * WORLD_TRAIN_STEPS,
+                  adjusted_topc=2 * LM_TRAIN_LAYERS * WORLD_TRAIN_STEPS)
+    one = train_losses[:WORLD_TRAIN_STEPS]
+    rel = [abs(a - b) / abs(b) for a, b in zip(t["losses"], one)]
+    together = sum(r["peak_gb"] for r in t["ranks"])
+    facts = {"launches_as_routed": t["launches"] == routed,
+             "finite": all(np.isfinite(t["losses"])) and all(np.isfinite(t["grad_norms"])),
+             "losses_within_phase20": len(rel) == WORLD_TRAIN_STEPS
+             and max(rel) <= WORLD_TRAIN_LOSS_RTOL,
+             "peaks_together_under_80gb": together < 80.0}
+    emit("lm_train_world", arch=LM_ARCH, layers=LM_TRAIN_LAYERS, world=2,
+         batch=LM_TRAIN_BATCH, rows_a_rank=LM_TRAIN_BATCH[0] // 2, steps=WORLD_TRAIN_STEPS,
+         opt=LM_TRAIN_OPT, losses=t["losses"], phase20_losses=one, loss_rel=rel,
+         loss_rtol=WORLD_TRAIN_LOSS_RTOL, grad_norms=t["grad_norms"], lrs=t["lrs"],
+         step_wall_s=t["step_wall_s"], train_wall_s=t["train_wall_s"],
+         rank0_comm_s_by_kind=t["comm_s_by_kind"], ranks=t["ranks"],
+         peak_gb_together=together, rank0_launches=t["launches"],
+         launches_per_step={k: v / WORLD_TRAIN_STEPS for k, v in t["launches"].items()},
+         **facts)
+    check(all(facts.values()), f"training over a world of 2: {facts} {t['launches']}")
+    card, on_cpu = worlds[2]["smoke_train"], cpu["smoke_train"]
+    facts = {f"{k}_close": bool(np.allclose(card[k], on_cpu[k], **WORLD_TRAIN_SMOKE_TOL))
+             for k in ("losses", "grad_norms")}
+    facts.update(card_resume_bitwise=card["resume_bitwise"],
+                 cpu_resume_bitwise=on_cpu["resume_bitwise"])
+    emit("lm_train_world_smoke_card_vs_cpu", world=2, tol=WORLD_TRAIN_SMOKE_TOL, tf32=False,
+         card=card, cpu=on_cpu, **facts)
+    check(all(facts.values()), f"smoke training over a world of 2, card against CPU: {facts}")
+    shutil.rmtree(WORLD_TRAIN_DIR, ignore_errors=True)
+
+    # The kernels line's paths: rank 0's launches over both worlds'
+    # prefills, and over the world of 2's training.
     paths = {"lm_prefill_world": {name: sum(p[name] for p in paths.values())
-                                  for name in paths[f"lm_prefill_world{WORLD_LM_SIZES[0]}"]}}
+                                  for name in paths[f"lm_prefill_world{WORLD_LM_SIZES[0]}"]},
+             "lm_train_world": t["launches"]}
     emit("lm_world_wall", seconds=time.perf_counter() - t_phase)
     return paths
 
@@ -3958,7 +4115,8 @@ def main():
     paths.update(lm_paths)
     kern["scd_fused_hist"]["router_shape"] = lm_kern["scd_fused_hist"]
     kern["adjusted_topc"]["router_shape"] = lm_kern["adjusted_topc"]
-    paths.update(phase_lm_training(torch, np, dev))
+    train_paths, train_losses = phase_lm_training(torch, np, dev)
+    paths.update(train_paths)
     mix_paths, mix_kern = phase_lm_mixers(torch, np, dev)
     paths.update(mix_paths)
     kern["scd_fused_hist"]["router_shape_k16"] = mix_kern["scd_fused_hist"]
@@ -3967,7 +4125,7 @@ def main():
     paths.update(mla_paths)
     kern["scd_fused_hist"]["router_shape_k160"] = mla_kern["scd_fused_hist"]
     kern["adjusted_topc"]["router_shape_k160"] = mla_kern["adjusted_topc"]
-    paths.update(phase_lm_world(torch, np, dev))
+    paths.update(phase_lm_world(torch, np, dev, train_losses))
 
     rows = [{"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name],

@@ -30,6 +30,12 @@ directory written by either package is read by the other's ``restore``
   to the device of its ``like`` leaf where that is a tensor, else to the
   host (``.to(device)``, where the reference re-places with
   ``jax.device_put``).
+* Worlds of ranks (elastic): over a world each rank passes ``save`` its
+  own tree and, per leaf, the block it holds (``blocks``: the experts of
+  an MoE, ``models.sharding.expert_blocks``); the directory is the one a
+  single process writes of the whole tree, byte for byte. ``restore``
+  reads a rank's blocks from the mapped files (the reference's
+  ``sharding_tree``), at any world size that divides the blocked axis.
 * Corruption is loud: a step directory whose manifest exists but cannot be
   parsed, or whose manifest names a leaf file that is missing or
   unreadable, raises an actionable ``ValueError`` naming the offending
@@ -41,6 +47,7 @@ directory written by either package is read by the other's ``restore``
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import pathlib
@@ -49,6 +56,8 @@ import shutil
 
 import numpy as np
 import torch
+
+from ..core.mesh import check_mesh
 
 __all__ = ["save", "restore", "restore_auto", "latest_step", "write_json",
            "read_json", "prune", "fsync_dir"]
@@ -136,7 +145,48 @@ def fsync_dir(path) -> None:
         os.close(fd)
 
 
-def save(directory, step: int, tree) -> str:
+def _manifest_dtype(leaf) -> str:
+    """The manifest dtype of a leaf, without copying it to the host."""
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return _BF16
+        return str(torch.empty((), dtype=leaf.dtype).numpy().dtype)
+    return str(np.asarray(leaf).dtype)
+
+
+def _header(f, shape, dtype: str) -> int:
+    """Write the header ``np.save`` writes for an array of ``shape`` and
+    manifest dtype ``dtype``; returns its length (the data's offset)."""
+    descr = "<V2" if dtype == _BF16 else np.lib.format.dtype_to_descr(np.dtype(dtype))
+    np.lib.format.write_array_header_1_0(
+        f, {"descr": descr, "fortran_order": False, "shape": tuple(shape)})
+    return f.tell()
+
+
+def _whole_shape(leaf, block):
+    shape = list(_shape(leaf))
+    if block is not None:
+        shape[block[0]] *= block[2]
+    return shape
+
+
+def _write_block(fpath, leaf, block):
+    """Write ``leaf``, block ``(axis, rank, size)`` of a whole leaf, into the
+    ``.npy`` file rank 0 sized for the whole leaf, and fsync it."""
+    arr, dtype = _host(leaf)
+    shape = _whole_shape(leaf, block)
+    axis, r, _ = block
+    n = arr.shape[axis]
+    mm = np.memmap(fpath, dtype=arr.dtype, mode="r+", shape=tuple(shape),
+                   offset=_header(io.BytesIO(), shape, dtype))
+    mm[(slice(None),) * axis + (slice(r * n, (r + 1) * n),)] = arr
+    mm.flush()
+    del mm
+    with open(fpath, "rb") as f:
+        os.fsync(f.fileno())
+
+
+def save(directory, step: int, tree, mesh=None, blocks=None) -> str:
     """Atomically AND durably write ``tree`` as checkpoint ``step``.
 
     Every leaf file and the manifest are fsynced before the directory
@@ -144,28 +194,57 @@ def save(directory, step: int, tree) -> str:
     first, the rename can land while the data blocks are still only in
     the page cache; without the second, the rename itself can be undone.
     Returns the final path.
+
+    Over a world of ranks (``mesh``, a ``core.mesh.Mesh``), every rank calls
+    ``save`` with its own tree: ``blocks`` gives, for each leaf in tree
+    order, None where the rank holds the leaf whole (the same on every
+    rank) or ``(axis, rank, size)`` where it holds the ``rank``-th of
+    ``size`` equal blocks along ``axis`` (``models.sharding.expert_blocks``).
+    The directory is the one a single process writes of the whole tree,
+    byte for byte: rank 0 writes the whole leaves and each cut leaf's
+    header, its file sized for the whole leaf; after a barrier every rank
+    writes its blocks into those files and fsyncs them; after another,
+    rank 0 writes the manifest and renames, and a last barrier returns
+    every rank. A rank that dies before the rename leaves only ``.tmp``.
     """
+    mesh = check_mesh(mesh)
     d = pathlib.Path(directory)
-    d.mkdir(parents=True, exist_ok=True)
     final = d / f"step_{step:08d}"
     tmp = d / f"step_{step:08d}.tmp"
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir()
+    leaves = _leaves_with_paths(tree)
+    blocks = [None] * len(leaves) if blocks is None else list(blocks)
+    if len(blocks) != len(leaves):
+        raise ValueError(f"{len(blocks)} blocks for {len(leaves)} leaves")
+    lead = mesh is None or mesh.rank == 0
+    files = [tmp / f"arr_{i:05d}.npy" for i in range(len(leaves))]
     manifest = {"step": step, "leaves": []}
-    for i, (path, leaf) in enumerate(_leaves_with_paths(tree)):
-        arr, dtype = _host(leaf)
-        fname = f"arr_{i:05d}.npy"
-        with open(tmp / fname, "wb") as f:
-            _write_leaf(f, arr, dtype)
-            f.flush()
-            os.fsync(f.fileno())
-        manifest["leaves"].append({
-            "path": path,
-            "file": fname,
-            "shape": list(arr.shape),
-            "dtype": dtype,
-        })
+    if lead:
+        d.mkdir(parents=True, exist_ok=True)
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir()
+        for (path, leaf), block, fpath in zip(leaves, blocks, files):
+            shape, dtype = _whole_shape(leaf, block), _manifest_dtype(leaf)
+            with open(fpath, "wb") as f:
+                if block is None:
+                    _write_leaf(f, *_host(leaf))
+                else:
+                    f.truncate(_header(f, shape, dtype)
+                               + leaf.element_size() * leaf.numel() * block[2])
+                f.flush()
+                os.fsync(f.fileno())
+            manifest["leaves"].append({"path": path, "file": fpath.name,
+                                       "shape": shape, "dtype": dtype})
+    if mesh is not None:
+        mesh.barrier()                        # every file and header written
+    for (_, leaf), block, fpath in zip(leaves, blocks, files):
+        if block is not None:
+            _write_block(fpath, leaf, block)
+    if mesh is not None:
+        mesh.barrier()                        # every block written and fsynced
+        if not lead:
+            mesh.barrier()                    # rank 0 published the step
+            return str(final)
     with open(tmp / "manifest.json", "w") as f:
         json.dump(manifest, f)
         f.flush()
@@ -175,6 +254,8 @@ def save(directory, step: int, tree) -> str:
         shutil.rmtree(final)
     os.replace(tmp, final)
     fsync_dir(d)
+    if mesh is not None:
+        mesh.barrier()
     return str(final)
 
 
@@ -199,8 +280,9 @@ def _read_manifest(step_dir: pathlib.Path) -> dict:
             "any, will be restored instead)") from e
 
 
-def _load_leaf(step_dir: pathlib.Path, meta: dict) -> np.ndarray:
-    """Load one manifest-named leaf array, failing actionably on damage."""
+def _load_leaf(step_dir: pathlib.Path, meta: dict, mmap: bool = False) -> np.ndarray:
+    """Load one manifest-named leaf array (mapped, not read, with
+    ``mmap``), failing actionably on damage."""
     fpath = step_dir / meta["file"]
     if not fpath.exists():
         raise ValueError(
@@ -209,7 +291,7 @@ def _load_leaf(step_dir: pathlib.Path, meta: dict) -> np.ndarray:
             f"manifest exists but the step is incomplete — delete "
             f"{step_dir} to discard it")
     try:
-        return np.load(fpath)
+        return np.load(fpath, mmap_mode="r" if mmap else None)
     except Exception as e:
         raise ValueError(
             f"checkpoint leaf {fpath} (tree path {meta['path']}) is "
@@ -257,25 +339,44 @@ def _device_of(path, leaf, device_tree):
     return None
 
 
-def restore(directory, step: int, like, device_tree=None):
+def restore(directory, step: int, like, device_tree=None, blocks=None):
     """Restore into the structure and shapes of ``like`` (a tree of arrays
     or tensors, on any device, ``meta`` included). ``device_tree``: one
     device for every leaf, or a dict of flat leaf name -> device; else a
-    leaf goes to its ``like`` leaf's device, or to the host."""
+    leaf goes to its ``like`` leaf's device, or to the host.
+
+    ``blocks`` (the counterpart of the reference's ``sharding_tree``): for
+    each leaf in tree order, None for the whole leaf, or ``(axis, rank,
+    size)`` for the ``rank``-th of ``size`` equal blocks along ``axis``, the
+    shape of its ``like`` leaf (``models.sharding.expert_blocks``). A block
+    is read from the mapped file, so a rank never holds the whole leaf; a
+    state saved over a world of D ranks (or by one process) restores at any
+    size that divides the axis. Restore makes no collective."""
     d = pathlib.Path(directory) / f"step_{step:08d}"
     manifest = _read_manifest(d)
     flat_like = _leaves_with_paths(like)
     if len(flat_like) != len(manifest["leaves"]):
         raise ValueError(f"checkpoint {d} has {len(manifest['leaves'])} "
                          f"leaves, expected {len(flat_like)}")
+    blocks = [None] * len(flat_like) if blocks is None else list(blocks)
+    if len(blocks) != len(flat_like):
+        raise ValueError(f"{len(blocks)} blocks for {len(flat_like)} leaves")
     out = []
-    for (path, leaf), meta in zip(flat_like, manifest["leaves"]):
+    for (path, leaf), meta, block in zip(flat_like, manifest["leaves"], blocks):
         if path != meta["path"]:
             raise ValueError(f"tree mismatch: {path} vs {meta['path']}")
-        arr = _load_leaf(d, meta)
-        if tuple(arr.shape) != tuple(_shape(leaf)):
-            raise ValueError(f"{path}: shape {arr.shape} on disk, "
-                             f"expected {tuple(_shape(leaf))}")
+        arr = _load_leaf(d, meta, mmap=block is not None)
+        if block is not None:
+            axis, r, size = block
+            if arr.shape[axis] % size:
+                raise ValueError(f"{path}: its {arr.shape[axis]} entries along axis "
+                                 f"{axis} do not split into {size} equal blocks")
+        want = tuple(_whole_shape(leaf, block))
+        if tuple(arr.shape) != want:
+            raise ValueError(f"{path}: shape {arr.shape} on disk, expected {want}")
+        if block is not None:
+            n = arr.shape[axis] // size
+            arr = np.array(arr[(slice(None),) * axis + (slice(r * n, (r + 1) * n),)])
         out.append(_place(arr, meta, _device_of(path, leaf, device_tree)))
     return _unflatten(like, iter(out))
 

@@ -46,18 +46,20 @@ def ordered_cumsum(x, dim=-1):
     return out.to(x.dtype).reshape(lead + (n,)).movedim(-1, dim)
 
 
-def ordered_fold(x, dim=0):
+def ordered_fold(x, dim=0, dtype=None):
     """Sum ``x`` over ``dim`` in strict index order: the float32 left fold
-    ``x[0] + x[1] + ... + x[S-1]``, one elementwise add at a time.
+    ``x[0] + x[1] + ... + x[S-1]``, one elementwise add at a time; with
+    ``dtype``, each term is converted to it as it is added, and the sum is
+    carried in it (a bfloat16 gradient folded in float32).
 
     The streamed drivers combine their per-slot partials with it on the
     host, and a mesh its per-rank ones, so the combined sums depend only on
     the slot (or rank) count, never on how a reduction kernel or a
     collective would group the additions.
     """
-    acc = x.select(dim, 0).clone()
+    acc = x.select(dim, 0).to(dtype or x.dtype, copy=True)
     for i in range(1, x.shape[dim]):
-        acc = acc + x.select(dim, i)
+        acc = acc + x.select(dim, i).to(acc.dtype)
     return acc
 
 

@@ -9,7 +9,9 @@ process. ``launch.mesh`` starts a world and builds each rank's :class:`Mesh`.
 The collectives are gloo's, over host tensors: what crosses ranks is the
 constant-size partials of each pass (a few KB), already on the host for the
 fold, and the expert-parallel MoE's token rows (:meth:`Mesh.all_to_all`,
-``models/moe.py``), staged through the host too. No float sum relies on
+``models/moe.py``), staged through the host too; :func:`all_to_all`
+is the same exchange recorded by autograd, whose backward is the
+exchange of the incoming gradient. No float sum relies on
 the order inside a collective: a sum across
 ranks is :meth:`Mesh.gather` of the per-rank (or per-slot) partials and then
 ``bucketing.ordered_fold`` in slot order on every rank, the addition chain
@@ -23,26 +25,31 @@ import time
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "check_mesh"]
+__all__ = ["Mesh", "check_mesh", "all_to_all"]
 
 
 class Mesh:
     """This process's place in a world: ``rank``, ``size``, its ``device``
     and the process ``group`` of the collectives. ``comm_s`` counts the
     seconds spent in collectives (the gather behind every fold, the
-    maxima, the barriers, the all-to-alls with their host copies)."""
+    maxima, the barriers, the all-to-alls with their host copies), and
+    ``comm_split`` the same seconds by kind ("gather", "all_to_all",
+    "reduce", "barrier")."""
 
     def __init__(self, rank: int, size: int, device: torch.device, group=None):
         self.rank, self.size, self.device, self.group = rank, size, device, group
         self.comm_s = 0.0
+        self.comm_split = {}
 
     def __repr__(self):
         return f"Mesh(rank={self.rank}, size={self.size}, device={self.device})"
 
-    def _timed(self, fn):
+    def _timed(self, kind, fn):
         t0 = time.perf_counter()
         out = fn()
-        self.comm_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.comm_s += dt
+        self.comm_split[kind] = self.comm_split.get(kind, 0.0) + dt
         return out
 
     def gather(self, t) -> torch.Tensor:
@@ -57,7 +64,7 @@ class Mesh:
             dist.all_gather(out, t, group=self.group)
             return torch.stack(out)
 
-        return self._timed(run)
+        return self._timed("gather", run)
 
     def all_to_all(self, t) -> torch.Tensor:
         """Row r of ``t`` (size, ...) goes to rank r; row r of the result
@@ -76,12 +83,12 @@ class Mesh:
             dist.all_to_all_single(out, src, group=self.group)
             return out.to(t.device)
 
-        return self._timed(run)
+        return self._timed("all_to_all", run)
 
     def _reduce(self, t, op):
         t = torch.as_tensor(t).detach().cpu().clone()
         if self.size > 1:
-            self._timed(lambda: dist.all_reduce(t, op=op, group=self.group))
+            self._timed("reduce", lambda: dist.all_reduce(t, op=op, group=self.group))
         return t
 
     def amax(self, t) -> torch.Tensor:
@@ -94,7 +101,34 @@ class Mesh:
 
     def barrier(self):
         if self.size > 1:
-            self._timed(lambda: dist.barrier(group=self.group))
+            self._timed("barrier", lambda: dist.barrier(group=self.group))
+
+
+class _AllToAll(torch.autograd.Function):
+    """:meth:`Mesh.all_to_all` under autograd. The tiled exchange along dim
+    0 is a permutation of row blocks that is its own transpose (as
+    ``jax.lax.all_to_all``'s is), so the backward is the same exchange of
+    the incoming gradient.
+
+    The backward's exchange is a collective too: every rank must reach it
+    in the same order, which it does when every rank builds the same graph
+    (the same layers, the same remat recompute). A rank that takes another
+    order waits until the world's collective timeout and then fails
+    (``launch.mesh.init_mesh``)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return mesh.all_to_all(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_to_all(grad.contiguous()), None
+
+
+def all_to_all(mesh, t) -> torch.Tensor:
+    """``mesh.all_to_all(t)``, differentiable in ``t``."""
+    return _AllToAll.apply(t, mesh)
 
 
 def check_mesh(mesh):

@@ -16,7 +16,7 @@ import torch
 
 from .attention import _out, _proj, attention, decode_attention, init_attn, init_kv_cache
 from .layers import embed, init_embed, init_mlp, init_rms, mlp, rms_norm, unembed
-from .lm import at, chunked_loss, remat
+from .lm import at, chunked_nll, mean_nll, remat
 
 
 def _init_enc_layers(gen, cfg, device, n):
@@ -98,11 +98,17 @@ def decode_train(params, cfg, tokens, memory):
     return rms_norm(params["final_norm"], x, cfg.norm_eps)
 
 
-def encdec_loss(params, cfg, frames, tokens, targets, mask=None):
-    """Mean CE of the teacher-forced decoder, chunked as ``lm.lm_loss``."""
+def encdec_nll(params, cfg, frames, tokens, targets, mask=None):
+    """(summed CE, token count) of the teacher-forced decoder, chunked as
+    ``lm.lm_nll``."""
     memory = encode(params, cfg, frames)
     h = decode_train(params, cfg, tokens, memory)
-    return chunked_loss(params["head"]["e"], h, targets, mask, cfg.loss_chunk)
+    return chunked_nll(params["head"]["e"], h, targets, mask, cfg.loss_chunk)
+
+
+def encdec_loss(params, cfg, frames, tokens, targets, mask=None):
+    """Mean CE of the teacher-forced decoder, chunked as ``lm.lm_loss``."""
+    return mean_nll(*encdec_nll(params, cfg, frames, tokens, targets, mask))
 
 
 # --- decode ------------------------------------------------------------------

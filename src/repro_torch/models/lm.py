@@ -13,6 +13,9 @@ Remat: with ``cfg.remat`` and gradients on, each block runs under
 ``block_apply`` in ``jax.checkpoint``: the backward recomputes the block,
 the MoE router's two kernels included, from its saved input. The kernels
 are deterministic, so the recomputed routing masks are the forward's.
+Over a world of ranks the recompute runs the block's collectives again
+(the all-to-alls, the router's folds), at the same point of every rank's
+backward.
 
 The LM head never materialises (B, S, V) logits: ``lm_loss`` projects one
 chunk of ``cfg.loss_chunk`` positions at a time, each chunk under
@@ -30,6 +33,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .blocks import block_apply, block_decode, init_block, init_block_cache
 from .layers import embed, init_embed, init_rms, rms_norm, unembed
+from . import sharding
+from .moe import uncounted
 
 
 def _slot_ffns(cfg):
@@ -90,11 +95,33 @@ def _n_periods(params):
     return params["slots"][0]["norm1"]["scale"].shape[0]
 
 
+def _replayed(fn):
+    """``fn`` as ``checkpoint`` calls it: the first call is the forward; a
+    later one is the backward's recompute, which runs under the sharding
+    rules (and ``Mesh``) the forward saw, counting no dropped MoE pair
+    again (``moe.uncounted``). The rules are per thread, and on the card
+    autograd runs the backward on a thread of its own."""
+    seen = []
+
+    def run(*args):
+        if not seen:
+            seen.append((sharding.get_rules(), sharding.get_mesh()))
+            return fn(*args)
+        now = (sharding.get_rules(), sharding.get_mesh())
+        sharding.set_rules(seen[0][0], mesh=seen[0][1])
+        try:
+            with uncounted():
+                return fn(*args)
+        finally:
+            sharding.set_rules(now[0], mesh=now[1])
+    return run
+
+
 def remat(fn, cfg):
     """``fn``, recomputed in the backward under ``cfg.remat`` (when
-    gradients are on)."""
+    gradients are on), under the forward's rules (:func:`_replayed`)."""
     if cfg.remat and torch.is_grad_enabled():
-        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+        return lambda *a: checkpoint(_replayed(fn), *a, use_reentrant=False)
     return fn
 
 
@@ -132,12 +159,13 @@ def _chunk_nll(e, h, targets, mask, softcap):
     return ((lse - gold) * mask).sum()
 
 
-def chunked_loss(e, h, targets, mask, chunk, softcap=0.0):
-    """Mean CE of hidden states ``h`` (B, S, D) against the head ``e``,
-    ``chunk`` positions at a time. targets: (B, S) int; mask (B, S) or None.
+def chunked_nll(e, h, targets, mask, chunk, softcap=0.0):
+    """(summed CE, token count) of hidden states ``h`` (B, S, D) against the
+    head ``e``, ``chunk`` positions at a time. targets: (B, S) int; mask
+    (B, S) or None (every position counts).
 
-    The chunks' sums are added to a float32 carry in chunk order, then
-    divided by ``max(sum(mask), 1)``."""
+    The chunks' sums are added to a float32 carry in chunk order; the count
+    is ``sum(mask)`` in float32."""
     s = h.shape[1]
     c = min(chunk, s)
     if s % c:
@@ -151,17 +179,28 @@ def chunked_loss(e, h, targets, mask, chunk, softcap=0.0):
             total = total + checkpoint(_chunk_nll, *args, use_reentrant=False)
         else:
             total = total + _chunk_nll(*args)
-    return total / torch.clamp_min(mask.sum(), 1.0)
+    return total, mask.sum()
 
 
-def lm_loss(params, cfg, tokens, targets, mask=None, extra_embeds=None):
-    """Mean CE, chunked over the sequence (``chunked_loss``). targets:
-    (B, S) int; mask (B, S)."""
+def mean_nll(total, count):
+    """The mean CE: ``total / max(count, 1)``."""
+    return total / torch.clamp_min(count, 1.0)
+
+
+def lm_nll(params, cfg, tokens, targets, mask=None, extra_embeds=None):
+    """(summed CE, token count), chunked over the sequence
+    (:func:`chunked_nll`). targets: (B, S) int; mask (B, S)."""
     h = forward(params, cfg, tokens, extra_embeds)
     if extra_embeds is not None:
         h = h[:, extra_embeds.shape[1]:]                    # text positions only
-    return chunked_loss(head_params(params)["e"], h, targets, mask, cfg.loss_chunk,
-                        cfg.logit_softcap)
+    return chunked_nll(head_params(params)["e"], h, targets, mask, cfg.loss_chunk,
+                       cfg.logit_softcap)
+
+
+def lm_loss(params, cfg, tokens, targets, mask=None, extra_embeds=None):
+    """Mean CE, chunked over the sequence (:func:`lm_nll` over
+    :func:`mean_nll`). targets: (B, S) int; mask (B, S)."""
+    return mean_nll(*lm_nll(params, cfg, tokens, targets, mask, extra_embeds))
 
 
 # ---------------------------------------------------------------------------

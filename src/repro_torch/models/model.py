@@ -25,9 +25,12 @@ Over a world of ranks, every rank runs the same steps under
 the world: each rank draws (or carries) the whole tree, keeps its experts
 (``sharding.shard_experts``), and gives the steps and ``init_cache`` the
 global batch, of which it takes its ``B / D`` rows; the steps return the
-logits of those rows, and ``init_cache`` builds caches of them. Bindings
+logits of those rows, and ``init_cache`` builds caches of them. The
+train step runs there too (:func:`loss_and_grads`: the rank's rows, the
+backward through the all-to-all, the replicated leaves' gradients folded
+in rank order; ``optim.apply_updates(mesh=)``: the global norm). Bindings
 the port has not implemented raise ``NotImplementedError``
-(``sharding.check_step_rules``); training over a world is not ported.
+(``sharding.check_step_rules``).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from typing import Optional
 
 import torch
 
+from ..core.bucketing import ordered_fold
 from ..core.solver import resolve_device
 from ..optim import OptConfig, apply_updates
 from . import encdec as ed
@@ -115,37 +119,90 @@ def _rank_rows(a):
     return a[lo:hi]
 
 
+def _nll(params, cfg, batch):
+    """(summed next-token cross-entropy, token count) of ``batch``."""
+    if cfg.kind == "encdec":
+        return ed.encdec_nll(params, cfg, batch["frames"], batch["tokens"],
+                             batch["targets"])
+    return lm.lm_nll(params, cfg, batch["tokens"], batch["targets"],
+                     mask=batch.get("mask"), extra_embeds=batch.get("patches"))
+
+
 def loss_fn(params, cfg, batch):
     """Mean next-token cross-entropy of ``batch`` (tokens, targets, and
     ``frames``, ``patches`` or ``mask`` where given)."""
-    if cfg.kind == "encdec":
-        return ed.encdec_loss(params, cfg, batch["frames"], batch["tokens"],
-                              batch["targets"])
-    return lm.lm_loss(params, cfg, batch["tokens"], batch["targets"],
-                      mask=batch.get("mask"), extra_embeds=batch.get("patches"))
+    return lm.mean_nll(*_nll(params, cfg, batch))
+
+
+def _world_of_training():
+    """The rules' ``Mesh`` when a step trains over a world, else None. A
+    world trains under the batch binding only (``sharding.BATCH_RULES``):
+    the bindings of ``sharding.UNPORTED`` raise ``NotImplementedError``,
+    and "batch" and "experts" must be bound to the world."""
+    mesh = sharding.get_mesh()
+    if mesh is None:
+        return None
+    sharding.check_step_rules()
+    if not (sharding.on_world("batch") and sharding.on_world("experts")):
+        raise ValueError("a train step over a world runs under the batch binding: "
+                         "'batch' and 'experts' bound to the world "
+                         f"({sharding.WORLD!r}, sharding.BATCH_RULES), got batch "
+                         f"{sharding.mesh_axis('batch')!r}, experts "
+                         f"{sharding.mesh_axis('experts')!r}")
+    return mesh
+
+
+def loss_and_grads(params, cfg, batch):
+    """(loss, grads): the mean loss of ``batch`` (0-dim, detached) and the
+    gradient tree of ``params`` (leaf tensors; their ``.grad`` is cleared).
+
+    Over a world of ranks (the rules carry this rank's ``Mesh``; see
+    :func:`_world_of_training`) every rank gives the global ``batch`` and
+    its cut tree (``sharding.shard_experts``). The rank runs its ``B / D``
+    rows and differentiates its summed loss over the global token count
+    (the ranks' counts folded in rank order, exact); the loss is the ranks'
+    sums folded in rank order over that count, the same on every rank. A
+    replicated leaf's gradient is the ranks' gathered, folded in rank order
+    in float32 and rounded once to the leaf's dtype (never a float
+    ``all_reduce``), leaf by leaf; an expert leaf's stays the rank's."""
+    mesh = _world_of_training()
+    leaves = lm.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    if mesh is None:
+        loss = loss_fn(params, cfg, batch)
+        loss.backward()
+    else:
+        total, count = _nll(params, cfg, {k: _rank_rows(v) for k, v in batch.items()})
+        dev = total.device
+        count = ordered_fold(mesh.gather(count.detach())).to(dev)
+        lm.mean_nll(total, count).backward()
+        loss = lm.mean_nll(ordered_fold(mesh.gather(total.detach())).to(dev), count)
+    grads = {id(p): torch.zeros_like(p) if p.grad is None else p.grad for p in leaves}
+    for p in leaves:
+        p.grad = None                     # never accumulated across steps
+    if mesh is not None:
+        for p, ax in zip(leaves, sharding.expert_axes(params)):
+            if ax is None:
+                g = grads[id(p)]
+                grads[id(p)] = ordered_fold(mesh.gather(g).to(g.device),
+                                            dtype=torch.float32).to(g.dtype)
+    return loss.detach(), lm.tree_map(lambda p: grads[id(p)], params)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig):
     """train_step(params, opt_state, batch) -> (params, opt_state, metrics):
-    the loss's gradients, then one AdamW step, both in place. ``metrics``
-    holds ``loss``, ``grad_norm`` and ``lr`` (0-dim tensors)."""
+    the loss's gradients (:func:`loss_and_grads`, over a world too), then
+    one AdamW step, both in place. ``metrics`` holds ``loss``,
+    ``grad_norm`` and ``lr`` (0-dim tensors), the same on every rank of a
+    world."""
 
     def train_step(params, opt_state, batch):
-        if sharding.get_mesh() is not None:
-            raise NotImplementedError("training over a world of ranks is "
-                                      "ROADMAP A10's second part")
-        leaves = lm.tree_leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-            p.grad = None
-        loss = loss_fn(params, cfg, batch)
-        loss.backward()
-        grads = lm.tree_map(
-            lambda p: torch.zeros_like(p) if p.grad is None else p.grad, params)
-        for p in leaves:
-            p.grad = None                 # never accumulated across steps
-        params, opt_state, metrics = apply_updates(params, grads, opt_state, opt_cfg)
-        return params, opt_state, {"loss": loss.detach(), **metrics}
+        loss, grads = loss_and_grads(params, cfg, batch)
+        params, opt_state, metrics = apply_updates(params, grads, opt_state, opt_cfg,
+                                                   mesh=sharding.get_mesh())
+        return params, opt_state, {"loss": loss, **metrics}
     return train_step
 
 

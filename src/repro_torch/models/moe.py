@@ -26,31 +26,57 @@ experts, ``sharding.shard_experts``):
   (``bucketing.ordered_fold``) and keeps the rank's own rows: the dense
   decode that the reference leaves to GSPMD over its expert-sharded axis.
 
-Training over a world (the backward through the all-to-all) is not
-ported; ``_moe_a2a`` refuses gradients.
+Training runs through the a2a path as the reference's ``jax.grad`` runs
+through its shard_map body: the all-to-alls of the token rows and of the
+expert outputs are ``core.mesh.all_to_all`` (the backward is the same
+exchange of the gradient; the int32 expert ids take none), the dispatch
+writes are recorded by autograd, and the gradient reaches the router
+through the values of the top-k sort (the combine weights) while the
+prices and masks stay off it. A dropped pair's row is written to a dump
+row that nothing reads, so its gradient is zero; no backward adds two
+gradients into one row that is read (an indexed read of unique rows, a
+broadcast in place of ``repeat_interleave``), so the bits stay run to
+run on the card, where an indexed backward adds through atomics.
 
 Shared experts (DeepSeek-style) are ordinary dense MLPs handled by the
 caller; this module owns routed experts only.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
 from ..core.bucketing import ordered_fold
 from ..core.moe_router import scd_route, scd_route_shmap, topk_route
+from ..core.mesh import all_to_all
 from . import sharding
 from .layers import activation, truncnorm
 
 # Token-expert pairs the a2a path dropped since the last reset: past
 # ``cap_send`` on the way to an expert's rank, past ``cap_e`` at the expert
-# (counted by the rank that received them).
+# (counted by the rank that received them). A forward pass counts them
+# once: the remat recompute of a layer (``lm.remat``) routes the same pairs
+# again under :func:`uncounted`.
 DROPPED = {"cap_send": 0, "cap_e": 0}
+_COUNTING = [True]
 
 
 def reset_dropped():
     for key in DROPPED:
         DROPPED[key] = 0
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Add nothing to :data:`DROPPED` inside (a process-wide switch: the
+    recompute runs on autograd's thread while the caller's waits)."""
+    _COUNTING[0] = False
+    try:
+        yield
+    finally:
+        _COUNTING[0] = True
 
 
 def init_moe(gen, cfg, device, periods=None):
@@ -156,10 +182,7 @@ def _exclusive_rank(onehot):
 
 def _moe_a2a(p, cfg, x, act, mesh):
     """This rank's tokens -> a2a -> local expert products -> a2a back
-    (the reference's shard_map body, step for step)."""
-    if torch.is_grad_enabled() and (x.requires_grad or p["wi"].requires_grad):
-        raise NotImplementedError("training over a world (the backward through "
-                                  "the all-to-all) is ROADMAP A10's second part")
+    (the reference's shard_map body, step for step), differentiable."""
     m, n = cfg.moe, mesh.size
     b_l, s_l, d = x.shape
     t_l, k = b_l * s_l, m.topk
@@ -173,7 +196,8 @@ def _moe_a2a(p, cfg, x, act, mesh):
                                         m.scd_iters, mesh)
     else:
         combine, mask = _route(logits, cfg)
-    # jax.lax.top_k's order: descending, ties to the lower index
+    # jax.lax.top_k's order: descending, ties to the lower index; the
+    # gradient flows through the sorted values into ``combine``
     wsel, eid = torch.sort(torch.where(mask, combine, -1.0), dim=-1,
                            descending=True, stable=True)
     wsel, eid = wsel[:, :k], eid[:, :k]
@@ -181,28 +205,31 @@ def _moe_a2a(p, cfg, x, act, mesh):
     # per-target send buffers; dropped pairs go to one dump row, never read
     pairs = t_l * k
     eid_f, wsel_f = eid.reshape(pairs), wsel.reshape(pairs)
-    valid = wsel_f > 0
-    target = eid_f // e_l
-    onehot = F.one_hot(torch.where(valid, target, n), n + 1)[:, :n].to(torch.int32)
-    pos = _exclusive_rank(onehot)
-    cap_send = int(m.capacity_factor * pairs / n) + 1
-    ok = valid & (pos < cap_send)
-    slot = torch.where(ok, target * cap_send + pos, n * cap_send)
+    with torch.no_grad():
+        valid = wsel_f > 0
+        target = eid_f // e_l
+        onehot = F.one_hot(torch.where(valid, target, n), n + 1)[:, :n].to(torch.int32)
+        pos = _exclusive_rank(onehot)
+        cap_send = int(m.capacity_factor * pairs / n) + 1
+        ok = valid & (pos < cap_send)
+        slot = torch.where(ok, target * cap_send + pos, n * cap_send)
+        send_le = torch.full((n * cap_send + 1,), e_l, dtype=torch.int32,
+                             device=x.device)
+        send_le[slot] = (eid_f % e_l).to(torch.int32)
     send_x = x.new_zeros((n * cap_send + 1, d))
-    send_x[slot] = xt.repeat_interleave(k, dim=0)
-    send_le = torch.full((n * cap_send + 1,), e_l, dtype=torch.int32, device=x.device)
-    send_le[slot] = (eid_f % e_l).to(torch.int32)
+    send_x[slot] = xt[:, None].expand(t_l, k, d).reshape(pairs, d)
 
     rt = n * cap_send
-    rx = mesh.all_to_all(send_x[:-1].reshape(n, cap_send, d)).reshape(rt, d)
+    rx = all_to_all(mesh, send_x[:-1].reshape(n, cap_send, d)).reshape(rt, d)
     rle = mesh.all_to_all(send_le[:-1].reshape(n, cap_send)).reshape(rt).long()
 
     # group by local expert (cap_e rows each), the expert products
-    r_onehot = F.one_hot(rle, e_l + 1)[:, :e_l].to(torch.int32)
-    r_pos = _exclusive_rank(r_onehot)
-    cap_e = int(m.capacity_factor * rt / e_l) + 1
-    r_ok = (rle < e_l) & (r_pos < cap_e)
-    r_slot = torch.where(r_ok, rle * cap_e + r_pos, e_l * cap_e)
+    with torch.no_grad():
+        r_onehot = F.one_hot(rle, e_l + 1)[:, :e_l].to(torch.int32)
+        r_pos = _exclusive_rank(r_onehot)
+        cap_e = int(m.capacity_factor * rt / e_l) + 1
+        r_ok = (rle < e_l) & (r_pos < cap_e)
+        r_slot = torch.where(r_ok, rle * cap_e + r_pos, e_l * cap_e)
     buf = x.new_zeros((e_l * cap_e + 1, d))
     buf[r_slot] = rx
     f = p["wo"].shape[1]
@@ -211,12 +238,14 @@ def _moe_a2a(p, cfg, x, act, mesh):
     g = activation(h[..., :f], act) * h[..., f:]
     y_buf = torch.bmm(g, p["wo"].to(x.dtype)).reshape(e_l * cap_e, d)
 
-    # ungroup, a2a back, combine
-    y_r = torch.where(r_ok[:, None], y_buf[r_slot.clamp(max=e_l * cap_e - 1)], 0.0)
-    y_back = mesh.all_to_all(y_r.reshape(n, cap_send, d)).reshape(rt, d)
-    y_pairs = torch.where(ok[:, None], y_back[slot.clamp(max=rt - 1)], 0.0)
+    # ungroup, a2a back, combine: a dropped row reads the zero row after
+    # the last (the reference's clamped read under ``where``)
+    y_r = torch.cat([y_buf, y_buf.new_zeros((1, d))])[r_slot]
+    y_back = all_to_all(mesh, y_r.reshape(n, cap_send, d)).reshape(rt, d)
+    y_pairs = torch.cat([y_back, y_back.new_zeros((1, d))])[slot]
     w_pairs = torch.where(ok, wsel_f, 0.0)
-    DROPPED["cap_send"] += int((valid & ~ok).sum())
-    DROPPED["cap_e"] += int(((rle < e_l) & ~r_ok).sum())
+    if _COUNTING[0]:
+        DROPPED["cap_send"] += int((valid & ~ok).sum())
+        DROPPED["cap_e"] += int(((rle < e_l) & ~r_ok).sum())
     y = (y_pairs * w_pairs[:, None].to(x.dtype)).reshape(t_l, k, d).sum(1)
     return y.reshape(b_l, s_l, d)

@@ -17,8 +17,12 @@ What runs over the world:
   the reference's ``P(model_ax, ...)`` on ``wi``/``wo``), and the MoE takes
   its all-to-all path (``models/moe.py``), whose tokens may be cut by batch
   or by sequence;
-* "batch" -> world: each rank runs the prefill and decode steps on its
-  ``B / D`` rows (:func:`rank_rows`), every other weight replicated.
+* "batch" -> world: each rank runs the prefill, decode and train steps
+  on its ``B / D`` rows (:func:`rank_rows`), every other weight
+  replicated; training runs under :data:`BATCH_RULES` ("batch" and
+  "experts" bound), and :func:`map_experts` / :func:`expert_axes` say
+  which leaves of a tree (parameters, optimizer state, checkpoint) are
+  the rank's blocks of the experts.
 
 The steps refuse the bindings the port has not implemented
 (:data:`UNPORTED`: tensor and sequence parallelism) with
@@ -36,7 +40,8 @@ from ..core.mesh import check_mesh
 __all__ = ["DEFAULT_RULES", "WORLD", "UNPORTED", "set_rules", "get_rules",
            "get_mesh", "spec", "constrain", "mesh_axis", "axis_size",
            "on_world", "check_step_rules", "rank_rows",
-           "expert_range", "shard_experts"]
+           "expert_range", "shard_experts", "map_experts", "expert_axes",
+           "expert_blocks", "BATCH_RULES"]
 
 _state = threading.local()
 
@@ -56,6 +61,12 @@ DEFAULT_RULES = {
     "state": None,
     None: None,
 }
+
+# The batch binding: "batch" and "experts" on the world, every name the
+# steps refuse over a world (UNPORTED) unbound. Training over a world runs
+# under it (``launch/train.py``).
+BATCH_RULES = dict(DEFAULT_RULES, batch=WORLD, seq=None, kv_seq=None, heads=None,
+                   kv_heads=None, ffn=None, vocab=None)
 
 # Bindings the steps refuse on the world.
 UNPORTED = ("seq", "kv_seq", "heads", "kv_heads", "ffn", "vocab")
@@ -147,19 +158,74 @@ def expert_range(n_experts: int, mesh):
     return _block(n_experts, mesh, "experts")
 
 
+def _expert_axis(parent: dict, key):
+    """The expert axis of ``parent[key]``, or None: an MoE's ``wi`` and
+    ``wo`` are cut over their experts, dim 1 of a leaf stacked over periods,
+    dim 0 of a bare ``init_moe`` tree. The one place that says which leaves
+    are cut over the experts: :func:`shard_experts`, the train step's
+    gradient fold, ``optim.apply_updates``'s norm and the world's
+    checkpoint read it through :func:`map_experts` and :func:`expert_axes`."""
+    if key in ("wi", "wo") and {"router", "wi", "wo"} <= parent.keys():
+        return parent["wi"].dim() - 4                 # (periods,) E, d, 2, f
+    return None
+
+
+def map_experts(fn, tree):
+    """``tree`` (a parameter tree, an optimizer state mirroring one, or a
+    dict, list or tuple of them) with every leaf replaced by ``fn(leaf,
+    axis)``, ``axis`` its expert axis or None; None stays None."""
+    def walk(t, axis):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: walk(v, _expert_axis(t, k)) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(walk(v, None) for v in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, None) for v in t)
+        return fn(t, axis)
+    return walk(tree, None)
+
+
+def expert_axes(tree) -> list:
+    """The expert axis of each leaf of ``tree`` (None: a whole leaf), in the
+    order of ``jax.tree.leaves`` (dict keys sorted, lists and tuples in
+    order, no leaf for None)."""
+    out = []
+
+    def walk(t, axis):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], _expert_axis(t, k))
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v, None)
+        elif t is not None:
+            out.append(axis)
+    walk(tree, None)
+    return out
+
+
+def expert_blocks(tree, mesh) -> list:
+    """For each leaf of ``tree`` in ``expert_axes`` order, the block that
+    this rank of ``mesh`` holds: ``(axis, rank, size)`` for an expert leaf
+    (the ``rank``-th of ``size`` equal blocks along ``axis``), None for a
+    whole leaf, every leaf for one process (``mesh=None``); the ``blocks``
+    of ``checkpoint.ckpt.save`` and ``restore``."""
+    axes = expert_axes(tree)
+    if check_mesh(mesh) is None:
+        return [None] * len(axes)
+    return [None if ax is None else (ax, mesh.rank, mesh.size) for ax in axes]
+
+
 def shard_experts(params, mesh):
     """The parameter tree (``model.init``'s or
     ``carry.params_from_reference``'s) with each MoE's ``wi`` and ``wo`` cut
     to this rank's experts (:func:`expert_range`), copied, so the rest can
-    be freed; every other leaf is the same tensor. The expert axis is dim 1
-    of a leaf stacked over periods, dim 0 of a bare ``init_moe`` tree."""
-    if isinstance(params, list):
-        return [shard_experts(v, mesh) for v in params]
-    if not isinstance(params, dict):
-        return params
-    if {"router", "wi", "wo"} <= params.keys():
-        axis = params["wi"].dim() - 4               # (periods,) E, d, 2, f
-        lo, hi = expert_range(params["wi"].shape[axis], mesh)
-        return {**params, **{k: params[k].narrow(axis, lo, hi - lo).clone()
-                             for k in ("wi", "wo")}}
-    return {k: shard_experts(v, mesh) for k, v in params.items()}
+    be freed; every other leaf is the same tensor."""
+    def cut(a, axis):
+        if axis is None:
+            return a
+        lo, hi = expert_range(a.shape[axis], mesh)
+        return a.narrow(axis, lo, hi - lo).clone()
+    return map_experts(cut, params)

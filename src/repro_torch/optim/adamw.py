@@ -19,6 +19,17 @@ one period of one leaf. Elementwise, a slice's update is bitwise the
 whole leaf's. The global norm adds each leaf's float32 sum of squares in
 the order of ``jax.tree.leaves`` (dict keys sorted, lists in order); a
 stacked leaf's sum is its period slices' sums added in period order.
+
+Over a world of ranks (``mesh=``, the train step's), every rank holds the
+replicated leaves whole, with the same folded gradients, and its own
+block of each expert leaf (``models.sharding.expert_axes``). A replicated
+slice's sum of squares is computed locally (the same bits on every
+rank); the expert slices' partial sums are gathered once a step as one
+vector and folded in rank order (``bucketing.ordered_fold``), as the
+reference's ``sum`` over the whole sharded leaf adds them. With
+compression an expert leaf's int8 scale is its global amax
+(``Mesh.amax``, exact); the error feedback stays with the rank's block.
+The updates stay elementwise and in place.
 """
 from __future__ import annotations
 
@@ -27,6 +38,9 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from ..core.bucketing import ordered_fold
+from ..core.mesh import check_mesh
+from ..models import sharding
 from ..models.lm import tree_leaves, tree_leaves_with_paths, tree_map
 
 # The parameter tree's key whose leaves are stacked over layer periods
@@ -97,12 +111,18 @@ def _slices(path, t):
     return t.unbind(0) if path and path[0] == STACKED else (t,)
 
 
-def _compressed(path, g, err):
-    """Compress one leaf slice by slice with the whole leaf's scale; the
-    leaf's ``err`` is updated in place. Returns the int8 leaf and its scale
-    (the decompressed gradient is ``q.float() * scale``)."""
+def _amax(path, g, err):
+    """max |g + err| of one leaf (float32), slice by slice."""
+    return torch.stack([(gi.float() + ei).abs().amax()
+                        for gi, ei in zip(_slices(path, g), _slices(path, err))]).amax()
+
+
+def _compressed(path, g, err, amax):
+    """Compress one leaf slice by slice with the whole leaf's scale (from
+    its ``amax``, :func:`_amax`); the leaf's ``err`` is updated in place.
+    Returns the int8 leaf and its scale (the decompressed gradient is
+    ``q.float() * scale``)."""
     gs, es = _slices(path, g), _slices(path, err)
-    amax = torch.stack([(gi.float() + ei).abs().amax() for gi, ei in zip(gs, es)]).amax()
     scale = torch.clamp_min(amax, 1e-12) / _const(127.0, g)
     q = torch.empty(g.shape, dtype=torch.int8, device=g.device)
     for gi, ei, qi in zip(gs, es, _slices(path, q)):
@@ -128,15 +148,26 @@ def _update_(p, g32, m, v, k):
     p.copy_(p32 - step.mul_(k["lr"]))
 
 
-def apply_updates(params, grads, state: OptState, cfg: OptConfig):
+def apply_updates(params, grads, state: OptState, cfg: OptConfig, mesh=None):
     """One AdamW step, in place. Returns (params, new_state, metrics), the
-    parameters and moments the same tensors, updated."""
+    parameters and moments the same tensors, updated. ``mesh``: this
+    rank's ``core.mesh.Mesh`` when the expert leaves of ``params`` are the
+    rank's blocks (module docstring); every rank makes the same calls."""
+    mesh = check_mesh(mesh)
     with torch.no_grad():
         pl = tree_leaves_with_paths(params)
         gl, ml, vl = tree_leaves(grads), tree_leaves(state.mu), tree_leaves(state.nu)
+        cut = [] if mesh is None else [i for i, ax in enumerate(sharding.expert_axes(params))
+                                       if ax is not None]
         if cfg.compress_grads:
             el = tree_leaves(state.err)
-            packed = [_compressed(path, g, e) for (path, _), g, e in zip(pl, gl, el)]
+            amax = [_amax(path, g, e) for (path, _), g, e in zip(pl, gl, el)]
+            if cut:                                   # the expert leaves' global amax
+                world = mesh.amax(torch.stack([amax[i] for i in cut]))
+                for i, a in zip(cut, world.to(amax[0].device).unbind(0)):
+                    amax[i] = a
+            packed = [_compressed(path, g, e, a)
+                      for (path, _), g, e, a in zip(pl, gl, el, amax)]
             pieces = [[lambda qi=qi, s=s: qi.float() * s for qi in _slices(path, q)]
                       for (path, _), (q, s) in zip(pl, packed)]
         else:
@@ -144,12 +175,17 @@ def apply_updates(params, grads, state: OptState, cfg: OptConfig):
                       for (path, _), g in zip(pl, gl)]
 
         # global-norm clip in f32: leaves in order, a stacked leaf's slices
-        # in period order
+        # in period order; an expert slice's sum folded over the ranks
+        sums = [[piece().square_().sum() for piece in leaf] for leaf in pieces]
+        if cut:
+            at = [(i, j) for i in cut for j in range(len(sums[i]))]
+            world = ordered_fold(mesh.gather(torch.stack([sums[i][j] for i, j in at])))
+            for (i, j), t in zip(at, world.to(sums[0][0].device).unbind(0)):
+                sums[i][j] = t
         total = None
-        for leaf in pieces:
+        for leaf in sums:
             s = None
-            for piece in leaf:
-                t = piece().square_().sum()
+            for t in leaf:
                 s = t if s is None else s + t
             total = s if total is None else total + s
         gnorm = torch.sqrt(total)

@@ -42,7 +42,8 @@ same gradients rtol 1e-6 of the leaf's largest element); a resumed run
 and two runs from one seed bitwise on the card. The MoE forward over a
 world of two ranks on the card (``models/sharding.py``, the a2a path,
 ``scd_route_shmap``, the steps under the batch binding) against a world of
-two on the CPU.
+two on the CPU, and training over it (the train step under the batch
+binding, ``train(mesh=)`` saved and resumed bitwise on the card).
 """
 import numpy as np
 import pytest
@@ -1194,3 +1195,63 @@ def test_moe_world_on_card_against_cpu(cuda_device, moe_worlds, key):
         case = key[len("moe_"):]
         assert card[f"drops_{case}"] == cpu[f"drops_{case}"]
         np.testing.assert_array_equal(~card[key].any(-1), ~cpu[key].any(-1))
+
+
+@pytest.fixture(scope="module")
+def train_worlds(tmp_path_factory):
+    """``tests/_torch_train_world.port_cases`` (the train cases and
+    ``train(mesh=)`` saved and resumed) over a world of 2 ranks on the card
+    and a world of 2 on the CPU, side by side (None without a card)."""
+    if not torch.cuda.is_available():
+        return None
+    import _torch_train_world as W
+    from repro_torch.launch.mesh import run_local_world, start_local_world
+    d = tmp_path_factory.mktemp("train_worlds")
+    cpu = start_local_world(W.port_cases, 2, (str(d / "cpu_full"), str(d / "cpu_saved")),
+                            device="cpu", timeout=600)
+    try:
+        card = run_local_world(W.port_cases, 2, (str(d / "card_full"), str(d / "card_saved")),
+                               device="cuda", timeout=600)
+    finally:
+        on_cpu = cpu.wait()
+    return card, on_cpu
+
+
+TRAIN_WORLD_CASES = ["moonshot", "moonshot_drop", "deepseek", "moonshot_compress"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRAIN_WORLD_CASES)
+def test_train_world_on_card_against_cpu(cuda_device, train_worlds, case):
+    """Training over a world of 2 ranks sharing the card against a world of
+    2 on the CPU (smoke weights, float32, TF32 off; 3 steps under the batch
+    binding): the losses and grad norms within rtol 1e-5, atol 1e-5, step
+    1's gradients within a relative L2 error of 1e-4 of each leaf, the
+    same pairs dropped. At capacity 0.3 step 1 only: there a top-k choice
+    that the two devices' last bits flip after an update moves which pairs
+    pass ``cap_send`` and ``cap_e`` (measured: step 2's loss 1e-3 apart)."""
+    card, cpu = (w[case] for w in train_worlds)
+    steps = 1 if case == "moonshot_drop" else len(cpu["loss"])
+    np.testing.assert_allclose(card["loss"][:steps], cpu["loss"][:steps], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(card["grad_norm"][:steps], cpu["grad_norm"][:steps], rtol=1e-5,
+                               atol=1e-5)
+    assert card["dropped"] == cpu["dropped"]
+    assert len(card["grads"]) == len(cpu["grads"])
+    for g, w in zip(card["grads"], cpu["grads"]):
+        if not np.any(w):
+            assert not np.any(g)
+        else:
+            assert np.linalg.norm(g - w) <= 1e-4 * np.linalg.norm(w)
+
+
+@pytest.mark.cuda
+def test_train_world_resumed_bitwise_on_card(cuda_device, train_worlds):
+    """``train(mesh=)`` on the card (weights drawn from the seed on the card:
+    not the CPU's): a second run's first 2 losses bitwise the first's, the
+    run resumed from step 2 bitwise the uninterrupted one."""
+    card = train_worlds[0]["train"]
+    assert card["saved"]["losses"] == card["full"]["losses"][:2]
+    assert card["resumed"]["losses"] == card["full"]["losses"][2:]
+    assert len(card["resumed"]["state"]) == len(card["full"]["state"])
+    for a, b in zip(card["resumed"]["state"], card["full"]["state"]):
+        np.testing.assert_array_equal(a, b)

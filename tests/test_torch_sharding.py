@@ -8,7 +8,8 @@ the reference's active mesh (none here: every axis of size 1). Over larger
 worlds (``Mesh`` objects of rank r of D, which no collective is asked of
 here): the expert ranges, the batch rows, the refusals (``E % D``,
 ``B % D``, the bindings the port has not implemented, a mesh that is not a
-``Mesh``, training over a world, an expert tree not cut to the rank).
+``Mesh``, a train step over a world under any binding but the batch
+binding, an expert tree not cut to the rank).
 """
 import numpy as np
 import pytest
@@ -165,18 +166,27 @@ def test_moe_over_a_world_refuses_what_it_cannot_run(smoke):
     S.set_rules(dict(BATCH, experts="data"), mesh=Mesh(0, 1, CPU))
     with pytest.raises(ValueError, match="bound to the world"):
         moe.moe_decode(p, cfg, x[:, :1])
-    S.set_rules(BATCH, mesh=Mesh(0, 1, CPU))
-    with pytest.raises(NotImplementedError, match="second part"):
-        moe.moe_train(p, cfg, x.requires_grad_(True))
+    S.set_rules(BATCH, mesh=Mesh(0, 1, CPU))                # gradients run through
+    moe.moe_train(p, cfg, x.requires_grad_(True)).sum().backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
 
 
 def test_training_over_a_world_is_refused(smoke):
+    """A train step over a world runs under the batch binding only: the
+    unported bindings name ROADMAP A10, and "batch" and "experts" must be
+    bound to the world."""
     cfg, params = smoke
-    S.set_rules(BATCH, mesh=Mesh(0, 1, CPU))
     batch = {"tokens": torch.zeros((2, 8), dtype=torch.long),
              "targets": torch.zeros((2, 8), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="second part"):
-        M.make_train_step(cfg, OptConfig())(params, None, batch)
+    step = M.make_train_step(cfg, OptConfig())
+    S.set_rules(dict(S.DEFAULT_RULES, batch="data"), mesh=Mesh(0, 1, CPU))
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        step(params, None, batch)
+    for rules in (dict(BATCH, batch="data"), dict(BATCH, experts=None)):
+        S.set_rules(rules, mesh=Mesh(0, 1, CPU))
+        with pytest.raises(ValueError, match="batch binding"):
+            step(params, None, batch)
+    assert S.BATCH_RULES == BATCH
 
 
 def test_all_to_all_of_one_rank_is_a_copy():
@@ -204,3 +214,38 @@ def test_logits_over_a_world_of_one_keep_every_row(smoke):
     with torch.no_grad():
         got = M.make_prefill_step(cfg)(params, {"tokens": toks})
     assert got.shape == (2, cfg.vocab) and bool(torch.isfinite(got).all())
+
+
+def test_expert_axes_name_the_cut_leaves(smoke):
+    """``expert_axes`` marks each MoE's ``wi`` and ``wo`` (dim 1 stacked,
+    dim 0 bare) in ``jax.tree.leaves`` order, through an optimizer state
+    too; ``map_experts`` and ``expert_blocks`` follow it."""
+    from repro_torch.optim import init_opt_state
+    cfg, params = smoke
+    paths = [path for path, _ in lm.tree_leaves_with_paths(params)]
+    want = [1 if path[-1] in ("wi", "wo") and path[-2] == "ffn" else None for path in paths]
+    assert S.expert_axes(params) == want and 1 in want
+    bare = lm.tree_map(lambda a: a[0], params["slots"][0]["ffn"])
+    assert S.expert_axes(bare) == [None, 0, 0]              # router, wi, wo
+    state = init_opt_state(params, OptConfig(compress_grads=True))
+    assert S.expert_axes(state) == [None] + want * 3        # step, mu, nu, err
+    seen = S.map_experts(lambda a, ax: ax, {"p": params, "none": None})
+    assert seen["none"] is None and seen["p"]["slots"][0]["ffn"]["wo"] == 1
+    assert seen["p"]["embed"]["e"] is None
+    blocks = S.expert_blocks({"params": params}, Mesh(1, 2, CPU))
+    assert blocks == [None if ax is None else (ax, 1, 2) for ax in want]
+    assert S.expert_blocks(params, None) == [None] * len(want)     # one process: whole
+
+
+def test_all_to_all_under_autograd_of_one_rank():
+    """``core.mesh.all_to_all``: the exchange under autograd, whose backward
+    is the exchange of the gradient (a copy at one rank); ``comm_split``
+    stays empty without a collective."""
+    from repro_torch.core.mesh import all_to_all
+    mesh = Mesh(0, 1, CPU)
+    t = torch.arange(12.0).reshape(1, 3, 4).requires_grad_(True)
+    out = all_to_all(mesh, t)
+    assert torch.equal(out, t) and out.grad_fn is not None
+    (out * torch.arange(12.0).reshape(1, 3, 4)).sum().backward()
+    assert torch.equal(t.grad, torch.arange(12.0).reshape(1, 3, 4))
+    assert mesh.comm_s == 0.0 and mesh.comm_split == {}
