@@ -97,7 +97,10 @@ check raises, so the script exits non-zero and prints no result line:
    launcher at N = 10^7 and uncut at 10^8, chunk 65,536, with the wall,
    iterations, primal, dual, ``max_violation``, the launches per solve
    (``scd_fused_hist`` iters x chunks, the finalize once a chunk, nothing
-   else) and the peak device memory at both sizes, which must stay flat;
+   else) and the peak device memory at both sizes, which must stay flat,
+   each beside the dry-run's account (``launch/dryrun.account_paper_kp``:
+   the launches equal, the streamed state within 15 % or 8 MiB of what the
+   peak rose by);
    phase 5's rows through ``array_source`` bitwise the host-fed solve of
    the same bytes, fused (and phase 5's row) and legacy, the source read
    iters + 1 and iters + 3 times; ``bucket_hist`` at the legacy finalize's
@@ -181,7 +184,13 @@ check raises, so the script exits non-zero and prints no result line:
    weight-read floor, the peak memory; 16 decode steps against one
    teacher-forced forward (top-k router on both) within ``LM_DECODE_REL``;
    smoke moonshot and gemma in float32, prefill and decode, on the card
-   against the CPU with TF32 off;
+   against the CPU with TF32 off. The prefill and the first decode step
+   (the peak reset right before each) against the dry-run's account of
+   the cell (``launch/dryrun.account_cell``, on meta): (a) the launches
+   equal ``ops.LAUNCHES``, (b) the held bytes equal the card's params,
+   caches and batch, (c) the peak within 15 % of the held bytes plus what
+   ``max_memory_allocated`` rose by; the decode floor is the dry-run's
+   bytes;
 20. the LM training path (``optim/``, ``models/model.make_train_step``,
    ``launch/train.py``) at moonshot-v1-16b-a3b's full width and 4 of its 48
    layers (bf16, SCD router, remat): ``train()`` for 4 steps at B = 4, S =
@@ -189,7 +198,10 @@ check raises, so the script exits non-zero and prints no result line:
    ``adjusted_topc`` 2 x 4 times (forward and remat recompute) and nothing
    else, its step walls beside the executed FLOPs over the bf16 peak, the
    peak memory, the parameters moved, and a second ``train()`` from the same
-   seed bitwise in parameters and moments; one train step of smoke moonshot
+   seed bitwise in parameters and moments, then one more step of it against
+   the dry-run's account (every layer on meta; checks (a)-(c), the moments
+   held too; the executed FLOPs beside the bf16 peak are the dry-run's);
+   one train step of smoke moonshot
    and gemma in float32 on the card against the CPU (TF32 off): loss,
    gradients, ``grad_norm``, the update from the same gradients and the
    card's own step; 6 steps against 3, a resume and 3 more on the card,
@@ -223,7 +235,8 @@ check raises, so the script exits non-zero and prints no result line:
    B = 4, S = 1,024 launching ``scd_fused_hist`` 4 x 6 and ``adjusted_topc``
    6 times (path ``lm_prefill_mla``), the decode step beside its
    weight-read floor, the peak memory under 80 GB, 16 decode steps against
-   one forward within ``MLA_DECODE_REL``; its smoke config and the smoke
+   one forward within ``MLA_DECODE_REL``; the prefill against the
+   dry-run's account, checks (a)-(c); its smoke config and the smoke
    config with the router kept at 160 experts, top-6, in float32 on the
    card against the CPU (TF32 off): prefill and decode;
 23. the MoE forward over a world of ranks (``models/sharding.py``,
@@ -247,7 +260,11 @@ check raises, so the script exits non-zero and prints no result line:
    (``launch/train.train(mesh=)``, the backward through the all-to-alls,
    the replicated gradients folded in rank order): moonshot at phase 20's
    config (4 layers), seed, batch (4 x 1,024, 2 x 1,024 a rank) and AdamW
-   settings for 3 steps, its losses within ``WORLD_TRAIN_LOSS_RTOL`` of
+   settings for 3 steps (``train(mesh=)`` for 2, the third by hand under the
+   batch binding, the peak reset right before it, against the dry-run's
+   account of rank 0 on a ``DryMesh`` of 2: checks (a)-(c) and (d), the
+   bytes each collective sent equal rank 0's ``comm_bytes``), its losses
+   within ``WORLD_TRAIN_LOSS_RTOL`` of
    phase 20's first 3, rank 0 launching ``scd_fused_hist`` 32 and
    ``adjusted_topc`` 8 times a step and nothing else (path
    ``lm_train_world``), each step's wall, rank 0's seconds in collectives
@@ -257,7 +274,8 @@ check raises, so the script exits non-zero and prints no result line:
    against the CPU world's (float32, TF32 off, weights drawn on the CPU)
    within rtol 1e-5, atol 1e-5, with ``train(mesh=)`` saved at step 2 and
    resumed to step 3 bitwise on each;
-24. the smoke's wall beside its 900 s budget, the ``kernels`` line
+24. the smoke's wall beside its 900 s budget (and the dry-run's host
+   seconds in it), the ``kernels`` line
    (launches summed over the paths run in phases 5, 7, 8, 11, 12, 13, 14,
    15, 16, 19, 20, 21, 22 and 23, and rank 0's of each world of phases 17,
    18 and 23, training included, with the split), the card's ``nvidia-smi`` line and, last,
@@ -277,9 +295,6 @@ ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 C_MAIN, K, Q_MAIN = 65536, 10, 1
 N_RES = 10_000_000                 # table1 at --scale 0.1
 DENSE_N, DENSE_M = 100_000, 10     # Figure 1 (C223, mixed b) at 100x its N: phase 6's shape
@@ -370,10 +385,11 @@ def time_ms(torch, fn, reps, warmup=2):
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def bound(bytes_, ops):
-    """Least time in ms for this work, and what bounds it."""
-    tb, to = bytes_ / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+def bound(c):
+    """(least time in ms, "bytes" or "operations") of one launch's
+    ``kernels.cost`` account: the formulas the dry-run counts with."""
+    from repro_torch.kernels import cost
+    return cost.bound_ms(c.bytes, c.ops)
 
 
 def inputs(torch, np, c, q, dyadic, seed, dev):
@@ -398,7 +414,7 @@ def inputs(torch, np, c, q, dyadic, seed, dev):
 def phase_kernels(torch, np, dev):
     from repro_torch.core.bucketing import make_edges
     from repro_torch.core.postprocess import profit_edges_fixed
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost, ops, ref
     from repro_torch.launch.kernel_split import split
 
     pedges = profit_edges_fixed(512, 1e-6, 1e6, device=dev)
@@ -437,21 +453,17 @@ def phase_kernels(torch, np, dev):
     p, b, lam, fs, gs = inputs(torch, np, C_MAIN, Q_MAIN, False, 7, dev)
     edges = make_edges(lam, 1e-4, 1.6, 24)
     e, ep = edges.shape[-1], pedges.shape[0]
-    rec_f, rec_g = ref.fused_layout(K, e)[0], ref.finalize_layout(K, ep, True)[0]
-    read = 4 * (2 * C_MAIN * K + K)
     timing = {
         "scd_fused_hist": (
             lambda: ops.scd_fused_hist(p, b, lam, edges, Q_MAIN, **fs),
             lambda: ref.scd_fused_hist_plain(p, b, lam, edges, Q_MAIN, **fs),
-            bound(read + 4 * (K * e + 2 * rec_f),
-                  C_MAIN * K * (8 + e + Q_MAIN + 1))),
+            bound(cost.scd_fused_hist(C_MAIN, K, e, Q_MAIN))),
         "scd_finalize_hist": (
             lambda: ops.scd_finalize_hist(p, b, lam, pedges, Q_MAIN, tile_n=FIN_TILE,
                                           **gs),
             lambda: ref.scd_finalize_plain(p, b, lam, pedges, Q_MAIN, tile_n=FIN_TILE,
                                            **gs),
-            bound(read + 4 * (ep + 2 * rec_g),
-                  C_MAIN * K * (5 + Q_MAIN) + C_MAIN * (ep + K + 1))),
+            bound(cost.scd_finalize_hist(C_MAIN, K, ep, Q_MAIN, FIN_TILE))),
     }
     emit("kernel_split", kernel="scd_fused_hist", rows=C_MAIN, tile=ops.MAP_TILE,
          **split(timing["scd_fused_hist"][0], reps=50))
@@ -484,8 +496,7 @@ def phase_kernels(torch, np, dev):
         "plain_ms": time_ms(torch, lambda: ref.scd_finalize_plain(
             p1, b1, lam, pedges, Q_MAIN, **gs), reps=1, warmup=0),
         **dict(zip(("bound_ms", "bound_by"),
-                   bound(4 * (2 * n1 * K + K) + 4 * (ep + 2 * rec_g),
-                         n1 * K * (5 + Q_MAIN) + n1 * (ep + K + 1))))}
+                   bound(cost.scd_finalize_hist(n1, K, ep, Q_MAIN, FIN_TILE))))}
     emit("kernels_vs_plain", cases=cases + 1, chunk=C_MAIN, k=K, **out)
     return out
 
@@ -703,7 +714,7 @@ def close_solve(gpu, cpu):
 def phase_resident_kernels(torch, np, dev):
     """The resident path's kernels against their plain versions, timed."""
     from repro_torch.core.bucketing import make_edges
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost, ops, ref
     from repro_torch.launch.kernel_split import split
 
     gen = torch.Generator(device=dev)
@@ -752,7 +763,7 @@ def phase_resident_kernels(torch, np, dev):
         return pk, bk, lk, call, {
             "ms": time_ms(torch, call, reps=20),
             **dict(zip(("bound_ms", "bound_by"),
-                       bound(4 * (4 * N_RES * k + k), N_RES * k * (11 + 2 * Q_MAIN))))}
+                       bound(cost.scd_candidates(N_RES, k, Q_MAIN))))}
 
     other_k = {f"k{k}": cand_row(k)[-1] for k in (8, 16)}
     p, b, lam, cand_call, row = cand_row(K)
@@ -783,8 +794,7 @@ def phase_resident_kernels(torch, np, dev):
         "plain_ms": time_ms(torch, lambda: ref.scd_fused_hist_plain(
             p, b, lam, edges, Q_MAIN), reps=1, warmup=0),
         **dict(zip(("bound_ms", "bound_by"),
-                   bound(4 * (2 * N_RES * K + K + K * e + 2 * (K * (e + 1) + K)),
-                         N_RES * K * (8 + e + Q_MAIN + 1))))}
+                   bound(cost.scd_fused_hist(N_RES, K, e, Q_MAIN))))}
     del p, b, kh, ph
 
     # bucket_hist at the dense shape: n * P candidate rows, default tile.
@@ -816,8 +826,7 @@ def phase_resident_kernels(torch, np, dev):
         "plain_ms": time_ms(torch, lambda: ref.bucket_hist_plain(
             v1, v2, edges, hist_init=init), reps=2, warmup=1),
         **dict(zip(("bound_ms", "bound_by"),
-                   bound(4 * (2 * nrows * K + K * e + 2 * K * (e + 1)),
-                         nrows * K * (e + 1)))),
+                   bound(cost.bucket_hist(nrows, K, e)))),
         "library_ms": None, "rows": nrows}
     emit("resident_kernels_vs_plain", cases=cases, k=K, scd_fused_hist_resident=fused_res,
          **out)
@@ -1013,7 +1022,7 @@ def phase_slice3_contracts(torch, np, dev):
 def phase_slice3_kernels(torch, np, dev):
     """screen_bound and adjusted_topc against their plain versions, timed."""
     from repro_torch.core.sparse_scd import select_sparse
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost, ops, ref
     from repro_torch.launch.kernel_split import split
 
     cases = 0
@@ -1054,7 +1063,7 @@ def phase_slice3_kernels(torch, np, dev):
         "ms": time_ms(torch, screen_call, reps=50),
         "plain_ms": time_ms(torch, lambda: ref.screen_bound_plain(pt, bt), reps=20),
         **dict(zip(("bound_ms", "bound_by"),
-                   bound(4 * (2 * C_MAIN * kb + kb), 2 * C_MAIN * kb))),
+                   bound(cost.screen_bound(C_MAIN, kb, out=True)))),
         "library_ms": None}}
 
     gen = torch.Generator(device=dev)
@@ -1098,8 +1107,7 @@ def phase_slice3_kernels(torch, np, dev):
         "select_sparse_ms": time_ms(torch, lambda: select_sparse(p, b, lam, Q_MAIN),
                                     reps=3, warmup=1),
         **dict(zip(("bound_ms", "bound_by"),
-                   bound(4 * (2 * N_RES * K + K) + 5 * N_RES * K,
-                         N_RES * K * (2 + 2 * Q_MAIN)))),
+                   bound(cost.adjusted_topc(N_RES, K, Q_MAIN)))),
         "library_ms": None}
     # The host-fed DD calls it once per 65,536-row chunk.
     pc, bc = p[:C_MAIN].contiguous(), b[:C_MAIN].contiguous()
@@ -1110,8 +1118,7 @@ def phase_slice3_kernels(torch, np, dev):
         "ms": time_ms(torch, lambda: ops.adjusted_topc(pc, bc, lam, Q_MAIN), reps=50),
         "plain_ms": time_ms(torch, lambda: ref.adjusted_topc_plain(pc, bc, lam, Q_MAIN),
                             reps=20),
-        "bound_ms": bound(4 * (2 * C_MAIN * K + K) + 5 * C_MAIN * K,
-                          C_MAIN * K * (2 + 2 * Q_MAIN))[0]}
+        "bound_ms": bound(cost.adjusted_topc(C_MAIN, K, Q_MAIN))[0]}
     emit("slice3_kernels_vs_plain", cases=cases, **out)
     return out
 
@@ -1563,7 +1570,7 @@ def removable_vs_plain(torch, chunk_fn, lam, q, dev, indices):
     dyadic values; bitwise. Returns the kernel's entry at this shape."""
     from repro_torch.core.chunked import _chunk_primal
     from repro_torch.core.postprocess import profit_edges, removable_hist, removable_tile
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
 
     lam_d = lam.to(dev)
     gen = torch.Generator(device=dev)
@@ -1598,11 +1605,33 @@ def removable_vs_plain(torch, chunk_fn, lam, q, dev, indices):
              "plain_ms": time_ms(torch, lambda: ref.bucket_hist_plain(
                  w1, v2.contiguous(), e2, tile_n=tile, hist_init=init), reps=2, warmup=1),
              **dict(zip(("bound_ms", "bound_by"),
-                        bound(4 * (rows + rows * k + e + 2 * k * (e + 1)),
-                              rows * k * (e + 1)))),
+                        bound(cost.bucket_hist(rows, k, e, tile, v1_width=1)))),
              "library_ms": None}
     emit("removable_hist_vs_plain", **entry)
     return entry
+
+
+def _dry_vs_streamed(n, wl, iters, launches, rise, raw_peak):
+    """Phase 14's checks against the dry-run (``account_paper_kp``, the
+    device-streamed driver at this N, chunk and iteration count): the
+    launches exactly, and the streamed state within DRY_PEAK_REL or
+    DRY_STREAM_FLOOR of what the solve's peak rose by on the card."""
+    import dataclasses
+    from repro_torch.launch.dryrun import account_paper_kp
+
+    t0 = time.perf_counter()
+    rec = account_paper_kp(dataclasses.replace(wl, n_users=n), 1, streaming=True,
+                           chunk_size=C_MAIN, iters=iters)
+    DRY_S[0] += time.perf_counter() - t0
+    state = rec["memory"]["state"]
+    want = {k: v["launches"] for k, v in rec["kernels"].items()}
+    facts = {"launches_equal": want == {k: v for k, v in launches.items() if v},
+             "state_within": abs(state - rise) <= max(DRY_PEAK_REL * rise, DRY_STREAM_FLOOR)}
+    emit("dryrun_vs_card", cell=f"streamed_table1_{n}", chunk=C_MAIN, iters=iters,
+         accounting={"launches": want, "state": state, "account_s": rec["account_s"]},
+         card={"launches": launches, "rise": rise, "max_memory_allocated": raw_peak},
+         bar=DRY_PEAK_REL, floor_bytes=DRY_STREAM_FLOOR, **facts)
+    check(all(facts.values()), f"dry-run against the streamed solve at N = {n}: {facts}")
 
 
 def phase_streamed(torch, np, dev):
@@ -1652,6 +1681,7 @@ def phase_streamed(torch, np, dev):
                   for v in (row["primal"], row["dual"], row["max_violation"])),
               "streamed: non-finite metrics")
         paths[f"streamed_table1_{n:.0e}".replace("+", "")] = launches
+        _dry_vs_streamed(n, wl, iters, launches, peaks[n] * 1e9, row["peak_device_gb"] * 1e9)
     check(peaks[N_STREAM] <= 1.05 * peaks[N_RES] + 0.01,
           f"streamed peak memory grew with N: {peaks}")
 
@@ -2742,6 +2772,63 @@ def _tree_bytes(lm, tree):
     return sum(n for n, _ in sizes), sum(b for _, b in sizes)
 
 
+# The dry-run (launch/dryrun.py) against the card, in phases 14, 19, 20, 22
+# and 23. Bars fixed before any chip run: (a) the kernels' launches equal
+# ops.LAUNCHES exactly; (b) the held bytes equal the nbytes of what the card
+# holds for the cell (params, moments, caches, batch) exactly; (c) the
+# predicted peak within 15 % of the card's (the held bytes plus what
+# max_memory_allocated rose by over the step, its peak reset right before
+# it); phase 14 within 15 % or 8 MiB; (d) phase 23's collective bytes equal
+# rank 0's comm_bytes exactly.
+DRY_PEAK_REL = 0.15
+DRY_STREAM_FLOOR = 8 << 20
+DRY_S = [0.0]                       # the dry-run's host seconds in this smoke
+
+
+def _dry_cell(arch, kind, b, s, world=1, cfg=None):
+    """The dry-run's account of one cell (B x S, ``kind``) over ``world``."""
+    from repro_torch.launch.dryrun import account_cell
+    from repro_torch.models.model import ShapeCell
+
+    t0 = time.perf_counter()
+    rec = account_cell(arch, ShapeCell(f"{kind}_{b}x{s}", s, b, kind), world, cfg=cfg)
+    DRY_S[0] += time.perf_counter() - t0
+    check(rec["status"] == "ok", f"dry-run of {arch} {kind}: {rec}")
+    return rec
+
+
+def _nbytes(lm, *trees):
+    """Bytes of the tensors of ``trees`` (each counted by its own numel)."""
+    return sum(_tree_bytes(lm, t)[1] for t in trees)
+
+
+def _dry_vs_card(tag, rec, launches, held, rise, raw_peak, comm=None):
+    """Checks (a)-(d) of one cell: ``launches`` (ops.LAUNCHES over the step),
+    ``held`` (nbytes the card holds for the cell), ``rise`` (what
+    max_memory_allocated rose by over the step), ``comm`` (rank 0's
+    comm_bytes over it). Emits the accounting beside the measurement."""
+    mem = rec["memory"]
+    card_peak = held + rise
+    want = {k: v["launches"] for k, v in rec["kernels"].items()}
+    got = {k: v for k, v in launches.items() if v}
+    facts = {"launches_equal": want == got, "held_equal": mem["held"] == held,
+             "peak_within": abs(mem["peak"] - card_peak) <= DRY_PEAK_REL * card_peak}
+    if comm is not None:
+        facts["comm_bytes_equal"] = rec["collectives"]["bytes"] == {
+            k: v for k, v in comm.items() if v}
+    emit("dryrun_vs_card", cell=tag, arch=rec["arch"], kind=rec["kind"], world=rec["world"],
+         batch=rec["global_batch"], seq=rec["seq_len"],
+         accounting={"launches": want, "held": mem["held"], "peak": mem["peak"],
+                     "flops_executed": rec["flops_executed"],
+                     "model_flops": rec["model_flops"],
+                     "collective_bytes": rec["collectives"]["bytes"],
+                     "account_s": rec["account_s"]},
+         card={"launches": got, "held": held, "peak": card_peak, "rise": rise,
+               "max_memory_allocated": raw_peak, "comm_bytes": comm},
+         peak_rel=(mem["peak"] - card_peak) / card_peak, bar=DRY_PEAK_REL, **facts)
+    check(all(facts.values()), f"dry-run against the card, {tag}: {facts}")
+
+
 def _lm_router(torch, np, dev, cfg, tag="lm_router"):
     """Phase 19a (and 21a at jamba's K = 16, 22a at deepseek's K = 160): the
     knapsack-priced router at the prefill's shape on the card, bitwise the
@@ -2749,7 +2836,7 @@ def _lm_router(torch, np, dev, cfg, tag="lm_router"):
     at a ragged token count, and timed at the shape."""
     from repro_torch.core.bucketing import make_edges
     from repro_torch.core.moe_router import router_tile, scd_route_probs
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost, ops, ref
 
     moe, n = cfg.moe, LM_PREFILL[0] * LM_PREFILL[1]
     g = np.random.default_rng(19)
@@ -2784,7 +2871,6 @@ def _lm_router(torch, np, dev, cfg, tag="lm_router"):
          load_max=float(want.load.max()), routed=int(want.mask.sum()), **facts)
     check(all(facts.values()), f"router on the card: {facts}")
     k, e = moe.n_experts, edges.shape[-1]
-    read = 4 * (2 * n * k + k)
     shape = {"rows": n, "k": k, "q": q}
     return {
         "scd_fused_hist": {
@@ -2794,15 +2880,14 @@ def _lm_router(torch, np, dev, cfg, tag="lm_router"):
             "plain_ms": time_ms(torch, lambda: ref.scd_fused_hist_plain(
                 pc, ones, lam, edges, q, **fused), reps=5, warmup=1),
             **dict(zip(("bound_ms", "bound_by"),
-                       bound(read + 4 * (k * e + 2 * ref.fused_layout(k, e)[0]),
-                             n * k * (8 + e + q + 1))))},
+                       bound(cost.scd_fused_hist(n, k, e, q, tile))))},
         "adjusted_topc": {
             **shape,
             "ms": time_ms(torch, lambda: ops.adjusted_topc(pc, ones, lam, q), reps=50),
             "plain_ms": time_ms(torch, lambda: ref.adjusted_topc_plain(pc, ones, lam, q),
                                 reps=5, warmup=1),
             **dict(zip(("bound_ms", "bound_by"),
-                       bound(read + 5 * n * k, n * k * (2 + 2 * q))))}}
+                       bound(cost.adjusted_topc(n, k, q))))}}
 
 
 def _smoke_cfg(registry, name):
@@ -2899,31 +2984,48 @@ def _decode_vs_forward(torch, np, dev, params, cfg, tag, toks, bar):
     check(all(facts.values()), f"{cfg.name} decode against forward: {facts}")
 
 
-def _decode_walls(torch, np, dev, lm, M, params, cfg, tok):
-    """The decode step's walls at LM_SERVE's shape (``tok``: (max_batch, 1)),
-    and its weight-read floor: every weight but the embedding table
-    (indexed), and the caches."""
-    b = LM_SERVE["max_batch"]
-    frames = _frames(torch, np, cfg, b, 32, 3, dev) if cfg.kind == "encdec" else None
+def _decode_walls(torch, np, dev, lm, M, params, cfg, tok, strict=False):
+    """The decode step's walls at LM_SERVE's shape (``tok``: (max_batch, 1);
+    an encoder-decoder's cross caches from the cell's frames,
+    ``model._frames_len``), its weight-read floor from the dry-run's
+    account of the cell (every weight but the embedding table, which is
+    indexed, and the caches), and the dry-run against the first step on
+    the card where ``strict`` (its checks fail the smoke; the peak is reset
+    right before that step)."""
+    from repro_torch.kernels import cost, ops
+
+    b, cache_len = LM_SERVE["max_batch"], LM_SERVE["cache_len"]
+    dry = _dry_cell(cfg.name, "decode", b, cache_len, cfg=cfg)
+    frames = (_frames(torch, np, cfg, b, M._frames_len(cfg, cache_len), 3, dev)
+              if cfg.kind == "encdec" else None)
     with torch.no_grad():
-        caches = M.init_cache(cfg, params, b, LM_SERVE["cache_len"], frames=frames)
-    _, cache_bytes = _tree_bytes(lm, caches)
-    _, param_bytes = _tree_bytes(lm, params)
-    table = params["embed"]["e"]
+        caches = M.init_cache(cfg, params, b, cache_len, frames=frames)
+    table = M.init(cfg, None, "meta")["embed"]["e"]
     dstep = M.make_decode_step(cfg)
     walls = []
     with torch.no_grad():
         for t in range(LM_DECODE_STEPS):
             torch.cuda.synchronize()
+            if strict and not t:
+                before = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                ops.reset_launches()
             t0 = time.perf_counter()
             dstep(params, caches, tok, t)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-    floor_ms = (param_bytes - table.numel() * table.element_size() + cache_bytes) \
-        / HBM_BYTES_PER_S * 1e3
-    return {"decode_batch": b, "decode_cache": LM_SERVE["cache_len"], "decode_step_ms": walls,
+            if strict and not t:
+                raw = torch.cuda.max_memory_allocated(dev)
+                first = (dict(ops.LAUNCHES), _nbytes(lm, params, caches, tok), raw - before, raw)
+    out = {}
+    if strict:
+        _dry_vs_card(f"{cfg.name}_decode", dry, *first)
+        out = {"decode_dry_peak": dry["memory"]["peak"], "decode_card_peak": first[1] + first[2]}
+    floor_ms = (dry["memory"]["params"] - table.numel() * table.element_size()
+                + dry["memory"]["caches"]) / cost.HBM_BYTES_PER_S * 1e3
+    return {"decode_batch": b, "decode_cache": cache_len, "decode_step_ms": walls,
             "decode_step_ms_median": statistics.median(walls[1:]),
-            "weight_read_floor_ms": floor_ms}
+            "weight_read_floor_ms": floor_ms, **out}
 
 
 def phase_lm_serving(torch, np, dev):
@@ -2970,14 +3072,21 @@ def phase_lm_serving(torch, np, dev):
     toks = torch.tensor(np.random.default_rng(20).integers(0, cfg.vocab, (b, s)),
                         device=dev)
     step = M.make_prefill_step(cfg)
+    dry = _dry_cell(LM_ARCH, "prefill", b, s)
+    init_peak = torch.cuda.max_memory_allocated(dev)
     with torch.no_grad():
         torch.cuda.synchronize()
         ops.reset_launches()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         logits = step(params, {"tokens": toks})
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
+        raw = torch.cuda.max_memory_allocated(dev)
+        _dry_vs_card(f"{LM_ARCH}_prefill", dry, launches, _nbytes(lm, params, toks),
+                     raw - before, raw)
         t0 = time.perf_counter()
         step(params, {"tokens": toks})
         torch.cuda.synchronize()
@@ -2988,8 +3097,10 @@ def phase_lm_serving(torch, np, dev):
              "logits_finite": bool(torch.isfinite(logits).all()),
              "logits_shape": tuple(logits.shape) == (b, cfg.vocab)}
 
-    walls = _decode_walls(torch, np, dev, lm, M, params, cfg, toks[:LM_SERVE["max_batch"], :1])
-    peak = torch.cuda.max_memory_allocated(dev)
+    prefill_peak = torch.cuda.max_memory_allocated(dev)
+    walls = _decode_walls(torch, np, dev, lm, M, params, cfg, toks[:LM_SERVE["max_batch"], :1],
+                          strict=True)
+    peak = max(init_peak, prefill_peak, torch.cuda.max_memory_allocated(dev))
     emit("lm_prefill", arch=LM_ARCH, params=n_params, param_gb=param_bytes / 1e9,
          init_s=init_s, batch=b, seq=s, prefill_s=prefill_s, prefill_again_s=prefill2_s,
          launches=launches, **walls, peak_gb=peak / 1e9, **facts)
@@ -3032,24 +3143,11 @@ LM_TRAIN_CLI = ["--arch", "gemma-2b", "--smoke", "--steps", "8", "--batch", "2",
                 "--seq", "64", "--ckpt-every", "2"]
 
 
-def _train_flops(cfg, b, s):
-    """Executed FLOPs of one train step (2 a multiply-add): the port's MoE
-    runs every token through every expert (the reference's ``_moe_local``)
-    and its chunked softmax every key block; the backward is twice the
-    forward; remat recomputes each block and the loss each chunk's head."""
-    d, h, kv, hd, m = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.moe
-    layer = 2 * d * hd * (2 * h + 2 * kv) + 4 * s * h * hd
-    if cfg.ffn_pattern[0] == "moe":
-        layer += 4 * d * m.n_experts + 6 * d * m.d_ff * (m.n_experts + m.n_shared)
-    else:
-        layer += 6 * d * cfg.d_ff
-    fwd = b * s * (cfg.n_layers * layer + 2 * d * cfg.vocab)
-    return 4 * fwd if cfg.remat else 3 * fwd
-
-
 def _lm_train_full(torch, np, dev):
-    """Phase 20a: ``train()`` at full width, 4 layers, twice from one seed."""
+    """Phase 20a: ``train()`` at full width, 4 layers, twice from one seed;
+    then one more step of the second run against the dry-run's account."""
     from repro_torch.configs import registry
+    from repro_torch.data.synth import lm_batch
     from repro_torch.kernels import ops
     from repro_torch.launch.train import train
     from repro_torch.models import lm, model as M
@@ -3085,7 +3183,24 @@ def _lm_train_full(torch, np, dev):
     params, opt, hist2, wall2, launches2, peak2 = run()
     bitwise = all(torch.equal(a.detach(), b)
                   for a, b in zip(tree_leaves([params, opt.mu, opt.nu]), first))
-    del params, opt, first
+    del first
+
+    # Step LM_TRAIN_STEPS + 1 of the second run, its peak reset right
+    # before it: the dry-run's train cell (every layer run on meta).
+    dry = _dry_cell(LM_ARCH, "train", b, s, cfg=cfg)
+    batch = lm_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_STEPS, seed=0, device=dev)
+    step_fn = M.make_train_step(cfg, OptConfig(**LM_TRAIN_OPT))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_fn(params, opt, batch)
+    torch.cuda.synchronize()
+    raw = torch.cuda.max_memory_allocated(dev)
+    _dry_vs_card(f"{LM_ARCH}_train_{cfg.n_layers}_layers", dry, dict(ops.LAUNCHES),
+                 _nbytes(lm, params, opt.mu, opt.nu, opt.step, batch), raw - before, raw)
+    del params, opt, batch
     torch.cuda.empty_cache()
 
     per_step = {name: 0 for name in launches}
@@ -3094,7 +3209,7 @@ def _lm_train_full(torch, np, dev):
     want = {k: v * LM_TRAIN_STEPS for k, v in per_step.items()}
     walls = [r["wall_s"] for r in hist]
     med = statistics.median(walls[1:])
-    flops = _train_flops(cfg, b, s)
+    flops = dry["flops_executed"]
     facts = {"launches_as_routed": launches == want and launches2 == want,
              "finite": all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
                            for r in hist + hist2),
@@ -3111,6 +3226,7 @@ def _lm_train_full(torch, np, dev):
          second_train_wall_s=wall2, peak_gb=peak / 1e9,
          peak_gb_beside_first_run=peak2 / 1e9, launches=launches,
          launches_per_step=per_step, step_tflop=flops / 1e12,
+         model_tflop=dry["model_flops"] / 1e12, flops_from="launch/dryrun.py (accounting)",
          bf16_peak_bound_ms=flops / BF16_OPS_PER_S * 1e3,
          achieved_tflops=flops / med / 1e12,
          opt=LM_TRAIN_OPT, moved_fraction=sum(changed) / n_params,
@@ -3594,23 +3710,30 @@ def phase_lm_mla(torch, np, dev):
     toks = torch.tensor(np.random.default_rng(22).integers(0, cfg.vocab, (b, s)),
                         device=dev)
     step = M.make_prefill_step(cfg)
+    dry = _dry_cell(MLA_ARCH, "prefill", b, s, cfg=cfg)
+    init_peak = torch.cuda.max_memory_allocated(dev)
     with torch.no_grad():
         torch.cuda.synchronize()
         ops.reset_launches()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         logits = step(params, {"tokens": toks})
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
+        raw = torch.cuda.max_memory_allocated(dev)
+        _dry_vs_card(f"{MLA_ARCH}_prefill", dry, launches, _nbytes(lm, params, toks),
+                     raw - before, raw)
         t0 = time.perf_counter()
         step(params, {"tokens": toks})
         torch.cuda.synchronize()
         prefill2_s = time.perf_counter() - t0
-    peak_prefill = torch.cuda.max_memory_allocated(dev)
+    peak_prefill = max(init_peak, torch.cuda.max_memory_allocated(dev))
     want = {name: 0 for name in launches}
     want.update(scd_fused_hist=cfg.moe.scd_iters * cfg.n_layers, adjusted_topc=cfg.n_layers)
     walls = _decode_walls(torch, np, dev, lm, M, params, cfg, toks[:LM_SERVE["max_batch"], :1])
-    peak = torch.cuda.max_memory_allocated(dev)
+    peak = max(peak_prefill, torch.cuda.max_memory_allocated(dev))
     facts = {"params_as_counted": n_params == MLA_PARAMS,
              "launches_as_routed": launches == want,
              "logits_finite": bool(torch.isfinite(logits).all()),
@@ -3782,16 +3905,22 @@ def _world_smoke(torch, np, mesh, dev):
 
 def _world_train_full(torch, mesh, dev):
     """Phase 23b on a rank of the world of 2: ``train(mesh=)`` of moonshot at
-    phase 20's config and batch for WORLD_TRAIN_STEPS steps from the seed:
-    the losses, rank 0's launches and seconds in collectives by kind, each
-    rank's held and peak memory."""
+    phase 20's config and batch for WORLD_TRAIN_STEPS - 1 steps from the
+    seed, then its last step by hand under the batch binding (the step
+    ``train`` runs, on its batch), the card's peak reset right before it:
+    the losses, rank 0's launches and seconds in collectives by kind over
+    the steps, each rank's held and peak memory; the last step's launches,
+    held bytes, peak rise and ``comm_bytes`` (the dry-run's cell)."""
     from repro_torch.configs import registry
+    from repro_torch.data.synth import lm_batch
     from repro_torch.kernels import ops
     from repro_torch.launch.train import train
+    from repro_torch.models import lm, model as M, sharding
     from repro_torch.models.lm import tree_leaves
     from repro_torch.optim import OptConfig
 
     cfg = registry.get(LM_ARCH).replace(n_layers=LM_TRAIN_LAYERS)
+    opt_cfg = OptConfig(**LM_TRAIN_OPT)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3800,21 +3929,44 @@ def _world_train_full(torch, mesh, dev):
     ops.reset_launches()
     hist = []
     t0 = time.perf_counter()
-    params, opt, _ = train(cfg, OptConfig(**LM_TRAIN_OPT), WORLD_TRAIN_STEPS, seed=0,
+    params, opt, _ = train(cfg, opt_cfg, WORLD_TRAIN_STEPS - 1, seed=0,
                            batch_shape=LM_TRAIN_BATCH, log_every=0, device=dev, mesh=mesh,
                            history=hist)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    peak_train = torch.cuda.max_memory_allocated(dev)
     launches = dict(ops.LAUNCHES)
+    batch = lm_batch(cfg, LM_TRAIN_BATCH, WORLD_TRAIN_STEPS - 1, seed=0, device=dev)
+    step = M.make_train_step(cfg, opt_cfg)
+    sharding.set_rules(sharding.BATCH_RULES, mesh=mesh)
+    try:
+        torch.cuda.synchronize()
+        mesh.barrier()
+        ops.reset_launches()
+        bytes0 = dict(mesh.comm_bytes)
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_step = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        hist.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "lr": float(m["lr"]), "wall_s": time.perf_counter() - t_step})
+        torch.cuda.synchronize()
+    finally:
+        sharding.set_rules(None)
+    raw = torch.cuda.max_memory_allocated(dev)
+    last = {"launches": dict(ops.LAUNCHES), "rise": raw - before, "raw_peak": raw,
+            "held": _nbytes(lm, params, opt.mu, opt.nu, opt.step, batch),
+            "comm_bytes": {k: v - bytes0.get(k, 0) for k, v in mesh.comm_bytes.items()}}
+    launches = {k: v + last["launches"][k] for k, v in launches.items()}
+    wall = time.perf_counter() - t0
     comm = {k: v - comm0.get(k, 0.0) for k, v in mesh.comm_split.items()}
-    held, peak = torch.cuda.memory_allocated(dev), torch.cuda.max_memory_allocated(dev)
+    held, peak = torch.cuda.memory_allocated(dev), max(peak_train, raw)
     n_local = sum(a.numel() for a in tree_leaves(params))
-    del params, opt
+    del params, opt, batch
     torch.cuda.empty_cache()
     stats = mesh.gather(torch.tensor([held / 1e9, peak / 1e9, n_local], dtype=torch.float64))
     return {"losses": [r["loss"] for r in hist], "grad_norms": [r["grad_norm"] for r in hist],
             "lrs": [r["lr"] for r in hist], "step_wall_s": [r["wall_s"] for r in hist],
             "train_wall_s": wall, "launches": launches, "comm_s_by_kind": comm,
+            "last_step": last,
             "ranks": [dict(zip(("held_gb", "peak_gb", "params"), s.tolist())) for s in stats]}
 
 
@@ -4047,6 +4199,12 @@ def phase_lm_world(torch, np, dev, train_losses):
          launches_per_step={k: v / WORLD_TRAIN_STEPS for k, v in t["launches"].items()},
          **facts)
     check(all(facts.values()), f"training over a world of 2: {facts} {t['launches']}")
+    last = t["last_step"]
+    _dry_vs_card(f"{LM_ARCH}_train_{LM_TRAIN_LAYERS}_layers_world2_rank0",
+                 _dry_cell(LM_ARCH, "train", *LM_TRAIN_BATCH, world=2,
+                           cfg=cfg.replace(n_layers=LM_TRAIN_LAYERS)),
+                 last["launches"], last["held"], last["rise"], last["raw_peak"],
+                 comm=last["comm_bytes"])
     card, on_cpu = worlds[2]["smoke_train"], cpu["smoke_train"]
     facts = {f"{k}_close": bool(np.allclose(card[k], on_cpu[k], **WORLD_TRAIN_SMOKE_TOL))
              for k in ("losses", "grad_norms")}
@@ -4136,7 +4294,7 @@ def main():
     for r in rows:
         check(r["launches"] > 0, f"{r['name']} was launched on no path")
     wall = time.perf_counter() - T_START
-    emit("smoke_wall", seconds=wall, budget_s=900)
+    emit("smoke_wall", seconds=wall, budget_s=900, dryrun_s=DRY_S[0])
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

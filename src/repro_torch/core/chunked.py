@@ -66,6 +66,7 @@ from .sparse_scd import select_sparse
 from .types import SolverConfig, SparseKP
 
 __all__ = ["ChunkSource", "StreamResult", "array_source", "solve_streaming",
+           "stream_solve_fn",
            "decisions_chunk", "decisions_rows", "adjusted_profit_chunk",
            "finalize_chunk_accumulate", "removable_chunk_accumulate",
            "apply_chunk_accumulate", "metrics_row", "ordered_fold"]
@@ -711,6 +712,49 @@ def _presolve_stream(rt, lam0):
     return solve_shard(small, rt.mesh, sub, q=rt.q, lam0=lam0).lam
 
 
+def stream_solve_fn(source: ChunkSource, cfg: SolverConfig, q: int = 1, mesh=None,
+                    axes=None, device="cuda"):
+    """The device-streamed solve as :func:`solve_streaming` builds it:
+    ``(rt, run)``, ``rt`` the configured :class:`PassRunner` (its chunk
+    count ``c``, the chunks a rank streams ``cps``, the slots) and
+    ``run(budgets, lam0) -> StreamResult`` the solve itself (once a
+    runner: it keeps its passes' state). The arguments are
+    :func:`solve_streaming`'s; ``device="meta"`` makes the runner on the
+    ``meta`` device for the dry-run (``launch/dryrun.py``), which runs the
+    chunk steps of each pass on it through the runner's loop and scales
+    them by ``rt.cps``: the program users run."""
+    check_mesh(mesh)
+    if axes is not None:
+        raise ValueError("axes: the port's mesh is one flat world of ranks")
+    _validate_stream_cfg(cfg)
+    if mesh is not None:
+        dev = mesh.device
+    else:
+        dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    rt = _DeviceRunner(source, cfg, q, dev, mesh)
+
+    def run(budgets, lam0=None):
+        rt.budgets = torch.as_tensor(np.asarray(budgets), dtype=cfg.dtype)
+        lam0 = (torch.ones((source.k,), dtype=cfg.dtype) if lam0 is None
+                else torch.as_tensor(lam0, dtype=cfg.dtype).cpu())
+        lam = _presolve_stream(rt, lam0)
+        if cfg.screening:
+            rt.install_screen(HostScreen(rt.slots * rt.cps, source.k, cfg, lam.numpy()))
+        lam, _, iters, history = run_iterations(rt, lam, torch.zeros_like(lam), 0)
+        if cfg.stream_finalize == "legacy":
+            res = rt.legacy_result(lam, iters)
+        else:
+            res = rt.fin_result(rt.fin_run(rt.fin_init(), lam), lam, iters)
+        screen = None
+        if cfg.screening:
+            active = np.full((cfg.max_iters,), -1, np.int32)
+            active[:len(rt.active_counts)] = rt.active_counts
+            screen = {"active_chunks": torch.from_numpy(active),
+                      "resets": rt.scr.resets, "fallbacks": rt.scr.fallbacks}
+        return res._replace(history=history, screen=screen)
+    return rt, run
+
+
 def solve_streaming(source: ChunkSource, cfg: SolverConfig = SolverConfig(),
                     q: int = 1, lam0=None, mesh=None, axes=None,
                     device="cuda") -> StreamResult:
@@ -726,7 +770,8 @@ def solve_streaming(source: ChunkSource, cfg: SolverConfig = SolverConfig(),
     the retired chunks (``core/screening.py``) and the result is bitwise
     the unscreened one. ``cfg.presolve_samples`` warm-starts lam from the
     leading chunks. ``cfg.chunk_size`` is ignored: the source's chunk is
-    the chunk.
+    the chunk. The program is :func:`stream_solve_fn`'s, run on the
+    source's budgets.
 
     ``mesh`` (a ``core.mesh.Mesh`` of D ranks; every rank calls this with
     a source of the same instance on its own device, ``mesh.device``, which
@@ -743,29 +788,8 @@ def solve_streaming(source: ChunkSource, cfg: SolverConfig = SolverConfig(),
     path when the map tile divides the chunk. SCD needs the bucketed reduce
     and ``record_history`` needs ``metrics_every`` (``ValueError``).
     """
-    check_mesh(mesh)
-    if axes is not None:
-        raise ValueError("axes: the port's mesh is one flat world of ranks")
-    _validate_stream_cfg(cfg)
-    dev = mesh.device if mesh is not None else resolve_device(device)
-    lam0 = (torch.ones((source.k,), dtype=cfg.dtype) if lam0 is None
-            else torch.as_tensor(lam0, dtype=cfg.dtype).cpu())
-    rt = _DeviceRunner(source, cfg, q, dev, mesh)
-    lam = _presolve_stream(rt, lam0)
-    if cfg.screening:
-        rt.install_screen(HostScreen(rt.slots * rt.cps, source.k, cfg, lam.numpy()))
-    lam, _, iters, history = run_iterations(rt, lam, torch.zeros_like(lam), 0)
-    if cfg.stream_finalize == "legacy":
-        res = rt.legacy_result(lam, iters)
-    else:
-        res = rt.fin_result(rt.fin_run(rt.fin_init(), lam), lam, iters)
-    screen = None
-    if cfg.screening:
-        active = np.full((cfg.max_iters,), -1, np.int32)
-        active[:len(rt.active_counts)] = rt.active_counts
-        screen = {"active_chunks": torch.from_numpy(active),
-                  "resets": rt.scr.resets, "fallbacks": rt.scr.fallbacks}
-    return res._replace(history=history, screen=screen)
+    _, run = stream_solve_fn(source, cfg, q, mesh=mesh, axes=axes, device=device)
+    return run(source.budgets, lam0)
 
 
 def decisions_rows(p_c, b_c, lam, q: int, valid, tau=None):

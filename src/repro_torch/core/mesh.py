@@ -17,6 +17,10 @@ ranks is :meth:`Mesh.gather` of the per-rank (or per-slot) partials and then
 ``bucketing.ordered_fold`` in slot order on every rank, the addition chain
 of the reference's CPU ``psum`` (DESIGN.md §7). Maxima and minima are exact
 in any order and go through :meth:`Mesh.amax` / :meth:`Mesh.amin`.
+
+:class:`DryMesh` is rank r of a world of D with no process group: its
+collectives return ``meta`` tensors of the result shapes and count the
+bytes a real world's rank would send (the dry-run, ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import time
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "check_mesh", "all_to_all"]
+__all__ = ["Mesh", "DryMesh", "check_mesh", "all_to_all"]
 
 
 class Mesh:
@@ -34,12 +38,22 @@ class Mesh:
     seconds spent in collectives (the gather behind every fold, the
     maxima, the barriers, the all-to-alls with their host copies), and
     ``comm_split`` the same seconds by kind ("gather", "all_to_all",
-    "reduce", "barrier")."""
+    "reduce", "barrier"). ``comm_bytes`` counts by kind the payload this
+    rank sends: the tensor it gives ``gather``, ``all_to_all``, ``amax`` or
+    ``amin`` (a world of one sends nothing), and ``comm_calls`` those
+    collectives."""
 
     def __init__(self, rank: int, size: int, device: torch.device, group=None):
         self.rank, self.size, self.device, self.group = rank, size, device, group
         self.comm_s = 0.0
         self.comm_split = {}
+        self.comm_bytes = {}
+        self.comm_calls = {}
+
+    def _sent(self, kind, t):
+        if self.size > 1:
+            self.comm_bytes[kind] = self.comm_bytes.get(kind, 0) + t.numel() * t.element_size()
+            self.comm_calls[kind] = self.comm_calls.get(kind, 0) + 1
 
     def __repr__(self):
         return f"Mesh(rank={self.rank}, size={self.size}, device={self.device})"
@@ -58,6 +72,7 @@ class Mesh:
         t = torch.as_tensor(t).detach().cpu().contiguous()
         if self.size == 1:
             return t[None].clone()
+        self._sent("gather", t)
 
         def run():
             out = [torch.empty_like(t) for _ in range(self.size)]
@@ -76,6 +91,7 @@ class Mesh:
                              f"{tuple(t.shape)}")
         if self.size == 1:
             return t.clone()
+        self._sent("all_to_all", t)
 
         def run():
             src = t.detach().cpu().contiguous()
@@ -87,6 +103,7 @@ class Mesh:
 
     def _reduce(self, t, op):
         t = torch.as_tensor(t).detach().cpu().clone()
+        self._sent("reduce", t)
         if self.size > 1:
             self._timed("reduce", lambda: dist.all_reduce(t, op=op, group=self.group))
         return t
@@ -102,6 +119,47 @@ class Mesh:
     def barrier(self):
         if self.size > 1:
             self._timed("barrier", lambda: dist.barrier(group=self.group))
+
+
+class DryMesh(Mesh):
+    """Rank ``rank`` of a world of ``size`` that exists only on paper: no
+    process group, and every collective returns a ``meta`` tensor of its
+    result's shape (``gather`` a (size, ...) stack, ``all_to_all`` and the
+    maxima ``t``'s shape) after counting in ``comm_bytes`` what this rank
+    would send. ``all_to_all`` keeps :func:`all_to_all`'s backward. The
+    dry-run runs a rank's step on ``meta`` over it."""
+
+    def __init__(self, rank: int, size: int):
+        super().__init__(rank, size, torch.device("meta"))
+
+    def __repr__(self):
+        return f"DryMesh(rank={self.rank}, size={self.size})"
+
+    @staticmethod
+    def _like(t, shape=None):
+        t = torch.as_tensor(t)
+        return torch.empty(t.shape if shape is None else shape, dtype=t.dtype,
+                           device="meta")
+
+    def gather(self, t) -> torch.Tensor:
+        t = torch.as_tensor(t)
+        self._sent("gather", t)
+        return self._like(t, (self.size, *t.shape))
+
+    def all_to_all(self, t) -> torch.Tensor:
+        if t.shape[0] != self.size:
+            raise ValueError(f"all_to_all takes ({self.size}, ...) rows, got "
+                             f"{tuple(t.shape)}")
+        self._sent("all_to_all", t)
+        return self._like(t)
+
+    def _reduce(self, t, op):
+        t = torch.as_tensor(t)
+        self._sent("reduce", t)
+        return self._like(t)
+
+    def barrier(self):
+        pass
 
 
 class _AllToAll(torch.autograd.Function):

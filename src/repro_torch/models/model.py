@@ -17,8 +17,13 @@ The steps are plain functions: PyTorch runs them eagerly. The train step
 updates the parameters (leaf tensors with ``requires_grad``) and the
 optimizer state in place, where the reference donates them to its jitted
 step. The port's entry points run on the card unless asked for the CPU.
-The reference's input specs and sharding specs are lowering helpers that
-wait for the dry-run (ROADMAP A10).
+
+The reference's lowering helpers are here in the port's terms, for the
+dry-run (``launch/dryrun.py``): :func:`input_specs` gives a cell's inputs
+as ``meta`` tensors, and :func:`param_specs`, :func:`opt_specs`,
+:func:`batch_specs`, :func:`cache_specs` and :func:`shardings` give, for
+each leaf, the dim that the rules in effect split over the world, or
+None (:func:`sanitize` drops a split that does not divide).
 
 Over a world of ranks, every rank runs the same steps under
 ``sharding.set_rules(rules, mesh=)`` with "batch" and "experts" bound to
@@ -243,3 +248,151 @@ def init_cache(cfg: ModelConfig, params, batch, seq_len, frames=None):
     if cfg.kind == "encdec":
         return ed.init_encdec_cache(params, cfg, frames, batch, seq_len)
     return lm.init_cache(cfg, batch, seq_len, params["embed"]["e"].device)
+
+
+# ---------------------------------------------------------------------------
+# Lowering helpers in the port's terms (the dry-run's currency)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell, params=None):
+    """The cell's inputs as ``meta`` tensors of the dtypes the port's callers
+    give (``data.synth.lm_batch``'s int64 tokens). A decode cell's are
+    ``caches`` (``init_cache`` on meta, from ``params`` or a meta tree;
+    over a world, under the rules in effect, the rank's rows), ``token``
+    and ``pos``, the cache's last index."""
+    b, tl = cell.global_batch, _text_len(cfg, cell.seq_len)
+    meta = torch.device("meta")
+    frames = (torch.empty((b, _frames_len(cfg, cell.seq_len), cfg.d_model),
+                          dtype=cfg.dtype, device=meta) if cfg.kind == "encdec" else None)
+    if cell.kind in ("train", "prefill"):
+        batch = {"tokens": torch.empty((b, tl), dtype=torch.long, device=meta)}
+        if cell.kind == "train":
+            batch["targets"] = torch.empty((b, tl), dtype=torch.long, device=meta)
+        if frames is not None:
+            batch["frames"] = frames
+        if cfg.n_patches:
+            batch["patches"] = torch.empty((b, cfg.n_patches, cfg.d_model),
+                                           dtype=cfg.dtype, device=meta)
+        return batch
+    params = init(cfg, None, "meta") if params is None else params
+    with torch.no_grad():
+        caches = init_cache(cfg, params, b, cell.seq_len, frames=frames)
+    return {"caches": caches, "token": torch.empty((b, 1), dtype=torch.long, device=meta),
+            "pos": cell.seq_len - 1}
+
+
+def production_rules(multi_pod: bool, fsdp_mode: str = "full"):
+    """The reference's production rule dicts (its 16 x 16 or 2 x 16 x 16
+    mesh), for the record. The port's world runs under
+    ``sharding.BATCH_RULES``; :func:`check_rules` refuses these."""
+    batch = ("pod", "data") if multi_pod else ("data",)
+    rules = {"batch": batch, "seq": "model", "kv_seq": "model", "heads": "model",
+             "kv_heads": "model", "ffn": "model", "experts": "model", "vocab": "model",
+             "fsdp": "data", None: None}
+    if fsdp_mode == "fsdp_only":
+        rules.update(heads=None, kv_heads=None, ffn=None)
+    elif fsdp_mode == "dp_full":
+        rules.update(batch=("data", "model"), seq="pod" if multi_pod else None,
+                     kv_seq=None, heads=None, kv_heads=None, ffn=None, vocab=None)
+    return rules
+
+
+def check_rules(rules):
+    """Raise ``NotImplementedError`` (as ``sharding.check_step_rules``) where
+    ``rules`` bind a name of ``sharding.UNPORTED`` or "fsdp" to the world."""
+    ax = lambda name: (rules or {}).get(name)  # noqa: E731
+    bound = [n for n in (*sharding.UNPORTED, "fsdp")
+             if sharding.WORLD in (ax(n) if isinstance(ax(n), tuple) else (ax(n),))]
+    if bound:
+        raise NotImplementedError(
+            f"the rules bind {bound} to the world ({sharding.WORLD!r}); the port "
+            f"runs a step over a world with 'batch' and 'experts' bound only: "
+            f"{sharding._UNPORTED_ITEM} (FSDP included) is not ported")
+
+
+def _world_size(logical):
+    return sharding.axis_size(logical)
+
+
+def sanitize(dim, shape, size=None):
+    """``dim`` where ``size`` (default: the world's, where the rules bind
+    "batch") divides ``shape[dim]``, else None: the split is dropped, as
+    the reference's ``sanitize`` drops an entry that does not divide."""
+    size = _world_size("batch") if size is None else size
+    if dim is None or size <= 1 or shape[dim] % size:
+        return None
+    return dim
+
+
+def param_specs(cfg: ModelConfig, params):
+    """For each leaf of the whole parameter tree (``init``'s, same nesting),
+    the dim split over the world: the expert axis where the rules bind
+    "experts" to the world (``sharding.expert_axes``), else None."""
+    size = _world_size("experts")
+    return sharding.map_experts(lambda a, ax: sanitize(ax, a.shape, size), params)
+
+
+def opt_specs(cfg: ModelConfig, pspecs):
+    """The optimizer state's specs: the moments split as the parameters."""
+    from ..optim import OptState
+    return OptState(step=None, mu=pspecs, nu=pspecs, err=None)
+
+
+def _batch_dim(path):
+    """The batch dim of a cache leaf: 1 under a stack over layers ("slots",
+    and an encoder-decoder's "self" and "cross"), else 0."""
+    return 1 if path[0] in ("slots", "self", "cross") else 0
+
+
+def cache_specs(cfg: ModelConfig, cell: ShapeCell, caches):
+    """For each leaf of the whole (global-batch) cache tree, the batch dim
+    where the rules bind "batch" to the world, else None."""
+    size = _world_size("batch")
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, path + (k,)) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, path + (i,)) for i, v in enumerate(t)]
+        return sanitize(_batch_dim(path), t.shape, size)
+    return walk(caches, ())
+
+
+def batch_specs(cfg: ModelConfig, cell: ShapeCell, caches=None):
+    """The cell's inputs' specs: dim 0 of each batch input (dim 1 of the
+    stacked caches, :func:`cache_specs` of ``caches``, whole) where the
+    rules bind "batch" to the world, else None."""
+    b = cell.global_batch
+    row = sanitize(0, (b,))
+    if cell.kind in ("train", "prefill"):
+        names = ["tokens"] + (["targets"] if cell.kind == "train" else [])
+        names += (["frames"] if cfg.kind == "encdec" else []) + (
+            ["patches"] if cfg.n_patches else [])
+        return {k: row for k in names}
+    return {"caches": None if caches is None else cache_specs(cfg, cell, caches),
+            "token": row, "pos": None}
+
+
+def shardings(cfg: ModelConfig, cell: ShapeCell, params=None):
+    """(param_specs, opt_specs or None, batch_specs) of a cell under the
+    rules in effect; ``params``: the whole tree (default: ``init`` on
+    meta)."""
+    params = init(cfg, None, "meta") if params is None else params
+    ps = param_specs(cfg, params)
+    return ps, (opt_specs(cfg, ps) if cell.kind == "train" else None), batch_specs(cfg, cell)
+
+
+def cut(tree, specs, mesh):
+    """This rank's block of each leaf of ``tree`` along its spec's dim (the
+    ``rank``-th of ``size`` equal blocks), a view; a None spec keeps the
+    leaf whole."""
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, w) for v, w in zip(t, s)]
+        if s is None or t is None:
+            return t
+        step = t.shape[s] // mesh.size
+        return t.narrow(s, mesh.rank * step, step)
+    return walk(tree, specs)

@@ -244,7 +244,7 @@ def _moe_a2a(p, cfg, x, act, mesh):
     y_back = all_to_all(mesh, y_r.reshape(n, cap_send, d)).reshape(rt, d)
     y_pairs = torch.cat([y_back, y_back.new_zeros((1, d))])[slot]
     w_pairs = torch.where(ok, wsel_f, 0.0)
-    if _COUNTING[0]:
+    if _COUNTING[0] and x.device.type != "meta":      # meta (the dry-run): no values
         DROPPED["cap_send"] += int((valid & ~ok).sum())
         DROPPED["cap_e"] += int(((rle < e_l) & ~r_ok).sum())
     y = (y_pairs * w_pairs[:, None].to(x.dtype)).reshape(t_l, k, d).sum(1)

@@ -37,6 +37,9 @@ LAM_SHAPE = (4096, 64, 6)           # the world's lam against scd_route_probs
 MOE_X = (4, 32)                     # B x S tokens through moe_train
 PREFILL = (4, 64)                   # B x S tokens through the prefill
 DECODE_STEPS, CACHE_LEN = 4, 16
+# The kinds of ``Mesh.comm_bytes`` a rank's steps are held to the dry-run's
+# account by (``launch/dryrun.py``, a ``DryMesh`` of the same world).
+COMM_KINDS = ("gather", "all_to_all", "reduce")
 
 
 def smoke_cfg(name, capacity_factor=None):
@@ -112,17 +115,31 @@ def run_lam(mesh, inp):
     return scd_route_shmap_probs(probs, q, 1.25, 4, mesh).lam.cpu().numpy()
 
 
-def run_steps(mesh, params, cfg, inp):
+def comm_since(mesh, before):
+    """The bytes this rank sent since ``before`` (a copy of
+    ``mesh.comm_bytes``), by :data:`COMM_KINDS`."""
+    return np.array([mesh.comm_bytes.get(k, 0) - before.get(k, 0) for k in COMM_KINDS])
+
+
+def run_steps(mesh, params, cfg, inp, comm=None):
     """The prefill's logits (B, V) and DECODE_STEPS decode steps' (steps, B,
-    V) under the batch binding."""
+    V) under the batch binding; ``comm`` (a dict) receives the bytes this
+    rank sent in the prefill and in the first decode step."""
     toks = torch.from_numpy(inp["tokens"]).to(mesh.device)
     local = S.shard_experts(params, mesh)
+    comm = {} if comm is None else comm
     with rules(BATCH_RULES, mesh), torch.no_grad():
+        before = dict(mesh.comm_bytes)
         prefill = M.make_prefill_step(cfg)(local, {"tokens": toks})
+        comm["prefill"] = comm_since(mesh, before)
         caches = M.init_cache(cfg, local, toks.shape[0], CACHE_LEN)
         step = M.make_decode_step(cfg)
-        decode = [step(local, caches, toks[:, t:t + 1], t)[0][:, 0]
-                  for t in range(DECODE_STEPS)]
+        decode = []
+        for t in range(DECODE_STEPS):
+            before = dict(mesh.comm_bytes)
+            decode.append(step(local, caches, toks[:, t:t + 1], t)[0][:, 0])
+            if not t:
+                comm["decode"] = comm_since(mesh, before)
     return _gather(prefill, mesh), _gather(torch.stack(decode, 1), mesh).transpose(1, 0, 2)
 
 
@@ -140,7 +157,9 @@ def all_cases(mesh, trees, inp):
         cfg = smoke_cfg(arch)
         params = moonshot if arch == MOE_ARCH else params_from_reference(trees[arch], cfg,
                                                                          mesh.device)
-        out[f"prefill_{arch}"], out[f"decode_{arch}"] = run_steps(mesh, params, cfg, inp)
+        comm = {}
+        out[f"prefill_{arch}"], out[f"decode_{arch}"] = run_steps(mesh, params, cfg, inp, comm)
+        out[f"comm_prefill_{arch}"], out[f"comm_decode_{arch}"] = comm["prefill"], comm["decode"]
     return out
 
 

@@ -67,7 +67,8 @@ def run_case(mesh, trees, case):
     """STEPS train steps of ``case`` from the carried weights over ``mesh``
     under the batch binding: losses, grad norms, step 1's gradients and
     parameters after step 1, whole; the pairs that step 1's forward
-    dropped. Step 1 is ``make_train_step``'s body spelled out
+    dropped; the bytes this rank sent in step 2 (``comm_step``, by
+    ``_torch_moe_world.COMM_KINDS``). Step 1 is ``make_train_step``'s body spelled out
     (``loss_and_grads``, then ``apply_updates``) to keep its gradients."""
     arch = CASES[case][0]
     cfg, opt = case_cfg(case), opt_cfg(case)
@@ -80,7 +81,10 @@ def run_case(mesh, trees, case):
         for i, b in enumerate(batches(case)):
             b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
             if i:
+                before = dict(mesh.comm_bytes)
                 params, state, m = step(params, state, b)
+                if i == 1:
+                    got["comm_step"] = MW.comm_since(mesh, before)
             else:
                 moe.reset_dropped()
                 loss, grads = M.loss_and_grads(params, cfg, b)

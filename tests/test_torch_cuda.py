@@ -1255,3 +1255,120 @@ def test_train_world_resumed_bitwise_on_card(cuda_device, train_worlds):
     assert len(card["resumed"]["state"]) == len(card["full"]["state"])
     for a, b in zip(card["resumed"]["state"], card["full"]["state"]):
         np.testing.assert_array_equal(a, b)
+
+
+# --- the dry-run's shapes and memory against the card ------------------------
+
+def _meta_and_card(fn, *shapes_and_args):
+    """``fn`` (a ``kernels.ops`` entry) on meta tensors and on CUDA tensors of
+    the same shapes: (meta outputs, card outputs), flattened."""
+    from torch.utils._pytree import tree_leaves
+
+    def call(device):
+        args = [torch.rand(a, device=device) if isinstance(a, tuple) else a
+                for a in shapes_and_args]
+        return tree_leaves(fn(*args))
+    return call("meta"), call("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 64, 160])
+def test_cost_output_shapes_equal_the_kernels_on_card(cuda_device, k):
+    """``kernels.cost``'s outputs (the meta path of ``kernels.ops``) have the
+    shapes and dtypes of the kernels' on the card, the ``KMAX`` instances at
+    K = 10 and 64, the ``KWIDE`` ones of the router's two kernels at 160;
+    the scratch sizes are the library's."""
+    from repro_torch.kernels import _build, cost
+    n, e, q = 5000, 33, 2
+    pairs = [_meta_and_card(lambda p, b, lam, ed: ops.scd_fused_hist(
+                 p, b, lam, torch.sort(ed, -1).values, q, tile_n=32),
+                            (n, k), (n, k), (k,), (k, e)),
+             _meta_and_card(lambda p, b, lam: ops.adjusted_topc(p, b, lam, q),
+                            (n, k), (n, k), (k,))]
+    if k <= _wrap.KMAX:
+        pe = torch.sort(torch.rand(64)).values
+        pairs += [
+            _meta_and_card(lambda p, b, lam: ops.scd_finalize_hist(
+                p, b, lam, pe.to(p.device), q, tile_n=256), (n, k), (n, k), (k,)),
+            _meta_and_card(lambda p, b, lam: ops.scd_finalize_hist(
+                p, b, lam, None, q, tile_n=256, with_hist=False), (n, k), (n, k), (k,)),
+            _meta_and_card(lambda p, b, lam: ops.scd_candidates(p, b, lam, q),
+                           (n, k), (n, k), (k,)),
+            _meta_and_card(lambda v1, v2, ed: ops.bucket_hist(
+                v1, v2, torch.sort(ed, -1).values, tile_n=256), (n, k), (n, k), (k, e)),
+            _meta_and_card(lambda p, b: ops.screen_bound(p, b), (n, k), (n, k))]
+    described = lambda outs: [None if a is None else (tuple(a.shape), a.dtype)  # noqa: E731
+                              for a in outs]
+    for meta, card in pairs:
+        assert described(meta) == described(card)
+    lib = _build.load()
+    for tile in (32, 512, 1024, 8192):
+        for fused in (0, 1):
+            assert cost.hist_scratch(n, k, e, tile, fused) == lib.hist_scratch(n, k, e, tile,
+                                                                               fused)
+            assert _wrap.hist_smem_bytes(k, e, tile, fused) == lib.hist_smem_bytes(
+                k, e, tile, fused)
+    if k <= _wrap.KMAX:
+        for ee in (0, 64, 512):
+            assert cost.finalize_part_stride(k, ee) == lib.scd_finalize_part_stride(k, ee)
+            for tile in (32, 128, 512, 1024):
+                assert cost.finalize_smem_bytes(k, ee, tile) == \
+                    lib.scd_finalize_smem_bytes(k, ee, tile)
+    with pytest.raises(ValueError, match="shared memory"):      # refused on meta too
+        ops.bucket_hist(*(torch.empty(s, device="meta") for s in ((n, 64), (n, 64),
+                                                                  (64, 33))), tile_n=1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "gemma-2b"])
+def test_dry_run_memory_against_the_card(cuda_device, name, kind):
+    """At ``smoke()``: the dry-run's held bytes equal what the card holds for
+    the cell (params, moments, caches, batch), and its peak is within 15 %
+    of the held bytes plus what ``max_memory_allocated`` rose by over the
+    step (run once before, so the card's one-time buffers are in place)."""
+    from repro_torch.data.synth import lm_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm, model as M
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    cfg = registry_smoke(name)
+    b, s = 4, 64
+    rec = dryrun.account_cell(name, M.ShapeCell("smoke", s, b, kind), 1, cfg=cfg)
+    assert rec["status"] == "ok", rec.get("error")
+    params = M.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    batch = lm_batch(cfg, (b, s), 0, seed=1, device=cuda_device)
+    held = [params]
+    if kind == "train":
+        opt = init_opt_state(params, OptConfig())
+        step = M.make_train_step(cfg, OptConfig())
+        run = lambda: step(params, opt, batch)  # noqa: E731
+        held += [opt, batch]
+    elif kind == "prefill":
+        batch.pop("targets")
+        step = M.make_prefill_step(cfg)
+        run = lambda: step(params, batch)  # noqa: E731
+        held.append(batch)
+    else:
+        with torch.no_grad():
+            caches = M.init_cache(cfg, params, b, s)
+        token = batch["tokens"][:, :1].clone()
+        step = M.make_decode_step(cfg)
+        run = lambda: step(params, caches, token, s - 1)  # noqa: E731
+        held += [caches, token]
+    with torch.set_grad_enabled(kind == "train"):
+        run()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(cuda_device)
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        run()
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated(cuda_device) - before
+    card_held = dryrun.nbytes(held)
+    assert rec["memory"]["held"] == card_held
+    assert abs(rec["memory"]["peak"] - (card_held + rise)) <= 0.15 * (card_held + rise)
+
+
+def registry_smoke(name):
+    from repro_torch.configs import registry
+    return registry.get(name).smoke()

@@ -39,6 +39,7 @@ torch = pytest.importorskip("torch")
 import _torch_moe_world as W  # noqa: E402
 from repro_torch.core.mesh import Mesh  # noqa: E402
 from repro_torch.core.moe_router import scd_route_probs  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.models import model as M, moe  # noqa: E402
 
@@ -183,6 +184,21 @@ def test_world_runs_bitwise(runs):
     for key in first:
         np.testing.assert_array_equal(np.asarray(first[key]), np.asarray(second[key]),
                                       err_msg=key)
+
+
+@pytest.mark.parametrize("arch", W.ARCHS)
+@pytest.mark.parametrize("what", ["prefill", "decode"])
+def test_comm_bytes_equal_the_dry_run(runs, arch, what):
+    """Rank 0's bytes sent by kind in the prefill and in one decode step of
+    the world of 2 equal the dry-run's account of the same cell on a
+    ``DryMesh`` of 2, exactly."""
+    b, s = W.PREFILL
+    cell = M.ShapeCell("world", s if what == "prefill" else W.CACHE_LEN, b, what)
+    rec = dryrun.account_cell(arch, cell, 2, cfg=W.smoke_cfg(arch))
+    assert rec["status"] == "ok", rec.get("error")
+    want = [rec["collectives"]["bytes"].get(k, 0) for k in W.COMM_KINDS]
+    got = runs["port"][0][f"comm_{what}_{arch}"].tolist()
+    assert got == want and sum(got) > 0
 
 
 def test_world_lam_bitwise_one_process(runs, inp):

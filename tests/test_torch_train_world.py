@@ -256,6 +256,21 @@ def test_step_one_parameters_match_reference(runs, case):
         np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6 * float(np.abs(w).max()))
 
 
+@pytest.mark.parametrize("case", ["moonshot", "moonshot_drop", "deepseek"])
+def test_comm_bytes_equal_the_dry_run(runs, case):
+    """Rank 0's bytes sent by kind in a train step of the world of 2 (step 2)
+    equal the dry-run's account of the same cell on a ``DryMesh`` of 2,
+    exactly (dropped pairs change no buffer's size)."""
+    from repro_torch.launch import dryrun
+
+    cell = M.ShapeCell("world", W.BATCH[1], W.BATCH[0], "train")
+    rec = dryrun.account_cell(W.CASES[case][0], cell, 2, cfg=W.case_cfg(case))
+    assert rec["status"] == "ok", rec.get("error")
+    want = [rec["collectives"]["bytes"].get(k, 0) for k in MW.COMM_KINDS]
+    got = runs["port"][case]["comm_step"].tolist()
+    assert got == want and sum(got) > 0
+
+
 def test_pairs_drop_only_below_capacity(runs):
     port = runs["port"]
     assert sum(port["moonshot_drop"]["dropped"]) > 0
