@@ -75,12 +75,12 @@ check raises, so the script exits non-zero and prints no result line:
    streaming fewer than 153 chunks; walls, per-epoch split and profile;
 12. DD end to end: table1 resident at N = 10^7 (``adjusted_topc`` launched
    iterations + 1 times and nothing else) and host-fed at N = 10^6;
-13. the slot solve (``slots=4``) at table1's full width, N = 10^7, chunk
-   65,536 (153 chunks, 39 columns, 3 inert chunk slots): uninterrupted,
-   with ``scd_fused_hist`` launched iters x 4 x 39 times and
-   ``scd_finalize_hist`` 4 x 39, feasible, within tolerance of phase 5;
-   then at N = 2^21 (32 chunks, 8 columns) against its own uninterrupted
-   solve: checkpointed every 4 iterations and columns with a ``Tracer`` journal,
+13. the slot solve (``slots=4``) at table1's full width, N = 2^21, chunk
+   65,536 (32 chunks, 8 columns; 10^7 until phase 24 was added):
+   uninterrupted, with ``scd_fused_hist`` launched iters x 4 x 8 times and
+   ``scd_finalize_hist`` 4 x 8, feasible, within tolerance of the
+   single-slot (resident, bitwise host-fed) solve of the same rows; then
+   against that solve: checkpointed every 4 iterations and columns with a ``Tracer`` journal,
    bitwise equal, with the journal's spans and at most ``checkpoint_keep``
    states left; SIGKILLed mid-iterate in a fresh interpreter and resumed
    here, bitwise equal; from the oldest state the checkpointed solve left,
@@ -135,9 +135,9 @@ check raises, so the script exits non-zero and prints no result line:
    3 generations);
 17. a world of ranks (``launch/mesh.run_local_world``): 4 rank processes
    sharing the card, gloo over host tensors. In one world of 4: the
-   host-fed table1 N = 10^7 at 4 slots bitwise phase 13's in-process row
+   host-fed table1 N = 2^21 at 4 slots bitwise phase 13's in-process row
    (lam, iterations, r, primal, dual, tau, ``fin_hist``; rank 0 launching
-   the fused kernel iters x 39 times and the finalize 39); the same bytes
+   the fused kernel iters x 8 times and the finalize 8); the same bytes
    device-streamed, one shard a rank, bitwise that; generated on the card
    at N = 10^8, each rank's peak memory flat against phase 14's, lam within
    the stopping rule's ``tol * (1 + max lam)`` of phase 14's one-shard run
@@ -274,12 +274,30 @@ check raises, so the script exits non-zero and prints no result line:
    against the CPU world's (float32, TF32 off, weights drawn on the CPU)
    within rtol 1e-5, atol 1e-5, with ``train(mesh=)`` saved at step 2 and
    resumed to step 3 bitwise on each;
-24. the smoke's wall beside its 900 s budget (and the dry-run's host
-   seconds in it), the ``kernels`` line
+24. the forward under tensor and sequence parallelism
+   (``sharding.PRODUCTION_RULES``, the reference's ``production_rules(False)``):
+   moonshot-v1-16b-a3b at full width and phase 23's 8 layers (its heads,
+   KV heads and caches, the sequence, the vocab and the experts split) and
+   gemma-2b at full width and depth (its q heads and the FFN's columns
+   split, its one KV head whole and its caches split by position, its tied
+   head by vocab), each over a world of 2 gloo ranks sharing the card, each
+   rank drawing the whole tree from the seed and keeping its blocks
+   (``model.shard_params``): a prefill at B = 4, S = 1,024 and 6 decode
+   steps (gemma's crossing its cache's block boundary) against the
+   one-process run (moonshot's from phase 23, gemma's here) within
+   ``TP_REL`` (relative L2 of each row), both ranks' logits bitwise equal,
+   rank 0 launching ``scd_fused_hist`` 4 x 8 and ``adjusted_topc`` 8 times
+   a moonshot prefill (path ``lm_prefill_tp``); each rank's held and
+   collective bytes equal to the dry-run's account (``--rules
+   production``), its peak within ``TP_PEAK_REL``, for the prefill and a
+   decode step at the cache's last position; the prefill and decode walls
+   with their seconds in the host-staged collectives;
+25. the smoke's wall beside its 900 s budget (the dry-run's host seconds
+   and phase 24's in it), the ``kernels`` line
    (launches summed over the paths run in phases 5, 7, 8, 11, 12, 13, 14,
-   15, 16, 19, 20, 21, 22 and 23, and rank 0's of each world of phases 17,
-   18 and 23, training included, with the split), the card's ``nvidia-smi`` line and, last,
-   ``{"ok": true, "device": {...}}``.
+   15, 16, 19, 20, 21, 22, 23 and 24, and rank 0's of each world of phases
+   17, 18, 23 and 24, training included, with the split), the card's
+   ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -304,8 +322,10 @@ N_HOST_DD = 1_000_000               # host-fed DD
 BANDED = dict(k=6, q=2, tightness=0.08, band=0.05)   # benchmarks/bench_screening.py
 FIN_TILE = 512                      # ops.pick_tile at a 65,536-row chunk
 SLOTS, CKPT_EVERY = 4, 4            # the slot phase: 39 columns, 156 chunk slots
-# The slot phase's checkpointed, killed and resumed solves: 32 chunks, 8
-# columns (cut from N_RES for the smoke's time).
+# The slot phase's solves (uninterrupted and counted, checkpointed, killed
+# and resumed): 32 chunks, 8 columns (cut from N_RES for the smoke's time;
+# the uninterrupted one, which phase 17's worlds are held against, since
+# phase 24 was added).
 N_SLOTS_CKPT = 1 << 21
 # The fault-layer run of the slot phase (4 chunks, the exhausting plan's
 # offender the last; cut from 10^6 for phase 23's training over a world).
@@ -1306,7 +1326,7 @@ def solve_metrics(torch, res, budgets):
             "gap": float(res.dual - res.primal), "max_violation": viol}
 
 
-def phase_slots(torch, np, dev, host_fed_row):
+def phase_slots(torch, np, dev):
     """The slot solve at table1's full width, checkpointed, killed and
     resumed, under faults, and on the card against the CPU (phase 13)."""
     from repro_torch.checkpoint import ckpt
@@ -1317,9 +1337,9 @@ def phase_slots(torch, np, dev, host_fed_row):
     from repro_torch.kernels import ops
     from repro_torch.obs import Tracer, read_trace
 
-    src, q = table1_source(N_RES)
+    src, q = table1_source(N_SLOTS_CKPT)
     budgets = torch.as_tensor(src.budgets)
-    c = -(-N_RES // C_MAIN)
+    c = -(-N_SLOTS_CKPT // C_MAIN)
     cps = -(-c // SLOTS)
     cfg = SolverConfig(max_iters=40)
     ckpt_cfg = cfg.replace(checkpoint_every=CKPT_EVERY)
@@ -1341,13 +1361,23 @@ def phase_slots(torch, np, dev, host_fed_row):
     HOST_RESULTS["slots4"], HOST_RESULTS["slots4_wall"] = base, wall
     iters = base.iters
     m = solve_metrics(torch, base, budgets)
-    single = {"lam": np.asarray(host_fed_row["lam"], np.float32),
-              "iters": host_fed_row["iterations"], "primal": host_fed_row["primal"],
-              "dual": host_fed_row["dual"]}
+    # The single slot: the resident solve of the same rows at the default
+    # map tile, bitwise the host-fed single-slot solve (phase 5's at N_RES).
+    from repro_torch.core.instances import sparse_instance
+    from repro_torch.core.solver import solve as solve_resident
+    from repro_torch.configs.paper_kp import WORKLOADS
+    kp, _ = sparse_instance(0, N_SLOTS_CKPT, src.k, q,
+                            tightness=WORKLOADS["table1"].tightness, device=dev, chunk=C_MAIN)
+    tiles = {t: solve_resident(kp, cfg.replace(kernel_tile=t), q=q, device=dev)
+             for t in (8192, 4096, 16384)}
+    del kp
+    one = tiles[8192]
+    single = {"lam": one.lam.numpy(), "iters": one.iters, "primal": float(one.primal),
+              "dual": float(one.dual)}
     lam_diff = np.abs(base.lam.numpy() - single["lam"])
     it = [e for e in stats.epochs if e["kind"] == "iterate"]
     keys = ("fetch_s", "stage_s", "h2d_ms", "step_ms", "wall_s")
-    emit("slots_end_to_end", workload="table1", n=N_RES, chunk=C_MAIN, slots=SLOTS,
+    emit("slots_end_to_end", workload="table1", n=N_SLOTS_CKPT, chunk=C_MAIN, slots=SLOTS,
          chunks=c, columns=cps, chunk_slots=SLOTS * cps, wall_s=wall, launches=launches,
          **m, single_slot={"iters": single["iters"], "primal": single["primal"],
                            "dual": single["dual"],
@@ -1369,20 +1399,8 @@ def phase_slots(torch, np, dev, host_fed_row):
     # Another slot count groups the float32 sums differently, and lam is
     # fixed only to the stopping rule's tolerance, tol * (1 + max lam): the
     # check holds lam to that, iterations within one, primal and dual to
-    # 1e-5. Beside it, the grouping floor: the single-slot solve (the
-    # resident one, bitwise it at the default tile) with only its map tile
-    # changed.
-    from repro_torch.core.instances import sparse_instance
-    from repro_torch.core.solver import solve as solve_resident
-    from repro_torch.configs.paper_kp import WORKLOADS
-    kp, _ = sparse_instance(0, N_RES, src.k, q, tightness=WORKLOADS["table1"].tightness,
-                            device=dev, chunk=C_MAIN)
-    tiles = {t: solve_resident(kp, cfg.replace(kernel_tile=t), q=q, device=dev)
-             for t in (8192, 4096, 16384)}
-    del kp
-    check(tiles[8192].iters == single["iters"]
-          and np.array_equal(tiles[8192].lam.numpy(), single["lam"]),
-          "the resident solve at the default tile differs from phase 5's")
+    # 1e-5. Beside it, the grouping floor: the single-slot solve with only
+    # its map tile changed.
     floor = {t: float((np.abs(r.lam.numpy() - single["lam"]) / np.abs(single["lam"])).max())
              for t, r in tiles.items() if t != 8192}
     stop_tol = cfg.tol * (1.0 + float(single["lam"].max()))
@@ -1394,17 +1412,11 @@ def phase_slots(torch, np, dev, host_fed_row):
                 "by_map_tile": {t: r.iters for t, r in tiles.items()}})
     check(float(lam_diff.max()) <= stop_tol and abs(iters - single["iters"]) <= 1
           and all(abs(m[f] - single[f]) <= 1e-5 * abs(single[f]) for f in ("primal", "dual")),
-          "the slots=4 solve is not within tolerance of phase 5's single slot (lam within "
+          "the slots=4 solve is not within tolerance of the single slot (lam within "
           "tol * (1 + max lam), iterations within one, primal and dual 1e-5)")
 
-    # Steps 2-4 (checkpointed and traced, then killed twice and resumed) run
-    # at N_SLOTS_CKPT against their own uninterrupted solve, for the smoke's
-    # time; phase 17 holds its worlds against step 1's row at N_RES.
-    src, _ = table1_source(N_SLOTS_CKPT)
-    c = -(-N_SLOTS_CKPT // C_MAIN)
-    cps = -(-c // SLOTS)
-    base, wall = solve(src, cfg)
-    iters = base.iters
+    # Steps 2-4 (checkpointed and traced, then killed twice and resumed) are
+    # held against step 1's solve; phase 17 holds its worlds against it too.
 
     # 2. Checkpointed every CKPT_EVERY iterations and columns, traced.
     saves = []
@@ -2059,7 +2071,7 @@ def _rank_array_source(torch, mesh, src, cps):
                        budgets=torch.as_tensor(src.budgets), fn=fn)
 
 
-def _world_host_fed(mesh, n=N_RES, **cfg_kw):
+def _world_host_fed(mesh, n=N_SLOTS_CKPT, **cfg_kw):
     from repro_torch.core.prefetch import FeedStats, solve_streaming_host
     from repro_torch.core.types import SolverConfig
     src, q = table1_source(n)
@@ -2107,7 +2119,7 @@ def world_main(mesh, tasks, resume_dir=None):
         if name == "walls":
             return _world_host_fed(mesh, N_WALLS)
         if name == "streamed_same_bytes":
-            src, q = table1_source(N_RES)
+            src, q = table1_source(N_SLOTS_CKPT)
             cps = -(-(-(-src.n // src.chunk)) // mesh.size)
             dsrc = _rank_array_source(torch, mesh, src, cps)
             res = solve_streaming(dsrc, cfg, q=q, mesh=mesh)
@@ -2267,9 +2279,9 @@ def phase_world(torch, np, dev):
          start_s=walls[WORLD]["start_s"],
          tasks={name: summary(name, w4[name]) for name in tasks})
 
-    # 1. Host-fed N = 10^7, 4 slots over 4 ranks: bitwise phase 13's row.
+    # 1. Host-fed N = 2^21, 4 slots over 4 ranks: bitwise phase 13's row.
     hf = w4["host_fed"]["result"]
-    cps = -(-(-(-N_RES // C_MAIN)) // SLOTS)
+    cps = -(-(-(-N_SLOTS_CKPT // C_MAIN)) // SLOTS)
     l0 = w4["host_fed"]["launches"]
     facts = {"bitwise_phase13_slots4": same_stream(hf, HOST_RESULTS["slots4"]),
              "fused_launches_rank0": l0["scd_fused_hist"] == hf.iters * cps,
@@ -2277,7 +2289,7 @@ def phase_world(torch, np, dev):
     # 2. The same bytes through the device-streamed solve, one shard a rank.
     ds = w4["streamed_same_bytes"]["result"]
     facts["streamed_bitwise_host_fed"] = same_stream(ds, hf)
-    emit("world_host_fed", n=N_RES, slots=SLOTS, world=WORLD, iters=hf.iters,
+    emit("world_host_fed", n=N_SLOTS_CKPT, slots=SLOTS, world=WORLD, iters=hf.iters,
          primal=float(hf.primal), dual=float(hf.dual), **facts)
     check(all(facts.values()), f"world host-fed: {facts}")
 
@@ -2424,7 +2436,8 @@ def phase_world(torch, np, dev):
          host_fed_wall_s={d: r["wall_s"] for d, r in runs.items()},
          host_fed_collective_s={d: r["collective_s"] for d, r in runs.items()},
          iterate_epoch_mean={d: r["iterate_epoch_mean"] for d, r in runs.items()},
-         phase13_in_process_slots4_wall_s_at_n_res=HOST_RESULTS["slots4_wall"],
+         phase13_in_process_slots4_wall_s=HOST_RESULTS["slots4_wall"],
+         phase13_n=N_SLOTS_CKPT,
          world_walls_s=walls)
     shutil.rmtree(work, ignore_errors=True)
     return paths
@@ -2785,13 +2798,15 @@ DRY_STREAM_FLOOR = 8 << 20
 DRY_S = [0.0]                       # the dry-run's host seconds in this smoke
 
 
-def _dry_cell(arch, kind, b, s, world=1, cfg=None):
-    """The dry-run's account of one cell (B x S, ``kind``) over ``world``."""
+def _dry_cell(arch, kind, b, s, world=1, cfg=None, rules=None):
+    """The dry-run's account of one cell (B x S, ``kind``) over ``world``
+    (under ``rules``: default the batch binding)."""
     from repro_torch.launch.dryrun import account_cell
     from repro_torch.models.model import ShapeCell
 
     t0 = time.perf_counter()
-    rec = account_cell(arch, ShapeCell(f"{kind}_{b}x{s}", s, b, kind), world, cfg=cfg)
+    rec = account_cell(arch, ShapeCell(f"{kind}_{b}x{s}", s, b, kind), world, cfg=cfg,
+                       rules=rules)
     DRY_S[0] += time.perf_counter() - t0
     check(rec["status"] == "ok", f"dry-run of {arch} {kind}: {rec}")
     return rec
@@ -2802,17 +2817,18 @@ def _nbytes(lm, *trees):
     return sum(_tree_bytes(lm, t)[1] for t in trees)
 
 
-def _dry_vs_card(tag, rec, launches, held, rise, raw_peak, comm=None):
-    """Checks (a)-(d) of one cell: ``launches`` (ops.LAUNCHES over the step),
-    ``held`` (nbytes the card holds for the cell), ``rise`` (what
-    max_memory_allocated rose by over the step), ``comm`` (rank 0's
-    comm_bytes over it). Emits the accounting beside the measurement."""
+def _dry_vs_card(tag, rec, launches, held, rise, raw_peak, comm=None, bar=DRY_PEAK_REL):
+    """Checks (a)-(d) of one cell: ``launches`` (ops.LAUNCHES over the step;
+    None: not checked, a rank other than 0), ``held`` (nbytes the card holds
+    for the cell), ``rise`` (what max_memory_allocated rose by over the
+    step), ``comm`` (the rank's comm_bytes over it), the peak within
+    ``bar``. Emits the accounting beside the measurement."""
     mem = rec["memory"]
     card_peak = held + rise
     want = {k: v["launches"] for k, v in rec["kernels"].items()}
-    got = {k: v for k, v in launches.items() if v}
-    facts = {"launches_equal": want == got, "held_equal": mem["held"] == held,
-             "peak_within": abs(mem["peak"] - card_peak) <= DRY_PEAK_REL * card_peak}
+    got = None if launches is None else {k: v for k, v in launches.items() if v}
+    facts = {"launches_equal": got is None or want == got, "held_equal": mem["held"] == held,
+             "peak_within": abs(mem["peak"] - card_peak) <= bar * card_peak}
     if comm is not None:
         facts["comm_bytes_equal"] = rec["collectives"]["bytes"] == {
             k: v for k, v in comm.items() if v}
@@ -2825,7 +2841,7 @@ def _dry_vs_card(tag, rec, launches, held, rise, raw_peak, comm=None):
                      "account_s": rec["account_s"]},
          card={"launches": got, "held": held, "peak": card_peak, "rise": rise,
                "max_memory_allocated": raw_peak, "comm_bytes": comm},
-         peak_rel=(mem["peak"] - card_peak) / card_peak, bar=DRY_PEAK_REL, **facts)
+         peak_rel=(mem["peak"] - card_peak) / card_peak, bar=bar, **facts)
     check(all(facts.values()), f"dry-run against the card, {tag}: {facts}")
 
 
@@ -4094,7 +4110,9 @@ def phase_lm_world(torch, np, dev, train_losses):
     sharing the card; in the world of 2 also training at phase 20's config
     (its losses against phase 20's ``train_losses``); the smoke config's
     world of 2 on the card against a world of 2 on the CPU, forward and
-    training; the world's lam bitwise the one-process lam."""
+    training; the world's lam bitwise the one-process lam. Returns the
+    kernels' paths and the one-process logits (prefill, decode steps),
+    which phase 24 holds its world against."""
     from repro_torch.configs import registry
     from repro_torch.core.moe_router import scd_route_probs
     from repro_torch.launch.mesh import run_local_world, start_local_world
@@ -4221,6 +4239,254 @@ def phase_lm_world(torch, np, dev, train_losses):
                                   for name in paths[f"lm_prefill_world{WORLD_LM_SIZES[0]}"]},
              "lm_train_world": t["launches"]}
     emit("lm_world_wall", seconds=time.perf_counter() - t_phase)
+    return paths, (one_logits, one_dec)
+
+
+# --------------------------------------------------------------------------
+# Phase 24: the forward under tensor and sequence parallelism over a world
+# of ranks (sharding.PRODUCTION_RULES, the reference's production_rules(False)):
+# moonshot-v1-16b-a3b at phase 23's 8 layers (its 16 heads and 16 KV heads
+# split, the residual's sequence, the vocab, the experts) and gemma-2b at
+# full depth (its 8 q heads and the FFN's 16,384 columns split, its one KV
+# head whole, so its caches split by position, and its tied head of
+# 256,000 rows by vocab), each over a world of 2 ranks sharing the card.
+# --------------------------------------------------------------------------
+
+TP_ARCHS = {LM_ARCH: WORLD_LM_LAYERS, "gemma-2b": 18}   # arch: layers (gemma uncut)
+TP_PREFILL = WORLD_LM_PREFILL       # B x S: every rank runs every row
+# Decode steps and cache length: moonshot's caches split by KV heads, as
+# phase 23's one-process run's (its first 6 of 16 steps, cache 256); gemma's
+# by position, 8 a cache: steps 4 and 5 write rank 1's block, empty before.
+TP_DECODE = {LM_ARCH: (6, WORLD_LM_DECODE[1]), "gemma-2b": (6, 8)}
+TP_TIMEOUT = 300
+# Against the one-process run on the card in bf16, relative L2 of each
+# row's logits: phase 23's world-of-2 bar. The world folds its partials
+# (attention's and the FFN's wo, the embedding, flash-decoding's sums) in
+# float32 in rank order and rounds once, where one process rounds its
+# products once; moonshot's router runs its world path (no projection).
+TP_REL = 0.15
+# The dry-run against each rank: held and collective bytes exactly, the
+# peak within 5 % (the new cells' bar, fixed before their first chip run).
+TP_PEAK_REL = 0.05
+
+
+def _tp_step(torch, mesh, dev, run):
+    """``run()`` once on this rank between barriers, the card's peak reset
+    right before it: (output, seconds, {rise of max_memory_allocated, the
+    raw peak, the bytes sent by kind, the launches})."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    mesh.barrier()
+    ops.reset_launches()
+    bytes0 = dict(mesh.comm_bytes)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    raw = torch.cuda.max_memory_allocated(dev)
+    comm = {k: v - bytes0.get(k, 0) for k, v in mesh.comm_bytes.items() if v - bytes0.get(k, 0)}
+    return out, wall, {"rise": raw - before, "raw_peak": raw, "comm": comm,
+                       "launches": dict(ops.LAUNCHES)}
+
+
+TP_COMM = ("gather", "all_to_all", "reduce", "all_gather", "reduce_scatter")
+
+
+def _tp_numbers(m):
+    """A step's held bytes, rise, raw peak and bytes sent by kind, as numbers
+    (all below 2^53: exact in the float64 the ranks gather)."""
+    return [m["held"], m["rise"], m["raw_peak"], *(m["comm"].get(k, 0) for k in TP_COMM)]
+
+
+def _tp_rank(v, n_steps):
+    """A rank's measurements from its gathered numbers (``tp_lm_main``)."""
+    def step(part):
+        return {"held": int(part[0]), "rise": int(part[1]), "raw_peak": int(part[2]),
+                "comm": {k: int(b) for k, b in zip(TP_COMM, part[3:]) if b},
+                "launches": None}
+    n = 3 + len(TP_COMM)
+    rest = v[2 * n:]
+    return {"prefill": step(v[:n]), "decode": step(v[n:2 * n]), "prefill_s": rest[0],
+            "prefill_again_s": rest[1], "prefill_comm_s": rest[2], "decode_comm_s": rest[3],
+            "decode_last_ms": rest[4], "held_gb": rest[5],
+            "decode_step_ms": rest[6:6 + n_steps]}
+
+
+def tp_lm_main(mesh):
+    """Phase 24 on every rank of a world of 2 sharing the card: for each arch
+    of TP_ARCHS the whole tree drawn from the seed (phase 23's and the
+    one-process run's weights), cut to the rank's blocks
+    (``model.shard_params``), then under the production rules a prefill
+    (counted: launches, bytes sent, peak), a second one (timed), the
+    decode steps, and one decode step at the cache's last position (the
+    dry-run's decode cell). Rank 0 returns the logits, whether both ranks'
+    are bitwise equal, and every rank's measurements."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch.dryrun import nbytes
+    from repro_torch.models import model as M, sharding
+
+    dev = mesh.device
+    check(dev.type == "cuda", f"rank {mesh.rank} runs on {dev}")
+    _, toks_np = _world_inputs(np, registry.get(LM_ARCH))
+    out = {}
+    for arch, layers in TP_ARCHS.items():
+        cfg = registry.get(arch).replace(n_layers=layers)
+        toks = torch.tensor(toks_np % cfg.vocab, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        sharding.set_rules(sharding.PRODUCTION_RULES, mesh=mesh)
+        try:
+            params = M.shard_params(cfg, M.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                                                dev), mesh)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            step, dstep = M.make_prefill_step(cfg), M.make_decode_step(cfg)
+            n_steps, cache_len = TP_DECODE[arch]
+            with torch.no_grad():
+                batch = {"tokens": toks}
+                c0 = mesh.comm_s
+                logits, prefill_s, prefill = _tp_step(torch, mesh, dev,
+                                                      lambda: step(params, batch))
+                prefill_comm_s = mesh.comm_s - c0
+                prefill["held"] = nbytes([params, batch])
+                _, again_s, _ = _tp_step(torch, mesh, dev, lambda: step(params, batch))
+                caches = M.init_cache(cfg, params, toks.shape[0], cache_len)
+                dec, walls = [], []
+                c0 = mesh.comm_s
+                for t in range(n_steps):
+                    lg, wall, _ = _tp_step(
+                        torch, mesh, dev, lambda t=t: dstep(params, caches, toks[:, t:t + 1], t))
+                    dec.append(lg[0][:, 0].float().cpu())
+                    walls.append(wall * 1e3)
+                decode_comm_s = mesh.comm_s - c0
+                token = toks[:, :1].clone()
+                _, last_s, decode = _tp_step(
+                    torch, mesh, dev, lambda: dstep(params, caches, token, cache_len - 1))
+                decode["held"] = nbytes([params, caches, token])
+        finally:
+            sharding.set_rules(None)
+        logits, dec = logits.float().cpu(), torch.stack(dec)
+        both = mesh.gather(torch.cat([logits.flatten(), dec.flatten()]))
+        mine = [*_tp_numbers(prefill), *_tp_numbers(decode), prefill_s, again_s,
+                prefill_comm_s, decode_comm_s, last_s * 1e3,
+                torch.cuda.memory_allocated(dev) / 1e9, *walls]
+        del params, caches
+        ranks = [_tp_rank(v.tolist(), n_steps)
+                 for v in mesh.gather(torch.tensor(mine, dtype=torch.float64))]
+        ranks[mesh.rank]["prefill"]["launches"] = prefill["launches"]
+        ranks[mesh.rank]["decode"]["launches"] = decode["launches"]
+        out[arch] = {"logits": logits, "decode": dec, "ranks": ranks,
+                     "ranks_bitwise": bool(torch.equal(both[0], both[1]))}
+    return out
+
+
+def _tp_one_process(torch, np, dev, arch):
+    """gemma-2b's one-process prefill and decode steps on the card, from the
+    seed, as ``tp_lm_main`` runs them; the weights freed after."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+
+    cfg = registry.get(arch).replace(n_layers=TP_ARCHS[arch])
+    _, toks_np = _world_inputs(np, registry.get(LM_ARCH))
+    toks = torch.tensor(toks_np % cfg.vocab, device=dev)
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_steps, cache_len = TP_DECODE[arch]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = M.make_prefill_step(cfg)(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        caches = M.init_cache(cfg, params, toks.shape[0], cache_len)
+        dstep = M.make_decode_step(cfg)
+        dec, walls = [], []
+        for t in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec.append(dstep(params, caches, toks[:, t:t + 1], t)[0][:, 0].float().cpu())
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    del params, caches
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return logits.float().cpu(), torch.stack(dec), {"prefill_s": prefill_s,
+                                                   "decode_step_ms": walls}
+
+
+def phase_lm_tp(torch, np, dev, one_moonshot=None):
+    """Phase 24: moonshot (phase 23's one-process logits, ``one_moonshot``;
+    run here when None) and gemma-2b at full depth over a world of 2 under
+    the production rules, against the one-process run on the card; each
+    rank's held, peak and collective bytes against the dry-run's
+    account."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import run_local_world
+    from repro_torch.models import sharding
+
+    t_phase = time.perf_counter()
+    ones = {"gemma-2b": _tp_one_process(torch, np, dev, "gemma-2b")}
+    if one_moonshot is None:
+        from repro_torch.models import model as M
+        cfg = registry.get(LM_ARCH).replace(n_layers=TP_ARCHS[LM_ARCH])
+        params = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        _, toks_np = _world_inputs(np, cfg)
+        one_moonshot = _lm_forward_and_decode(torch, M, params, cfg,
+                                              torch.tensor(toks_np, device=dev))[:2]
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    ones[LM_ARCH] = (*one_moonshot, None)
+    t0 = time.perf_counter()
+    w = run_local_world(tp_lm_main, 2, timeout=TP_TIMEOUT)
+    world_s = time.perf_counter() - t0
+    paths = {}
+    for arch, layers in TP_ARCHS.items():
+        cfg = registry.get(arch).replace(n_layers=layers)
+        one_logits, one_dec, one_walls = ones[arch]
+        got = w[arch]
+        n_steps, cache_len = TP_DECODE[arch]
+        rel_p = _rel_l2(torch, got["logits"], one_logits)
+        rel_d = _rel_l2(torch, got["decode"], one_dec[:n_steps])
+        r0 = got["ranks"][0]
+        routed = {name: 0 for name in r0["prefill"]["launches"]}
+        if cfg.moe.n_experts:
+            routed.update(scd_fused_hist=cfg.moe.scd_iters * layers, adjusted_topc=layers)
+        facts = {"finite": bool(torch.isfinite(got["logits"]).all()
+                                and torch.isfinite(got["decode"]).all()),
+                 "shapes": tuple(got["logits"].shape) == tuple(one_logits.shape)
+                 and tuple(got["decode"].shape) == tuple(one_dec[:n_steps].shape),
+                 "ranks_bitwise": got["ranks_bitwise"],
+                 "launches_as_routed": r0["prefill"]["launches"] == routed,
+                 "prefill_rel_l2_within": float(rel_p.max()) <= TP_REL,
+                 "decode_rel_l2_within": float(rel_d.max()) <= TP_REL}
+        emit(f"lm_tp_{arch}", arch=arch, layers=layers, world=2, rules="production",
+             batch=TP_PREFILL[0], seq=TP_PREFILL[1], decode_steps=n_steps, cache_len=cache_len,
+             world_wall_s=world_s,
+             ranks=[{k: v for k, v in r.items() if k not in ("prefill", "decode")}
+                    for r in got["ranks"]],
+             one_process=one_walls, rank0_launches=r0["prefill"]["launches"],
+             prefill_rel_l2_max=float(rel_p.max()), prefill_rel_l2_median=float(rel_p.median()),
+             decode_rel_l2_max=float(rel_d.max()), decode_rel_l2_median=float(rel_d.median()),
+             bound=TP_REL, **facts)
+        check(all(facts.values()), f"{arch} under the production rules: {facts}")
+        recs = {kind: _dry_cell(arch, kind, TP_PREFILL[0],
+                                TP_PREFILL[1] if kind == "prefill" else cache_len, world=2,
+                                cfg=cfg, rules=sharding.PRODUCTION_RULES)
+                for kind in ("prefill", "decode")}
+        for r, mine in enumerate(got["ranks"]):
+            for kind, rec in recs.items():
+                m = mine[kind]
+                _dry_vs_card(f"{arch}_{layers}_layers_tp_world2_rank{r}_{kind}", rec,
+                             m["launches"] if r == 0 else None, m["held"], m["rise"],
+                             m["raw_peak"], comm=m["comm"], bar=TP_PEAK_REL)
+        if cfg.moe.n_experts:
+            paths["lm_prefill_tp"] = r0["prefill"]["launches"]
+    emit("lm_tp_wall", seconds=time.perf_counter() - t_phase)
     return paths
 
 
@@ -4262,7 +4528,7 @@ def main():
     kern.update(phase_slice3_kernels(torch, np, dev))
     paths.update(phase_screened_end_to_end(torch, dev))
     paths.update(phase_dd_end_to_end(torch, dev))
-    paths.update(phase_slots(torch, np, dev, host_fed_row))
+    paths.update(phase_slots(torch, np, dev))
     streamed_paths, kern["bucket_hist"]["legacy_shape"] = phase_streamed(torch, np, dev)
     paths.update(streamed_paths)
     paths.update(phase_serving(torch, np, dev))
@@ -4283,7 +4549,11 @@ def main():
     paths.update(mla_paths)
     kern["scd_fused_hist"]["router_shape_k160"] = mla_kern["scd_fused_hist"]
     kern["adjusted_topc"]["router_shape_k160"] = mla_kern["adjusted_topc"]
-    paths.update(phase_lm_world(torch, np, dev, train_losses))
+    world_paths, one_moonshot = phase_lm_world(torch, np, dev, train_losses)
+    paths.update(world_paths)
+    t_tp = time.perf_counter()
+    paths.update(phase_lm_tp(torch, np, dev, one_moonshot))
+    tp_s = time.perf_counter() - t_tp
 
     rows = [{"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name],
@@ -4294,7 +4564,7 @@ def main():
     for r in rows:
         check(r["launches"] > 0, f"{r['name']} was launched on no path")
     wall = time.perf_counter() - T_START
-    emit("smoke_wall", seconds=wall, budget_s=900, dryrun_s=DRY_S[0])
+    emit("smoke_wall", seconds=wall, budget_s=900, dryrun_s=DRY_S[0], lm_tp_s=tp_s)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

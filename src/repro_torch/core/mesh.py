@@ -11,7 +11,11 @@ constant-size partials of each pass (a few KB), already on the host for the
 fold, and the expert-parallel MoE's token rows (:meth:`Mesh.all_to_all`,
 ``models/moe.py``), staged through the host too; :func:`all_to_all`
 is the same exchange recorded by autograd, whose backward is the
-exchange of the incoming gradient. No float sum relies on
+exchange of the incoming gradient. Tensor and sequence parallelism
+(``models/attention.py``, ``layers.py``, ``blocks.py``, ``lm.py``) moves
+activations with :meth:`Mesh.all_gather` (the ranks' blocks joined along a
+dim) and :meth:`Mesh.reduce_scatter` (the ranks' partial sums folded, this
+rank's block kept), both staged through the host. No float sum relies on
 the order inside a collective: a sum across
 ranks is :meth:`Mesh.gather` of the per-rank (or per-slot) partials and then
 ``bucketing.ordered_fold`` in slot order on every rank, the addition chain
@@ -28,6 +32,8 @@ import time
 
 import torch
 import torch.distributed as dist
+
+from .bucketing import ordered_fold
 
 __all__ = ["Mesh", "DryMesh", "check_mesh", "all_to_all"]
 
@@ -69,17 +75,46 @@ class Mesh:
     def gather(self, t) -> torch.Tensor:
         """Every rank's ``t`` (same shape and dtype on each), stacked in rank
         order: a (size, ...) CPU tensor."""
+        return self._stacked("gather", t)
+
+    def _stacked(self, kind, t):
         t = torch.as_tensor(t).detach().cpu().contiguous()
         if self.size == 1:
             return t[None].clone()
-        self._sent("gather", t)
+        self._sent(kind, t)
 
         def run():
             out = [torch.empty_like(t) for _ in range(self.size)]
             dist.all_gather(out, t, group=self.group)
             return torch.stack(out)
 
-        return self._timed("gather", run)
+        return self._timed(kind, run)
+
+    def _block(self, t, dim):
+        n = t.shape[dim]
+        if n % self.size:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} does not "
+                             f"split over {self.size} ranks")
+        return self.rank * (n // self.size), n // self.size
+
+    def all_gather(self, t, dim) -> torch.Tensor:
+        """The ranks' ``t`` (the same shape on each but along ``dim``'s
+        blocks) joined along ``dim`` in rank order, on ``t``'s device."""
+        if self.size == 1:
+            return t
+        st = self._stacked("all_gather", t)
+        return torch.cat(st.unbind(0), dim=dim).to(t.device)
+
+    def reduce_scatter(self, t, dim) -> torch.Tensor:
+        """The sum over the ranks of their ``t`` (each rank's partial of the
+        same shape), folded in rank order in float32 (``ordered_fold``) and
+        rounded once to ``t``'s dtype, of this rank's block along ``dim``
+        only; on ``t``'s device. Every rank sends its whole ``t``."""
+        if self.size == 1:
+            return t
+        lo, n = self._block(t, dim)
+        part = self._stacked("reduce_scatter", t).narrow(dim + 1, lo, n).to(t.device)
+        return ordered_fold(part, dtype=torch.float32).to(t.dtype)
 
     def all_to_all(self, t) -> torch.Tensor:
         """Row r of ``t`` (size, ...) goes to rank r; row r of the result
@@ -125,9 +160,12 @@ class DryMesh(Mesh):
     """Rank ``rank`` of a world of ``size`` that exists only on paper: no
     process group, and every collective returns a ``meta`` tensor of its
     result's shape (``gather`` a (size, ...) stack, ``all_to_all`` and the
-    maxima ``t``'s shape) after counting in ``comm_bytes`` what this rank
-    would send. ``all_to_all`` keeps :func:`all_to_all`'s backward. The
-    dry-run runs a rank's step on ``meta`` over it."""
+    maxima ``t``'s shape, ``all_gather`` the joined shape) after counting in
+    ``comm_bytes`` what this rank would send; ``reduce_scatter`` folds a
+    (size, ...) stack of the rank's blocks as :class:`Mesh` folds the one it
+    copies to the device, so the dry-run sees the same allocations.
+    ``all_to_all`` keeps :func:`all_to_all`'s backward. The dry-run runs a
+    rank's step on ``meta`` over it."""
 
     def __init__(self, rank: int, size: int):
         super().__init__(rank, size, torch.device("meta"))
@@ -152,6 +190,20 @@ class DryMesh(Mesh):
                              f"{tuple(t.shape)}")
         self._sent("all_to_all", t)
         return self._like(t)
+
+    def all_gather(self, t, dim) -> torch.Tensor:
+        self._sent("all_gather", t)
+        shape = list(t.shape)
+        shape[dim] *= self.size
+        return self._like(t, shape)
+
+    def reduce_scatter(self, t, dim) -> torch.Tensor:
+        _, n = self._block(t, dim)
+        self._sent("reduce_scatter", t)
+        shape = list(t.shape)
+        shape[dim] = n
+        part = self._like(t, (self.size, *shape))
+        return ordered_fold(part, dtype=torch.float32).to(t.dtype)
 
     def _reduce(self, t, op):
         t = torch.as_tensor(t)

@@ -25,12 +25,17 @@ under four counters:
 The dry-run runs on the ``meta`` device on any machine and touches no
 card: that is what it is, not a fallback. Over a world of D > 1 the rank
 runs under ``sharding.BATCH_RULES`` (its B / D rows, its E / D experts),
-as ``launch/train.py`` and the serving worlds run; D = 1 is one process
-with no rules. The memory is the rank's: its tree (expert leaves cut,
-:func:`models.model.param_specs`), AdamW's moments, the caches of its rows,
-the global batch it is given, and the peak of what the step allocates on
-top (on the card's caching allocator, ``max_memory_allocated``, which the
-on-card smoke holds it against).
+as ``launch/train.py`` and the serving worlds run, or with ``--rules
+production`` under ``sharding.PRODUCTION_RULES`` (tensor and sequence
+parallelism: its blocks of the heads, FFN columns, vocab, experts and KV
+cache, every row; the prefill and decode cells, a train cell skipped with
+the refusal); D = 1 is one process with no rules. The memory is the
+rank's: its tree (the leaves :func:`models.model.param_specs` splits, cut),
+AdamW's moments, its caches, the global batch it is given, and the peak of
+what the step allocates on top (on the card's caching allocator,
+``max_memory_allocated``, which the on-card smoke holds it against); the
+collectives' bytes come from the ``DryMesh`` (``gather``, ``all_to_all``,
+``reduce``, ``all_gather``, ``reduce_scatter``).
 
 The probe (the reference's ``_probe_block``, for the opposite reason: XLA
 counts a loop body once, eager meta walks every Python loop) runs a
@@ -234,10 +239,11 @@ def _no_grad(fn, *args):
 
 def world_skip(cfg, cell, world, rules):
     """Why a world of ``world`` ranks cannot run the cell under ``rules``,
-    or None: a refused binding (``model.check_rules``), a batch or an
-    expert count that the world does not divide."""
-    M.check_rules(rules)
-    if world > 1 and cell.global_batch % world:
+    or None: a refused binding (``model.check_rules``), a batch (where
+    "batch" is on the world) or an expert count that the world does not
+    divide."""
+    M.check_rules(rules, cfg, cell.kind)
+    if world > 1 and sharding.binds(rules, "batch") and cell.global_batch % world:
         return f"global batch {cell.global_batch} does not split over {world} ranks"
     if world > 1 and cfg.moe.n_experts and cfg.moe.n_experts % world:
         return f"{cfg.moe.n_experts} experts do not split over {world} ranks"
@@ -253,8 +259,9 @@ def account_cell(arch, shape, world, probe=True, router=None, batch=None, cfg=No
     runs whole; module docstring); ``router``, ``batch``: override the
     config's router and the cell's global batch; ``cfg``: the config to
     run (default ``registry.get(arch)``, e.g. a cut one); ``rules``: the
-    rules over the world (default
-    ``sharding.BATCH_RULES`` for D > 1, none for D = 1). Returns a dict:
+    rules over a world of D > 1 (default ``sharding.BATCH_RULES``;
+    ``sharding.PRODUCTION_RULES`` for tensor and sequence parallelism; D = 1
+    runs one process with none). Returns a dict:
     ``status`` "ok", "skipped" (with ``reason``: the cell, a refused
     binding, or a batch or expert count that D does not divide) or "error";
     ``n_params``, ``n_active``; ``memory`` (per rank, bytes: ``params``,
@@ -270,12 +277,14 @@ def account_cell(arch, shape, world, probe=True, router=None, batch=None, cfg=No
     cell = M.SHAPES[shape] if isinstance(shape, str) else shape
     if batch:
         cell = dataclasses.replace(cell, global_batch=batch)
-    if rules is None:
-        rules = sharding.BATCH_RULES if world > 1 else None
+    if world == 1:
+        rules = None
+    elif rules is None:
+        rules = sharding.BATCH_RULES
     rec = {"arch": arch, "shape": cell.name, "world": world, "kind": cell.kind,
            "global_batch": cell.global_batch, "seq_len": cell.seq_len,
            "router": cfg.moe.router if cfg.moe.n_experts else None,
-           "rules": "batch" if rules == sharding.BATCH_RULES else rules}
+           "rules": next((k for k, v in RULES.items() if v == rules), rules)}
     try:
         reason = M.cell_applicable(cfg, cell) or world_skip(cfg, cell, world, rules)
     except NotImplementedError as e:
@@ -533,8 +542,9 @@ def account_paper_kp(workload, world=1, reduce="bucketed", algo="scd", chunk_siz
 # CLI
 # --------------------------------------------------------------------------
 
-FSDP_REFUSED = (f"--fsdp: the port shards no parameter but the experts; FSDP waits "
-                f"for {sharding._UNPORTED_ITEM} (FSDP included)")
+FSDP_REFUSED = (f"--fsdp: the port shards no parameter by FSDP; FSDP is not ported "
+                f"({sharding._UNPORTED_ITEM})")
+RULES = {"batch": sharding.BATCH_RULES, "production": sharding.PRODUCTION_RULES}
 
 
 def _print(r):
@@ -560,6 +570,10 @@ def main(argv=None):
                     help="run every layer (no per-period probe)")
     ap.add_argument("--router", choices=["topk", "scd"])
     ap.add_argument("--fsdp", default=None, help="refused: " + FSDP_REFUSED)
+    ap.add_argument("--rules", choices=list(RULES), default="batch",
+                    help="the rules over a world of D > 1: the batch binding "
+                         "(sharding.BATCH_RULES) or the reference's production rules "
+                         "(sharding.PRODUCTION_RULES: tensor and sequence parallelism)")
     ap.add_argument("--batch", type=int, default=None, help="override the cell's global batch")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the arch to this many layers (a multiple of its pattern), "
@@ -580,7 +594,8 @@ def main(argv=None):
             for shape in M.SHAPES:
                 for world in WORLDS:
                     r = account_cell(arch, shape, world, probe=not args.no_probe,
-                                     router=args.router, batch=args.batch)
+                                     router=args.router, batch=args.batch,
+                                     rules=RULES[args.rules])
                     _print(r)
                     results.append(r)
     else:
@@ -590,7 +605,8 @@ def main(argv=None):
         if args.layers:
             cfg = cfg.replace(n_layers=args.layers)
         r = account_cell(args.arch, args.shape, args.world, probe=not args.no_probe,
-                         router=args.router, batch=args.batch, cfg=cfg)
+                         router=args.router, batch=args.batch, cfg=cfg,
+                         rules=RULES[args.rules])
         _print(r)
         results.append(r)
     if args.out:

@@ -15,13 +15,36 @@ the same chunked softmax (v padded to the q/k head dim, sliced after).
 Decode uses the absorbed form: scores and values go through the
 compressed cache directly, so a token's cache is ``kv_lora + rope_hd``
 values whatever the head count.
+
+Over a world of ranks under tensor and sequence parallelism
+(``models/sharding.py``; GQA, MQA and MHA only):
+
+* :func:`attention` takes this rank's block of the sequence where "seq"
+  splits it and all-gathers the sequence on entry. Where "heads" (or
+  "kv_heads") splits the heads, the rank runs its q heads against the KV
+  heads they read (``wk``/``wv`` whole where the KV heads do not split),
+  with RoPE at global positions and the causal softmax over the whole
+  sequence, and its row-parallel ``wo`` partial is reduce-scattered to its
+  sequence block (folded whole without "seq"). Without split heads the
+  rank runs every head for its own positions' queries;
+* the decode cache holds this rank's KV heads where "kv_heads" splits
+  them, else its block of the positions where "kv_seq" does
+  (:func:`kv_split`). :func:`decode_attention` runs the rank's heads
+  against its cache heads and folds the ``wo`` partials; over a block of
+  positions it runs flash-decoding: only the rank that owns ``pos``
+  writes the step's k and v, q is gathered over the heads, each rank
+  gives each head's partial maximum, sum of weights and weighted values
+  over its positions, and the partials are combined under the exact
+  maximum (``Mesh.amax``) and folded in rank order. A rank whose positions
+  are all still empty gives a zero sum and no maximum.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .layers import init_rms, rms_norm, rope, truncnorm
+from . import sharding
+from .layers import init_rms, rank_block, rms_norm, rope, truncnorm
 
 NEG_INF = -2.0 ** 30
 
@@ -54,11 +77,63 @@ def _out(o, w):
 
 
 def _qkv(p, cfg, x, positions):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    return (_q(p, cfg, x, positions, p["wq"]),
+            *_kv(p, cfg, x, positions, p["wk"], p["wv"]))
+
+
+def _q(p, cfg, x, positions, wq):
+    q = _proj(x, wq)
     if cfg.qk_norm:
         q = rms_norm(p["qnorm"], q, cfg.norm_eps)
+    return rope(q, positions, cfg.rope_theta)
+
+
+def _kv(p, cfg, x, positions, wk, wv):
+    k = _proj(x, wk)
+    if cfg.qk_norm:
         k = rms_norm(p["knorm"], k, cfg.norm_eps)
-    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+    return rope(k, positions, cfg.rope_theta), _proj(x, wv)
+
+
+def rank_heads(cfg):
+    """``(q_lo, q_hi, kv_lo, kv_hi)``: the q heads this rank runs and the
+    KV heads they read, where the rules split the heads over the world
+    ("kv_heads" where D divides the KV heads, else "heads" where D divides
+    the q heads); None otherwise."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    rep = h // kv
+    block = sharding.kv_head_range(kv)
+    if block is not None:
+        return block[0] * rep, block[1] * rep, block[0], block[1]
+    block = sharding.head_range(h)
+    if block is None:
+        return None
+    lo, hi = block
+    return lo, hi, lo // rep, (hi - 1) // rep + 1
+
+
+def _rank_weights(p, cfg, heads, kv_whole=False):
+    """(wq, wk, wv, wo) of this rank's heads (the KV heads all of them with
+    ``kv_whole``)."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    ql, qh, kl, kh = heads
+    wk, wv = p["wk"], p["wv"]
+    if not kv_whole:
+        wk, wv = rank_block(wk, 1, (kl, kh), kv), rank_block(wv, 1, (kl, kh), kv)
+    return (rank_block(p["wq"], 1, (ql, qh), h), wk, wv,
+            rank_block(p["wo"], 0, (ql, qh), h))
+
+
+def _grouped(k, cfg, heads):
+    """The KV heads ``k`` (..., KV_r, hd) that this rank's q heads read, so
+    that q head i reads KV head i // (H_r / KV_r): as they are where the
+    rank's heads fill whole groups or sit in one, else one per q head."""
+    ql, qh, kl, kh = heads
+    rep = cfg.n_heads // cfg.n_kv_heads
+    if (kh - kl) * rep == qh - ql or kh - kl == 1:
+        return k
+    idx = torch.arange(ql, qh, device=k.device) // rep - kl
+    return k.index_select(-2, idx)
 
 
 def _pick(s, c):
@@ -117,7 +192,14 @@ def attention(p, cfg, x, positions, causal=True, kv=None, kv_pos=None):
 
     kv: an optional (B, S_enc, D) encoder memory to attend to (cross
     attention, ``kv_pos`` its positions): no RoPE on q or k, ``qk_norm``
-    where the config has it."""
+    where the config has it.
+
+    Over a world under tensor and sequence parallelism, ``positions`` are
+    the whole sequence's and ``x`` is this rank's block of it where "seq"
+    splits it; the output is the same block (module docstring)."""
+    mesh = sharding.get_mesh()
+    if kv is None and mesh is not None and mesh.size > 1:
+        return _attention_world(p, cfg, x, positions)
     if kv is None:
         q, k, v = _qkv(p, cfg, x, positions)
         kv_pos = positions
@@ -131,18 +213,90 @@ def attention(p, cfg, x, positions, causal=True, kv=None, kv_pos=None):
     return _out(out, p["wo"])
 
 
+def _attention_world(p, cfg, x, positions):
+    """:func:`attention` (causal self-attention) over the rules' world."""
+    mesh = sharding.get_mesh()
+    seq = sharding.seq_range(len(positions))
+    xf = x if seq is None else mesh.all_gather(x, 1)
+    heads = rank_heads(cfg)
+    if heads is None:
+        # every head, for this rank's positions' queries
+        q_pos = positions if seq is None else positions[seq[0]:seq[1]]
+        q = _q(p, cfg, x, q_pos, p["wq"])
+        k, v = _kv(p, cfg, xf, positions, p["wk"], p["wv"])
+        out = _chunked_attention(q, k, v, q_pos, positions, cfg.attn_chunk, True,
+                                 cfg.window)
+        return _out(out, p["wo"])
+    wq, wk, wv, wo = _rank_weights(p, cfg, heads)
+    q = _q(p, cfg, xf, positions, wq)
+    k, v = _kv(p, cfg, xf, positions, wk, wv)
+    out = _chunked_attention(q, _grouped(k, cfg, heads), _grouped(v, cfg, heads),
+                             positions, positions, cfg.attn_chunk, True, cfg.window)
+    part = _out(out, wo)                                   # (B, S, D) partial
+    return sharding.world_sum(part) if seq is None else mesh.reduce_scatter(part, 1)
+
+
 # --- decode ------------------------------------------------------------------
 
+def kv_split(cfg, seq_len):
+    """How this rank's KV cache of ``seq_len`` positions is cut over the
+    rules' world: ``("heads", lo, hi)`` its KV heads where "kv_heads"
+    splits them, else ``("seq", lo, hi)`` its positions where "kv_seq" is
+    on a world of D > 1 (D must divide ``seq_len``), else None (whole). The
+    reference decides between the two by a constant ``model_size`` of 16
+    (``cache_specs``); the port by the world's size."""
+    block = sharding.kv_head_range(cfg.n_kv_heads)
+    if block is not None:
+        return ("heads", *block)
+    mesh = sharding.get_mesh()
+    if mesh is None or mesh.size == 1 or not sharding.on_world("kv_seq"):
+        return None
+    if seq_len % mesh.size:
+        raise ValueError(f"a cache of {seq_len} positions does not split over "
+                         f"{mesh.size} ranks ('kv_seq' on the world)")
+    n = seq_len // mesh.size
+    return ("seq", mesh.rank * n, (mesh.rank + 1) * n)
+
+
 def init_kv_cache(cfg, batch, seq_len, dtype, device, periods=None):
-    shape = (batch, seq_len, cfg.n_kv_heads, cfg.hd)
+    """Zero k and v caches (B, S, KV, hd), this rank's block of them over a
+    world (:func:`kv_split`)."""
+    s, kv = seq_len, cfg.n_kv_heads
+    split = kv_split(cfg, seq_len)
+    if split is not None:
+        n = split[2] - split[1]
+        s, kv = (s, n) if split[0] == "heads" else (n, kv)
+    shape = (batch, s, kv, cfg.hd)
     full = shape if periods is None else (periods, *shape)
     return {"k": torch.zeros(full, dtype=dtype, device=device),
             "v": torch.zeros(full, dtype=dtype, device=device)}
 
 
+def _attend(q, k, v, kv_pos, pos, window):
+    """One query against the cache: q (B, G, R, hd), k and v (B, S, G, hd);
+    the softmax over the positions ``kv_pos <= pos`` (and the window)."""
+    hd = q.shape[-1]
+    s_ = (q @ k.permute(0, 2, 3, 1)) * hd ** -0.5          # (b, g, r, s)
+    mask = kv_pos <= pos
+    if window:
+        mask &= kv_pos > pos - window
+    w = torch.softmax(torch.where(mask, s_.float(), NEG_INF), dim=-1)
+    return w.to(v.dtype) @ v.permute(0, 2, 1, 3)          # (b, g, r, hd)
+
+
 def decode_attention(p, cfg, x, cache, pos):
     """One-token decode. x: (B, 1, D); pos: int, the cache index. Writes the
-    step's k and v into ``cache`` in place and returns (out, cache)."""
+    step's k and v into ``cache`` in place and returns (out, cache).
+
+    Over a world, ``cache`` is this rank's (:func:`kv_split`) and x the
+    same on every rank (module docstring)."""
+    mesh = sharding.get_mesh()
+    if mesh is not None and mesh.size > 1:
+        split = kv_split(cfg, cache["k"].shape[-3] * mesh.size)
+        if split is not None and split[0] == "seq":
+            return _decode_flash(p, cfg, x, cache, pos)
+        if rank_heads(cfg) is not None:
+            return _decode_heads(p, cfg, x, cache, pos, split)
     positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(p, cfg, x, positions)                   # (B, 1, H, hd)
     cache["k"][:, pos] = k[:, 0]
@@ -150,15 +304,76 @@ def decode_attention(p, cfg, x, cache, pos):
     b, s, kvh, hd = cache["k"].shape
     rep = cfg.n_heads // kvh
     qg = q.reshape(b, kvh, rep, hd)
-    s_ = (qg @ cache["k"].permute(0, 2, 3, 1)) * hd ** -0.5  # (b, g, r, s)
-    kv_pos = torch.arange(s, device=x.device)
-    mask = kv_pos <= pos
-    if cfg.window:
-        mask &= kv_pos > pos - cfg.window
-    s_ = torch.where(mask, s_.float(), NEG_INF)
-    w = torch.softmax(s_, dim=-1)
-    o = w.to(cache["v"].dtype) @ cache["v"].permute(0, 2, 1, 3)  # (b, g, r, hd)
+    o = _attend(qg, cache["k"], cache["v"], torch.arange(s, device=x.device), pos,
+                cfg.window)
     return _out(o.reshape(b, 1, cfg.n_heads, hd), p["wo"]), cache
+
+
+def _decode_heads(p, cfg, x, cache, pos, split):
+    """Decode over the world with the heads split: this rank's q heads
+    against the KV heads they read, from its cache heads (``split``) or a
+    whole cache that every rank writes; the ``wo`` partials folded."""
+    heads = rank_heads(cfg)
+    positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+    wq, wk, wv, wo = _rank_weights(p, cfg, heads, kv_whole=split is None)
+    q = _q(p, cfg, x, positions, wq)                       # (B, 1, H_r, hd)
+    k, v = _kv(p, cfg, x, positions, wk, wv)
+    cache["k"][:, pos] = k[:, 0]
+    cache["v"][:, pos] = v[:, 0]
+    ck, cv = cache["k"], cache["v"]
+    if split is None:                                       # whole: the heads read
+        ck, cv = ck[:, :, heads[2]:heads[3]], cv[:, :, heads[2]:heads[3]]
+    ck, cv = _grouped(ck, cfg, heads), _grouped(cv, cfg, heads)
+    b, s, g, hd = ck.shape
+    h_r = heads[1] - heads[0]
+    o = _attend(q.reshape(b, g, h_r // g, hd), ck, cv, torch.arange(s, device=x.device),
+                pos, cfg.window)
+    return sharding.world_sum(_out(o.reshape(b, 1, h_r, hd), wo)), cache
+
+
+def _decode_flash(p, cfg, x, cache, pos):
+    """Decode over the world with the cache split by positions (module
+    docstring: flash-decoding, its partials folded in rank order)."""
+    mesh = sharding.get_mesh()
+    heads = rank_heads(cfg)
+    b, s_r, g, hd = cache["k"].shape
+    lo = mesh.rank * s_r
+    positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+    if lo <= pos < lo + s_r:                                # this rank owns pos
+        k, v = _kv(p, cfg, x, positions, p["wk"], p["wv"])
+        cache["k"][:, pos - lo] = k[:, 0]
+        cache["v"][:, pos - lo] = v[:, 0]
+    h = cfg.n_heads
+    if heads is None:
+        q = _q(p, cfg, x, positions, p["wq"])               # (B, 1, H, hd)
+    else:
+        q = mesh.all_gather(_q(p, cfg, x, positions, rank_block(p["wq"], 1, heads[:2], h)),
+                            2)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    if lo <= pos and not (cfg.window and lo + s_r - 1 <= pos - cfg.window):
+        kv_pos = lo + torch.arange(s_r, device=x.device)
+        mask = kv_pos <= pos
+        if cfg.window:
+            mask &= kv_pos > pos - cfg.window
+        s_ = (q.reshape(b, g, h // g, hd) @ cache["k"].permute(0, 2, 3, 1)) * hd ** -0.5
+        s_ = torch.where(mask, s_.float(), float("-inf"))
+        m_r = s_.amax(-1)                                   # (b, g, r)
+        w = torch.exp(s_ - m_r[..., None])                  # masked: exactly 0
+        l_r = w.sum(-1)
+        o_r = (w.to(cache["v"].dtype) @ cache["v"].permute(0, 2, 1, 3)).float()
+    else:                                                   # no position yet
+        m_r = torch.full((b, g, h // g), float("-inf"), **f32)
+        l_r = torch.zeros((b, g, h // g), **f32)
+        o_r = torch.zeros((b, g, h // g, hd), **f32)
+    m = mesh.amax(m_r).to(x.device)                         # finite: the owner's
+    scale = torch.where(torch.isinf(m_r), 0.0, torch.exp(m_r - m))
+    l_r, o_r = (l_r * scale).reshape(b, h), (o_r * scale[..., None]).reshape(b, h, hd)
+    if heads is None:
+        o = sharding.world_sum(o_r) / sharding.world_sum(l_r)[..., None]
+        return _out(o.to(x.dtype)[:, None], p["wo"]), cache
+    o = mesh.reduce_scatter(o_r, 1) / mesh.reduce_scatter(l_r, 1)[..., None]
+    wo = rank_block(p["wo"], 0, heads[:2], h)
+    return sharding.world_sum(_out(o.to(x.dtype)[:, None], wo)), cache
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,18 @@ Mixers: ``attn`` (GQA/MQA), ``mla`` (an ``attn`` slot of a config with
 and ``none``. The same block code serves prefill and training (full
 sequence) and decode (one token against the block's cache, updated in
 place).
+
+Over a world under tensor and sequence parallelism the residual stream of
+a prefill stays split by sequence between blocks where "seq" splits it
+(Megatron-style): the attention and a dense FFN split by "ffn" all-gather
+it on entry and reduce-scatter their row-parallel partials back to the
+rank's block (without "seq" they fold them whole); the MoE routes the
+rank's block through its all-to-all path. A decode step's x is the same
+on every rank, and the partials are folded whole.
 """
 from __future__ import annotations
 
+from . import sharding
 from .attention import (attention, decode_attention, decode_mla, init_attn,
                         init_kv_cache, init_mla, init_mla_cache, mla_attention)
 from .layers import init_mlp, init_rms, mlp, rms_norm
@@ -44,21 +53,39 @@ def init_block(gen, cfg, slot: str, ffn: str, device, periods=None):
     return p
 
 
-def _apply_ffn(p, cfg, x, ffn, decode=False):
+def _dense(p, cfg, h, d_ff, seq_split):
+    """A dense FFN of ``d_ff`` columns; over a world where "ffn" splits
+    them, column- then row-parallel, its partials reduce-scattered to the
+    rank's sequence block (``seq_split``) or folded whole."""
+    cols = sharding.ffn_range(d_ff)
+    if cols is None:
+        return mlp(p, h, cfg.act)
+    mesh = sharding.get_mesh()
+    part = mlp(p, mesh.all_gather(h, 1) if seq_split else h, cfg.act, cols=(*cols, d_ff))
+    return mesh.reduce_scatter(part, 1) if seq_split else sharding.world_sum(part)
+
+
+def _apply_ffn(p, cfg, x, ffn, decode=False, seq_split=False):
     if ffn == "none":
         return x
     h = rms_norm(p["norm2"], x, cfg.norm_eps)
     if ffn == "dense":
-        out = mlp(p["ffn"], h, cfg.act)
+        out = _dense(p["ffn"], cfg, h, cfg.d_ff, seq_split)
     else:
-        out = (moe_decode if decode else moe_train)(p["ffn"], cfg, h, cfg.act)
+        if decode:
+            out = moe_decode(p["ffn"], cfg, h, cfg.act)
+        else:
+            out = moe_train(p["ffn"], cfg, h, cfg.act, replicated=not seq_split and (
+                sharding.get_mesh() is not None and not sharding.on_world("batch")))
         if "shared" in p:
-            out = out + mlp(p["shared"], h, cfg.act)
+            out = out + _dense(p["shared"], cfg, h, cfg.moe.n_shared * cfg.moe.d_ff,
+                               seq_split)
     return x + out
 
 
 def block_apply(p, cfg, x, positions, slot: str, ffn: str):
-    """Full-sequence block (prefill, training)."""
+    """Full-sequence block (prefill, training). Over a world, ``x`` is this
+    rank's block of the sequence where "seq" splits ``positions``."""
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
     kind = mixer_kind(cfg, slot)
     if kind == "attn":
@@ -67,7 +94,8 @@ def block_apply(p, cfg, x, positions, slot: str, ffn: str):
         mx = mla_attention(p["mixer"], cfg, h, positions)
     else:
         mx = mamba_mixer(p["mixer"], cfg, h)
-    return _apply_ffn(p, cfg, x + mx, ffn)
+    return _apply_ffn(p, cfg, x + mx, ffn,
+                      seq_split=sharding.seq_range(len(positions)) is not None)
 
 
 def init_block_cache(cfg, slot: str, batch, seq_len, dtype, device, periods=None):

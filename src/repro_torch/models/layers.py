@@ -7,11 +7,20 @@ over the periods of a layer pattern (the reference's ``vmap``'d init) in
 its stored dtype at once, drawing one period at a time. On the ``meta``
 device they draw nothing: the tree's shapes and dtypes without memory (the
 reference's ``jax.eval_shape`` of its init).
+
+Over a world of ranks under tensor parallelism (``models/sharding.py``):
+:func:`embed` and :func:`unembed` are vocab-parallel where given the
+table's global row count (each rank's rows of ``e``), and :func:`mlp` is
+column-parallel in ``wi`` and row-parallel in ``wo`` where given its
+columns; the leaves may be whole or already cut to the rank's block
+(:func:`rank_block`). The callers combine the partial results.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from . import sharding
 
 
 def _stacked(shape, dtype, device, periods):
@@ -100,11 +109,32 @@ def activation(gate, act):
     return F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
 
 
-def mlp(p, x, act="silu"):
-    d, _, f = p["wi"].shape
-    h = (x @ p["wi"].reshape(d, 2 * f).to(x.dtype)).unflatten(-1, (2, f))
+def rank_block(w, dim, block, full):
+    """``w``'s block ``(lo, hi)`` along ``dim``: ``w`` itself where it is
+    already cut to it (``model.shard_params``), its slice where it is whole
+    (``full`` long there)."""
+    lo, hi = block
+    if w.shape[dim] == full and hi - lo != full:
+        return w.narrow(dim, lo, hi - lo)
+    if w.shape[dim] != hi - lo:
+        raise ValueError(f"a leaf of {tuple(w.shape)} is neither whole ({full}) nor "
+                         f"this rank's block {block} along dim {dim}")
+    return w
+
+
+def mlp(p, x, act="silu", cols=None):
+    """Gated MLP. ``cols``: ``(lo, hi, f)``, this rank's block of the ``f``
+    hidden columns: ``wi``'s columns and ``wo``'s rows of it, whose product
+    is this rank's partial of the output (summed over the ranks by the
+    caller)."""
+    wi, wo = p["wi"], p["wo"]
+    if cols is not None:
+        lo, hi, full = cols
+        wi, wo = rank_block(wi, 2, (lo, hi), full), rank_block(wo, 0, (lo, hi), full)
+    d, _, f = wi.shape
+    h = (x @ wi.reshape(d, 2 * f).to(x.dtype)).unflatten(-1, (2, f))
     g = activation(h[..., 0, :], act)
-    return (g * h[..., 1, :]) @ p["wo"].to(x.dtype)
+    return (g * h[..., 1, :]) @ wo.to(x.dtype)
 
 
 # --- embeddings --------------------------------------------------------------
@@ -113,13 +143,34 @@ def init_embed(gen, vocab, d, dtype, device):
     return {"e": truncnorm(gen, (vocab, d), dtype, 1.0, device)}
 
 
-def embed(p, tokens, dtype):
-    # Index, then cast: the same values as the reference's cast-then-index,
-    # without a table-sized copy per call.
-    return p["e"][tokens].to(dtype)
+def embed(p, tokens, dtype, vocab=None):
+    """The rows of ``e`` for ``tokens``, cast to ``dtype``. With ``vocab``
+    (the table's global rows) where the rules split the vocab over the
+    world: this rank's rows only, exact zeros for the tokens outside them,
+    a partial that the caller sums over the ranks (one rank adds each
+    row, every other an exact zero)."""
+    e = p["e"]
+    block = None if vocab is None else sharding.vocab_range(vocab)
+    if block is None:
+        # Index, then cast: the same values as the reference's
+        # cast-then-index, without a table-sized copy per call.
+        return e[tokens].to(dtype)
+    e = rank_block(e, 0, block, vocab)
+    local = tokens - block[0]
+    inside = (local >= 0) & (local < e.shape[0])
+    rows = e[local.clamp(0, e.shape[0] - 1)].to(dtype)
+    return torch.where(inside[..., None], rows, torch.zeros((), dtype=dtype,
+                                                            device=rows.device))
 
 
-def unembed(p, x):
-    # d^-0.5 keeps logits O(1) at init for both tied and untied heads
+def unembed(p, x, vocab=None):
+    """Logits ``x @ e.T`` times d^-0.5 (which keeps logits O(1) at init for
+    both tied and untied heads). With ``vocab`` where the rules split the
+    vocab over the world: this rank's columns, then every rank's joined in
+    rank order (``Mesh.all_gather``), the same bits on every rank."""
     d = x.shape[-1]
-    return (x @ p["e"].to(x.dtype).T) * d ** -0.5
+    block = None if vocab is None else sharding.vocab_range(vocab)
+    if block is None:
+        return (x @ p["e"].to(x.dtype).T) * d ** -0.5
+    e = rank_block(p["e"], 0, block, vocab)
+    return sharding.get_mesh().all_gather((x @ e.to(x.dtype).T) * d ** -0.5, -1)

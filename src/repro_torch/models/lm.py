@@ -25,6 +25,16 @@ backward (the reference scans the chunks with ``lax.scan``).
 Multimodal stubs: "vision" models take precomputed patch embeddings
 concatenated in front of the token embeddings (``extra_embeds``); the loss
 is masked to text positions.
+
+Over a world under tensor and sequence parallelism (``models/sharding.py``)
+:func:`forward` returns this rank's block of the sequence where "seq"
+splits it (the embeddings summed over the vocab's ranks and
+reduce-scattered to the block, the final norm on the block),
+:func:`prefill_logits` takes the last position from the last rank's block
+and gathers the vocab's columns, so every rank returns the same (B, V)
+bits, and :func:`decode_step` runs x the same on every rank (the
+reference's ``constrain(x, "batch", None, None)``); :func:`init_cache`
+allocates this rank's block of each KV cache (``attention.kv_split``).
 """
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .blocks import block_apply, block_decode, init_block, init_block_cache
-from .layers import embed, init_embed, init_rms, rms_norm, unembed
+from .layers import embed, init_embed, init_rms, rank_block, rms_norm, unembed
 from . import sharding
 from .moe import uncounted
 
@@ -125,13 +135,33 @@ def remat(fn, cfg):
     return fn
 
 
+def _embedded(params, cfg, tokens, extra_embeds):
+    """The embeddings (B, S_total, D), patches first; over a world, this
+    rank's block of the sequence where "seq" splits it. Where "vocab"
+    splits the table each rank's lookup is a partial (zeros outside its
+    rows; rank 0's carries the patches), and the partials' sum is exact:
+    one term of each is not zero."""
+    x = embed(params["embed"], tokens, cfg.dtype, vocab=cfg.vocab)
+    by_vocab = sharding.vocab_range(cfg.vocab) is not None
+    if extra_embeds is not None:
+        pre = extra_embeds.to(cfg.dtype)
+        if by_vocab and sharding.get_mesh().rank:
+            pre = torch.zeros_like(pre)
+        x = torch.cat([pre, x], dim=1)
+    seq = sharding.seq_range(x.shape[1])
+    if by_vocab:
+        return (sharding.world_sum(x) if seq is None
+                else sharding.get_mesh().reduce_scatter(x, 1))
+    return x if seq is None else x[:, seq[0]:seq[1]]
+
+
 def forward(params, cfg, tokens, extra_embeds=None):
     """Hidden states (B, S_total, D). extra_embeds: (B, P, D) modality stub
-    prepended before the token embeddings."""
-    x = embed(params["embed"], tokens, cfg.dtype)
-    if extra_embeds is not None:
-        x = torch.cat([extra_embeds.to(cfg.dtype), x], dim=1)
-    positions = torch.arange(x.shape[1], device=x.device)
+    prepended before the token embeddings. Over a world, this rank's block
+    of the sequence where "seq" splits it."""
+    x = _embedded(params, cfg, tokens, extra_embeds)
+    s = tokens.shape[1] + (0 if extra_embeds is None else extra_embeds.shape[1])
+    positions = torch.arange(s, device=x.device)
     block = remat(block_apply, cfg)
     if params.get("block0") is not None:
         cfg0 = cfg.replace(d_ff=cfg.first_dense_ff or cfg.d_ff)
@@ -146,6 +176,23 @@ def forward(params, cfg, tokens, extra_embeds=None):
 
 def head_params(params):
     return params.get("head", params["embed"])
+
+
+def prefill_logits(params, cfg, h, seq_len):
+    """(B, V) logits of the last position of ``h`` (:func:`forward`'s, of a
+    sequence of ``seq_len``). Over a world the last position is the last
+    rank's where "seq" splits the sequence, and each rank's block of the
+    vocab's columns is joined in rank order: every rank returns the same
+    bits."""
+    mesh = sharding.get_mesh()
+    last = h[:, -1]
+    if sharding.seq_range(seq_len) is not None:
+        last = mesh.all_gather(h[:, -1:], 1)[:, -1]
+    e = head_params(params)["e"]
+    block = sharding.vocab_range(cfg.vocab)
+    if block is None:
+        return last @ e.to(last.dtype).T
+    return mesh.all_gather(last @ rank_block(e, 0, block, cfg.vocab).to(last.dtype).T, -1)
 
 
 def _chunk_nll(e, h, targets, mask, softcap):
@@ -208,7 +255,8 @@ def lm_loss(params, cfg, tokens, targets, mask=None, extra_embeds=None):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch, seq_len, device, dtype=None):
-    """Per-layer caches, stacked per slot like the params."""
+    """Per-layer caches, stacked per slot like the params; over a world,
+    this rank's block of each KV cache (``attention.kv_split``)."""
     dtype = dtype or cfg.dtype
     caches = {"slots": [init_block_cache(cfg, s, batch, seq_len, dtype, device,
                                          periods=cfg.n_periods)
@@ -222,7 +270,9 @@ def init_cache(cfg, batch, seq_len, device, dtype=None):
 def decode_step(params, cfg, caches, token, pos):
     """One decode step. token: (B, 1) int; pos: int cache index.
     Returns (logits (B, 1, V), caches), the caches updated in place."""
-    x = embed(params["embed"], token, cfg.dtype)
+    x = embed(params["embed"], token, cfg.dtype, vocab=cfg.vocab)
+    if sharding.vocab_range(cfg.vocab) is not None:
+        x = sharding.world_sum(x)
     if caches.get("block0") is not None:
         cfg0 = cfg.replace(d_ff=cfg.first_dense_ff or cfg.d_ff)
         x, _ = block_decode(params["block0"], cfg0, x, caches["block0"], pos,
@@ -233,7 +283,7 @@ def decode_step(params, cfg, caches, token, pos):
         for i, (slot, ffn) in enumerate(zip(cfg.pattern, ffns)):
             x, _ = block_decode(slot_params[i], cfg, x, slot_caches[i], pos, slot, ffn)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(head_params(params), x)
+    logits = unembed(head_params(params), x, vocab=cfg.vocab)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits, caches

@@ -26,16 +26,22 @@ each leaf, the dim that the rules in effect split over the world, or
 None (:func:`sanitize` drops a split that does not divide).
 
 Over a world of ranks, every rank runs the same steps under
-``sharding.set_rules(rules, mesh=)`` with "batch" and "experts" bound to
-the world: each rank draws (or carries) the whole tree, keeps its experts
-(``sharding.shard_experts``), and gives the steps and ``init_cache`` the
-global batch, of which it takes its ``B / D`` rows; the steps return the
-logits of those rows, and ``init_cache`` builds caches of them. The
-train step runs there too (:func:`loss_and_grads`: the rank's rows, the
-backward through the all-to-all, the replicated leaves' gradients folded
-in rank order; ``optim.apply_updates(mesh=)``: the global norm). Bindings
-the port has not implemented raise ``NotImplementedError``
-(``sharding.check_step_rules``).
+``sharding.set_rules(rules, mesh=)`` and gives them and ``init_cache`` the
+global batch. Under the batch binding ("batch" and "experts" bound to the
+world, ``sharding.BATCH_RULES``) each rank draws (or carries) the whole
+tree, keeps its experts (``sharding.shard_experts``) and takes its
+``B / D`` rows; the steps return the logits of those rows, and
+``init_cache`` builds caches of them. The train step runs there too
+(:func:`loss_and_grads`: the rank's rows, the backward through the
+all-to-all, the replicated leaves' gradients folded in rank order;
+``optim.apply_updates(mesh=)``: the global norm). Under the reference's
+production rules (``sharding.PRODUCTION_RULES``: tensor and sequence
+parallelism, "batch" off the world) each rank keeps its block of every
+leaf that :func:`param_specs` splits (:func:`shard_params`) and every rank
+runs every row: the prefill and decode steps of the attention LMs return
+the whole (B, V) logits, the same bits on every rank, and ``init_cache``
+builds the rank's block of each KV cache. What the port has not
+implemented raises ``NotImplementedError`` (``sharding.check_step_rules``).
 """
 from __future__ import annotations
 
@@ -115,8 +121,7 @@ def _text_len(cfg, seq_len):
 def _rank_rows(a):
     """This rank's rows of ``a`` (a tensor or range whose first axis is the
     global batch) where the rules bind "batch" to the world; ``a``
-    otherwise."""
-    sharding.check_step_rules()
+    otherwise (under the production rules every rank runs every row)."""
     mesh = sharding.get_mesh()
     if a is None or mesh is None or not sharding.on_world("batch"):
         return a
@@ -139,15 +144,16 @@ def loss_fn(params, cfg, batch):
     return lm.mean_nll(*_nll(params, cfg, batch))
 
 
-def _world_of_training():
+def _world_of_training(cfg):
     """The rules' ``Mesh`` when a step trains over a world, else None. A
     world trains under the batch binding only (``sharding.BATCH_RULES``):
-    the bindings of ``sharding.UNPORTED`` raise ``NotImplementedError``,
-    and "batch" and "experts" must be bound to the world."""
+    a name of ``sharding.TP_NAMES`` on the world raises
+    ``NotImplementedError``, and "batch" and "experts" must be bound to
+    the world."""
     mesh = sharding.get_mesh()
     if mesh is None:
         return None
-    sharding.check_step_rules()
+    sharding.check_step_rules(cfg, "train")
     if not (sharding.on_world("batch") and sharding.on_world("experts")):
         raise ValueError("a train step over a world runs under the batch binding: "
                          "'batch' and 'experts' bound to the world "
@@ -170,7 +176,7 @@ def loss_and_grads(params, cfg, batch):
     replicated leaf's gradient is the ranks' gathered, folded in rank order
     in float32 and rounded once to the leaf's dtype (never a float
     ``all_reduce``), leaf by leaf; an expert leaf's stays the rank's."""
-    mesh = _world_of_training()
+    mesh = _world_of_training(cfg)
     leaves = lm.tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -217,14 +223,16 @@ def make_prefill_step(cfg: ModelConfig):
     teacher-forced over the tokens)."""
 
     def prefill_step(params, batch):
+        sharding.check_step_rules(cfg, "prefill")
         batch = {k: _rank_rows(v) for k, v in batch.items()}
         if cfg.kind == "encdec":
             memory = ed.encode(params, cfg, batch["frames"])
             h = ed.decode_train(params, cfg, batch["tokens"], memory)
-        else:
-            h = lm.forward(params, cfg, batch["tokens"],
-                           extra_embeds=batch.get("patches"))
-        return h[:, -1] @ lm.head_params(params)["e"].to(h.dtype).T
+            return h[:, -1] @ lm.head_params(params)["e"].to(h.dtype).T
+        patches = batch.get("patches")
+        h = lm.forward(params, cfg, batch["tokens"], extra_embeds=patches)
+        seq = batch["tokens"].shape[1] + (0 if patches is None else patches.shape[1])
+        return lm.prefill_logits(params, cfg, h, seq)
     return prefill_step
 
 
@@ -232,6 +240,7 @@ def make_decode_step(cfg: ModelConfig):
     """decode_step(params, caches, token, pos) -> (logits (B, 1, V), caches)."""
 
     def decode_step(params, caches, token, pos):
+        sharding.check_step_rules(cfg, "decode")
         token = _rank_rows(token)
         if cfg.kind == "encdec":
             return ed.encdec_decode_step(params, cfg, caches, token, pos)
@@ -283,8 +292,9 @@ def input_specs(cfg: ModelConfig, cell: ShapeCell, params=None):
 
 def production_rules(multi_pod: bool, fsdp_mode: str = "full"):
     """The reference's production rule dicts (its 16 x 16 or 2 x 16 x 16
-    mesh), for the record. The port's world runs under
-    ``sharding.BATCH_RULES``; :func:`check_rules` refuses these."""
+    mesh). On the port's flat world, ``production_rules(False)`` is
+    ``sharding.PRODUCTION_RULES``: its prefill and decode steps run, its
+    train step is refused (:func:`check_rules`)."""
     batch = ("pod", "data") if multi_pod else ("data",)
     rules = {"batch": batch, "seq": "model", "kv_seq": "model", "heads": "model",
              "kv_heads": "model", "ffn": "model", "experts": "model", "vocab": "model",
@@ -297,17 +307,13 @@ def production_rules(multi_pod: bool, fsdp_mode: str = "full"):
     return rules
 
 
-def check_rules(rules):
+def check_rules(rules, cfg=None, kind=None):
     """Raise ``NotImplementedError`` (as ``sharding.check_step_rules``) where
-    ``rules`` bind a name of ``sharding.UNPORTED`` or "fsdp" to the world."""
-    ax = lambda name: (rules or {}).get(name)  # noqa: E731
-    bound = [n for n in (*sharding.UNPORTED, "fsdp")
-             if sharding.WORLD in (ax(n) if isinstance(ax(n), tuple) else (ax(n),))]
-    if bound:
-        raise NotImplementedError(
-            f"the rules bind {bound} to the world ({sharding.WORLD!r}); the port "
-            f"runs a step over a world with 'batch' and 'experts' bound only: "
-            f"{sharding._UNPORTED_ITEM} (FSDP included) is not ported")
+    ``rules`` cannot run a ``kind`` step of ``cfg`` over the world
+    (``sharding.refusal``)."""
+    why = sharding.refusal(rules, cfg, kind)
+    if why:
+        raise NotImplementedError(why)
 
 
 def _world_size(logical):
@@ -324,14 +330,45 @@ def sanitize(dim, shape, size=None):
     return dim
 
 
+def _leaf_role(path, parent):
+    """(logical name, dim) of a parameter leaf's split by the reference's
+    ``_leaf_spec`` roles, the dim of the stored (stacked under "slots")
+    leaf; None: kept whole (the router, the norms). ``wk``/``wv`` are split
+    on their KV heads where D divides them and are otherwise kept whole:
+    the reference splits their head dim there, which moves its layout
+    only."""
+    key, lead = path[-1], 1 if path[0] == "slots" else 0
+    ax = sharding._expert_axis(parent, key)
+    if ax is not None:
+        return "experts", ax
+    if key == "e":
+        return "vocab", 0
+    if len(path) >= 2 and path[-2] == "mixer":
+        return {"wq": ("heads", lead + 1), "wk": ("kv_heads", lead + 1),
+                "wv": ("kv_heads", lead + 1), "wo": ("heads", lead)}.get(key)
+    if len(path) >= 2 and path[-2] in ("ffn", "shared"):
+        return {"wi": ("ffn", lead + 2), "wo": ("ffn", lead)}.get(key)
+    return None
+
+
 def param_specs(cfg: ModelConfig, params):
     """For each leaf of the whole parameter tree (``init``'s, same nesting),
-    the dim split over the world: the expert axis where the rules bind
-    "experts" to the world (``sharding.expert_axes``), else None."""
-    size = _world_size("experts")
-    return sharding.map_experts(lambda a, ax: sanitize(ax, a.shape, size), params)
-
-
+    the dim split over the world, or None: the expert axis where the rules
+    bind "experts" (``sharding.expert_axes``); under tensor parallelism the
+    heads of ``wq`` and the attention ``wo`` ("heads"), of ``wk``/``wv``
+    ("kv_heads"), the columns of a dense ``wi`` and rows of its ``wo``
+    ("ffn", shared experts too), the rows of the embed and head ``e``
+    ("vocab"); each where the world's size divides it (:func:`sanitize`)."""
+    def walk(t, path, parent):
+        if isinstance(t, dict):
+            return {k: walk(v, path + (k,), t) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, path + (i,), None) for i, v in enumerate(t)]
+        role = _leaf_role(path, parent or {})
+        if role is None or t is None or not sharding.on_world(role[0]):
+            return None
+        return sanitize(role[1], t.shape, _world_size(role[0]))
+    return walk(params, (), None)
 def opt_specs(cfg: ModelConfig, pspecs):
     """The optimizer state's specs: the moments split as the parameters."""
     from ..optim import OptState
@@ -346,7 +383,12 @@ def _batch_dim(path):
 
 def cache_specs(cfg: ModelConfig, cell: ShapeCell, caches):
     """For each leaf of the whole (global-batch) cache tree, the batch dim
-    where the rules bind "batch" to the world, else None."""
+    where the rules bind "batch" to the world; else for an attention
+    cache's k and v the KV-head dim or the position dim by
+    ``attention.kv_split`` (decided from the world's size, where the
+    reference decides from a constant ``model_size`` of 16, which moves
+    its layout only); else None."""
+    from .attention import kv_split
     size = _world_size("batch")
 
     def walk(t, path):
@@ -354,7 +396,11 @@ def cache_specs(cfg: ModelConfig, cell: ShapeCell, caches):
             return {k: walk(v, path + (k,)) for k, v in t.items()}
         if isinstance(t, list):
             return [walk(v, path + (i,)) for i, v in enumerate(t)]
-        return sanitize(_batch_dim(path), t.shape, size)
+        dim = _batch_dim(path)
+        if size > 1 or path[-1] not in ("k", "v"):
+            return sanitize(dim, t.shape, size)
+        split = kv_split(cfg, t.shape[dim + 1])
+        return None if split is None else dim + (2 if split[0] == "heads" else 1)
     return walk(caches, ())
 
 
@@ -382,10 +428,22 @@ def shardings(cfg: ModelConfig, cell: ShapeCell, params=None):
     return ps, (opt_specs(cfg, ps) if cell.kind == "train" else None), batch_specs(cfg, cell)
 
 
+def shard_params(cfg: ModelConfig, params, mesh):
+    """The parameter tree with each leaf that :func:`param_specs` splits
+    under the rules in effect cut to this rank's block and copied (so the
+    whole tree can be freed); every other leaf is the same tensor. Under
+    the batch binding it cuts what ``sharding.shard_experts`` cuts."""
+    return _cut(params, param_specs(cfg, params), mesh, copy=True)
+
+
 def cut(tree, specs, mesh):
     """This rank's block of each leaf of ``tree`` along its spec's dim (the
     ``rank``-th of ``size`` equal blocks), a view; a None spec keeps the
     leaf whole."""
+    return _cut(tree, specs, mesh)
+
+
+def _cut(tree, specs, mesh, copy=False):
     def walk(t, s):
         if isinstance(t, dict):
             return {k: walk(v, s[k]) for k, v in t.items()}
@@ -394,5 +452,6 @@ def cut(tree, specs, mesh):
         if s is None or t is None:
             return t
         step = t.shape[s] // mesh.size
-        return t.narrow(s, mesh.rank * step, step)
+        block = t.narrow(s, mesh.rank * step, step)
+        return block.clone() if copy else block
     return walk(tree, specs)

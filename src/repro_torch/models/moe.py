@@ -20,11 +20,18 @@ experts, ``sharding.shard_experts``):
   local expert over at most ``cap_e`` of the rows it received, and takes
   the results back. Pairs past either capacity are dropped (their output
   is zero); ``DROPPED`` counts them.
-* ``moe_decode`` gathers the step's tokens, routes them all (top-k, the
-  same on every rank), runs the rank's experts over every token, gathers
-  the ranks' partial outputs, folds them in rank order
-  (``bucketing.ordered_fold``) and keeps the rank's own rows: the dense
-  decode that the reference leaves to GSPMD over its expert-sharded axis.
+* ``moe_decode`` routes every token of the step (top-k, the same on
+  every rank), runs the rank's experts over every token, gathers the
+  ranks' partial outputs and folds them in rank order
+  (``bucketing.ordered_fold``): the dense decode that the reference
+  leaves to GSPMD over its expert-sharded axis. Where "batch" is on the
+  world each rank holds its own rows, so it gathers the step's tokens
+  first and keeps its rows of the sum; otherwise (the production rules)
+  every rank holds the same rows and keeps the whole sum.
+* ``moe_train`` with ``replicated`` (every rank holds the same tokens:
+  neither "batch" nor a split "seq" on the world) routes the rank's
+  block of the B x S tokens through the a2a path and all-gathers the
+  blocks, so the routing spans the tokens once, as the reference's does.
 
 Training runs through the a2a path as the reference's ``jax.grad`` runs
 through its shard_map body: the all-to-alls of the token rows and of the
@@ -155,22 +162,34 @@ def moe_decode(p, cfg, x, act="silu"):
     if mesh is None:
         return _moe(p, cfg, x, act, decode=True)
     b, s, d = x.shape
-    t = mesh.gather(x.reshape(b * s, d)).to(x.device).reshape(-1, d)
+    rows = sharding.on_world("batch")
+    t = x.reshape(b * s, d)
+    if rows:
+        t = mesh.gather(t).to(x.device).reshape(-1, d)
     combine, _ = _route(t.float() @ p["router"], cfg, decode=True)
     e_l = p["wi"].shape[0]
     part = _dense_experts(p, t, combine[:, mesh.rank * e_l:(mesh.rank + 1) * e_l],
                           act)
+    if not rows:
+        return sharding.world_sum(part).reshape(b, s, d)
     y = ordered_fold(mesh.gather(part).to(x.device))
     return y[mesh.rank * b * s:(mesh.rank + 1) * b * s].reshape(b, s, d)
 
 
-def moe_train(p, cfg, x, act="silu"):
+def moe_train(p, cfg, x, act="silu", replicated=False):
     """Prefill (and training) MoE. x: (B, S, D) -> (B, S, D): the
     reference's one-device path ``_moe_local``, or over a world its a2a
-    path, where x is this rank's tokens (cut by batch or by sequence)."""
+    path, where x is this rank's tokens (cut by batch or by sequence), or
+    with ``replicated`` the same tokens on every rank (module
+    docstring)."""
     mesh = _expert_world(p, cfg)
     if mesh is None:
         return _moe(p, cfg, x, act, decode=False)
+    b, s, d = x.shape
+    if replicated and mesh.size > 1 and (b * s) % mesh.size == 0:
+        n = b * s // mesh.size
+        t = x.reshape(1, b * s, d)[:, mesh.rank * n:(mesh.rank + 1) * n]
+        return mesh.all_gather(_moe_a2a(p, cfg, t, act, mesh), 1).reshape(b, s, d)
     return _moe_a2a(p, cfg, x, act, mesh)
 
 

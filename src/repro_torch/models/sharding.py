@@ -22,26 +22,46 @@ What runs over the world:
   replicated; training runs under :data:`BATCH_RULES` ("batch" and
   "experts" bound), and :func:`map_experts` / :func:`expert_axes` say
   which leaves of a tree (parameters, optimizer state, checkpoint) are
-  the rank's blocks of the experts.
+  the rank's blocks of the experts;
+* tensor and sequence parallelism, the names of :data:`TP_NAMES` -> world
+  (the prefill and decode steps of the attention LMs, under
+  :data:`PRODUCTION_RULES`, the reference's ``production_rules(False)``):
+  "heads" and "kv_heads" the attention heads (:func:`head_range`,
+  :func:`kv_head_range`), "ffn" the dense FFN's columns (:func:`ffn_range`),
+  "vocab" the embedding and head rows (:func:`vocab_range`), "seq" the
+  residual stream between blocks (:func:`seq_range`, Megatron-style), and
+  "kv_seq" the decode cache's positions where the KV heads do not split.
+  Each helper gives this rank's block, or None where the rules leave the
+  name off the world or D does not divide it (the reference's
+  ``sanitize`` drops such a split). ``models/model.param_specs`` lays the
+  parameters out by the same roles.
 
-The steps refuse the bindings the port has not implemented
-(:data:`UNPORTED`: tensor and sequence parallelism) with
-``NotImplementedError`` (:func:`check_step_rules`). Eager torch has nothing
-to constrain: :func:`constrain` returns its input, and :func:`spec` the
-tuple of bound names where the reference builds a ``PartitionSpec``.
+The steps refuse what the port has not implemented (:func:`refusal`,
+:func:`check_step_rules`: ``NotImplementedError`` naming
+:data:`_UNPORTED_ITEM`): a train step under a name of :data:`TP_NAMES` on
+the world, "fsdp" on the world, the MLA, Mamba2 and encoder-decoder archs
+under them, and "batch" on the world together with them (a 2-D world).
+Eager torch has nothing to constrain: :func:`constrain` returns its input,
+and :func:`spec` the tuple of bound names where the reference builds a
+``PartitionSpec``.
 """
 from __future__ import annotations
 
 import threading
 from typing import Optional
 
+import torch
+
+from ..core.bucketing import ordered_fold
 from ..core.mesh import check_mesh
 
-__all__ = ["DEFAULT_RULES", "WORLD", "UNPORTED", "set_rules", "get_rules",
+__all__ = ["DEFAULT_RULES", "WORLD", "TP_NAMES", "set_rules", "get_rules",
            "get_mesh", "spec", "constrain", "mesh_axis", "axis_size",
-           "on_world", "check_step_rules", "rank_rows",
+           "on_world", "binds", "refusal", "check_step_rules", "rank_rows",
            "expert_range", "shard_experts", "map_experts", "expert_axes",
-           "expert_blocks", "BATCH_RULES"]
+           "expert_blocks", "BATCH_RULES", "PRODUCTION_RULES", "head_range",
+           "kv_head_range", "ffn_range", "vocab_range", "seq_range",
+           "world_sum"]
 
 _state = threading.local()
 
@@ -62,16 +82,23 @@ DEFAULT_RULES = {
     None: None,
 }
 
-# The batch binding: "batch" and "experts" on the world, every name the
-# steps refuse over a world (UNPORTED) unbound. Training over a world runs
-# under it (``launch/train.py``).
+# The batch binding: "batch" and "experts" on the world, tensor and
+# sequence parallelism (TP_NAMES) unbound. Training over a world runs under
+# it (``launch/train.py``).
 BATCH_RULES = dict(DEFAULT_RULES, batch=WORLD, seq=None, kv_seq=None, heads=None,
                    kv_heads=None, ffn=None, vocab=None)
 
-# Bindings the steps refuse on the world.
-UNPORTED = ("seq", "kv_seq", "heads", "kv_heads", "ffn", "vocab")
-_UNPORTED_ITEM = ("ROADMAP A10, 'tensor and sequence parallelism over the "
-                  "world'")
+# The reference's production rules on one pod (``production_rules(False)``
+# of ``src/repro/models/model.py``): "batch" and "fsdp" on its "data" axis,
+# of size 1 in the port's flat world, every other name on the world.
+PRODUCTION_RULES = {"batch": ("data",), "seq": WORLD, "kv_seq": WORLD, "heads": WORLD,
+                    "kv_heads": WORLD, "ffn": WORLD, "experts": WORLD, "vocab": WORLD,
+                    "fsdp": "data", None: None}
+
+# Tensor and sequence parallelism: the prefill and decode steps of the
+# attention LMs run with these on the world.
+TP_NAMES = ("seq", "kv_seq", "heads", "kv_heads", "ffn", "vocab")
+_UNPORTED_ITEM = "ROADMAP A10 item 5, second part"
 
 
 def set_rules(rules: Optional[dict], mesh=None):
@@ -115,9 +142,8 @@ def mesh_axis(logical: str):
 
 
 def on_world(logical: str) -> bool:
-    """Whether the rules bind ``logical`` to the world axis."""
-    ax = mesh_axis(logical)
-    return WORLD in (ax if isinstance(ax, tuple) else (ax,))
+    """Whether the rules in effect bind ``logical`` to the world axis."""
+    return binds(get_rules(), logical)
 
 
 def axis_size(logical: str) -> int:
@@ -127,15 +153,47 @@ def axis_size(logical: str) -> int:
     return mesh.size if mesh is not None and on_world(logical) else 1
 
 
-def check_step_rules():
-    """Raise ``NotImplementedError`` where the rules bind a name of
-    :data:`UNPORTED` to the world."""
-    bound = [ax for ax in UNPORTED if on_world(ax)]
-    if bound:
-        raise NotImplementedError(
-            f"the rules bind {bound} to the world ({WORLD!r}); the port runs "
-            f"a step over a world with 'batch' and 'experts' bound only: "
-            f"{_UNPORTED_ITEM} is not ported")
+def binds(rules, name) -> bool:
+    """Whether ``rules`` (any dict, not only those in effect) bind ``name``
+    to the world."""
+    ax = (rules or {}).get(name)
+    return WORLD in (ax if isinstance(ax, tuple) else (ax,))
+
+
+def refusal(rules, cfg=None, kind=None):
+    """Why ``rules`` cannot run a step over the world, or None: "fsdp" on
+    the world (FSDP), "batch" on it together with a name of
+    :data:`TP_NAMES` (a 2-D world), and under a name of :data:`TP_NAMES` a
+    train step (``kind == "train"``) or an arch whose mixers this slice
+    does not cover (``cfg``: MLA, Mamba2, the encoder-decoder). Each names
+    :data:`_UNPORTED_ITEM`."""
+    if binds(rules, "fsdp"):
+        return (f"the rules bind 'fsdp' to the world ({WORLD!r}): FSDP is not ported "
+                f"({_UNPORTED_ITEM})")
+    tp = [n for n in TP_NAMES if binds(rules, n)]
+    if not tp:
+        return None
+    if binds(rules, "batch"):
+        return (f"the rules bind 'batch' and {tp} to the one world axis: a 2-D world "
+                f"(data x model) is not ported ({_UNPORTED_ITEM})")
+    if kind == "train":
+        return (f"a train step under {tp} on the world (training under tensor and "
+                f"sequence parallelism) is not ported ({_UNPORTED_ITEM})")
+    if cfg is not None:
+        what = ("the encoder-decoder" if cfg.kind == "encdec" else "MLA" if cfg.use_mla
+                else "Mamba2" if "mamba" in cfg.pattern else None)
+        if what:
+            return (f"{cfg.name}: {what} under {tp} on the world is not ported "
+                    f"({_UNPORTED_ITEM})")
+    return None
+
+
+def check_step_rules(cfg=None, kind=None):
+    """Raise ``NotImplementedError`` with :func:`refusal`'s reason where the
+    rules in effect refuse the step."""
+    why = refusal(get_rules(), cfg, kind)
+    if why:
+        raise NotImplementedError(why)
 
 
 def _block(n: int, mesh, what: str):
@@ -156,6 +214,52 @@ def expert_range(n_experts: int, mesh):
     """``(lo, hi)``: this rank's experts of ``n_experts``; ``E % D`` is
     refused."""
     return _block(n_experts, mesh, "experts")
+
+
+def _world_block(n: int, logical: str):
+    """``(lo, hi)``: this rank's contiguous block of ``n`` along a dim that
+    the rules bind by ``logical``; None where they do not bind it to a world
+    of D > 1 or D does not divide ``n`` (the split is dropped, as the
+    reference's ``sanitize`` drops one)."""
+    mesh = get_mesh()
+    if mesh is None or mesh.size == 1 or not on_world(logical) or n % mesh.size:
+        return None
+    k = n // mesh.size
+    return mesh.rank * k, (mesh.rank + 1) * k
+
+
+def head_range(n_heads: int):
+    """This rank's q heads under "heads" (:func:`_world_block`)."""
+    return _world_block(n_heads, "heads")
+
+
+def kv_head_range(n_kv_heads: int):
+    """This rank's KV heads under "kv_heads", where D divides them."""
+    return _world_block(n_kv_heads, "kv_heads")
+
+
+def ffn_range(d_ff: int):
+    """This rank's columns of a dense FFN's ``d_ff`` under "ffn"."""
+    return _world_block(d_ff, "ffn")
+
+
+def vocab_range(vocab: int):
+    """This rank's rows of the embedding and head tables under "vocab"."""
+    return _world_block(vocab, "vocab")
+
+
+def seq_range(seq: int):
+    """This rank's positions of a prefill's residual stream under "seq"."""
+    return _world_block(seq, "seq")
+
+
+def world_sum(t):
+    """The sum over the ranks of the rules' ``Mesh`` of their ``t`` (the
+    same shape on each), gathered and folded in rank order in float32,
+    rounded once to ``t``'s dtype, on ``t``'s device: every rank gets the
+    same bits."""
+    mesh = get_mesh()
+    return ordered_fold(mesh.gather(t).to(t.device), dtype=torch.float32).to(t.dtype)
 
 
 def _expert_axis(parent: dict, key):

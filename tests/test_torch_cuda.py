@@ -1372,3 +1372,37 @@ def test_dry_run_memory_against_the_card(cuda_device, name, kind):
 def registry_smoke(name):
     from repro_torch.configs import registry
     return registry.get(name).smoke()
+
+
+@pytest.fixture(scope="module")
+def tp_worlds():
+    """``tests/_torch_tp_world.port_cases`` (moonshot's and gemma's smoke
+    prefill and 6 decode steps under the production rules) over a world of
+    2 ranks on the card and a world of 2 on the CPU, side by side (None
+    without a card)."""
+    if not torch.cuda.is_available():
+        return None
+    import _torch_tp_world as W
+    from repro_torch.launch.mesh import run_local_world, start_local_world
+    cpu = start_local_world(W.port_cases, 2, device="cpu", timeout=600)
+    try:
+        card = run_local_world(W.port_cases, 2, device="cuda", timeout=600)
+    finally:
+        on_cpu = cpu.wait()
+    return card, on_cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "gemma-2b"])
+@pytest.mark.parametrize("what", ["prefill", "decode"])
+def test_tp_world_on_card_against_cpu(cuda_device, tp_worlds, arch, what):
+    """Tensor and sequence parallelism over a world of 2 ranks sharing the
+    card against a world of 2 on the CPU (smoke weights, float32, TF32
+    off): the prefill's logits within rtol 1e-4, atol 4e-5, the decode
+    steps' (gemma's crossing its cache's block boundary) within rtol 1e-4,
+    atol 1e-5, finite: the card's products sum in another order."""
+    card, cpu = tp_worlds
+    i = 0 if what == "prefill" else 1
+    got, want = card[arch][i], cpu[arch][i]
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=4e-5 if i == 0 else 1e-5)

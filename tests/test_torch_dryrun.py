@@ -18,11 +18,13 @@ against the reference's parameter counts.
 * paper-KP: the streamed state is the same at N = 10^7 and 10^9 (chunk
   65,536), the resident bytes are 8 N K / D, and the launches a pass
   equal a small host-fed and device-streamed CPU solve's;
-* the refusals (``--fsdp``, a binding of ``sharding.UNPORTED``, a world
-  that does not divide the batch or the experts), and the CLI.
+* the refusals (``--fsdp``, a train cell under tensor and sequence
+  parallelism, a 2-D world, a world that does not divide the batch or the
+  experts), and the CLI, ``--rules production`` too.
 
 The collective bytes of real worlds of 2 are held to the dry-run's in
-``test_torch_moe_world.py`` and ``test_torch_train_world.py``.
+``test_torch_moe_world.py``, ``test_torch_train_world.py`` and (under the
+production rules) ``test_torch_tp_world.py``.
 """
 import dataclasses
 import json
@@ -260,13 +262,47 @@ def test_sanitize_drops_a_split_that_does_not_divide():
     ("not split", dict(world=3)),                           # batch 4, 8 experts
     ("not ported", dict(world=2, rules=dict(sharding.BATCH_RULES, heads="model"))),
     ("FSDP", dict(world=2, rules=dict(sharding.BATCH_RULES, fsdp="model"))),
-    ("not ported", dict(world=2, rules=M.production_rules(False))),   # the reference's
-    ("not ported", dict(world=2, rules=M.production_rules(True, "fsdp_only"))),
+    ("not ported", dict(world=2, rules=M.production_rules(False), kind="train")),
+    ("not ported", dict(world=2, rules=M.production_rules(True, "fsdp_only"), kind="train")),
 ])
 def test_refusals_are_skipped_with_the_reason(reason, kw):
-    arch = "moonshot-v1-16b-a3b"
-    rec = D.account_cell(arch, cell("prefill", b=4), cfg=registry.get(arch).smoke(), **kw)
+    """Skipped with the reason: a batch or expert count that the world does
+    not divide, "batch" and a name of ``TP_NAMES`` both on the world (a 2-D
+    world), "fsdp" on the world, and a train cell under the reference's
+    production rules (training under tensor and sequence parallelism)."""
+    arch, kw = "moonshot-v1-16b-a3b", dict(kw)
+    rec = D.account_cell(arch, cell(kw.pop("kind", "prefill"), b=4),
+                         cfg=registry.get(arch).smoke(), **kw)
     assert rec["status"] == "skipped" and reason in rec["reason"], rec
+    if reason != "not split":
+        assert "ROADMAP A10 item 5, second part" in rec["reason"]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "mamba2-370m", "seamless-m4t-medium"])
+def test_production_rules_skip_the_mixers_not_covered(arch):
+    rec = D.account_cell(arch, cell("prefill", b=4), 2, cfg=registry.get(arch).smoke(),
+                         rules=sharding.PRODUCTION_RULES)
+    assert rec["status"] == "skipped" and "ROADMAP A10 item 5, second part" in rec["reason"]
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_production_rules_split_every_rank_s_share(kind):
+    """Under the production rules a rank of 2 holds about half the tree and
+    half the caches of one process, every row, and sends all-gathers and
+    reduce-scatters; the probe equals the whole run."""
+    arch = "gemma-2b"
+    cfg = registry.get(arch).smoke()
+    one = D.account_cell(arch, cell(kind, b=4), 1, cfg=cfg)
+    two = D.account_cell(arch, cell(kind, b=4), 2, cfg=cfg, rules=sharding.PRODUCTION_RULES)
+    whole = D.account_cell(arch, cell(kind, b=4), 2, cfg=cfg, rules=sharding.PRODUCTION_RULES,
+                           probe=False)
+    assert two["status"] == "ok" and two["rules"] == "production"
+    assert 0.5 < two["n_params_rank"] / one["n_params"] < 0.6
+    assert two["memory"]["caches"] * 2 == one["memory"]["caches"]
+    assert two["memory"]["batch"] == one["memory"]["batch"]
+    assert {"all_gather", "reduce_scatter"} <= set(two["collectives"]["bytes"])
+    for key in ("flops_executed", "collectives", "memory"):
+        assert two[key] == whole[key], key
 
 
 def test_long_cell_of_a_full_attention_arch_is_skipped():
@@ -336,3 +372,15 @@ def test_cli_cell_and_fsdp_refusal(tmp_path):
     assert rec["memory"]["fits_80gb"]
     with pytest.raises(SystemExit, match="FSDP"):
         D.main(["--arch", "mamba2-370m", "--shape", "decode_32k", "--fsdp", "full"])
+
+
+def test_cli_production_rules(tmp_path, capsys):
+    out = tmp_path / "r.json"
+    assert D.main(["--arch", "gemma-2b", "--shape", "decode_32k", "--world", "2",
+                   "--rules", "production", "--layers", "2", "--out", str(out)]) == 0
+    rec, = json.loads(out.read_text())
+    assert rec["status"] == "ok" and rec["rules"] == "production"
+    assert rec["collectives"]["bytes"]["reduce_scatter"] > 0
+    assert D.main(["--arch", "gemma-2b", "--shape", "train_4k", "--world", "2",
+                   "--rules", "production", "--layers", "2"]) == 0
+    assert "ROADMAP A10 item 5, second part" in capsys.readouterr().out

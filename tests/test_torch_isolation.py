@@ -37,7 +37,8 @@ LM_SLICE = ("repro_torch.core.moe_router", "repro_torch.launch.serve",
             "repro_torch.configs.deepseek_v2_236b",
             "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.launch.train",
             "repro_torch.data", "repro_torch.data.synth", "repro_torch.checkpoint.ckpt",
-            "repro_torch.models.sharding")
+            "repro_torch.models.sharding", "repro_torch.core.mesh",
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun")
 
 
 def test_walk_covers_the_lm_slice():

@@ -7,9 +7,12 @@ the reference's, the port's world of one (``Mesh(0, 1)``) standing in for
 the reference's active mesh (none here: every axis of size 1). Over larger
 worlds (``Mesh`` objects of rank r of D, which no collective is asked of
 here): the expert ranges, the batch rows, the refusals (``E % D``,
-``B % D``, the bindings the port has not implemented, a mesh that is not a
-``Mesh``, a train step over a world under any binding but the batch
-binding, an expert tree not cut to the rank).
+``B % D``, a mesh that is not a ``Mesh``, a train step over a world under
+any binding but the batch binding, an expert tree not cut to the rank,
+and what tensor and sequence parallelism does not cover yet: training,
+FSDP, the MLA, Mamba2 and encoder-decoder archs, a 2-D world), the
+production rules' parameter layout and the new collectives at one rank
+and on a ``DryMesh``.
 """
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ from repro.models import sharding as R  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core.mesh import Mesh  # noqa: E402
 from repro_torch.core.moe_router import scd_route_shmap  # noqa: E402
+from repro_torch.launch import dryrun as D  # noqa: E402
 from repro_torch.models import lm, model as M, moe, sharding as S  # noqa: E402
 from repro_torch.optim import OptConfig  # noqa: E402
 
@@ -108,17 +112,130 @@ def test_batch_rows_and_their_refusal(smoke):
         M.init_cache(cfg, params, 3, 16)
 
 
-@pytest.mark.parametrize("name", S.UNPORTED)
+LABEL = "ROADMAP A10 item 5, second part"
+
+
+@pytest.mark.parametrize("name", S.TP_NAMES)
 def test_unported_bindings_raise(smoke, name):
+    """Each name of ``TP_NAMES`` bound alone (with "experts") runs a prefill
+    and a decode step, here over a world of one equal to the one-process
+    steps (a world of 2: ``tests/test_torch_tp_world.py``); a train step
+    under it, "fsdp" on the world beside it, "batch" on the world beside it
+    and the MLA, Mamba2 and encoder-decoder archs under it raise
+    ``NotImplementedError`` naming the label of what is not ported."""
     cfg, params = smoke
-    S.set_rules(dict(BATCH, **{name: "model"}), mesh=Mesh(0, 1, CPU))
-    toks = torch.zeros((2, 8), dtype=torch.long)
-    msg = "tensor and sequence parallelism over the world"
-    with pytest.raises(NotImplementedError, match=msg):
-        M.make_prefill_step(cfg)(params, {"tokens": toks})
-    caches = lm.init_cache(cfg, 2, 16, CPU)
-    with pytest.raises(NotImplementedError, match=msg):
-        M.make_decode_step(cfg)(params, caches, toks[:, :1], 0)
+    rules = dict(S.PRODUCTION_RULES, **{n: None for n in S.TP_NAMES if n != name})
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 8)))
+    with torch.no_grad():
+        want = M.make_prefill_step(cfg)(params, {"tokens": toks})
+        want_d = M.make_decode_step(cfg)(params, lm.init_cache(cfg, 2, 16, CPU),
+                                         toks[:, :1], 0)[0]
+        S.set_rules(rules, mesh=Mesh(0, 1, CPU))
+        got = M.make_prefill_step(cfg)(params, {"tokens": toks})
+        got_d = M.make_decode_step(cfg)(params, M.init_cache(cfg, params, 2, 16),
+                                        toks[:, :1], 0)[0]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_d.numpy(), want_d.numpy(), rtol=1e-5, atol=1e-5)
+    batch = {"tokens": toks, "targets": toks}
+    with pytest.raises(NotImplementedError, match=LABEL):
+        M.make_train_step(cfg, OptConfig())(params, None, batch)
+    for bad in (dict(rules, fsdp="model"), dict(rules, batch="model")):
+        S.set_rules(bad, mesh=Mesh(0, 1, CPU))
+        with pytest.raises(NotImplementedError, match=LABEL):
+            M.make_prefill_step(cfg)(params, {"tokens": toks})
+    S.set_rules(rules, mesh=Mesh(0, 1, CPU))
+    for arch in ("deepseek-v2-236b", "mamba2-370m", "seamless-m4t-medium"):
+        other = registry.get(arch).smoke()
+        with pytest.raises(NotImplementedError, match=LABEL):
+            M.make_prefill_step(other)(None, {"tokens": toks})
+        with pytest.raises(NotImplementedError, match=LABEL):
+            M.make_decode_step(other)(None, None, toks[:, :1], 0)
+
+
+def test_production_rules_are_the_reference_s():
+    from repro.models import model as RM
+    assert S.PRODUCTION_RULES == RM.production_rules(False) == M.production_rules(False)
+    S.set_rules(S.PRODUCTION_RULES, mesh=Mesh(0, 2, CPU))
+    R.set_rules(RM.production_rules(False))
+    assert S.spec(*NAMES) == tuple(R.spec(*NAMES))
+    assert [S.on_world(n) for n in S.TP_NAMES] == [True] * 6
+    assert not S.on_world("batch") and S.on_world("experts")
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "gemma-2b", "starcoder2-3b"])
+def test_production_param_specs_follow_the_roles(arch):
+    """Under the production rules on a world of 2 (a ``DryMesh``): ``wq``
+    and the attention ``wo`` on heads, ``wk``/``wv`` on KV heads where 2
+    divides them (else whole), a dense ``wi``/``wo`` on the FFN columns,
+    the MoE's on experts, the embed and head on vocab; router and norms
+    whole. The cut tree holds half of each split leaf."""
+    cfg = registry.get(arch).smoke()
+    whole = M.init(cfg, None, "meta")
+    S.set_rules(S.PRODUCTION_RULES, mesh=D.DryMesh(0, 2))
+    try:
+        specs = M.param_specs(cfg, whole)
+        cut = M.shard_params(cfg, whole, D.DryMesh(0, 2))
+    finally:
+        S.set_rules(None)
+    att = specs["slots"][0]["mixer"]
+    kv = 2 if cfg.n_kv_heads % 2 == 0 else None
+    assert (att["wq"], att["wk"], att["wv"], att["wo"]) == (2, kv, kv, 1)
+    ffn = specs["slots"][0]["ffn"]
+    if cfg.moe.n_experts:
+        assert (ffn["wi"], ffn["wo"], ffn["router"]) == (1, 1, None)
+    else:
+        assert (ffn["wi"], ffn["wo"]) == (3, 1)
+    assert specs["embed"]["e"] == 0 and specs["final_norm"]["scale"] is None
+    assert specs["slots"][0]["norm1"]["scale"] is None
+    if "head" in specs:
+        assert specs["head"]["e"] == 0
+    for path, leaf in lm.tree_leaves_with_paths(whole):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        got = cut
+        for k in path:
+            got = got[k]
+        want = list(leaf.shape)
+        if spec is not None:
+            want[spec] //= 2
+        assert list(got.shape) == want, path
+
+
+def test_all_gather_and_reduce_scatter_of_one_rank_and_on_paper():
+    """At one rank both return their input and send nothing; on a
+    ``DryMesh`` of 4 they give the joined and the block shape and count
+    the bytes the rank sends (its block, its whole partial)."""
+    mesh = Mesh(0, 1, CPU)
+    t = torch.arange(24.0).reshape(2, 3, 4)
+    assert mesh.all_gather(t, 1) is t and mesh.reduce_scatter(t, 2) is t
+    assert mesh.comm_bytes == {}
+    dry = D.DryMesh(1, 4)
+    meta = torch.empty((2, 3, 4), device="meta", dtype=torch.bfloat16)
+    assert dry.all_gather(meta, 1).shape == (2, 12, 4)
+    out = dry.reduce_scatter(meta, 2)
+    assert out.shape == (2, 3, 1) and out.dtype == torch.bfloat16
+    assert dry.comm_bytes == {"all_gather": 48, "reduce_scatter": 48}
+    assert dry.comm_calls == {"all_gather": 1, "reduce_scatter": 1}
+    with pytest.raises(ValueError, match="split"):
+        dry.reduce_scatter(meta, 1)
+
+
+def test_kv_split_by_heads_else_positions():
+    """The KV cache splits by KV heads where D divides them, else by
+    positions where "kv_seq" is bound (D must divide them), else not."""
+    from repro_torch.models.attention import kv_split
+    moon, gemma = (registry.get(a).smoke() for a in ("moonshot-v1-16b-a3b", "gemma-2b"))
+    S.set_rules(S.PRODUCTION_RULES, mesh=Mesh(1, 2, CPU))
+    assert kv_split(moon, 8) == ("heads", 2, 4)
+    assert kv_split(gemma, 8) == ("seq", 4, 8)
+    with pytest.raises(ValueError, match="positions"):
+        kv_split(gemma, 7)
+    assert lm.init_cache(gemma, 2, 8, "meta")["slots"][0]["k"].shape == (2, 2, 4, 1, gemma.hd)
+    S.set_rules(dict(S.PRODUCTION_RULES, kv_seq=None), mesh=Mesh(1, 2, CPU))
+    assert kv_split(gemma, 8) is None
+    S.set_rules(S.PRODUCTION_RULES, mesh=Mesh(0, 1, CPU))
+    assert kv_split(moon, 8) is None and kv_split(gemma, 8) is None
 
 
 def test_a_mesh_must_be_a_mesh():
@@ -172,15 +289,15 @@ def test_moe_over_a_world_refuses_what_it_cannot_run(smoke):
 
 
 def test_training_over_a_world_is_refused(smoke):
-    """A train step over a world runs under the batch binding only: the
-    unported bindings name ROADMAP A10, and "batch" and "experts" must be
-    bound to the world."""
+    """A train step over a world runs under the batch binding only: tensor
+    and sequence parallelism name ROADMAP A10 item 5's second part, and
+    "batch" and "experts" must be bound to the world."""
     cfg, params = smoke
     batch = {"tokens": torch.zeros((2, 8), dtype=torch.long),
              "targets": torch.zeros((2, 8), dtype=torch.long)}
     step = M.make_train_step(cfg, OptConfig())
     S.set_rules(dict(S.DEFAULT_RULES, batch="data"), mesh=Mesh(0, 1, CPU))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(NotImplementedError, match=LABEL):
         step(params, None, batch)
     for rules in (dict(BATCH, batch="data"), dict(BATCH, experts=None)):
         S.set_rules(rules, mesh=Mesh(0, 1, CPU))
