@@ -15,7 +15,11 @@ exchange of the incoming gradient. Tensor and sequence parallelism
 (``models/attention.py``, ``layers.py``, ``blocks.py``, ``lm.py``) moves
 activations with :meth:`Mesh.all_gather` (the ranks' blocks joined along a
 dim) and :meth:`Mesh.reduce_scatter` (the ranks' partial sums folded, this
-rank's block kept), both staged through the host. No float sum relies on
+rank's block kept), both staged through the host; :func:`all_gather`,
+:func:`reduce_scatter`, :func:`fold_sum`, :func:`copy_in` and
+:func:`split` are the same exchanges recorded by autograd, with the
+backward each one's transpose (Megatron's conjugate pairs), so training
+runs through them (module docstring of :func:`all_gather`). No float sum relies on
 the order inside a collective: a sum across
 ranks is :meth:`Mesh.gather` of the per-rank (or per-slot) partials and then
 ``bucketing.ordered_fold`` in slot order on every rank, the addition chain
@@ -25,6 +29,8 @@ in any order and go through :meth:`Mesh.amax` / :meth:`Mesh.amin`.
 :class:`DryMesh` is rank r of a world of D with no process group: its
 collectives return ``meta`` tensors of the result shapes and count the
 bytes a real world's rank would send (the dry-run, ``launch/dryrun.py``).
+The autograd functions call the mesh's methods, so over a ``DryMesh`` a
+train step's backward counts its collectives too.
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ import torch.distributed as dist
 
 from .bucketing import ordered_fold
 
-__all__ = ["Mesh", "DryMesh", "check_mesh", "all_to_all"]
+__all__ = ["Mesh", "DryMesh", "check_mesh", "all_to_all", "all_gather",
+           "reduce_scatter", "fold_sum", "copy_in", "split"]
 
 
 class Mesh:
@@ -239,6 +246,147 @@ class _AllToAll(torch.autograd.Function):
 def all_to_all(mesh, t) -> torch.Tensor:
     """``mesh.all_to_all(t)``, differentiable in ``t``."""
     return _AllToAll.apply(t, mesh)
+
+
+def _folded(mesh, t):
+    """The ranks' ``t`` gathered and folded in rank order in float32,
+    rounded once to ``t``'s dtype, on ``t``'s device."""
+    return ordered_fold(mesh.gather(t).to(t.device), dtype=torch.float32).to(t.dtype)
+
+
+class _AllGather(torch.autograd.Function):
+    """:meth:`Mesh.all_gather` under autograd. Each rank's gradient of the
+    joined tensor is its partial where the rank's users of it differ (its
+    heads, its FFN columns, its vocab rows, its share of the positions):
+    the backward folds the ranks' partials and keeps this rank's block
+    (:meth:`Mesh.reduce_scatter`). With ``whole`` the users are the same on
+    every rank (a replicated residual) and the gradient is already whole:
+    the backward keeps the rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim, whole):
+        ctx.mesh, ctx.dim, ctx.whole = mesh, dim, whole
+        return mesh.all_gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        if ctx.whole:
+            lo, n = ctx.mesh._block(grad, ctx.dim)
+            return grad.narrow(ctx.dim, lo, n), None, None, None
+        return ctx.mesh.reduce_scatter(grad, ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """:meth:`Mesh.reduce_scatter` under autograd: every rank's partial
+    reaches every block of the sum, so the backward joins the blocks'
+    gradients (:meth:`Mesh.all_gather`)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.reduce_scatter(t, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_gather(grad.contiguous(), ctx.dim), None, None
+
+
+class _FoldSum(torch.autograd.Function):
+    """The sum over the ranks of their partials (:func:`_folded`) under
+    autograd: the sum is the same on every rank, so is its gradient, and
+    each rank's partial takes it as it is (not D times)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        return _folded(mesh, t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyIn(torch.autograd.Function):
+    """A tensor the same on every rank (a replicated residual) entering
+    computations that differ by rank (its heads, its columns, its vocab
+    rows): the identity, whose backward folds the ranks' partial gradients
+    (:func:`_folded`), so the replicated tensor's gradient is whole and the
+    same bits on every rank."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _folded(ctx.mesh, grad.contiguous()), None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's block along ``dim`` of a tensor the same on every rank:
+    the backward joins the blocks' gradients (:meth:`Mesh.all_gather`), the
+    replicated tensor's whole gradient on every rank."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        lo, n = mesh._block(t, dim)
+        return t.narrow(dim, lo, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_gather(grad.contiguous(), ctx.dim), None, None
+
+
+def all_gather(mesh, t, dim, whole=False) -> torch.Tensor:
+    """``mesh.all_gather(t, dim)``, differentiable in ``t``.
+
+    Autograd's convention over a world: a tensor the same on every rank
+    (replicated) carries the same, whole gradient on every rank; a rank's
+    block, or a partial, carries this rank's. The five functions here keep
+    it at each change of layout: :func:`all_gather` (blocks -> joined;
+    backward: reduce-scatter, or with ``whole`` the rank's block),
+    :func:`reduce_scatter` (partials -> block; all-gather),
+    :func:`fold_sum` (partials -> replicated; identity), :func:`copy_in`
+    (replicated -> rank-specific users; the fold) and :func:`split`
+    (replicated -> block; all-gather). The backward's collectives are
+    collectives too: every rank reaches them in the same order when every
+    rank builds the same graph (:class:`_AllToAll`)."""
+    if mesh.size == 1:
+        return t
+    return _AllGather.apply(t, mesh, dim, whole)
+
+
+def reduce_scatter(mesh, t, dim) -> torch.Tensor:
+    """``mesh.reduce_scatter(t, dim)``, differentiable in ``t``."""
+    if mesh.size == 1:
+        return t
+    return _ReduceScatter.apply(t, mesh, dim)
+
+
+def fold_sum(mesh, t) -> torch.Tensor:
+    """The ranks' ``t`` gathered and folded in rank order in float32,
+    rounded once to ``t``'s dtype (every rank gets the same bits),
+    differentiable in ``t`` (:func:`all_gather`'s convention)."""
+    return _FoldSum.apply(t, mesh)
+
+
+def copy_in(mesh, t) -> torch.Tensor:
+    """``t`` (the same on every rank) as the input of rank-specific
+    computations: the identity, whose backward folds the gradient over the
+    ranks."""
+    if mesh.size == 1:
+        return t
+    return _CopyIn.apply(t, mesh)
+
+
+def split(mesh, t, dim) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``t`` (the same on every rank),
+    differentiable in ``t``."""
+    if mesh.size == 1:
+        return t
+    return _Split.apply(t, mesh, dim)
 
 
 def check_mesh(mesh):

@@ -28,8 +28,10 @@ runs under ``sharding.BATCH_RULES`` (its B / D rows, its E / D experts),
 as ``launch/train.py`` and the serving worlds run, or with ``--rules
 production`` under ``sharding.PRODUCTION_RULES`` (tensor and sequence
 parallelism: its blocks of the heads, FFN columns, vocab, experts and KV
-cache, every row; the prefill and decode cells, a train cell skipped with
-the refusal); D = 1 is one process with no rules. The memory is the
+cache, every row; the prefill, decode and train cells of the attention
+LMs, the other archs skipped with the refusal); D = 1 is one process with
+no rules. A train cell's backward runs through ``core.mesh``'s autograd
+collectives, so its account counts the backward's collectives too. The memory is the
 rank's: its tree (the leaves :func:`models.model.param_specs` splits, cut),
 AdamW's moments, its caches, the global batch it is given, and the peak of
 what the step allocates on top (on the card's caching allocator,
@@ -93,12 +95,24 @@ class LiveBytes(TorchDispatchMode):
     tensor holds it (views share their base's). A storage's death is seen
     through a finalizer on its Python object; the peak is read after each
     op, its inputs still alive, as the card's allocator holds them while
-    the op's outputs are allocated."""
+    the op's outputs are allocated.
+
+    Some ops of a backward are counted as the card runs them, not as they
+    run here. Under any Python dispatch mode, this one included, autograd
+    takes the out-of-place variant where it writes into a buffer of its own
+    in place on the card: the engine's sum of two gradients of one input
+    (``add``), and the backward formulas of ``gather`` (``scatter_add``
+    into fresh zeros) and of indexing (``index_put``, ``index_add``). So the
+    peak of such an op (:meth:`_in_place_on_card`) is settled at the next
+    op: without its output's bytes where its first input died at once (it
+    was autograd's own buffer, written in place on the card), with them
+    where that input lives on."""
 
     def __init__(self):
         super().__init__()
         self.live = self.peak = 0
         self._bytes = {}
+        self._pending = None
 
     def _track(self, t):
         s = t.untyped_storage()
@@ -113,18 +127,57 @@ class LiveBytes(TorchDispatchMode):
 
     def hold(self, tree):
         """Count the tensors of ``tree`` (made outside) as held."""
+        self._settle()
         for t in lm.tree_leaves(tree):
             if isinstance(t, torch.Tensor):
                 self._track(t)
         self.peak = max(self.peak, self.live)
 
+    # The out-of-place ops that autograd runs in place on the card
+    # (class docstring).
+    _ON_CARD_IN_PLACE = (torch.ops.aten.add.Tensor, torch.ops.aten.scatter_add.default,
+                         torch.ops.aten.index_put.default, torch.ops.aten.index_add.default)
+
+    @classmethod
+    def _in_place_on_card(cls, func, args, out):
+        """Whether the op is one of ``_ON_CARD_IN_PLACE`` inside a backward,
+        with gradients off, writing a tensor of its first input's shape and
+        dtype, that input dense and its storage's only tenant (for ``add``,
+        the engine's sum: both inputs of that shape)."""
+        if (func not in cls._ON_CARD_IN_PLACE or torch._C._current_graph_task_id() == -1
+                or torch.is_grad_enabled() or not isinstance(out, torch.Tensor)):
+            return False
+        first = args[0]
+        same = args[:2] if func is torch.ops.aten.add.Tensor else args[:1]
+        return (isinstance(first, torch.Tensor) and first.is_contiguous()
+                and first.untyped_storage().nbytes() == out.untyped_storage().nbytes()
+                and all(isinstance(a, torch.Tensor) and a.shape == out.shape
+                        and a.dtype == out.dtype for a in same))
+
+    def _settle(self):
+        """Close an op left pending: its first input's storage gone means
+        autograd held it alone, and writes it in place on the card."""
+        if self._pending is not None:
+            key, live, added = self._pending
+            self._pending = None
+            self.peak = max(self.peak, live - added if key not in self._bytes else live)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self._settle()
         out = func(*args, **(kwargs or {}))
         for t in _flat(out):
             if isinstance(t, torch.Tensor):
                 self._track(t)
-        self.peak = max(self.peak, self.live)
+        if self._in_place_on_card(func, args, out):
+            self._pending = (args[0].untyped_storage()._cdata, self.live,
+                             out.untyped_storage().nbytes())
+        else:
+            self.peak = max(self.peak, self.live)
         return out
+
+    def __exit__(self, *exc):
+        self._settle()
+        return super().__exit__(*exc)
 
 
 def nbytes(tree) -> int:
@@ -544,7 +597,7 @@ def account_paper_kp(workload, world=1, reduce="bucketed", algo="scd", chunk_siz
 
 FSDP_REFUSED = (f"--fsdp: the port shards no parameter by FSDP; FSDP is not ported "
                 f"({sharding._UNPORTED_ITEM})")
-RULES = {"batch": sharding.BATCH_RULES, "production": sharding.PRODUCTION_RULES}
+RULES = sharding.RULES
 
 
 def _print(r):

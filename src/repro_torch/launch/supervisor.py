@@ -72,6 +72,7 @@ import signal
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, NamedTuple, Optional
 
 from . import env as envmod
@@ -747,21 +748,39 @@ def run_chaos_soak(root, smoke: bool = False, seed: int = 0,
                        "refresh": [int(ref_eng.generation(g).iters)
                                    for g in range(generations)]}
 
-    # ---- supervised chaos solve ------------------------------------------
+    # ---- the supervised chaos solve and refresh, side by side ------------
+    # Independent tasks (own roots, schedules and workers); each waits
+    # mostly on its workers' interpreter starts and lease expiries.
     solve_sched = ChaosSchedule.plan(seed, kills=1, stops=1, lo=lo, hi=hi)
+    refresh_sched = ChaosSchedule.plan(seed + 1, kills=1, stops=1,
+                                       lo=lo, hi=hi)
+    sups = {
+        "solve": Supervisor(
+            root / "solve_chaos",
+            {"kind": "solve", "spec": spec.to_json(), "cfg": chaos_cfg,
+             "slots": slots, "fault_plan": plan, "device": device},
+            cfg=sup_cfg, devices=devices, chaos=solve_sched),
+        "refresh": Supervisor(
+            root / "refresh_chaos",
+            {"kind": "refresh", "spec": spec.to_json(), "cfg": chaos_cfg,
+             "slots": slots, "generations": generations,
+             "budget_scales": scales, "fault_plan": plan, "device": device},
+            cfg=sup_cfg, devices=devices, chaos=refresh_sched)}
     print(f"[soak] supervised chaos solve ({solve_sched.events}) -> "
-          f"{root / 'solve_chaos'}")
-    t0 = time.perf_counter()
-    sup = Supervisor(
-        root / "solve_chaos",
-        {"kind": "solve", "spec": spec.to_json(), "cfg": chaos_cfg,
-         "slots": slots, "fault_plan": plan, "device": device},
-        cfg=sup_cfg, devices=devices, chaos=solve_sched)
-    s_solve = sup.run()
-    walls["solve_chaos"] = time.perf_counter() - t0
+          f"{root / 'solve_chaos'} and refresh ({refresh_sched.events}) -> "
+          f"{root / 'refresh_chaos'}")
+
+    def supervise(name):
+        t0 = time.perf_counter()
+        out = sups[name].run()
+        walls[f"{name}_chaos"] = time.perf_counter() - t0
+        return out
+
+    with ThreadPoolExecutor(2) as pool:
+        s_solve, s_refresh = pool.map(supervise, ("solve", "refresh"))
     report["solve"] = s_solve
-    report["solve_recovery_s"] = sup.recovery_s
-    devices0 = sup.devices0
+    report["solve_recovery_s"] = sups["solve"].recovery_s
+    devices0 = sups["solve"].devices0
     if not s_solve["ok"]:
         diffs.append("solve: supervised run did not complete")
     else:
@@ -776,22 +795,8 @@ def run_chaos_soak(root, smoke: bool = False, seed: int = 0,
                 _sample_decisions(spec, got_solve, users, device)):
             diffs.append("solve: sampled decisions differ")
 
-    # ---- supervised chaos refresh ----------------------------------------
-    refresh_sched = ChaosSchedule.plan(seed + 1, kills=1, stops=1,
-                                       lo=lo, hi=hi)
-    print(f"[soak] supervised chaos refresh ({refresh_sched.events}) -> "
-          f"{root / 'refresh_chaos'}")
-    t0 = time.perf_counter()
-    sup = Supervisor(
-        root / "refresh_chaos",
-        {"kind": "refresh", "spec": spec.to_json(), "cfg": chaos_cfg,
-         "slots": slots, "generations": generations,
-         "budget_scales": scales, "fault_plan": plan, "device": device},
-        cfg=sup_cfg, devices=devices, chaos=refresh_sched)
-    s_refresh = sup.run()
-    walls["refresh_chaos"] = time.perf_counter() - t0
     report["refresh"] = s_refresh
-    report["refresh_recovery_s"] = sup.recovery_s
+    report["refresh_recovery_s"] = sups["refresh"].recovery_s
     if not s_refresh["ok"]:
         diffs.append("refresh: supervised run did not complete")
     else:

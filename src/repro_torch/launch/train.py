@@ -17,15 +17,21 @@ Runs on the card unless asked for the CPU:
 
 Over a world of ranks (``--world D`` starts D rank processes on this host,
 ``launch/mesh.run_local_world``; the port's counterpart of the
-reference's multi-device run): every rank trains under the batch binding
-(``models/sharding.BATCH_RULES``) on its ``B / D`` rows of the global
-batch and its ``E / D`` experts, the other leaves replicated and their
-gradients folded in rank order (``models/model.loss_and_grads``). The
-world saves the one-process layout (``ckpt.save(mesh=, blocks=)``), and a
-state restores at any world size that divides the experts (elastic):
+reference's multi-device run): with ``--rules batch`` (the default) every
+rank trains under the batch binding (``models/sharding.BATCH_RULES``) on
+its ``B / D`` rows of the global batch and its ``E / D`` experts, the
+other leaves replicated and their gradients folded in rank order
+(``models/model.loss_and_grads``); with ``--rules production`` under the
+reference's production rules (``sharding.PRODUCTION_RULES``: tensor and
+sequence parallelism, every rank every row, its blocks of the heads, FFN
+columns, vocab rows and experts; the attention LMs). The world saves the
+one-process layout (``ckpt.save(mesh=, blocks=)``), and a state restores
+at any world size that divides its blocks (elastic):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b --smoke \\
         --world 2 --device cpu --steps 8 --ckpt-dir /tmp/ckw --ckpt-every 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --smoke \\
+        --world 2 --rules production --device cpu --steps 8
 """
 from __future__ import annotations
 
@@ -53,21 +59,22 @@ FAIL_EXIT = 42
 def _initial_state(cfg, opt_cfg, ckpt_dir, seed, dev, mesh):
     """(params, opt_state, start step): the newest checkpoint of
     ``ckpt_dir`` (this rank's blocks of it over a world), else the tree
-    drawn from ``seed`` (cut to the rank's experts)."""
+    drawn from ``seed`` (cut to the rank's blocks under the rules in
+    effect, ``model.shard_params``)."""
     last = ckpt.latest_step(ckpt_dir) if ckpt_dir else None
     if last is None:
         params = M.init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
         if mesh is not None:
-            params = sharding.shard_experts(params, mesh)
+            params = M.shard_params(cfg, params, mesh)
         return params, init_opt_state(params, opt_cfg), 0
     # The checkpoint's tree holds every value: restore it onto the device
     # without drawing the weights it replaces.
     meta = M.init(cfg, None, "meta")
     if mesh is not None:
-        meta = sharding.shard_experts(meta, mesh)
+        meta = M.shard_params(cfg, meta, mesh)
     like = {"params": meta, "opt": init_opt_state(meta, opt_cfg)}
     state = ckpt.restore(ckpt_dir, last, like, device_tree=dev,
-                         blocks=sharding.expert_blocks(like, mesh))
+                         blocks=sharding.param_blocks(cfg, like, mesh))
     if mesh is None or mesh.rank == 0:
         print(f"[train] resumed from step {last}")
     return state["params"], state["opt"], last
@@ -75,7 +82,7 @@ def _initial_state(cfg, opt_cfg, ckpt_dir, seed, dev, mesh):
 
 def train(cfg, opt_cfg, steps, ckpt_dir=None, ckpt_every=0, seed=0,
           batch_shape=(4, 128), log_every=10, fail_at=None, mesh=None,
-          keep=3, device="cuda", history=None):
+          keep=3, device="cuda", history=None, rules="batch"):
     """Train ``cfg`` from seeded weights for ``steps`` steps in all
     (resuming from ``ckpt_dir``'s newest step where there is one).
 
@@ -86,16 +93,21 @@ def train(cfg, opt_cfg, steps, ckpt_dir=None, ckpt_every=0, seed=0,
 
     ``mesh``: this rank's ``core.mesh.Mesh`` (every rank of the world calls
     ``train`` alike; ``TypeError`` for anything else). The rank runs on
-    ``mesh.device`` under ``sharding.BATCH_RULES`` (cleared on return),
-    holds its experts of the tree (``params`` and ``opt_state`` are its
-    blocks), draws the global batch of each step and trains its rows; the
-    losses are the world's. Rank 0 alone prints and prunes; ``fail_at``
-    exits every rank."""
+    ``mesh.device`` under the rules named by ``rules`` (a key of
+    ``sharding.RULES``: "batch", the batch binding, or "production", the
+    reference's production rules; cleared on return), holds its blocks of
+    the tree (``params`` and ``opt_state`` are its blocks,
+    ``sharding.param_blocks``), draws the global batch of each step and
+    trains its rows (all of them under "production"); the losses are the
+    world's. Rank 0 alone prints and prunes; ``fail_at`` exits every
+    rank."""
     mesh = check_mesh(mesh)
+    if rules not in sharding.RULES:
+        raise ValueError(f"rules must be one of {sorted(sharding.RULES)}, got {rules!r}")
     dev = resolve_device(device if mesh is None else mesh.device)
     lead = mesh is None or mesh.rank == 0
     if mesh is not None:
-        sharding.set_rules(sharding.BATCH_RULES, mesh=mesh)
+        sharding.set_rules(sharding.RULES[rules], mesh=mesh)
     try:
         params, opt_state, start = _initial_state(cfg, opt_cfg, ckpt_dir, seed, dev, mesh)
         step_fn = M.make_train_step(cfg, opt_cfg)
@@ -118,7 +130,7 @@ def train(cfg, opt_cfg, steps, ckpt_dir=None, ckpt_every=0, seed=0,
             if ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
                 state = {"params": params, "opt": opt_state}
                 ckpt.save(ckpt_dir, step + 1, state, mesh=mesh,
-                          blocks=sharding.expert_blocks(state, mesh))
+                          blocks=sharding.param_blocks(cfg, state, mesh))
                 if lead:
                     ckpt.prune(ckpt_dir, keep=keep)
             if fail_at is not None and step + 1 >= fail_at:
@@ -156,6 +168,10 @@ def _parser():
     ap.add_argument("--world", type=int, default=None,
                     help="train over a world of this many rank processes on this "
                          "host (they share the card where there is one)")
+    ap.add_argument("--rules", choices=list(sharding.RULES), default="batch",
+                    help="the rules over a world of D > 1: the batch binding "
+                         "(sharding.BATCH_RULES) or the reference's production rules "
+                         "(sharding.PRODUCTION_RULES: tensor and sequence parallelism)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; without a card pass --device cpu")
     return ap
@@ -174,6 +190,7 @@ def _run(args, mesh):
         ckpt_every=args.ckpt_every, seed=args.seed,
         batch_shape=(args.batch, args.seq),
         fail_at=args.simulate_failure_at, device=args.device, mesh=mesh,
+        rules=args.rules,
     )
     if mesh is not None and mesh.rank:
         return

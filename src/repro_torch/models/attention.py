@@ -26,7 +26,9 @@ Over a world of ranks under tensor and sequence parallelism
   with RoPE at global positions and the causal softmax over the whole
   sequence, and its row-parallel ``wo`` partial is reduce-scattered to its
   sequence block (folded whole without "seq"). Without split heads the
-  rank runs every head for its own positions' queries;
+  rank runs every head for its own positions' queries. The collectives
+  are ``core.mesh``'s autograd functions (a replicated x enters the
+  rank's heads through ``copy_in``), so training runs through them;
 * the decode cache holds this rank's KV heads where "kv_heads" splits
   them, else its block of the positions where "kv_seq" does
   (:func:`kv_split`). :func:`decode_attention` runs the rank's heads
@@ -43,6 +45,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.mesh import all_gather, copy_in, reduce_scatter
 from . import sharding
 from .layers import init_rms, rank_block, rms_norm, rope, truncnorm
 
@@ -217,8 +220,12 @@ def _attention_world(p, cfg, x, positions):
     """:func:`attention` (causal self-attention) over the rules' world."""
     mesh = sharding.get_mesh()
     seq = sharding.seq_range(len(positions))
-    xf = x if seq is None else mesh.all_gather(x, 1)
     heads = rank_heads(cfg)
+    # the rank's users of the joined sequence (its heads, or its queries)
+    # make its gradient a partial; a replicated x entering the rank's heads
+    # gets its gradient folded (``core.mesh.copy_in``)
+    xf = (all_gather(mesh, x, 1) if seq is not None
+          else copy_in(mesh, x) if heads is not None else x)
     if heads is None:
         # every head, for this rank's positions' queries
         q_pos = positions if seq is None else positions[seq[0]:seq[1]]
@@ -233,7 +240,7 @@ def _attention_world(p, cfg, x, positions):
     out = _chunked_attention(q, _grouped(k, cfg, heads), _grouped(v, cfg, heads),
                              positions, positions, cfg.attn_chunk, True, cfg.window)
     part = _out(out, wo)                                   # (B, S, D) partial
-    return sharding.world_sum(part) if seq is None else mesh.reduce_scatter(part, 1)
+    return sharding.world_sum(part) if seq is None else reduce_scatter(mesh, part, 1)
 
 
 # --- decode ------------------------------------------------------------------

@@ -14,10 +14,14 @@ a prefill stays split by sequence between blocks where "seq" splits it
 it on entry and reduce-scatter their row-parallel partials back to the
 rank's block (without "seq" they fold them whole); the MoE routes the
 rank's block through its all-to-all path. A decode step's x is the same
-on every rank, and the partials are folded whole.
+on every rank, and the partials are folded whole. The collectives are
+``core.mesh``'s autograd functions (a replicated h enters the rank's FFN
+columns through ``copy_in``), so the train step's backward runs through
+them.
 """
 from __future__ import annotations
 
+from ..core.mesh import all_gather, copy_in, reduce_scatter
 from . import sharding
 from .attention import (attention, decode_attention, decode_mla, init_attn,
                         init_kv_cache, init_mla, init_mla_cache, mla_attention)
@@ -61,8 +65,9 @@ def _dense(p, cfg, h, d_ff, seq_split):
     if cols is None:
         return mlp(p, h, cfg.act)
     mesh = sharding.get_mesh()
-    part = mlp(p, mesh.all_gather(h, 1) if seq_split else h, cfg.act, cols=(*cols, d_ff))
-    return mesh.reduce_scatter(part, 1) if seq_split else sharding.world_sum(part)
+    part = mlp(p, all_gather(mesh, h, 1) if seq_split else copy_in(mesh, h), cfg.act,
+               cols=(*cols, d_ff))
+    return reduce_scatter(mesh, part, 1) if seq_split else sharding.world_sum(part)
 
 
 def _apply_ffn(p, cfg, x, ffn, decode=False, seq_split=False):

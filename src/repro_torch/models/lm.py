@@ -35,12 +35,22 @@ and gathers the vocab's columns, so every rank returns the same (B, V)
 bits, and :func:`decode_step` runs x the same on every rank (the
 reference's ``constrain(x, "batch", None, None)``); :func:`init_cache`
 allocates this rank's block of each KV cache (``attention.kv_split``).
+:func:`lm_nll` is the reference's ``constrain(logits, "batch", None,
+"vocab")``: the final hidden states all-gathered over "seq" once, each
+rank's vocab block of the logits chunk by chunk, and the logsumexp over
+the vocab's ranks in float32 (the exact maximum through ``Mesh.amax``,
+the sums of exponentials and the gold logit, which one rank holds, folded
+in rank order), so every rank has the same total and count; without
+"vocab" each rank takes the loss of its own block of positions and the
+blocks' sums are folded. The collectives are ``core.mesh``'s autograd functions, so
+the train step's backward runs through them.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..core.mesh import all_gather, copy_in, fold_sum, reduce_scatter
 from .blocks import block_apply, block_decode, init_block, init_block_cache
 from .layers import embed, init_embed, init_rms, rank_block, rms_norm, unembed
 from . import sharding
@@ -151,7 +161,7 @@ def _embedded(params, cfg, tokens, extra_embeds):
     seq = sharding.seq_range(x.shape[1])
     if by_vocab:
         return (sharding.world_sum(x) if seq is None
-                else sharding.get_mesh().reduce_scatter(x, 1))
+                else reduce_scatter(sharding.get_mesh(), x, 1))
     return x if seq is None else x[:, seq[0]:seq[1]]
 
 
@@ -206,26 +216,28 @@ def _chunk_nll(e, h, targets, mask, softcap):
     return ((lse - gold) * mask).sum()
 
 
-def chunked_nll(e, h, targets, mask, chunk, softcap=0.0):
+def chunked_nll(e, h, targets, mask, chunk, softcap=0.0, vocab_block=None):
     """(summed CE, token count) of hidden states ``h`` (B, S, D) against the
     head ``e``, ``chunk`` positions at a time. targets: (B, S) int; mask
-    (B, S) or None (every position counts).
+    (B, S) or None (every position counts). ``vocab_block``: ``(mesh,
+    lo)`` where ``e`` is this rank's rows ``lo ..`` of the head and ``h``
+    the same on every rank: each chunk's logsumexp over the vocab's ranks
+    (:func:`_chunk_nll_world`), every rank the same total and count.
 
-    The chunks' sums are added to a float32 carry in chunk order; the count
-    is ``sum(mask)`` in float32."""
+    The chunks' sums are added to a float32 carry in chunk order (the last
+    chunk may be short); the count is ``sum(mask)`` in float32."""
     s = h.shape[1]
-    c = min(chunk, s)
-    if s % c:
-        raise ValueError(f"sequence {s} is not a multiple of loss_chunk {c}")
+    c = max(min(chunk, s), 1)
     mask = torch.ones(targets.shape, dtype=torch.float32, device=h.device) \
         if mask is None else mask
+    fn, world = (_chunk_nll, ()) if vocab_block is None else (_chunk_nll_world, vocab_block)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for j in range(0, s, c):
-        args = (e, h[:, j:j + c], targets[:, j:j + c], mask[:, j:j + c], softcap)
+        args = (e, h[:, j:j + c], targets[:, j:j + c], mask[:, j:j + c], softcap, *world)
         if torch.is_grad_enabled():
-            total = total + checkpoint(_chunk_nll, *args, use_reentrant=False)
+            total = total + checkpoint(fn, *args, use_reentrant=False)
         else:
-            total = total + _chunk_nll(*args)
+            total = total + fn(*args)
     return total, mask.sum()
 
 
@@ -234,14 +246,63 @@ def mean_nll(total, count):
     return total / torch.clamp_min(count, 1.0)
 
 
+def _chunk_nll_world(e, h, targets, mask, softcap, mesh, lo):
+    """:func:`_chunk_nll` where this rank holds rows ``lo ..`` of the head
+    ``e`` (its vocab block): its block of the logits (B, c, V / D), the
+    softcap on the block, and the logsumexp over the ranks in float32: the
+    exact maximum (``Mesh.amax``, off the gradient: the logsumexp does not
+    depend on it), the blocks' sums of exponentials folded in rank order,
+    and the gold logit from the rank that holds the target (exact zeros
+    elsewhere). Takes the mesh as an argument: the backward's recompute
+    runs on autograd's thread, where the rules are unset."""
+    logits = (h @ e.to(h.dtype).T) * h.shape[-1] ** -0.5    # (B, c, V / D)
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    logits = logits.float()
+    m = mesh.amax(logits.detach().amax(-1)).to(logits.device)
+    lse = m + torch.log(fold_sum(mesh, torch.exp(logits - m[..., None]).sum(-1)))
+    local = targets.long() - lo
+    inside = (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(logits, -1, local.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+    gold = fold_sum(mesh, torch.where(inside, gold, 0.0))
+    return ((lse - gold) * mask).sum()
+
+
 def lm_nll(params, cfg, tokens, targets, mask=None, extra_embeds=None):
     """(summed CE, token count), chunked over the sequence
-    (:func:`chunked_nll`). targets: (B, S) int; mask (B, S)."""
+    (:func:`chunked_nll`). targets: (B, S) int; mask (B, S).
+
+    Over a world under tensor and sequence parallelism (module docstring):
+    where "vocab" splits the head each rank computes its block of the
+    logits (:func:`chunked_nll`'s ``vocab_block``) for every position (the
+    rank's block of the hidden states all-gathered once where "seq" splits
+    the sequence); where only "seq" splits, each rank computes the loss of
+    its own block of the text positions, and the sums and counts are folded
+    over the ranks. Every rank returns the same total and count."""
     h = forward(params, cfg, tokens, extra_embeds)
-    if extra_embeds is not None:
-        h = h[:, extra_embeds.shape[1]:]                    # text positions only
-    return chunked_nll(head_params(params)["e"], h, targets, mask, cfg.loss_chunk,
-                       cfg.logit_softcap)
+    npre = 0 if extra_embeds is None else extra_embeds.shape[1]
+    e = head_params(params)["e"]
+    mesh = sharding.get_mesh()
+    seq = sharding.seq_range(tokens.shape[1] + npre)
+    vocab = sharding.vocab_range(cfg.vocab)
+    if mesh is None or mesh.size == 1 or (seq is None and vocab is None):
+        return chunked_nll(e, h[:, npre:], targets, mask, cfg.loss_chunk,
+                           cfg.logit_softcap)
+    if vocab is None:                                       # the rank's positions
+        lo, hi = seq
+        a, b = max(lo, npre) - npre, hi - npre              # its text positions
+        if b <= a:          # none: a zero on h's graph keeps the backward's collectives
+            zero = h[:, :0].float().sum()
+            return fold_sum(mesh, zero), fold_sum(mesh, zero.detach())
+        total, count = chunked_nll(e, h[:, a + npre - lo:], targets[:, a:b],
+                                   None if mask is None else mask[:, a:b],
+                                   cfg.loss_chunk, cfg.logit_softcap)
+        return fold_sum(mesh, total), fold_sum(mesh, count)
+    # every position on every rank: the gradient of a block is reduce-
+    # scattered back; a replicated h enters the rank's vocab block
+    h = all_gather(mesh, h, 1) if seq is not None else copy_in(mesh, h)
+    return chunked_nll(rank_block(e, 0, vocab, cfg.vocab), h[:, npre:], targets, mask,
+                       cfg.loss_chunk, cfg.logit_softcap, vocab_block=(mesh, vocab[0]))
 
 
 def lm_loss(params, cfg, tokens, targets, mask=None, extra_embeds=None):

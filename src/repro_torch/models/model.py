@@ -40,8 +40,12 @@ parallelism, "batch" off the world) each rank keeps its block of every
 leaf that :func:`param_specs` splits (:func:`shard_params`) and every rank
 runs every row: the prefill and decode steps of the attention LMs return
 the whole (B, V) logits, the same bits on every rank, and ``init_cache``
-builds the rank's block of each KV cache. What the port has not
-implemented raises ``NotImplementedError`` (``sharding.check_step_rules``).
+builds the rank's block of each KV cache; the train step runs every row
+on every rank through the backward of those collectives
+(:func:`loss_and_grads`: the vocab-parallel loss, each partial leaf's
+gradient folded in rank order; ``optim.apply_updates(mesh=, blocks=)``:
+the global norm over the cut leaves). What the port has not implemented
+raises ``NotImplementedError`` (``sharding.check_step_rules``).
 """
 from __future__ import annotations
 
@@ -146,21 +150,78 @@ def loss_fn(params, cfg, batch):
 
 def _world_of_training(cfg):
     """The rules' ``Mesh`` when a step trains over a world, else None. A
-    world trains under the batch binding only (``sharding.BATCH_RULES``):
-    a name of ``sharding.TP_NAMES`` on the world raises
-    ``NotImplementedError``, and "batch" and "experts" must be bound to
-    the world."""
+    world trains under the batch binding ("batch" and "experts" bound to
+    the world, ``sharding.BATCH_RULES``) or with "batch" off the world,
+    every rank running every row (the production rules,
+    ``sharding.PRODUCTION_RULES``: tensor and sequence parallelism); what
+    the port has not implemented raises ``NotImplementedError``
+    (``sharding.check_step_rules``)."""
     mesh = sharding.get_mesh()
     if mesh is None:
         return None
     sharding.check_step_rules(cfg, "train")
-    if not (sharding.on_world("batch") and sharding.on_world("experts")):
-        raise ValueError("a train step over a world runs under the batch binding: "
-                         "'batch' and 'experts' bound to the world "
-                         f"({sharding.WORLD!r}, sharding.BATCH_RULES), got batch "
-                         f"{sharding.mesh_axis('batch')!r}, experts "
+    if sharding.on_world("batch") and not sharding.on_world("experts"):
+        raise ValueError("a train step with 'batch' on the world runs under the batch "
+                         "binding: 'batch' and 'experts' bound to the world "
+                         f"({sharding.WORLD!r}, sharding.BATCH_RULES), got experts "
                          f"{sharding.mesh_axis('experts')!r}")
     return mesh
+
+
+def _whole_leaf_split(path):
+    """The split besides "seq" under which a rank's gradient of the whole
+    leaf at ``path`` is a partial: "heads" for the attention's leaves (they
+    serve the rank's heads: ``wk``/``wv`` kept whole, the q and k norms),
+    "routed" for the router (the MoE's cut tokens), None for a leaf that
+    meets only the residual or the replicated logits (the block norms, the
+    final norm, ``e``, a dense FFN's ``wi``/``wo`` kept whole). A whole leaf
+    this table does not know raises: its gradient may be a partial the
+    fold would miss."""
+    key = path[-1]
+    if "mixer" in path and key in ("wq", "wk", "wv", "wo", "scale"):
+        return "heads"
+    if key == "router":
+        return "routed"
+    if key in ("scale", "e", "wi", "wo"):
+        return None
+    raise NotImplementedError("the train step's gradient fold does not know the whole "
+                              f"leaf {'/'.join(map(str, path))}")
+
+
+def _partial_grads(cfg, params, blocks, batch):
+    """For each leaf of ``params`` (in ``tree_leaves`` order) under rules
+    that keep "batch" off the world: whether this rank's gradient of it is
+    a partial, whose sum over the ranks is the gradient. A cut leaf's
+    (``blocks``) is the rank's own. A whole leaf's is a partial where the
+    rank uses it on its share of the work, and whole where every rank does
+    the same work with it; which one is decided from the splits in effect
+    for this step, not from the leaf's name alone:
+
+    * "seq" splits the residual (D divides the positions): every whole
+      leaf meets the rank's block of positions (the norms, the router,
+      uncut projections; the embedding's lookup and the loss's rows);
+    * the heads split: the attention's whole leaves serve the rank's heads;
+    * the MoE cuts the replicated tokens (``moe.moe_train``): the router
+    (:func:`_whole_leaf_split`, which refuses a whole leaf it does not know).
+
+    Where a split is dropped (D does not divide it) every rank sees the same
+    data, and its gradient is already whole: folding it would multiply it
+    by D."""
+    from .attention import rank_heads
+
+    mesh = sharding.get_mesh()
+    tokens = batch["tokens"]
+    patches = batch.get("patches")
+    s = tokens.shape[1] + (0 if patches is None else patches.shape[1])
+    seq = sharding.seq_range(s) is not None
+    heads = rank_heads(cfg) is not None
+    routed = seq or (sharding.on_world("experts") and (tokens.shape[0] * s) % mesh.size == 0)
+    out = []
+    for (path, _), block in zip(lm.tree_leaves_with_paths(params), blocks):
+        split = None if block is not None else _whole_leaf_split(path)
+        out.append(block is None and (seq or (heads and split == "heads")
+                                      or (routed and split == "routed")))
+    return out
 
 
 def loss_and_grads(params, cfg, batch):
@@ -169,13 +230,18 @@ def loss_and_grads(params, cfg, batch):
 
     Over a world of ranks (the rules carry this rank's ``Mesh``; see
     :func:`_world_of_training`) every rank gives the global ``batch`` and
-    its cut tree (``sharding.shard_experts``). The rank runs its ``B / D``
-    rows and differentiates its summed loss over the global token count
-    (the ranks' counts folded in rank order, exact); the loss is the ranks'
-    sums folded in rank order over that count, the same on every rank. A
-    replicated leaf's gradient is the ranks' gathered, folded in rank order
-    in float32 and rounded once to the leaf's dtype (never a float
-    ``all_reduce``), leaf by leaf; an expert leaf's stays the rank's."""
+    its cut tree (``shard_params``). Under the batch binding the rank runs
+    its ``B / D`` rows and differentiates its summed loss over the global
+    token count (the ranks' counts folded in rank order, exact); the loss
+    is the ranks' sums folded in rank order over that count, the same on
+    every rank, and every leaf but the experts' is a partial. Under the
+    production rules every rank runs every row and the loss is
+    ``lm.lm_nll``'s, the same bits on every rank; a leaf is a partial
+    where :func:`_partial_grads` says so. A partial's gradient is the
+    ranks' gathered, folded in rank order in float32 and rounded once to
+    the leaf's dtype (never a float ``all_reduce``), leaf by leaf; a cut
+    leaf's (``sharding.param_blocks``) stays the rank's, and a whole one's
+    is the rank's own, the same on every rank."""
     mesh = _world_of_training(cfg)
     leaves = lm.tree_leaves(params)
     for p in leaves:
@@ -184,18 +250,24 @@ def loss_and_grads(params, cfg, batch):
     if mesh is None:
         loss = loss_fn(params, cfg, batch)
         loss.backward()
-    else:
+    elif sharding.on_world("batch"):
         total, count = _nll(params, cfg, {k: _rank_rows(v) for k, v in batch.items()})
         dev = total.device
         count = ordered_fold(mesh.gather(count.detach())).to(dev)
         lm.mean_nll(total, count).backward()
         loss = lm.mean_nll(ordered_fold(mesh.gather(total.detach())).to(dev), count)
+    else:
+        loss = loss_fn(params, cfg, batch)
+        loss.backward()
     grads = {id(p): torch.zeros_like(p) if p.grad is None else p.grad for p in leaves}
     for p in leaves:
         p.grad = None                     # never accumulated across steps
     if mesh is not None:
-        for p, ax in zip(leaves, sharding.expert_axes(params)):
-            if ax is None:
+        blocks = sharding.param_blocks(cfg, params, mesh)
+        partial = ([b is None for b in blocks] if sharding.on_world("batch")
+                   else _partial_grads(cfg, params, blocks, batch))
+        for p, fold in zip(leaves, partial):
+            if fold:
                 g = grads[id(p)]
                 grads[id(p)] = ordered_fold(mesh.gather(g).to(g.device),
                                             dtype=torch.float32).to(g.dtype)
@@ -211,8 +283,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig):
 
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grads(params, cfg, batch)
-        params, opt_state, metrics = apply_updates(params, grads, opt_state, opt_cfg,
-                                                   mesh=sharding.get_mesh())
+        mesh = sharding.get_mesh()
+        params, opt_state, metrics = apply_updates(
+            params, grads, opt_state, opt_cfg, mesh=mesh,
+            blocks=None if mesh is None else sharding.param_blocks(cfg, params, mesh))
         return params, opt_state, {"loss": loss, **metrics}
     return train_step
 
@@ -293,8 +367,8 @@ def input_specs(cfg: ModelConfig, cell: ShapeCell, params=None):
 def production_rules(multi_pod: bool, fsdp_mode: str = "full"):
     """The reference's production rule dicts (its 16 x 16 or 2 x 16 x 16
     mesh). On the port's flat world, ``production_rules(False)`` is
-    ``sharding.PRODUCTION_RULES``: its prefill and decode steps run, its
-    train step is refused (:func:`check_rules`)."""
+    ``sharding.PRODUCTION_RULES``: its prefill, decode and train steps run
+    for the attention LMs (:func:`check_rules` refuses the rest)."""
     batch = ("pod", "data") if multi_pod else ("data",)
     rules = {"batch": batch, "seq": "model", "kv_seq": "model", "heads": "model",
              "kv_heads": "model", "ffn": "model", "experts": "model", "vocab": "model",
@@ -330,31 +404,10 @@ def sanitize(dim, shape, size=None):
     return dim
 
 
-def _leaf_role(path, parent):
-    """(logical name, dim) of a parameter leaf's split by the reference's
-    ``_leaf_spec`` roles, the dim of the stored (stacked under "slots")
-    leaf; None: kept whole (the router, the norms). ``wk``/``wv`` are split
-    on their KV heads where D divides them and are otherwise kept whole:
-    the reference splits their head dim there, which moves its layout
-    only."""
-    key, lead = path[-1], 1 if path[0] == "slots" else 0
-    ax = sharding._expert_axis(parent, key)
-    if ax is not None:
-        return "experts", ax
-    if key == "e":
-        return "vocab", 0
-    if len(path) >= 2 and path[-2] == "mixer":
-        return {"wq": ("heads", lead + 1), "wk": ("kv_heads", lead + 1),
-                "wv": ("kv_heads", lead + 1), "wo": ("heads", lead)}.get(key)
-    if len(path) >= 2 and path[-2] in ("ffn", "shared"):
-        return {"wi": ("ffn", lead + 2), "wo": ("ffn", lead)}.get(key)
-    return None
-
-
 def param_specs(cfg: ModelConfig, params):
     """For each leaf of the whole parameter tree (``init``'s, same nesting),
     the dim split over the world, or None: the expert axis where the rules
-    bind "experts" (``sharding.expert_axes``); under tensor parallelism the
+    bind "experts" (``sharding.leaf_role``); under tensor parallelism the
     heads of ``wq`` and the attention ``wo`` ("heads"), of ``wk``/``wv``
     ("kv_heads"), the columns of a dense ``wi`` and rows of its ``wo``
     ("ffn", shared experts too), the rows of the embed and head ``e``
@@ -364,7 +417,7 @@ def param_specs(cfg: ModelConfig, params):
             return {k: walk(v, path + (k,), t) for k, v in t.items()}
         if isinstance(t, list):
             return [walk(v, path + (i,), None) for i, v in enumerate(t)]
-        role = _leaf_role(path, parent or {})
+        role = sharding.leaf_role(path, parent or {})
         if role is None or t is None or not sharding.on_world(role[0]):
             return None
         return sanitize(role[1], t.shape, _world_size(role[0]))

@@ -31,7 +31,10 @@ experts, ``sharding.shard_experts``):
 * ``moe_train`` with ``replicated`` (every rank holds the same tokens:
   neither "batch" nor a split "seq" on the world) routes the rank's
   block of the B x S tokens through the a2a path and all-gathers the
-  blocks, so the routing spans the tokens once, as the reference's does.
+  blocks, so the routing spans the tokens once, as the reference's does
+  (under autograd ``core.mesh.split`` and ``all_gather(whole=True)``: the
+  replicated tokens' gradient is whole on every rank). A train step over
+  replicated tokens that D does not divide is refused.
 
 Training runs through the a2a path as the reference's ``jax.grad`` runs
 through its shard_map body: the all-to-alls of the token rows and of the
@@ -57,7 +60,7 @@ import torch.nn.functional as F
 
 from ..core.bucketing import ordered_fold
 from ..core.moe_router import scd_route, scd_route_shmap, topk_route
-from ..core.mesh import all_to_all
+from ..core.mesh import all_gather, all_to_all, split
 from . import sharding
 from .layers import activation, truncnorm
 
@@ -187,9 +190,14 @@ def moe_train(p, cfg, x, act="silu", replicated=False):
         return _moe(p, cfg, x, act, decode=False)
     b, s, d = x.shape
     if replicated and mesh.size > 1 and (b * s) % mesh.size == 0:
-        n = b * s // mesh.size
-        t = x.reshape(1, b * s, d)[:, mesh.rank * n:(mesh.rank + 1) * n]
-        return mesh.all_gather(_moe_a2a(p, cfg, t, act, mesh), 1).reshape(b, s, d)
+        # the rank's block of the tokens; the blocks' outputs joined are
+        # the same on every rank, so their gradient is whole there
+        t = split(mesh, x.reshape(1, b * s, d), 1)
+        return all_gather(mesh, _moe_a2a(p, cfg, t, act, mesh), 1,
+                          whole=True).reshape(b, s, d)
+    if replicated and mesh.size > 1 and torch.is_grad_enabled():
+        raise ValueError(f"a train step routes the replicated tokens by block: "
+                         f"{b} x {s} tokens do not split over {mesh.size} ranks")
     return _moe_a2a(p, cfg, x, act, mesh)
 
 

@@ -20,11 +20,10 @@ What runs over the world:
 * "batch" -> world: each rank runs the prefill, decode and train steps
   on its ``B / D`` rows (:func:`rank_rows`), every other weight
   replicated; training runs under :data:`BATCH_RULES` ("batch" and
-  "experts" bound), and :func:`map_experts` / :func:`expert_axes` say
-  which leaves of a tree (parameters, optimizer state, checkpoint) are
-  the rank's blocks of the experts;
+  "experts" bound), and :func:`map_experts` cuts a tree's expert leaves
+  (:func:`param_blocks` says which leaves are a rank's blocks);
 * tensor and sequence parallelism, the names of :data:`TP_NAMES` -> world
-  (the prefill and decode steps of the attention LMs, under
+  (the prefill, decode and train steps of the attention LMs, under
   :data:`PRODUCTION_RULES`, the reference's ``production_rules(False)``):
   "heads" and "kv_heads" the attention heads (:func:`head_range`,
   :func:`kv_head_range`), "ffn" the dense FFN's columns (:func:`ffn_range`),
@@ -34,13 +33,18 @@ What runs over the world:
   Each helper gives this rank's block, or None where the rules leave the
   name off the world or D does not divide it (the reference's
   ``sanitize`` drops such a split). ``models/model.param_specs`` lays the
-  parameters out by the same roles.
+  parameters out by the same roles (:func:`leaf_role`), and
+  :func:`param_blocks` says, for every leaf of a parameter, optimizer or
+  checkpoint tree, the block this rank holds under the rules in effect
+  (the train step's gradient fold, ``optim.apply_updates``'s norm and the
+  world's checkpoint read it).
 
 The steps refuse what the port has not implemented (:func:`refusal`,
 :func:`check_step_rules`: ``NotImplementedError`` naming
-:data:`_UNPORTED_ITEM`): a train step under a name of :data:`TP_NAMES` on
-the world, "fsdp" on the world, the MLA, Mamba2 and encoder-decoder archs
-under them, and "batch" on the world together with them (a 2-D world).
+:data:`_UNPORTED_ITEM`): "fsdp" on the world, the MLA, Mamba2 and
+encoder-decoder archs and the FSDP layouts (``cfg.fsdp_mode``) under a
+name of :data:`TP_NAMES`, and "batch" on the world together with one (a
+2-D world).
 Eager torch has nothing to constrain: :func:`constrain` returns its input,
 and :func:`spec` the tuple of bound names where the reference builds a
 ``PartitionSpec``.
@@ -50,18 +54,15 @@ from __future__ import annotations
 import threading
 from typing import Optional
 
-import torch
-
-from ..core.bucketing import ordered_fold
-from ..core.mesh import check_mesh
+from ..core.mesh import check_mesh, fold_sum
 
 __all__ = ["DEFAULT_RULES", "WORLD", "TP_NAMES", "set_rules", "get_rules",
            "get_mesh", "spec", "constrain", "mesh_axis", "axis_size",
            "on_world", "binds", "refusal", "check_step_rules", "rank_rows",
-           "expert_range", "shard_experts", "map_experts", "expert_axes",
-           "expert_blocks", "BATCH_RULES", "PRODUCTION_RULES", "head_range",
-           "kv_head_range", "ffn_range", "vocab_range", "seq_range",
-           "world_sum"]
+           "expert_range", "shard_experts", "map_experts", "BATCH_RULES",
+           "PRODUCTION_RULES", "head_range", "kv_head_range", "ffn_range",
+           "vocab_range", "seq_range", "world_sum", "RULES", "leaf_role",
+           "param_blocks"]
 
 _state = threading.local()
 
@@ -95,10 +96,17 @@ PRODUCTION_RULES = {"batch": ("data",), "seq": WORLD, "kv_seq": WORLD, "heads": 
                     "kv_heads": WORLD, "ffn": WORLD, "experts": WORLD, "vocab": WORLD,
                     "fsdp": "data", None: None}
 
-# Tensor and sequence parallelism: the prefill and decode steps of the
-# attention LMs run with these on the world.
+# The rule sets a world runs under, by the name the launchers' ``--rules``
+# takes.
+RULES = {"batch": BATCH_RULES, "production": PRODUCTION_RULES}
+
+# Tensor and sequence parallelism: the prefill, decode and train steps of
+# the attention LMs run with these on the world.
 TP_NAMES = ("seq", "kv_seq", "heads", "kv_heads", "ffn", "vocab")
 _UNPORTED_ITEM = "ROADMAP A10 item 5, second part"
+# The reference's FSDP layouts (``model.param_specs``/``opt_specs`` under
+# ``cfg.fsdp_mode``): refused under tensor parallelism with the label.
+FSDP_MODES = ("fsdp_only", "dp_full", "zero1")
 
 
 def set_rules(rules: Optional[dict], mesh=None):
@@ -163,9 +171,10 @@ def binds(rules, name) -> bool:
 def refusal(rules, cfg=None, kind=None):
     """Why ``rules`` cannot run a step over the world, or None: "fsdp" on
     the world (FSDP), "batch" on it together with a name of
-    :data:`TP_NAMES` (a 2-D world), and under a name of :data:`TP_NAMES` a
-    train step (``kind == "train"``) or an arch whose mixers this slice
-    does not cover (``cfg``: MLA, Mamba2, the encoder-decoder). Each names
+    :data:`TP_NAMES` (a 2-D world), and under a name of :data:`TP_NAMES` an
+    arch whose mixers the port does not cover there (``cfg``: MLA, Mamba2,
+    the encoder-decoder) or a config laid out for FSDP (``cfg.fsdp_mode``
+    in :data:`FSDP_MODES`), whatever the step's ``kind``. Each names
     :data:`_UNPORTED_ITEM`."""
     if binds(rules, "fsdp"):
         return (f"the rules bind 'fsdp' to the world ({WORLD!r}): FSDP is not ported "
@@ -176,15 +185,15 @@ def refusal(rules, cfg=None, kind=None):
     if binds(rules, "batch"):
         return (f"the rules bind 'batch' and {tp} to the one world axis: a 2-D world "
                 f"(data x model) is not ported ({_UNPORTED_ITEM})")
-    if kind == "train":
-        return (f"a train step under {tp} on the world (training under tensor and "
-                f"sequence parallelism) is not ported ({_UNPORTED_ITEM})")
     if cfg is not None:
         what = ("the encoder-decoder" if cfg.kind == "encdec" else "MLA" if cfg.use_mla
                 else "Mamba2" if "mamba" in cfg.pattern else None)
         if what:
             return (f"{cfg.name}: {what} under {tp} on the world is not ported "
                     f"({_UNPORTED_ITEM})")
+        if cfg.fsdp_mode in FSDP_MODES:
+            return (f"{cfg.name}: fsdp_mode {cfg.fsdp_mode!r} lays the parameters out "
+                    f"for FSDP, which is not ported ({_UNPORTED_ITEM})")
     return None
 
 
@@ -257,21 +266,107 @@ def world_sum(t):
     """The sum over the ranks of the rules' ``Mesh`` of their ``t`` (the
     same shape on each), gathered and folded in rank order in float32,
     rounded once to ``t``'s dtype, on ``t``'s device: every rank gets the
-    same bits."""
-    mesh = get_mesh()
-    return ordered_fold(mesh.gather(t).to(t.device), dtype=torch.float32).to(t.dtype)
+    same bits. Differentiable: each rank's partial takes the sum's gradient
+    (``core.mesh.fold_sum``)."""
+    return fold_sum(get_mesh(), t)
 
 
 def _expert_axis(parent: dict, key):
     """The expert axis of ``parent[key]``, or None: an MoE's ``wi`` and
     ``wo`` are cut over their experts, dim 1 of a leaf stacked over periods,
     dim 0 of a bare ``init_moe`` tree. The one place that says which leaves
-    are cut over the experts: :func:`shard_experts`, the train step's
-    gradient fold, ``optim.apply_updates``'s norm and the world's
-    checkpoint read it through :func:`map_experts` and :func:`expert_axes`."""
+    are cut over the experts: :func:`shard_experts` (through
+    :func:`map_experts`) and :func:`leaf_role` read it."""
     if key in ("wi", "wo") and {"router", "wi", "wo"} <= parent.keys():
         return parent["wi"].dim() - 4                 # (periods,) E, d, 2, f
     return None
+
+
+def leaf_role(path, parent):
+    """(logical name, dim) of a parameter leaf's split by the reference's
+    ``_leaf_spec`` roles, the dim of the stored leaf (its period axis first
+    under "slots"); None: kept whole (the router, the norms). ``path`` is
+    the leaf's keys from the root of a parameter tree, or of a tree that
+    holds one (a checkpoint's ``{"params", "opt"}``, an optimizer state's
+    moments); ``parent`` the dict that holds the leaf. ``wk``/``wv`` split
+    on their KV heads where D divides them and are otherwise kept whole:
+    the reference splits their head dim there, which moves its layout
+    only."""
+    key, lead = path[-1], 1 if "slots" in path else 0
+    ax = _expert_axis(parent, key)
+    if ax is not None:
+        return "experts", ax
+    if key == "e":
+        return "vocab", 0
+    if len(path) >= 2 and path[-2] == "mixer":
+        return {"wq": ("heads", lead + 1), "wk": ("kv_heads", lead + 1),
+                "wv": ("kv_heads", lead + 1), "wo": ("heads", lead)}.get(key)
+    if len(path) >= 2 and path[-2] in ("ffn", "shared"):
+        return {"wi": ("ffn", lead + 2), "wo": ("ffn", lead)}.get(key)
+    return None
+
+
+def _leaves_with_roles(tree):
+    """(path, leaf, role) of every leaf of ``tree`` in ``jax.tree.leaves``
+    order (dict keys sorted, lists, tuples and ``NamedTuple`` fields in
+    order, no leaf for None)."""
+    out = []
+
+    def walk(t, path, parent):
+        if t is None:
+            return
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,), t)
+        elif isinstance(t, (list, tuple)):
+            names = getattr(t, "_fields", range(len(t)))
+            for name, v in zip(names, t):
+                walk(v, path + (name,), None)
+        else:
+            out.append((path, t, leaf_role(path, parent or {}) if path else None))
+    walk(tree, (), None)
+    return out
+
+
+def _whole_size(cfg, path, name):
+    """The whole extent of a leaf's dim named ``name`` in ``cfg``."""
+    if name == "experts":
+        return cfg.moe.n_experts
+    if name == "vocab":
+        return cfg.vocab
+    if name == "heads":
+        return cfg.n_heads
+    if name == "kv_heads":
+        return cfg.n_kv_heads
+    if "shared" in path:
+        return cfg.moe.n_shared * cfg.moe.d_ff
+    return cfg.first_dense_ff if "block0" in path and cfg.first_dense_ff else cfg.d_ff
+
+
+def param_blocks(cfg, tree, mesh, rules=None) -> list:
+    """For each leaf of ``tree`` (a parameter tree of ``cfg`` as
+    ``model.shard_params`` cuts it for this rank, an optimizer state
+    mirroring one, or a dict or tuple of them, as a checkpoint holds them)
+    in ``jax.tree.leaves`` order, the block this rank of ``mesh`` holds
+    under ``rules`` (default: the rules in effect): ``(axis, rank, size)``,
+    the ``rank``-th of ``size`` equal blocks along ``axis`` where the rules
+    bind the leaf's role (:func:`leaf_role`) to the world and D divides its
+    whole extent (as ``model.param_specs`` cuts it), else None (a whole
+    leaf); every leaf None for one process. Under the batch binding
+    only the experts' leaves are cut. The ``blocks`` of
+    ``checkpoint.ckpt.save`` and ``restore`` and of
+    ``optim.apply_updates``; the train step keeps a cut leaf's gradient as
+    the rank's."""
+    rules = get_rules() if rules is None else rules
+    mesh = check_mesh(mesh)
+    out = []
+    for path, _, role in _leaves_with_roles(tree):
+        if (mesh is None or role is None or not binds(rules, role[0])
+                or _whole_size(cfg, path, role[0]) % mesh.size):
+            out.append(None)
+        else:
+            out.append((role[1], mesh.rank, mesh.size))
+    return out
 
 
 def map_experts(fn, tree):
@@ -289,37 +384,6 @@ def map_experts(fn, tree):
             return type(t)(walk(v, None) for v in t)
         return fn(t, axis)
     return walk(tree, None)
-
-
-def expert_axes(tree) -> list:
-    """The expert axis of each leaf of ``tree`` (None: a whole leaf), in the
-    order of ``jax.tree.leaves`` (dict keys sorted, lists and tuples in
-    order, no leaf for None)."""
-    out = []
-
-    def walk(t, axis):
-        if isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k], _expert_axis(t, k))
-        elif isinstance(t, (list, tuple)):
-            for v in t:
-                walk(v, None)
-        elif t is not None:
-            out.append(axis)
-    walk(tree, None)
-    return out
-
-
-def expert_blocks(tree, mesh) -> list:
-    """For each leaf of ``tree`` in ``expert_axes`` order, the block that
-    this rank of ``mesh`` holds: ``(axis, rank, size)`` for an expert leaf
-    (the ``rank``-th of ``size`` equal blocks along ``axis``), None for a
-    whole leaf, every leaf for one process (``mesh=None``); the ``blocks``
-    of ``checkpoint.ckpt.save`` and ``restore``."""
-    axes = expert_axes(tree)
-    if check_mesh(mesh) is None:
-        return [None] * len(axes)
-    return [None if ax is None else (ax, mesh.rank, mesh.size) for ax in axes]
 
 
 def shard_experts(params, mesh):

@@ -21,15 +21,16 @@ the order of ``jax.tree.leaves`` (dict keys sorted, lists in order); a
 stacked leaf's sum is its period slices' sums added in period order.
 
 Over a world of ranks (``mesh=``, the train step's), every rank holds the
-replicated leaves whole, with the same folded gradients, and its own
-block of each expert leaf (``models.sharding.expert_axes``). A replicated
-slice's sum of squares is computed locally (the same bits on every
-rank); the expert slices' partial sums are gathered once a step as one
-vector and folded in rank order (``bucketing.ordered_fold``), as the
-reference's ``sum`` over the whole sharded leaf adds them. With
-compression an expert leaf's int8 scale is its global amax
-(``Mesh.amax``, exact); the error feedback stays with the rank's block.
-The updates stay elementwise and in place.
+whole leaves with the same gradients and its own block of each cut leaf
+(``blocks=``, ``models.sharding.param_blocks``: the experts under the
+batch binding, and under the production rules every leaf the rules split
+over the world). A whole slice's sum of squares is computed locally (the
+same bits on every rank) and counts once; the cut slices' partial sums
+are gathered once a step as one vector and folded in rank order
+(``bucketing.ordered_fold``), as the reference's ``sum`` over the whole
+sharded leaf adds them. With compression a cut leaf's int8 scale is its
+global amax (``Mesh.amax``, exact); the error feedback stays with the
+rank's block. The updates stay elementwise and in place.
 """
 from __future__ import annotations
 
@@ -40,7 +41,6 @@ import torch
 
 from ..core.bucketing import ordered_fold
 from ..core.mesh import check_mesh
-from ..models import sharding
 from ..models.lm import tree_leaves, tree_leaves_with_paths, tree_map
 
 # The parameter tree's key whose leaves are stacked over layer periods
@@ -148,21 +148,26 @@ def _update_(p, g32, m, v, k):
     p.copy_(p32 - step.mul_(k["lr"]))
 
 
-def apply_updates(params, grads, state: OptState, cfg: OptConfig, mesh=None):
+def apply_updates(params, grads, state: OptState, cfg: OptConfig, mesh=None,
+                  blocks=None):
     """One AdamW step, in place. Returns (params, new_state, metrics), the
     parameters and moments the same tensors, updated. ``mesh``: this
-    rank's ``core.mesh.Mesh`` when the expert leaves of ``params`` are the
-    rank's blocks (module docstring); every rank makes the same calls."""
+    rank's ``core.mesh.Mesh`` when leaves of ``params`` are the rank's
+    blocks, and then ``blocks``: for each leaf, the block it holds or None
+    (``sharding.param_blocks``). Module docstring; every rank makes the
+    same calls."""
     mesh = check_mesh(mesh)
+    if mesh is not None and blocks is None:
+        raise TypeError("apply_updates over a world takes the leaves' blocks "
+                        "(blocks=sharding.param_blocks(cfg, params, mesh))")
     with torch.no_grad():
         pl = tree_leaves_with_paths(params)
         gl, ml, vl = tree_leaves(grads), tree_leaves(state.mu), tree_leaves(state.nu)
-        cut = [] if mesh is None else [i for i, ax in enumerate(sharding.expert_axes(params))
-                                       if ax is not None]
+        cut = [] if mesh is None else [i for i, b in enumerate(blocks) if b is not None]
         if cfg.compress_grads:
             el = tree_leaves(state.err)
             amax = [_amax(path, g, e) for (path, _), g, e in zip(pl, gl, el)]
-            if cut:                                   # the expert leaves' global amax
+            if cut:                                   # the cut leaves' global amax
                 world = mesh.amax(torch.stack([amax[i] for i in cut]))
                 for i, a in zip(cut, world.to(amax[0].device).unbind(0)):
                     amax[i] = a
@@ -175,7 +180,7 @@ def apply_updates(params, grads, state: OptState, cfg: OptConfig, mesh=None):
                       for (path, _), g in zip(pl, gl)]
 
         # global-norm clip in f32: leaves in order, a stacked leaf's slices
-        # in period order; an expert slice's sum folded over the ranks
+        # in period order; a cut slice's sum folded over the ranks
         sums = [[piece().square_().sum() for piece in leaf] for leaf in pieces]
         if cut:
             at = [(i, j) for i in cut for j in range(len(sums[i]))]

@@ -50,15 +50,21 @@ def batches(case):
             for step in range(STEPS)]
 
 
-def whole(tree, mesh):
+def blocks(cfg, tree, mesh):
+    """``sharding.param_blocks`` of ``tree`` under the batch binding: the
+    experts' blocks."""
+    return S.param_blocks(cfg, tree, mesh, rules=S.BATCH_RULES)
+
+
+def whole(cfg, tree, mesh):
     """The leaves of ``tree`` in ``jax.tree.leaves`` order as float32 NumPy
     copies (the steps update the tensors in place), each expert leaf joined
     from the ranks' blocks in rank order."""
     out = []
-    for leaf, ax in zip(lm.tree_leaves(tree), S.expert_axes(tree)):
+    for leaf, b in zip(lm.tree_leaves(tree), blocks(cfg, tree, mesh)):
         t = leaf.detach().cpu().to(torch.float32, copy=True)
-        if ax is not None:
-            t = torch.cat(list(mesh.gather(t).unbind(0)), dim=ax)
+        if b is not None:
+            t = torch.cat(list(mesh.gather(t).unbind(0)), dim=b[0])
         out.append(t.numpy())
     return out
 
@@ -88,12 +94,13 @@ def run_case(mesh, trees, case):
             else:
                 moe.reset_dropped()
                 loss, grads = M.loss_and_grads(params, cfg, b)
-                got["grads"] = whole(grads, mesh)
+                got["grads"] = whole(cfg, grads, mesh)
                 got["dropped"] = mesh.gather(torch.tensor(
                     [moe.DROPPED["cap_send"], moe.DROPPED["cap_e"]])).sum(0).tolist()
-                params, state, m = apply_updates(params, grads, state, opt, mesh=mesh)
+                params, state, m = apply_updates(params, grads, state, opt, mesh=mesh,
+                                                 blocks=blocks(cfg, params, mesh))
                 m["loss"] = loss
-                got["params1"] = whole(params, mesh)
+                got["params1"] = whole(cfg, params, mesh)
             got["loss"].append(float(m["loss"]))
             got["grad_norm"].append(float(m["grad_norm"]))
     return got
@@ -136,7 +143,8 @@ def train_runs(mesh, d_full, d_saved):
                                   ("resumed", STEPS, d_saved, 0)):
         params, state, losses = train(cfg, OptConfig(**OPT), steps, ckpt_dir=d,
                                       ckpt_every=every, **kw)
-        out[name] = {"losses": losses, "state": whole({"params": params, "opt": state}, mesh)}
+        out[name] = {"losses": losses,
+                     "state": whole(cfg, {"params": params, "opt": state}, mesh)}
     return out
 
 

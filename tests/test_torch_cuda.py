@@ -1406,3 +1406,41 @@ def test_tp_world_on_card_against_cpu(cuda_device, tp_worlds, arch, what):
     got, want = card[arch][i], cpu[arch][i]
     assert got.shape == want.shape and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=4e-5 if i == 0 else 1e-5)
+
+
+@pytest.fixture(scope="module")
+def tp_train_worlds():
+    """``tests/_torch_tp_train.port_cases`` (moonshot's and gemma's smoke
+    train steps under the production rules) over a world of 2 ranks on the
+    card and a world of 2 on the CPU, side by side (None without a card)."""
+    if not torch.cuda.is_available():
+        return None
+    import _torch_tp_train as W
+    from repro_torch.launch.mesh import run_local_world, start_local_world
+    cpu = start_local_world(W.port_cases, 2, device="cpu", timeout=600)
+    try:
+        card = run_local_world(W.port_cases, 2, device="cuda", timeout=600)
+    finally:
+        on_cpu = cpu.wait()
+    return card, on_cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "gemma-2b"])
+def test_tp_train_world_on_card_against_cpu(cuda_device, tp_train_worlds, arch):
+    """Training under tensor and sequence parallelism over a world of 2 ranks
+    sharing the card against a world of 2 on the CPU (smoke weights,
+    float32, TF32 off; 3 steps under the production rules): the losses and
+    grad norms within rtol 1e-5, atol 1e-5, step 1's gradients within a
+    relative L2 error of 1e-4 of each leaf, both ranks' losses and norms
+    bitwise on the card."""
+    card, cpu = (w[arch] for w in tp_train_worlds)
+    np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(card["grad_norm"], cpu["grad_norm"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(card["both"][0], card["both"][1])
+    assert len(card["grads"]) == len(cpu["grads"])
+    for g, w in zip(card["grads"], cpu["grads"]):
+        if not np.any(w):
+            assert not np.any(g)
+        else:
+            assert np.linalg.norm(g - w) <= 1e-4 * np.linalg.norm(w)

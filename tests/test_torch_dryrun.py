@@ -18,9 +18,11 @@ against the reference's parameter counts.
 * paper-KP: the streamed state is the same at N = 10^7 and 10^9 (chunk
   65,536), the resident bytes are 8 N K / D, and the launches a pass
   equal a small host-fed and device-streamed CPU solve's;
-* the refusals (``--fsdp``, a train cell under tensor and sequence
-  parallelism, a 2-D world, a world that does not divide the batch or the
-  experts), and the CLI, ``--rules production`` too.
+* the refusals (``--fsdp``, "fsdp" on the world, a config laid out for
+  FSDP, a 2-D world, the MLA, Mamba2 and encoder-decoder archs under
+  tensor and sequence parallelism, a world that does not divide the batch
+  or the experts), the train cells that the production rules account,
+  and the CLI, ``--rules production`` too.
 
 The collective bytes of real worlds of 2 are held to the dry-run's in
 ``test_torch_moe_world.py``, ``test_torch_train_world.py`` and (under the
@@ -262,27 +264,82 @@ def test_sanitize_drops_a_split_that_does_not_divide():
     ("not split", dict(world=3)),                           # batch 4, 8 experts
     ("not ported", dict(world=2, rules=dict(sharding.BATCH_RULES, heads="model"))),
     ("FSDP", dict(world=2, rules=dict(sharding.BATCH_RULES, fsdp="model"))),
-    ("not ported", dict(world=2, rules=M.production_rules(False), kind="train")),
-    ("not ported", dict(world=2, rules=M.production_rules(True, "fsdp_only"), kind="train")),
+    ("not ported", dict(world=2, rules=dict(sharding.PRODUCTION_RULES, batch="model"),
+                        kind="train")),
+    ("FSDP", dict(world=2, rules=M.production_rules(True, "fsdp_only"), kind="train",
+                  fsdp_mode="fsdp_only")),
 ])
 def test_refusals_are_skipped_with_the_reason(reason, kw):
     """Skipped with the reason: a batch or expert count that the world does
     not divide, "batch" and a name of ``TP_NAMES`` both on the world (a 2-D
-    world), "fsdp" on the world, and a train cell under the reference's
-    production rules (training under tensor and sequence parallelism)."""
+    world, a prefill and a train cell), "fsdp" on the world, and a config
+    laid out for FSDP (``fsdp_mode``) under the reference's production
+    rules."""
     arch, kw = "moonshot-v1-16b-a3b", dict(kw)
-    rec = D.account_cell(arch, cell(kw.pop("kind", "prefill"), b=4),
-                         cfg=registry.get(arch).smoke(), **kw)
+    cfg = registry.get(arch).smoke().replace(fsdp_mode=kw.pop("fsdp_mode", "full"))
+    rec = D.account_cell(arch, cell(kw.pop("kind", "prefill"), b=4), cfg=cfg, **kw)
     assert rec["status"] == "skipped" and reason in rec["reason"], rec
     if reason != "not split":
         assert "ROADMAP A10 item 5, second part" in rec["reason"]
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "mamba2-370m", "seamless-m4t-medium"])
-def test_production_rules_skip_the_mixers_not_covered(arch):
-    rec = D.account_cell(arch, cell("prefill", b=4), 2, cfg=registry.get(arch).smoke(),
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_production_rules_skip_the_mixers_not_covered(arch, kind):
+    rec = D.account_cell(arch, cell(kind, b=4), 2, cfg=registry.get(arch).smoke(),
                          rules=sharding.PRODUCTION_RULES)
     assert rec["status"] == "skipped" and "ROADMAP A10 item 5, second part" in rec["reason"]
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "gemma-2b"])
+def test_production_rules_account_train_cells(arch):
+    """A train cell under the production rules (and under the rules of
+    ``production_rules(True, "fsdp_only")`` with a config laid out as one
+    process, ``fsdp_mode`` "full": the vocab and experts split, the heads
+    and FFN columns whole) is accounted: a rank of 2 holds about half the
+    tree and AdamW's moments of one process (less under the second), and
+    sends all-gathers, reduce-scatters, the loss's maxima and the gradient
+    folds."""
+    cfg = registry.get(arch).smoke()
+    one = D.account_cell(arch, cell("train", b=4), 1, cfg=cfg)
+    for rules, share in ((sharding.PRODUCTION_RULES, 0.6),
+                         (M.production_rules(True, "fsdp_only"), 0.95)):
+        two = D.account_cell(arch, cell("train", b=4), 2, cfg=cfg, rules=rules)
+        assert two["status"] == "ok", two.get("error")
+        assert two["n_params_rank"] < share * one["n_params"]
+        assert two["memory"]["opt"] < share * one["memory"]["opt"]
+        for kind in ("all_gather", "reduce_scatter", "reduce", "gather"):
+            assert two["collectives"]["bytes"][kind] > 0, kind
+        assert two["flops_executed"] > 0 and two["memory"]["fits_80gb"]
+
+
+@pytest.mark.parametrize("case", ["gather", "index", "sum"])
+def test_live_bytes_counts_autograds_buffers_as_written_in_place(case):
+    """Under a Python dispatch mode (the tracker is one) autograd writes its
+    own buffers out of place: the backward of ``gather`` (``scatter_add``
+    into fresh zeros) and of indexing (``index_put``), and the engine's sum
+    of two gradients of one input (``add``). Without a mode, as on the
+    card, it writes them in place; the tracker counts them so: a leaf of N
+    floats gathered or indexed at one entry peaks at two leaves' bytes (the
+    leaf and the zeros its gradient is scattered into), and ``(y * y)``
+    with ``y = 2x`` at four (x, y and the two gradients of y, summed in
+    place), not three and five."""
+    n = 1 << 20
+    x = torch.zeros(n, requires_grad=True)
+    idx = torch.tensor([[3]])
+    tracker = D.LiveBytes()
+    tracker.hold(x)
+    with tracker:
+        if case == "gather":
+            loss, leaves = torch.gather(x[None], 1, idx).sum(), 2
+        elif case == "index":
+            loss, leaves = x[idx[0]].sum(), 2
+        else:
+            y = x * 2.0
+            loss, leaves = (y * y).sum(), 4
+        loss.backward()
+    got = tracker.peak / (4 * n)
+    assert leaves <= got < leaves + 0.5, got
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
@@ -381,6 +438,11 @@ def test_cli_production_rules(tmp_path, capsys):
     rec, = json.loads(out.read_text())
     assert rec["status"] == "ok" and rec["rules"] == "production"
     assert rec["collectives"]["bytes"]["reduce_scatter"] > 0
+    capsys.readouterr()
     assert D.main(["--arch", "gemma-2b", "--shape", "train_4k", "--world", "2",
-                   "--rules", "production", "--layers", "2"]) == 0
+                   "--rules", "production", "--layers", "2", "--batch", "4"]) == 0
+    rec = json.loads(capsys.readouterr().out)
+    assert rec["status"] == "ok" and rec["collectives"]["bytes"]["reduce_scatter"] > 0
+    assert D.main(["--arch", "mamba2-370m", "--shape", "train_4k", "--world", "2",
+                   "--rules", "production"]) == 0
     assert "ROADMAP A10 item 5, second part" in capsys.readouterr().out

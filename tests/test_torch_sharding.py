@@ -7,12 +7,11 @@ the reference's, the port's world of one (``Mesh(0, 1)``) standing in for
 the reference's active mesh (none here: every axis of size 1). Over larger
 worlds (``Mesh`` objects of rank r of D, which no collective is asked of
 here): the expert ranges, the batch rows, the refusals (``E % D``,
-``B % D``, a mesh that is not a ``Mesh``, a train step over a world under
-any binding but the batch binding, an expert tree not cut to the rank,
-and what tensor and sequence parallelism does not cover yet: training,
-FSDP, the MLA, Mamba2 and encoder-decoder archs, a 2-D world), the
-production rules' parameter layout and the new collectives at one rank
-and on a ``DryMesh``.
+``B % D``, a mesh that is not a ``Mesh``, "batch" on the world without
+"experts", an expert tree not cut to the rank, and what tensor and
+sequence parallelism does not cover yet: FSDP, the MLA, Mamba2 and
+encoder-decoder archs, a 2-D world), the production rules' parameter
+layout and blocks, and the collectives at one rank and on a ``DryMesh``.
 """
 import numpy as np
 import pytest
@@ -117,12 +116,13 @@ LABEL = "ROADMAP A10 item 5, second part"
 
 @pytest.mark.parametrize("name", S.TP_NAMES)
 def test_unported_bindings_raise(smoke, name):
-    """Each name of ``TP_NAMES`` bound alone (with "experts") runs a prefill
-    and a decode step, here over a world of one equal to the one-process
-    steps (a world of 2: ``tests/test_torch_tp_world.py``); a train step
-    under it, "fsdp" on the world beside it, "batch" on the world beside it
-    and the MLA, Mamba2 and encoder-decoder archs under it raise
-    ``NotImplementedError`` naming the label of what is not ported."""
+    """Each name of ``TP_NAMES`` bound alone (with "experts") runs a prefill,
+    a decode and a train step, here over a world of one equal to the
+    one-process steps (a world of 2: ``tests/test_torch_tp_world.py`` and
+    ``tests/test_torch_tp_train.py``); "fsdp" on the world beside it,
+    "batch" on the world beside it and the MLA, Mamba2 and encoder-decoder
+    archs under it raise ``NotImplementedError`` naming the label of what
+    is not ported, for every step."""
     cfg, params = smoke
     rules = dict(S.PRODUCTION_RULES, **{n: None for n in S.TP_NAMES if n != name})
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 8)))
@@ -137,12 +137,24 @@ def test_unported_bindings_raise(smoke, name):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got_d.numpy(), want_d.numpy(), rtol=1e-5, atol=1e-5)
     batch = {"tokens": toks, "targets": toks}
-    with pytest.raises(NotImplementedError, match=LABEL):
-        M.make_train_step(cfg, OptConfig())(params, None, batch)
+    # the train step runs under it: over a world of one, the one-process
+    # loss and gradients (gemma's: the MoE's world path routes without the
+    # router's projection, tests/test_torch_tp_train.py holds moonshot)
+    dense = registry.get("gemma-2b").smoke()
+    fresh = M.init(dense, torch.Generator().manual_seed(0), device="cpu")
+    S.set_rules(None)
+    want_l, want_g = M.loss_and_grads(fresh, dense, batch)
+    S.set_rules(rules, mesh=Mesh(0, 1, CPU))
+    got_l, got_g = M.loss_and_grads(fresh, dense, batch)
+    np.testing.assert_allclose(float(got_l), float(want_l), rtol=1e-6)
+    for a, b in zip(lm.tree_leaves(got_g), lm.tree_leaves(want_g)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-7)
     for bad in (dict(rules, fsdp="model"), dict(rules, batch="model")):
         S.set_rules(bad, mesh=Mesh(0, 1, CPU))
         with pytest.raises(NotImplementedError, match=LABEL):
             M.make_prefill_step(cfg)(params, {"tokens": toks})
+        with pytest.raises(NotImplementedError, match=LABEL):
+            M.make_train_step(cfg, OptConfig())(params, None, batch)
     S.set_rules(rules, mesh=Mesh(0, 1, CPU))
     for arch in ("deepseek-v2-236b", "mamba2-370m", "seamless-m4t-medium"):
         other = registry.get(arch).smoke()
@@ -150,6 +162,8 @@ def test_unported_bindings_raise(smoke, name):
             M.make_prefill_step(other)(None, {"tokens": toks})
         with pytest.raises(NotImplementedError, match=LABEL):
             M.make_decode_step(other)(None, None, toks[:, :1], 0)
+        with pytest.raises(NotImplementedError, match=LABEL):
+            M.make_train_step(other, OptConfig())(None, None, batch)
 
 
 def test_production_rules_are_the_reference_s():
@@ -289,20 +303,41 @@ def test_moe_over_a_world_refuses_what_it_cannot_run(smoke):
 
 
 def test_training_over_a_world_is_refused(smoke):
-    """A train step over a world runs under the batch binding only: tensor
-    and sequence parallelism name ROADMAP A10 item 5's second part, and
-    "batch" and "experts" must be bound to the world."""
+    """What a train step over a world still refuses: "fsdp" on the world, a
+    config laid out for FSDP (``fsdp_mode``), "batch" on the world beside a
+    name of ``TP_NAMES`` (a 2-D world) and the MLA, Mamba2 and
+    encoder-decoder archs under the production rules raise
+    ``NotImplementedError`` naming ROADMAP A10 item 5's second part, and
+    "batch" on the world needs "experts" there (the batch binding). The
+    production rules' train step, and one with only "experts" on the world
+    (every rank every row), run: over a world of one, the one-process
+    loss (gemma's)."""
     cfg, params = smoke
     batch = {"tokens": torch.zeros((2, 8), dtype=torch.long),
              "targets": torch.zeros((2, 8), dtype=torch.long)}
     step = M.make_train_step(cfg, OptConfig())
-    S.set_rules(dict(S.DEFAULT_RULES, batch="data"), mesh=Mesh(0, 1, CPU))
-    with pytest.raises(NotImplementedError, match=LABEL):
-        step(params, None, batch)
-    for rules in (dict(BATCH, batch="data"), dict(BATCH, experts=None)):
+    for rules in (dict(S.PRODUCTION_RULES, fsdp="model"),
+                  dict(S.PRODUCTION_RULES, batch="model")):
         S.set_rules(rules, mesh=Mesh(0, 1, CPU))
-        with pytest.raises(ValueError, match="batch binding"):
+        with pytest.raises(NotImplementedError, match=LABEL):
             step(params, None, batch)
+    S.set_rules(S.PRODUCTION_RULES, mesh=Mesh(0, 2, CPU))
+    for other in [registry.get(a).smoke() for a in ("deepseek-v2-236b", "mamba2-370m",
+                                                    "seamless-m4t-medium")] + [
+            cfg.replace(fsdp_mode=mode) for mode in S.FSDP_MODES]:
+        with pytest.raises(NotImplementedError, match=LABEL):
+            M.make_train_step(other, OptConfig())(None, None, batch)
+    S.set_rules(dict(BATCH, experts=None), mesh=Mesh(0, 1, CPU))
+    with pytest.raises(ValueError, match="batch binding"):
+        step(params, None, batch)
+    dense = registry.get("gemma-2b").smoke()
+    fresh = M.init(dense, torch.Generator().manual_seed(0), device="cpu")
+    S.set_rules(None)
+    want = float(M.loss_and_grads(fresh, dense, batch)[0])
+    for rules in (S.PRODUCTION_RULES, dict(BATCH, batch="data")):
+        S.set_rules(rules, mesh=Mesh(0, 1, CPU))
+        np.testing.assert_allclose(float(M.loss_and_grads(fresh, dense, batch)[0]), want,
+                                   rtol=1e-6)
     assert S.BATCH_RULES == BATCH
 
 
@@ -334,24 +369,30 @@ def test_logits_over_a_world_of_one_keep_every_row(smoke):
 
 
 def test_expert_axes_name_the_cut_leaves(smoke):
-    """``expert_axes`` marks each MoE's ``wi`` and ``wo`` (dim 1 stacked,
-    dim 0 bare) in ``jax.tree.leaves`` order, through an optimizer state
-    too; ``map_experts`` and ``expert_blocks`` follow it."""
+    """Under the batch binding ``param_blocks`` cuts each MoE's ``wi`` and
+    ``wo`` (dim 1 stacked, dim 0 bare) in ``jax.tree.leaves`` order, through
+    an optimizer state too, and nothing else; ``map_experts`` follows the
+    same leaves."""
     from repro_torch.optim import init_opt_state
     cfg, params = smoke
     paths = [path for path, _ in lm.tree_leaves_with_paths(params)]
     want = [1 if path[-1] in ("wi", "wo") and path[-2] == "ffn" else None for path in paths]
-    assert S.expert_axes(params) == want and 1 in want
+    mesh = Mesh(1, 2, CPU)
+
+    def axes(tree):
+        return [None if b is None else b[0]
+                for b in S.param_blocks(cfg, tree, mesh, rules=S.BATCH_RULES)]
+    assert axes(params) == want and 1 in want
     bare = lm.tree_map(lambda a: a[0], params["slots"][0]["ffn"])
-    assert S.expert_axes(bare) == [None, 0, 0]              # router, wi, wo
+    assert axes(bare) == [None, 0, 0]                       # router, wi, wo
     state = init_opt_state(params, OptConfig(compress_grads=True))
-    assert S.expert_axes(state) == [None] + want * 3        # step, mu, nu, err
+    assert axes(state) == [None] + want * 3                 # step, mu, nu, err
     seen = S.map_experts(lambda a, ax: ax, {"p": params, "none": None})
     assert seen["none"] is None and seen["p"]["slots"][0]["ffn"]["wo"] == 1
     assert seen["p"]["embed"]["e"] is None
-    blocks = S.expert_blocks({"params": params}, Mesh(1, 2, CPU))
+    blocks = S.param_blocks(cfg, {"params": params}, mesh, rules=S.BATCH_RULES)
     assert blocks == [None if ax is None else (ax, 1, 2) for ax in want]
-    assert S.expert_blocks(params, None) == [None] * len(want)     # one process: whole
+    assert S.param_blocks(cfg, params, None) == [None] * len(want)     # one process
 
 
 def test_all_to_all_under_autograd_of_one_rank():

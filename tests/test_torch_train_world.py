@@ -346,8 +346,9 @@ def test_elastic_restore(runs, size):
         mesh = Mesh(r, size, CPU)
         like = _like(cfg, mesh)
         per_rank.append(ckpt.restore(d, W.SAVE_AT, like, device_tree=CPU,
-                                     blocks=S.expert_blocks(like, mesh)))
-    axes = S.expert_axes(per_rank[0])
+                                     blocks=W.blocks(cfg, like, mesh)))
+    axes = [None if b is None else b[0]
+            for b in W.blocks(cfg, per_rank[0], Mesh(0, size, CPU))]
     manifest = ckpt._read_manifest(Path(d) / f"step_{W.SAVE_AT:08d}")["leaves"]
     leaves = [lm.tree_leaves(t) for t in per_rank]
     assert len(leaves[0]) == len(manifest) == len(axes)
@@ -375,7 +376,7 @@ def test_blocked_save_of_bf16_leaves(tmp_path):
     mesh = Mesh(0, 1, CPU)
     ckpt.save(tmp_path / "plain", 1, {"params": params})
     ckpt.save(tmp_path / "blocked", 1, {"params": params}, mesh=mesh,
-              blocks=S.expert_blocks({"params": params}, mesh))
+              blocks=W.blocks(cfg, {"params": params}, mesh))
     a, b = tmp_path / "plain" / "step_00000001", tmp_path / "blocked" / "step_00000001"
     assert sorted(p.name for p in a.iterdir()) == sorted(p.name for p in b.iterdir())
     for f in a.iterdir():
@@ -385,8 +386,9 @@ def test_blocked_save_of_bf16_leaves(tmp_path):
         half = Mesh(r, 2, CPU)
         like = {"params": S.shard_experts(M.init(cfg, None, "meta"), half)}
         halves.append(ckpt.restore(b.parent, 1, like, device_tree=CPU,
-                                   blocks=S.expert_blocks(like, half)))
-    for i, ax in enumerate(S.expert_axes({"params": params})):
+                                   blocks=W.blocks(cfg, like, half)))
+    for i, b in enumerate(W.blocks(cfg, {"params": params}, mesh)):
+        ax = None if b is None else b[0]
         parts = [lm.tree_leaves(h)[i] for h in halves]
         want = lm.tree_leaves({"params": params})[i]
         got = parts[0] if ax is None else torch.cat(parts, dim=ax)
@@ -399,7 +401,8 @@ def test_elastic_restore_refuses_uneven_blocks(runs):
     with pytest.raises(ValueError, match=f"{e} experts do not split over a world of 3"):
         _like(cfg, Mesh(0, 3, CPU))
     like = _like(cfg, None)
-    blocks = [None if ax is None else (ax, 0, 3) for ax in S.expert_axes(like)]
+    blocks = [None if b is None else (b[0], 0, 3)
+              for b in W.blocks(cfg, like, Mesh(0, 1, CPU))]
     with pytest.raises(ValueError, match="do not split into 3 equal blocks"):
         ckpt.restore(runs["dirs"]["saved"], W.SAVE_AT, like, blocks=blocks)
 
@@ -434,7 +437,8 @@ def test_world_of_one_matches_one_process(runs):
         try:
             loss, grads = M.loss_and_grads(params, cfg, batch)
             want = out[0][1] if out else grads
-            _, _, m = apply_updates(params, want, init_opt_state(params, opt), opt, mesh=mesh)
+            _, _, m = apply_updates(params, want, init_opt_state(params, opt), opt, mesh=mesh,
+                                    blocks=None if mesh is None else W.blocks(cfg, params, mesh))
         finally:
             S.set_rules(None)
         out.append((loss, grads, m, lm.tree_leaves(params)))
