@@ -4043,11 +4043,13 @@ def _world_smoke(torch, np, mesh, dev):
     return {"moe_train": joined(y), "prefill": joined(logits), "decode": joined(dec, 1)}
 
 
-def _world_train_full(torch, mesh, dev, cfg=None, rules="batch", keep=False):
+def _world_train_full(torch, mesh, dev, cfg=None, rules="batch", keep=False,
+                      steps=WORLD_TRAIN_STEPS):
     """Phase 23b on a rank of the world of 2 (and phase 25 with ``cfg`` under
     the production rules): ``train(mesh=, rules=)`` of moonshot at phase
-    20's config (or ``cfg``) and batch for WORLD_TRAIN_STEPS - 1 steps from
-    the seed, then its last step by hand under the same rules (the step
+    20's config (or ``cfg``) and batch for ``steps`` - 1 steps (phase 26:
+    under FSDP) from the seed, then its last step by hand under the same
+    rules (the step
     ``train`` runs, on its batch), the card's peak reset right before it:
     the losses and grad norms (and whether both ranks' are bitwise equal),
     rank 0's launches and seconds in collectives by kind over the steps,
@@ -4073,14 +4075,14 @@ def _world_train_full(torch, mesh, dev, cfg=None, rules="batch", keep=False):
     ops.reset_launches()
     hist = []
     t0 = time.perf_counter()
-    params, opt, _ = train(cfg, opt_cfg, WORLD_TRAIN_STEPS - 1, seed=0,
+    params, opt, _ = train(cfg, opt_cfg, steps - 1, seed=0,
                            batch_shape=LM_TRAIN_BATCH, log_every=0, device=dev, mesh=mesh,
                            history=hist, rules=rules)
     peak_train = torch.cuda.max_memory_allocated(dev)
     launches = dict(ops.LAUNCHES)
-    batch = lm_batch(cfg, LM_TRAIN_BATCH, WORLD_TRAIN_STEPS - 1, seed=0, device=dev)
+    batch = lm_batch(cfg, LM_TRAIN_BATCH, steps - 1, seed=0, device=dev)
     step = M.make_train_step(cfg, opt_cfg)
-    sharding.set_rules(sharding.RULES[rules], mesh=mesh)
+    sharding.set_rules(sharding.rules_for(rules, cfg.fsdp_mode), mesh=mesh)
     try:
         torch.cuda.synchronize()
         mesh.barrier()
@@ -4952,44 +4954,285 @@ def phase_lm_tp_train(torch, np, dev, train_losses=None, killed=None):
     return paths, router
 
 
+# --------------------------------------------------------------------------
+# Phase 26: FSDP over a world of ranks (sharding.FSDP_RULES: the reference's
+# (D, 1) mesh, "batch" and "fsdp" on the world, the experts on an axis of
+# size 1): moonshot-v1-16b-a3b at full width and 2 layers, trained under
+# "full" for 2 steps at phase 20's 4 x 1,024 tokens (2 rows a rank) beside
+# a one-process run at that depth, each rank storing half of every leaf
+# the reference's _leaf_spec
+# gives an FSDP entry and gathering each block's leaves at use (the remat
+# recompute gathers them again; the backward reduce-scatters their
+# gradients), its router over the world at a rank's 2,048 tokens; one
+# prefill of 4 x 1,024; and the other four fsdp_mode layouts for one step
+# each on the smoke config, card == CPU. It runs in phases 24-25's world
+# of 2, after phase 25, whose state it frees first.
+# --------------------------------------------------------------------------
+
+FSDP_STEPS = 2
+# 2 layers: at 4 (phase 20's depth) a step sent 11.1 GB and took 51-61 s
+# over gloo on an H100 host, twice the smoke's room (PERF.md, Findings).
+FSDP_LAYERS = 2
+# Against the one-process run at that depth (the same batches): phase
+# 23's bar for a world's losses.
+FSDP_LOSS_RTOL = 1e-2
+FSDP_PEAK_REL = 0.05
+FSDP_TIMEOUT = 300
+# A rank's tokens: its 2 rows of 1,024 (the router's kernels at (2,048, 64)).
+FSDP_ROUTER_ROWS = LM_TRAIN_BATCH[0] * LM_TRAIN_BATCH[1] // 2
+FSDP_SMOKE_MODES = ("zero1", "none", "fsdp_only", "dp_full")
+FSDP_SMOKE = dict(batch=(4, 64), seed=3, opt=dict(lr=1e-3, warmup=2))
+FSDP_SMOKE_TOL = 1e-5
+
+
+def _fsdp_smoke_steps(mesh):
+    """Phase 26c on every rank of a world of 2 (on the card, or on the CPU
+    beside it): one train step of smoke moonshot laid out by each mode of
+    FSDP_SMOKE_MODES under ``sharding.rules_for("fsdp", mode)``, float32,
+    TF32 off, from weights drawn on the CPU; rank 0 returns each mode's
+    loss and grad norm and whether both ranks' are bitwise."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.synth import lm_batch
+    from repro_torch.models import lm, model as M, sharding
+    from repro_torch.optim import OptConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    c, dev, out = FSDP_SMOKE, mesh.device, {}
+    for mode in FSDP_SMOKE_MODES:
+        cfg, opt = registry.get(LM_ARCH).smoke().replace(fsdp_mode=mode), OptConfig(**c["opt"])
+        params = lm.tree_map(lambda t: t.to(dev), M.init(
+            cfg, torch.Generator().manual_seed(c["seed"]), device="cpu"))
+        batch = {k: v.to(dev) for k, v in lm_batch(cfg, c["batch"], 0, seed=c["seed"],
+                                                    device="cpu").items()}
+        sharding.set_rules(sharding.rules_for("fsdp", mode), mesh=mesh)
+        try:
+            params = M.shard_params(cfg, params, mesh)
+            state = M.init_opt(cfg, params, opt, mesh)
+            _, _, m = M.make_train_step(cfg, opt)(params, state, batch)
+        finally:
+            sharding.set_rules(None)
+        mine = torch.tensor([float(m["loss"]), float(m["grad_norm"])], dtype=torch.float64)
+        both = mesh.gather(mine)
+        out[mode] = {"loss": float(mine[0]), "grad_norm": float(mine[1]),
+                     "ranks_bitwise": bool(torch.equal(both[0], both[1]))}
+    return out
+
+
+def _fsdp_prefill(torch, mesh, dev, cfg):
+    """Phase 26b: one prefill of 4 x 1,024 tokens under FSDP "full" (each
+    rank its 2 rows), the weights drawn from the seed and cut to the rank's
+    blocks: the rank's logits' shape, whether they are finite, rank 0's
+    launches, the wall and the bytes sent by kind."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M, sharding
+
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    g = torch.Generator().manual_seed(26)
+    tokens = torch.randint(0, cfg.vocab, LM_TRAIN_BATCH, generator=g).to(dev)
+    sharding.set_rules(sharding.FSDP_RULES, mesh=mesh)
+    try:
+        params = M.shard_params(cfg, params, mesh)
+        torch.cuda.empty_cache()
+        mesh.barrier()
+        ops.reset_launches()
+        bytes0 = dict(mesh.comm_bytes)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = M.make_prefill_step(cfg)(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sharding.set_rules(None)
+    out = {"shape": list(logits.shape), "finite": bool(torch.isfinite(logits).all()),
+           "launches": dict(ops.LAUNCHES), "wall_s": wall,
+           "comm_bytes": {k: v - bytes0.get(k, 0) for k, v in mesh.comm_bytes.items()}}
+    del params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_main(mesh):
+    """Phase 26 on every rank of the world of 2 that ran phases 24 and 25:
+    phase 25's state freed; moonshot at full width and 4 layers trained for
+    FSDP_STEPS under FSDP "full" (``_world_train_full``, its last step
+    measured); its prefill (:func:`_fsdp_prefill`); the smoke steps of the
+    other modes (:func:`_fsdp_smoke_steps`). Rank 0 returns all, with every
+    rank's last-step measurements."""
+    import gc
+
+    import torch
+    from repro_torch.configs import registry
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = mesh.device
+    cfg = registry.get(LM_ARCH).replace(n_layers=FSDP_LAYERS)
+    t0 = time.perf_counter()
+    run = _world_train_full(torch, mesh, dev, cfg=cfg, rules="fsdp", steps=FSDP_STEPS)
+    run["rank_steps"] = _tp_train_rank_numbers(torch, mesh, run["last_step"])
+    run["train_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    prefill = _fsdp_prefill(torch, mesh, dev, cfg)
+    prefill["ranks"] = mesh.gather(torch.tensor([prefill["finite"]])).tolist()
+    prefill["phase_s"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    smoke = _fsdp_smoke_steps(mesh)
+    return {"train": run, "prefill": prefill, "smoke": smoke,
+            "smoke_s": time.perf_counter() - t2}
+
+
+def _fsdp_dry():
+    """Phase 26's dry-run accounts: the train step and the prefill."""
+    from repro_torch.configs import registry
+    from repro_torch.models import sharding
+
+    cfg = registry.get(LM_ARCH).replace(n_layers=FSDP_LAYERS)
+    return {kind: _dry_cell(LM_ARCH, kind, *LM_TRAIN_BATCH, world=2, cfg=cfg,
+                            rules=sharding.FSDP_RULES) for kind in ("train", "prefill")}
+
+
+def _fsdp_one_process(torch, dev):
+    """``train()`` of moonshot at FSDP_LAYERS in this process from the seed,
+    at phase 20's batch and settings, for FSDP_STEPS: the losses, grad
+    norms, step walls and peak; the weights freed after."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import train
+    from repro_torch.optim import OptConfig
+
+    cfg = registry.get(LM_ARCH).replace(n_layers=FSDP_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist = []
+    params, opt, _ = train(cfg, OptConfig(**LM_TRAIN_OPT), FSDP_STEPS, seed=0,
+                           batch_shape=LM_TRAIN_BATCH, log_every=0, device=dev, history=hist)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del params, opt
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"losses": [r["loss"] for r in hist], "grad_norms": [r["grad_norm"] for r in hist],
+            "step_wall_s": [r["wall_s"] for r in hist], "peak_gb": peak / 1e9}
+
+
+def _fsdp_checks(torch, np, one_run, w, recs, cpu_smoke, world_s):
+    """Phase 26's checks of the world's results ``w`` (``fsdp_main``'s)
+    against the one-process run at the same depth (``one_run``,
+    :func:`_fsdp_one_process`'s), the dry-run's accounts ``recs`` and the
+    CPU world's smoke steps; returns the kernels' path."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get(LM_ARCH).replace(n_layers=FSDP_LAYERS)
+    t = w["train"]
+    one = list(one_run["losses"])
+    rel = [abs(a - b) / abs(b) for a, b in zip(t["losses"], one)]
+    per_step = {"scd_fused_hist": 2 * cfg.moe.scd_iters * FSDP_LAYERS,
+                "adjusted_topc": 2 * FSDP_LAYERS}
+    routed = {name: 0 for name in t["launches"]}
+    routed.update({k: v * FSDP_STEPS for k, v in per_step.items()})
+    together = sum(r["peak_gb"] for r in t["ranks"])
+    facts = {"finite": all(np.isfinite(t["losses"])) and all(np.isfinite(t["grad_norms"])),
+             "ranks_bitwise": t["ranks_bitwise"],
+             "losses_within_one_process": len(rel) == FSDP_STEPS
+             and max(rel) <= FSDP_LOSS_RTOL,
+             "launches_as_routed": t["launches"] == routed,
+             "peaks_together_under_80gb": together < 80.0}
+    emit("lm_train_fsdp", arch=LM_ARCH, layers=FSDP_LAYERS, world=2, rules="fsdp",
+         fsdp_mode="full", batch=LM_TRAIN_BATCH, steps=FSDP_STEPS, opt=LM_TRAIN_OPT,
+         losses=t["losses"], one_process_losses=one, loss_rel=rel, loss_rtol=FSDP_LOSS_RTOL,
+         one_process_grad_norms=one_run["grad_norms"],
+         one_process_step_wall_s=one_run["step_wall_s"],
+         one_process_peak_gb=one_run["peak_gb"],
+         grad_norms=t["grad_norms"], lrs=t["lrs"], step_wall_s=t["step_wall_s"],
+         train_wall_s=t["train_wall_s"], rank0_comm_s_by_kind=t["comm_s_by_kind"],
+         ranks=t["ranks"], peak_gb_together=together, rank0_launches=t["launches"],
+         launches_per_step=per_step, phase_s=t["train_s"], **facts)
+    check(all(facts.values()), f"moonshot trained under FSDP: {facts} {t['launches']}")
+    for r, m in enumerate(t["rank_steps"]):
+        _dry_vs_card(f"{LM_ARCH}_train_{FSDP_LAYERS}_layers_fsdp_world2_rank{r}",
+                     recs["train"], t["last_step"]["launches"] if r == 0 else None,
+                     m["held"], m["rise"], m["raw_peak"], comm=m["comm"], bar=FSDP_PEAK_REL)
+
+    p = w["prefill"]
+    want = {k: v["launches"] for k, v in recs["prefill"]["kernels"].items()}
+    facts = {"finite": all(x for row in p["ranks"] for x in row),
+             "shape": p["shape"] == [LM_TRAIN_BATCH[0] // 2, cfg.vocab],
+             "launches_equal_dryrun": {k: v for k, v in p["launches"].items() if v} == want,
+             "comm_bytes_equal_dryrun": recs["prefill"]["collectives"]["bytes"]
+             == {k: v for k, v in p["comm_bytes"].items() if v}}
+    emit("lm_prefill_fsdp", arch=LM_ARCH, layers=FSDP_LAYERS, world=2, rules="fsdp",
+         batch=LM_TRAIN_BATCH, rank_logits_shape=p["shape"], wall_s=p["wall_s"],
+         rank0_launches=p["launches"], comm_bytes=p["comm_bytes"],
+         dryrun_comm_bytes=recs["prefill"]["collectives"]["bytes"], **facts)
+    check(all(facts.values()), f"moonshot's prefill under FSDP: {facts}")
+
+    rows, ok = [], True
+    for mode in FSDP_SMOKE_MODES:
+        card, cpu = w["smoke"][mode], cpu_smoke[mode]
+        good = (card["ranks_bitwise"]
+                and abs(card["loss"] - cpu["loss"]) <= FSDP_SMOKE_TOL * (1 + abs(cpu["loss"]))
+                and abs(card["grad_norm"] - cpu["grad_norm"])
+                <= FSDP_SMOKE_TOL * (1 + abs(cpu["grad_norm"])))
+        ok = ok and good
+        rows.append({"mode": mode, "card": card, "cpu": cpu, "within": good})
+    emit("lm_train_fsdp_modes", arch=LM_ARCH, config="smoke", world=2, rules="fsdp",
+         tol=FSDP_SMOKE_TOL, modes=rows, wall_s=w["smoke_s"], world_wall_s=world_s)
+    check(ok, f"the smoke config's FSDP modes, card against CPU: {rows}")
+    return {"lm_train_fsdp": t["launches"]}
+
+
 def tp_main(mesh, killed_dir):
-    """Phases 24 and 25 on every rank of one world of 2 (one world's start
-    for both): ``tp_lm_main``, then ``tp_train_main``; rank 0 returns both
-    and the seconds of each."""
+    """Phases 24, 25 and 26 on every rank of one world of 2 (one world's
+    start for all three): ``tp_lm_main``, ``tp_train_main``, then
+    ``fsdp_main``; rank 0 returns them and the seconds of each."""
     t0 = time.perf_counter()
     out = {"tp": tp_lm_main(mesh)}
     out["tp_s"] = time.perf_counter() - t0
     out["train"] = tp_train_main(mesh, killed_dir)
     out["train_s"] = time.perf_counter() - t0 - out["tp_s"]
+    t1 = time.perf_counter()
+    out["fsdp"] = fsdp_main(mesh)
+    out["fsdp_s"] = time.perf_counter() - t1
     return out
 
 
 def phase_lm_tp_both(torch, np, dev, one_moonshot, train_losses, killed):
-    """Phases 24 and 25 as ``main`` runs them: both phases' one-process runs
-    on the card, the killed smoke world (started before phase 23) joined,
-    then one world of 2 runs :func:`tp_main` while this process accounts
-    the dry-run's cells; then each phase's checks. Returns the kernels'
-    paths, the router's timings and the world's seconds."""
+    """Phases 24, 25 and 26 as ``main`` runs them: the one-process runs on
+    the card, the killed smoke world (started before phase 23) joined, then
+    one world of 2 runs :func:`tp_main` while this process accounts the
+    dry-run's cells and a CPU world of 2 runs phase 26's smoke steps; then
+    each phase's checks. Returns the kernels' paths, the routers' timings
+    and the world's seconds."""
+    from repro_torch.configs import registry
     from repro_torch.launch.mesh import start_local_world
 
     t_phase = time.perf_counter()
     try:
         ones24 = _tp_ones(torch, np, dev, one_moonshot)
         ones25, router = _tp_train_ones(torch, np, dev, train_losses)
+        # 26a: the router's kernels at a rank's tokens under FSDP, and the
+        # one-process run at phase 26's depth
+        router26 = _lm_router(torch, np, dev, registry.get(LM_ARCH),
+                              tag="lm_train_fsdp_router", n=FSDP_ROUTER_ROWS)
+        one26 = _fsdp_one_process(torch, dev)
     finally:
         smoke = _join_tp_train_killed(killed)
     t0 = time.perf_counter()
     world = start_local_world(tp_main, 2, (str(TP_TRAIN_DIR / "ckpt"),),
-                              timeout=TP_TIMEOUT + TP_TRAIN_TIMEOUT)
-    recs24, recs25 = _tp_dry(), _tp_train_dry()
+                              timeout=TP_TIMEOUT + TP_TRAIN_TIMEOUT + FSDP_TIMEOUT)
+    cpu = start_local_world(_fsdp_smoke_steps, 2, device="cpu", timeout=FSDP_TIMEOUT)
+    recs24, recs25, recs26 = _tp_dry(), _tp_train_dry(), _fsdp_dry()
+    cpu_smoke = cpu.wait()
     w = world.wait()
     world_s = time.perf_counter() - t0
     paths = _tp_checks(torch, np, ones24, w["tp"], recs24, w["tp_s"])
     emit("lm_tp_wall", seconds=w["tp_s"], world_wall_s=world_s)
     paths.update(_tp_train_checks(torch, np, ones25, w["train"], recs25, smoke, w["train_s"]))
-    emit("lm_train_tp_wall", seconds=w["train_s"], world_wall_s=world_s,
-         phases_24_25_s=time.perf_counter() - t_phase)
-    return paths, router, world_s
+    emit("lm_train_tp_wall", seconds=w["train_s"], world_wall_s=world_s)
+    paths.update(_fsdp_checks(torch, np, one26, w["fsdp"], recs26, cpu_smoke, world_s))
+    emit("lm_train_fsdp_wall", seconds=w["fsdp_s"], world_wall_s=world_s,
+         phases_24_26_s=time.perf_counter() - t_phase)
+    return paths, router, router26, world_s
 
 
 def main():
@@ -5061,10 +5304,12 @@ def main():
     world_paths, one_moonshot = phase_lm_world(torch, np, dev, train_losses)
     paths.update(world_paths)
     t_tp = time.perf_counter()
-    tp_paths, tp_router, tp_world_s = phase_lm_tp_both(torch, np, dev, one_moonshot,
-                                                       train_losses, killed)
+    tp_paths, tp_router, fsdp_router, tp_world_s = phase_lm_tp_both(
+        torch, np, dev, one_moonshot, train_losses, killed)
     kern["scd_fused_hist"]["router_shape_tp"] = tp_router["scd_fused_hist"]
     kern["adjusted_topc"]["router_shape_tp"] = tp_router["adjusted_topc"]
+    kern["scd_fused_hist"]["router_shape_fsdp"] = fsdp_router["scd_fused_hist"]
+    kern["adjusted_topc"]["router_shape_fsdp"] = fsdp_router["adjusted_topc"]
     paths.update(tp_paths)
     tp_s = time.perf_counter() - t_tp
 

@@ -33,7 +33,7 @@ directory written by either package is read by the other's ``restore``
 * Worlds of ranks (elastic): over a world each rank passes ``save`` its
   own tree and, per leaf, the block it holds (``blocks``: the experts of
   an MoE, and under tensor parallelism the heads, FFN columns and vocab
-  rows, ``models.sharding.param_blocks``); the directory is the one a
+  rows, ``models.model.param_blocks``); the directory is the one a
   single process writes of the whole tree, byte for byte. ``restore``
   reads a rank's blocks from the mapped files (the reference's
   ``sharding_tree``), at any world size that divides the blocked axis.
@@ -200,7 +200,7 @@ def save(directory, step: int, tree, mesh=None, blocks=None) -> str:
     ``save`` with its own tree: ``blocks`` gives, for each leaf in tree
     order, None where the rank holds the leaf whole (the same on every
     rank) or ``(axis, rank, size)`` where it holds the ``rank``-th of
-    ``size`` equal blocks along ``axis`` (``models.sharding.param_blocks``).
+    ``size`` equal blocks along ``axis`` (``models.model.param_blocks``).
     The directory is the one a single process writes of the whole tree,
     byte for byte: rank 0 writes the whole leaves and each cut leaf's
     header, its file sized for the whole leaf; after a barrier every rank
@@ -349,7 +349,7 @@ def restore(directory, step: int, like, device_tree=None, blocks=None):
     ``blocks`` (the counterpart of the reference's ``sharding_tree``): for
     each leaf in tree order, None for the whole leaf, or ``(axis, rank,
     size)`` for the ``rank``-th of ``size`` equal blocks along ``axis``, the
-    shape of its ``like`` leaf (``models.sharding.param_blocks``). A block
+    shape of its ``like`` leaf (``models.model.param_blocks``). A block
     is read from the mapped file, so a rank never holds the whole leaf; a
     state saved over a world of D ranks (or by one process) restores at any
     size that divides the axis. Restore makes no collective."""

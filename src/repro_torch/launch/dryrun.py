@@ -29,8 +29,12 @@ as ``launch/train.py`` and the serving worlds run, or with ``--rules
 production`` under ``sharding.PRODUCTION_RULES`` (tensor and sequence
 parallelism: its blocks of the heads, FFN columns, vocab, experts and KV
 cache, every row; the prefill, decode and train cells of the attention
-LMs, the other archs skipped with the refusal); D = 1 is one process with
-no rules. A train cell's backward runs through ``core.mesh``'s autograd
+LMs, the other archs skipped with the refusal), or with ``--rules fsdp``
+under ``sharding.FSDP_RULES`` (FSDP: its rows and its stored blocks,
+each block's leaves gathered at use and their gradients reduce-scattered,
+the recompute's gathers counted too; every arch); ``--fsdp MODE`` lays
+the config out by the reference's ``fsdp_mode``. D = 1 is one process
+with no rules. A train cell's backward runs through ``core.mesh``'s autograd
 collectives, so its account counts the backward's collectives too. The memory is the
 rank's: its tree (the leaves :func:`models.model.param_specs` splits, cut),
 AdamW's moments, its caches, the global batch it is given, and the peak of
@@ -82,7 +86,7 @@ from ..core.solver import _map_tile, scd_chunk_accumulate
 from ..core.types import SolverConfig
 from ..kernels import cost, ops
 from ..models import lm, model as M, sharding
-from ..optim import OptConfig, init_opt_state
+from ..optim import OptConfig
 
 WORLDS = (1, 2, 4, 8)          # --all: one card up to one HGX node
 HBM_80GB = 80e9
@@ -293,12 +297,13 @@ def _no_grad(fn, *args):
 def world_skip(cfg, cell, world, rules):
     """Why a world of ``world`` ranks cannot run the cell under ``rules``,
     or None: a refused binding (``model.check_rules``), a batch (where
-    "batch" is on the world) or an expert count that the world does not
-    divide."""
+    "batch" is on the world) or an expert count (where "experts" is) that
+    the world does not divide."""
     M.check_rules(rules, cfg, cell.kind)
     if world > 1 and sharding.binds(rules, "batch") and cell.global_batch % world:
         return f"global batch {cell.global_batch} does not split over {world} ranks"
-    if world > 1 and cfg.moe.n_experts and cfg.moe.n_experts % world:
+    if (world > 1 and cfg.moe.n_experts and sharding.binds(rules, "experts")
+            and cfg.moe.n_experts % world):
         return f"{cfg.moe.n_experts} experts do not split over {world} ranks"
     return None
 
@@ -311,9 +316,11 @@ def account_cell(arch, shape, world, probe=True, router=None, batch=None, cfg=No
     ``probe``: scale one period of a prefill or decode step (a train step
     runs whole; module docstring); ``router``, ``batch``: override the
     config's router and the cell's global batch; ``cfg``: the config to
-    run (default ``registry.get(arch)``, e.g. a cut one); ``rules``: the
-    rules over a world of D > 1 (default ``sharding.BATCH_RULES``;
-    ``sharding.PRODUCTION_RULES`` for tensor and sequence parallelism; D = 1
+    run (default ``registry.get(arch)``, e.g. a cut one, or one laid out
+    by another ``fsdp_mode``); ``rules``: the rules over a world of D > 1,
+    a dict or a name of ``sharding.RULES`` ("batch", "production", "fsdp"),
+    which ``sharding.rules_for`` gives for the config's ``fsdp_mode``, as
+    ``launch/train.train`` takes them (default the batch binding; D = 1
     runs one process with none). Returns a dict:
     ``status`` "ok", "skipped" (with ``reason``: the cell, a refused
     binding, or a batch or expert count that D does not divide) or "error";
@@ -332,12 +339,14 @@ def account_cell(arch, shape, world, probe=True, router=None, batch=None, cfg=No
         cell = dataclasses.replace(cell, global_batch=batch)
     if world == 1:
         rules = None
-    elif rules is None:
-        rules = sharding.BATCH_RULES
+    elif rules is None or isinstance(rules, str):
+        rules = sharding.rules_for(rules or "batch", cfg.fsdp_mode)
     rec = {"arch": arch, "shape": cell.name, "world": world, "kind": cell.kind,
            "global_batch": cell.global_batch, "seq_len": cell.seq_len,
            "router": cfg.moe.router if cfg.moe.n_experts else None,
-           "rules": next((k for k, v in RULES.items() if v == rules), rules)}
+           "rules": next((k for k in RULES if sharding.rules_for(k, cfg.fsdp_mode) == rules),
+                         rules),
+           "fsdp_mode": cfg.fsdp_mode}
     try:
         reason = M.cell_applicable(cfg, cell) or world_skip(cfg, cell, world, rules)
     except NotImplementedError as e:
@@ -366,7 +375,7 @@ def _account(cfg, cell, world, probe, mesh):
               if mesh is not None else whole)
     del whole
     inputs = M.input_specs(cfg, cell, params)
-    opt = init_opt_state(params, OptConfig()) if cell.kind == "train" else None
+    opt = M.init_opt(cfg, params, OptConfig(), mesh) if cell.kind == "train" else None
     held = [params, opt, inputs]
     stacks = _stacks(cfg)
     keys, ckeys, n = stacks if stacks else ((), (), 1)
@@ -595,8 +604,6 @@ def account_paper_kp(workload, world=1, reduce="bucketed", algo="scd", chunk_siz
 # CLI
 # --------------------------------------------------------------------------
 
-FSDP_REFUSED = (f"--fsdp: the port shards no parameter by FSDP; FSDP is not ported "
-                f"({sharding._UNPORTED_ITEM})")
 RULES = sharding.RULES
 
 
@@ -622,19 +629,23 @@ def main(argv=None):
     ap.add_argument("--no-probe", action="store_true",
                     help="run every layer (no per-period probe)")
     ap.add_argument("--router", choices=["topk", "scd"])
-    ap.add_argument("--fsdp", default=None, help="refused: " + FSDP_REFUSED)
+    ap.add_argument("--fsdp", choices=list(sharding.FSDP_MODES), default=None,
+                    help="lay each config out by the reference's fsdp_mode, under the "
+                         "mode's rules (sharding.rules_for)")
     ap.add_argument("--rules", choices=list(RULES), default="batch",
                     help="the rules over a world of D > 1: the batch binding "
-                         "(sharding.BATCH_RULES) or the reference's production rules "
-                         "(sharding.PRODUCTION_RULES: tensor and sequence parallelism)")
+                         "(sharding.BATCH_RULES), the reference's production rules "
+                         "(sharding.PRODUCTION_RULES: tensor and sequence parallelism) "
+                         "or FSDP (sharding.FSDP_RULES: the reference's (D, 1) mesh)")
     ap.add_argument("--batch", type=int, default=None, help="override the cell's global batch")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the arch to this many layers (a multiple of its pattern), "
                          "as the on-card smoke cuts its cells")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    if args.fsdp is not None:
-        raise SystemExit(FSDP_REFUSED)
+
+    def laid_out(cfg):
+        return cfg.replace(fsdp_mode=args.fsdp) if args.fsdp else cfg
 
     results = []
     if args.paper_kp:
@@ -648,18 +659,18 @@ def main(argv=None):
                 for world in WORLDS:
                     r = account_cell(arch, shape, world, probe=not args.no_probe,
                                      router=args.router, batch=args.batch,
-                                     rules=RULES[args.rules])
+                                     cfg=laid_out(registry.get(arch)), rules=args.rules)
                     _print(r)
                     results.append(r)
     else:
         if not (args.arch and args.shape):
             ap.error("--arch and --shape (or --all, or --paper-kp)")
-        cfg = registry.get(args.arch)
+        cfg = laid_out(registry.get(args.arch))
         if args.layers:
             cfg = cfg.replace(n_layers=args.layers)
         r = account_cell(args.arch, args.shape, args.world, probe=not args.no_probe,
                          router=args.router, batch=args.batch, cfg=cfg,
-                         rules=RULES[args.rules])
+                         rules=args.rules)
         _print(r)
         results.append(r)
     if args.out:

@@ -24,7 +24,12 @@ other leaves replicated and their gradients folded in rank order
 (``models/model.loss_and_grads``); with ``--rules production`` under the
 reference's production rules (``sharding.PRODUCTION_RULES``: tensor and
 sequence parallelism, every rank every row, its blocks of the heads, FFN
-columns, vocab rows and experts; the attention LMs). The world saves the
+columns, vocab rows and experts; the attention LMs); with ``--rules fsdp``
+under FSDP (``sharding.FSDP_RULES``: the reference's (D, 1) mesh, each
+rank its rows and its stored blocks, gathered block by block at use, every
+arch). ``--fsdp MODE`` lays the config out by the reference's
+``fsdp_mode`` (full, zero1, none, fsdp_only, dp_full) under ``--rules
+fsdp`` or ``--rules production``. The world saves the
 one-process layout (``ckpt.save(mesh=, blocks=)``), and a state restores
 at any world size that divides its blocks (elastic):
 
@@ -32,6 +37,8 @@ at any world size that divides its blocks (elastic):
         --world 2 --device cpu --steps 8 --ckpt-dir /tmp/ckw --ckpt-every 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --smoke \\
         --world 2 --rules production --device cpu --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b --smoke \\
+        --world 2 --rules fsdp --fsdp full --device cpu --steps 8
 """
 from __future__ import annotations
 
@@ -49,7 +56,7 @@ from ..core.mesh import check_mesh
 from ..core.solver import resolve_device
 from ..data.synth import lm_batch
 from ..models import model as M, sharding
-from ..optim import OptConfig, init_opt_state
+from ..optim import OptConfig
 from .mesh import WorldError, run_local_world
 
 # The exit code of ``--simulate-failure-at`` (every rank of a world).
@@ -66,15 +73,15 @@ def _initial_state(cfg, opt_cfg, ckpt_dir, seed, dev, mesh):
         params = M.init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
         if mesh is not None:
             params = M.shard_params(cfg, params, mesh)
-        return params, init_opt_state(params, opt_cfg), 0
+        return params, M.init_opt(cfg, params, opt_cfg, mesh), 0
     # The checkpoint's tree holds every value: restore it onto the device
     # without drawing the weights it replaces.
     meta = M.init(cfg, None, "meta")
     if mesh is not None:
         meta = M.shard_params(cfg, meta, mesh)
-    like = {"params": meta, "opt": init_opt_state(meta, opt_cfg)}
+    like = {"params": meta, "opt": M.init_opt(cfg, meta, opt_cfg, mesh)}
     state = ckpt.restore(ckpt_dir, last, like, device_tree=dev,
-                         blocks=sharding.param_blocks(cfg, like, mesh))
+                         blocks=M.param_blocks(cfg, like, mesh))
     if mesh is None or mesh.rank == 0:
         print(f"[train] resumed from step {last}")
     return state["params"], state["opt"], last
@@ -94,20 +101,21 @@ def train(cfg, opt_cfg, steps, ckpt_dir=None, ckpt_every=0, seed=0,
     ``mesh``: this rank's ``core.mesh.Mesh`` (every rank of the world calls
     ``train`` alike; ``TypeError`` for anything else). The rank runs on
     ``mesh.device`` under the rules named by ``rules`` (a key of
-    ``sharding.RULES``: "batch", the batch binding, or "production", the
-    reference's production rules; cleared on return), holds its blocks of
+    ``sharding.RULES``: "batch", the batch binding, "production", the
+    reference's production rules, or "fsdp", FSDP; each with
+    ``cfg.fsdp_mode``'s changes, ``sharding.rules_for``; cleared on
+    return), holds its blocks of
     the tree (``params`` and ``opt_state`` are its blocks,
-    ``sharding.param_blocks``), draws the global batch of each step and
+    ``model.param_blocks``), draws the global batch of each step and
     trains its rows (all of them under "production"); the losses are the
     world's. Rank 0 alone prints and prunes; ``fail_at`` exits every
     rank."""
     mesh = check_mesh(mesh)
-    if rules not in sharding.RULES:
-        raise ValueError(f"rules must be one of {sorted(sharding.RULES)}, got {rules!r}")
+    world_rules = sharding.rules_for(rules, cfg.fsdp_mode)
     dev = resolve_device(device if mesh is None else mesh.device)
     lead = mesh is None or mesh.rank == 0
     if mesh is not None:
-        sharding.set_rules(sharding.RULES[rules], mesh=mesh)
+        sharding.set_rules(world_rules, mesh=mesh)
     try:
         params, opt_state, start = _initial_state(cfg, opt_cfg, ckpt_dir, seed, dev, mesh)
         step_fn = M.make_train_step(cfg, opt_cfg)
@@ -130,7 +138,7 @@ def train(cfg, opt_cfg, steps, ckpt_dir=None, ckpt_every=0, seed=0,
             if ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
                 state = {"params": params, "opt": opt_state}
                 ckpt.save(ckpt_dir, step + 1, state, mesh=mesh,
-                          blocks=sharding.param_blocks(cfg, state, mesh))
+                          blocks=M.param_blocks(cfg, state, mesh))
                 if lead:
                     ckpt.prune(ckpt_dir, keep=keep)
             if fail_at is not None and step + 1 >= fail_at:
@@ -170,8 +178,12 @@ def _parser():
                          "host (they share the card where there is one)")
     ap.add_argument("--rules", choices=list(sharding.RULES), default="batch",
                     help="the rules over a world of D > 1: the batch binding "
-                         "(sharding.BATCH_RULES) or the reference's production rules "
-                         "(sharding.PRODUCTION_RULES: tensor and sequence parallelism)")
+                         "(sharding.BATCH_RULES), the reference's production rules "
+                         "(sharding.PRODUCTION_RULES: tensor and sequence parallelism) "
+                         "or FSDP (sharding.FSDP_RULES: the reference's (D, 1) mesh)")
+    ap.add_argument("--fsdp", choices=list(sharding.FSDP_MODES), default=None,
+                    help="lay the config out by the reference's fsdp_mode "
+                         "(default: the config's)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; without a card pass --device cpu")
     return ap
@@ -183,6 +195,8 @@ def _run(args, mesh):
         cfg = cfg.smoke()
     if args.router:
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, router=args.router))
+    if args.fsdp:
+        cfg = cfg.replace(fsdp_mode=args.fsdp)
     opt_cfg = OptConfig(lr=args.lr, warmup=20,
                         compress_grads=args.compress_grads)
     _, _, losses = train(

@@ -202,7 +202,7 @@ def attention(p, cfg, x, positions, causal=True, kv=None, kv_pos=None):
     splits it; the output is the same block (module docstring)."""
     mesh = sharding.get_mesh()
     if kv is None and mesh is not None and mesh.size > 1:
-        return _attention_world(p, cfg, x, positions)
+        return _attention_world(p, cfg, x, positions, causal)
     if kv is None:
         q, k, v = _qkv(p, cfg, x, positions)
         kv_pos = positions
@@ -216,8 +216,9 @@ def attention(p, cfg, x, positions, causal=True, kv=None, kv_pos=None):
     return _out(out, p["wo"])
 
 
-def _attention_world(p, cfg, x, positions):
-    """:func:`attention` (causal self-attention) over the rules' world."""
+def _attention_world(p, cfg, x, positions, causal=True):
+    """:func:`attention` (self-attention, causal or not: an encoder's is
+    not) over the rules' world."""
     mesh = sharding.get_mesh()
     seq = sharding.seq_range(len(positions))
     heads = rank_heads(cfg)
@@ -231,14 +232,14 @@ def _attention_world(p, cfg, x, positions):
         q_pos = positions if seq is None else positions[seq[0]:seq[1]]
         q = _q(p, cfg, x, q_pos, p["wq"])
         k, v = _kv(p, cfg, xf, positions, p["wk"], p["wv"])
-        out = _chunked_attention(q, k, v, q_pos, positions, cfg.attn_chunk, True,
+        out = _chunked_attention(q, k, v, q_pos, positions, cfg.attn_chunk, causal,
                                  cfg.window)
         return _out(out, p["wo"])
     wq, wk, wv, wo = _rank_weights(p, cfg, heads)
     q = _q(p, cfg, xf, positions, wq)
     k, v = _kv(p, cfg, xf, positions, wk, wv)
     out = _chunked_attention(q, _grouped(k, cfg, heads), _grouped(v, cfg, heads),
-                             positions, positions, cfg.attn_chunk, True, cfg.window)
+                             positions, positions, cfg.attn_chunk, causal, cfg.window)
     part = _out(out, wo)                                   # (B, S, D) partial
     return sharding.world_sum(part) if seq is None else reduce_scatter(mesh, part, 1)
 

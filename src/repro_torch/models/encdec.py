@@ -9,6 +9,11 @@ periods, each layer under ``torch.utils.checkpoint`` with ``cfg.remat``
 and gradients on. Decode caches the self-attention KV per layer, updated
 in place; the cross KV is computed once from the encoder memory and stays
 as it is across steps.
+
+Under FSDP each layer gathers its stored blocks at use by the step's
+plan (``plan=``, ``models/model.gather_plan``), inside the function that
+``remat`` checkpoints, and the embedding and head tables are gathered
+once a step (``lm.gather``, ``lm.gather_top``).
 """
 from __future__ import annotations
 
@@ -16,7 +21,9 @@ import torch
 
 from .attention import _out, _proj, attention, decode_attention, init_attn, init_kv_cache
 from .layers import embed, init_embed, init_mlp, init_rms, mlp, rms_norm, unembed
-from .lm import at, chunked_nll, mean_nll, remat
+from . import sharding
+from .lm import (at, check_chunks, chunked_nll, gather, gather_top, gathering, mean_nll, part,
+                 remat)
 
 
 def _init_enc_layers(gen, cfg, device, n):
@@ -75,34 +82,42 @@ def _dec_layer(p, cfg, x, positions, memory, mem_pos):
     return x + mlp(p["ffn"], h, cfg.act)
 
 
-def encode(params, cfg, frames):
-    """frames: (B, F, D) stubbed modality embeddings -> encoder memory."""
+def encode(params, cfg, frames, plan=None):
+    """frames: (B, F, D) stubbed modality embeddings -> encoder memory;
+    ``plan``: what to gather at use (``lm.forward``)."""
     if frames is None:
         raise ValueError(f"{cfg.name}: the encoder needs frames (B, F, d_model)")
+    mesh = sharding.get_mesh()
+    params = gather_top(params, plan)
     x = frames.to(cfg.dtype)
     pos = torch.arange(x.shape[1], device=x.device)
-    layer = remat(_enc_layer, cfg)
+    layer = remat(gathering(_enc_layer, mesh), cfg)
     for t in range(_n_layers(params["enc"])):
-        x = layer(at(params["enc"], t), cfg, x, pos)
+        x = layer(at(params["enc"], t), part(plan, "enc"), cfg, x, pos)
     return rms_norm(params["enc_norm"], x, cfg.norm_eps)
 
 
-def decode_train(params, cfg, tokens, memory):
+def decode_train(params, cfg, tokens, memory, plan=None):
     """Teacher-forced decoder hidden states (B, S, D)."""
+    mesh = sharding.get_mesh()
+    params = gather_top(params, plan)
     x = embed(params["embed"], tokens, cfg.dtype)
     pos = torch.arange(x.shape[1], device=x.device)
     mem_pos = torch.arange(memory.shape[1], device=x.device)
-    layer = remat(_dec_layer, cfg)
+    layer = remat(gathering(_dec_layer, mesh), cfg)
     for t in range(_n_layers(params["dec"])):
-        x = layer(at(params["dec"], t), cfg, x, pos, memory, mem_pos)
+        x = layer(at(params["dec"], t), part(plan, "dec"), cfg, x, pos, memory, mem_pos)
     return rms_norm(params["final_norm"], x, cfg.norm_eps)
 
 
-def encdec_nll(params, cfg, frames, tokens, targets, mask=None):
+def encdec_nll(params, cfg, frames, tokens, targets, mask=None, plan=None):
     """(summed CE, token count) of the teacher-forced decoder, chunked as
-    ``lm.lm_nll``."""
-    memory = encode(params, cfg, frames)
-    h = decode_train(params, cfg, tokens, memory)
+    ``lm.lm_nll``; a text length that ``min(cfg.loss_chunk, S)`` does not
+    divide raises ``ValueError`` (``lm.check_chunks``)."""
+    check_chunks(cfg, targets.shape[1])
+    params = gather_top(params, plan)
+    memory = encode(params, cfg, frames, plan)
+    h = decode_train(params, cfg, tokens, memory, plan)
     return chunked_nll(params["head"]["e"], h, targets, mask, cfg.loss_chunk)
 
 
@@ -113,14 +128,19 @@ def encdec_loss(params, cfg, frames, tokens, targets, mask=None):
 
 # --- decode ------------------------------------------------------------------
 
-def init_encdec_cache(params, cfg, frames, batch, seq_len):
+def init_encdec_cache(params, cfg, frames, batch, seq_len, plan=None):
     """{"cross": the K/V of the encoder memory per decoder layer, "self":
-    zero KV caches per layer}, each stacked over the layers."""
-    memory = encode(params, cfg, frames)
-    dec = params["dec"]["cross"]
+    zero KV caches per layer}, each stacked over the layers; ``plan``: what
+    to gather at use (``lm.forward``)."""
+    memory = encode(params, cfg, frames, plan)
+    mesh = sharding.get_mesh()
     nl = _n_layers(params["dec"])
-    cross = {"k": torch.stack([_proj(memory, dec["wk"][t]) for t in range(nl)]),
-             "v": torch.stack([_proj(memory, dec["wv"][t]) for t in range(nl)])}
+    ks, vs = [], []
+    for t in range(nl):
+        c = gather(at(params["dec"], t)["cross"], part(part(plan, "dec"), "cross"), mesh)
+        ks.append(_proj(memory, c["wk"]))
+        vs.append(_proj(memory, c["wv"]))
+    cross = {"k": torch.stack(ks), "v": torch.stack(vs)}
     self_cache = init_kv_cache(cfg, batch, seq_len, cfg.dtype, memory.device, periods=nl)
     return {"cross": cross, "self": self_cache}
 
@@ -137,12 +157,16 @@ def _cross_decode(p, cfg, h, xc):
     return _out(o.reshape(b, 1, cfg.n_heads, hd), p["wo"])
 
 
-def encdec_decode_step(params, cfg, caches, token, pos):
+def encdec_decode_step(params, cfg, caches, token, pos, plan=None):
     """One decoder step. token: (B, 1) int; pos: int cache index. Returns
-    (logits (B, 1, V), caches), the self caches updated in place."""
+    (logits (B, 1, V), caches), the self caches updated in place; each
+    layer's stored blocks gathered at use by ``plan``."""
+    mesh = sharding.get_mesh()
+    params = gather_top(params, plan)
     x = embed(params["embed"], token, cfg.dtype)
     for t in range(_n_layers(params["dec"])):
-        p, sc, xc = at(params["dec"], t), at(caches["self"], t), at(caches["cross"], t)
+        p = gather(at(params["dec"], t), part(plan, "dec"), mesh)
+        sc, xc = at(caches["self"], t), at(caches["cross"], t)
         h = rms_norm(p["norm1"], x, cfg.norm_eps)
         x = x + decode_attention(p["self"], cfg, h, sc, pos)[0]
         h = rms_norm(p["norm_x"], x, cfg.norm_eps)

@@ -44,6 +44,18 @@ in rank order), so every rank has the same total and count; without
 "vocab" each rank takes the loss of its own block of positions and the
 blocks' sums are folded. The collectives are ``core.mesh``'s autograd functions, so
 the train step's backward runs through them.
+
+Under FSDP (``sharding.FSDP_RULES``, and the "fsdp_only" and "dp_full"
+layouts) a rank stores blocks of leaves that it uses whole; the steps
+pass the plan of what to gather (``plan=``, ``models/model.gather_plan``).
+Each block gathers its layer's leaves
+(:func:`gather`, ``core.mesh.all_gather``) inside the function that
+:func:`remat` checkpoints, so at most one block's whole weights are alive
+and the backward's recompute gathers them again; the gather's backward
+reduce-scatters each leaf's gradient to the rank's block (or keeps the
+rank's block where the gradient is whole on every rank). The embedding
+and head tables are gathered once a step (:func:`gather_top`), not once a
+loss chunk.
 """
 from __future__ import annotations
 
@@ -115,6 +127,61 @@ def _n_periods(params):
     return params["slots"][0]["norm1"]["scale"].shape[0]
 
 
+# The tables outside the stacked layers, gathered once a step (the final
+# norms' scales are never stored cut: the reference gives them no FSDP
+# entry).
+_TOP = ("embed", "head")
+
+
+def gather(tree, plan, mesh):
+    """``tree`` (a parameter subtree) with each leaf that ``plan`` (its
+    part of ``model.gather_plan``'s) names gathered whole along its dim
+    over ``mesh`` (``core.mesh.all_gather``: the gradient reduce-scattered
+    where the plan marks it partial, else the rank's block of it kept); a
+    leaf already whole is kept. ``tree`` itself where ``plan`` is None. The
+    mesh is an argument: the backward's recompute runs on autograd's
+    thread, where the rules are unset."""
+    if plan is None or tree is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather(v, plan.get(k), mesh) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [gather(v, plan[i] if i < len(plan) else None, mesh)
+                for i, v in enumerate(tree)]
+    dim, n, partial = plan
+    if tree.shape[dim] == n:
+        return tree
+    return all_gather(mesh, tree, dim, whole=not partial)
+
+
+def part(plan, key):
+    """``plan[key]``, or None (nothing of it gathered)."""
+    if plan is None:
+        return None
+    if isinstance(plan, list):
+        return plan[key] if key < len(plan) else None
+    return plan.get(key)
+
+
+def gather_top(params, plan):
+    """``params`` with the embedding and head tables gathered by ``plan``
+    (:func:`gather` over the rules' mesh); ``params`` itself where ``plan``
+    is None. Gathering an already gathered tree gathers nothing."""
+    if plan is None:
+        return params
+    mesh = sharding.get_mesh()
+    return {k: gather(v, plan.get(k), mesh) if k in _TOP else v for k, v in params.items()}
+
+
+def gathering(fn, mesh):
+    """``fn(p, *args)`` as ``g(p, plan, *args)``: ``p`` gathered by
+    ``plan`` first (:func:`gather`), so that under :func:`remat` the
+    gather is recomputed with the block."""
+    def run(p, plan, *args):
+        return fn(gather(p, plan, mesh), *args)
+    return run
+
+
 def _replayed(fn):
     """``fn`` as ``checkpoint`` calls it: the first call is the forward; a
     later one is the backward's recompute, which runs under the sharding
@@ -165,22 +232,26 @@ def _embedded(params, cfg, tokens, extra_embeds):
     return x if seq is None else x[:, seq[0]:seq[1]]
 
 
-def forward(params, cfg, tokens, extra_embeds=None):
+def forward(params, cfg, tokens, extra_embeds=None, plan=None):
     """Hidden states (B, S_total, D). extra_embeds: (B, P, D) modality stub
     prepended before the token embeddings. Over a world, this rank's block
-    of the sequence where "seq" splits it."""
+    of the sequence where "seq" splits it; each block's stored blocks are
+    gathered at use by ``plan`` (module docstring)."""
+    mesh = sharding.get_mesh()
+    params = gather_top(params, plan)
     x = _embedded(params, cfg, tokens, extra_embeds)
     s = tokens.shape[1] + (0 if extra_embeds is None else extra_embeds.shape[1])
     positions = torch.arange(s, device=x.device)
-    block = remat(block_apply, cfg)
+    block = remat(gathering(block_apply, mesh), cfg)
     if params.get("block0") is not None:
         cfg0 = cfg.replace(d_ff=cfg.first_dense_ff or cfg.d_ff)
-        x = block(params["block0"], cfg0, x, positions, cfg.pattern[0], "dense")
-    ffns = _slot_ffns(cfg)
+        x = block(params["block0"], part(plan, "block0"), cfg0, x, positions,
+                  cfg.pattern[0], "dense")
+    ffns, slots = _slot_ffns(cfg), part(plan, "slots")
     for t in range(_n_periods(params)):
         slot_params = at(params["slots"], t)
         for i, (slot, ffn) in enumerate(zip(cfg.pattern, ffns)):
-            x = block(slot_params[i], cfg, x, positions, slot, ffn)
+            x = block(slot_params[i], part(slots, i), cfg, x, positions, slot, ffn)
     return rms_norm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -268,7 +339,19 @@ def _chunk_nll_world(e, h, targets, mask, softcap, mesh, lo):
     return ((lse - gold) * mask).sum()
 
 
-def lm_nll(params, cfg, tokens, targets, mask=None, extra_embeds=None):
+def check_chunks(cfg, s: int):
+    """Raise ``ValueError`` where ``min(cfg.loss_chunk, s)`` does not divide
+    the text length ``s`` of the whole sequence, as the reference's
+    ``lm_loss`` (its assertion) and ``encdec_loss`` (its reshape) fail
+    there. A rank's block of the positions may be ragged: the check is of
+    the global length."""
+    c = min(cfg.loss_chunk, s)
+    if c < 1 or s % c:
+        raise ValueError(f"{cfg.name}: a text of {s} positions does not split into loss "
+                         f"chunks of {c} (loss_chunk {cfg.loss_chunk})")
+
+
+def lm_nll(params, cfg, tokens, targets, mask=None, extra_embeds=None, plan=None):
     """(summed CE, token count), chunked over the sequence
     (:func:`chunked_nll`). targets: (B, S) int; mask (B, S).
 
@@ -278,9 +361,15 @@ def lm_nll(params, cfg, tokens, targets, mask=None, extra_embeds=None):
     rank's block of the hidden states all-gathered once where "seq" splits
     the sequence); where only "seq" splits, each rank computes the loss of
     its own block of the text positions, and the sums and counts are folded
-    over the ranks. Every rank returns the same total and count."""
-    h = forward(params, cfg, tokens, extra_embeds)
+    over the ranks. Every rank returns the same total and count. ``plan``:
+    what to gather at use (:func:`forward`).
+
+    A text length that ``min(cfg.loss_chunk, S)`` does not divide raises
+    ``ValueError`` (:func:`check_chunks`)."""
+    check_chunks(cfg, targets.shape[1])
     npre = 0 if extra_embeds is None else extra_embeds.shape[1]
+    params = gather_top(params, plan)
+    h = forward(params, cfg, tokens, extra_embeds, plan)
     e = head_params(params)["e"]
     mesh = sharding.get_mesh()
     seq = sharding.seq_range(tokens.shape[1] + npre)
@@ -328,21 +417,25 @@ def init_cache(cfg, batch, seq_len, device, dtype=None):
     return caches
 
 
-def decode_step(params, cfg, caches, token, pos):
+def decode_step(params, cfg, caches, token, pos, plan=None):
     """One decode step. token: (B, 1) int; pos: int cache index.
-    Returns (logits (B, 1, V), caches), the caches updated in place."""
+    Returns (logits (B, 1, V), caches), the caches updated in place; each
+    layer's stored blocks gathered at use by ``plan`` (:func:`forward`)."""
+    mesh = sharding.get_mesh()
+    params = gather_top(params, plan)
     x = embed(params["embed"], token, cfg.dtype, vocab=cfg.vocab)
     if sharding.vocab_range(cfg.vocab) is not None:
         x = sharding.world_sum(x)
     if caches.get("block0") is not None:
         cfg0 = cfg.replace(d_ff=cfg.first_dense_ff or cfg.d_ff)
-        x, _ = block_decode(params["block0"], cfg0, x, caches["block0"], pos,
-                            cfg.pattern[0], "dense")
-    ffns = _slot_ffns(cfg)
+        x, _ = block_decode(gather(params["block0"], part(plan, "block0"), mesh), cfg0, x,
+                            caches["block0"], pos, cfg.pattern[0], "dense")
+    ffns, slots = _slot_ffns(cfg), part(plan, "slots")
     for t in range(_n_periods(params)):
         slot_params, slot_caches = at(params["slots"], t), at(caches["slots"], t)
         for i, (slot, ffn) in enumerate(zip(cfg.pattern, ffns)):
-            x, _ = block_decode(slot_params[i], cfg, x, slot_caches[i], pos, slot, ffn)
+            x, _ = block_decode(gather(slot_params[i], part(slots, i), mesh), cfg, x,
+                                slot_caches[i], pos, slot, ffn)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(head_params(params), x, vocab=cfg.vocab)
     if cfg.logit_softcap:

@@ -44,21 +44,30 @@ builds the rank's block of each KV cache; the train step runs every row
 on every rank through the backward of those collectives
 (:func:`loss_and_grads`: the vocab-parallel loss, each partial leaf's
 gradient folded in rank order; ``optim.apply_updates(mesh=, blocks=)``:
-the global norm over the cut leaves). What the port has not implemented
-raises ``NotImplementedError`` (``sharding.check_step_rules``).
+the global norm over the cut leaves). Under FSDP (``sharding.FSDP_RULES``,
+the reference's (D, 1) mesh, and the layouts of ``cfg.fsdp_mode``) each
+rank stores its blocks of the leaves the reference's ``param_specs`` puts
+on the world (:func:`param_specs`, :func:`shard_params`; under "zero1" the
+moments' blocks, :func:`init_opt`) and runs its ``B / D`` rows as under
+the batch binding; each layer gathers its leaves at use (``lm.gather``),
+whose backward reduce-scatters their gradients. What the port has not
+implemented raises ``NotImplementedError`` (``sharding.check_step_rules``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
 from ..core.bucketing import ordered_fold
+from ..core.mesh import check_mesh
 from ..core.solver import resolve_device
-from ..optim import OptConfig, apply_updates
+from ..optim import OptConfig, apply_updates, init_opt_state
 from . import encdec as ed
 from . import lm, sharding
+from .attention import rank_heads
 from .config import ModelConfig
 
 
@@ -133,13 +142,21 @@ def _rank_rows(a):
     return a[lo:hi]
 
 
+def _seq(batch):
+    """The positions of ``batch``'s sequence: its tokens and patches."""
+    patches = batch.get("patches")
+    return batch["tokens"].shape[1] + (0 if patches is None else patches.shape[1])
+
+
 def _nll(params, cfg, batch):
-    """(summed next-token cross-entropy, token count) of ``batch``."""
+    """(summed next-token cross-entropy, token count) of ``batch``, each
+    stored block gathered at use (:func:`gather_plan`)."""
+    plan = gather_plan(cfg, batch["tokens"].shape[0], _seq(batch))
     if cfg.kind == "encdec":
         return ed.encdec_nll(params, cfg, batch["frames"], batch["tokens"],
-                             batch["targets"])
+                             batch["targets"], plan=plan)
     return lm.lm_nll(params, cfg, batch["tokens"], batch["targets"],
-                     mask=batch.get("mask"), extra_embeds=batch.get("patches"))
+                     mask=batch.get("mask"), extra_embeds=batch.get("patches"), plan=plan)
 
 
 def loss_fn(params, cfg, batch):
@@ -150,8 +167,9 @@ def loss_fn(params, cfg, batch):
 
 def _world_of_training(cfg):
     """The rules' ``Mesh`` when a step trains over a world, else None. A
-    world trains under the batch binding ("batch" and "experts" bound to
-    the world, ``sharding.BATCH_RULES``) or with "batch" off the world,
+    world trains with "batch" on it (the batch binding,
+    ``sharding.BATCH_RULES``, and FSDP, ``sharding.FSDP_RULES``: "experts"
+    bound, to the world or to an axis of size 1) or with "batch" off it,
     every rank running every row (the production rules,
     ``sharding.PRODUCTION_RULES``: tensor and sequence parallelism); what
     the port has not implemented raises ``NotImplementedError``
@@ -160,68 +178,27 @@ def _world_of_training(cfg):
     if mesh is None:
         return None
     sharding.check_step_rules(cfg, "train")
-    if sharding.on_world("batch") and not sharding.on_world("experts"):
+    if sharding.on_world("batch") and sharding.mesh_axis("experts") is None:
         raise ValueError("a train step with 'batch' on the world runs under the batch "
-                         "binding: 'batch' and 'experts' bound to the world "
-                         f"({sharding.WORLD!r}, sharding.BATCH_RULES), got experts "
+                         "binding or FSDP: 'batch' and 'experts' bound, experts to the "
+                         f"world ({sharding.WORLD!r}, sharding.BATCH_RULES) or to an axis "
+                         f"of size 1 (sharding.FSDP_RULES), got experts "
                          f"{sharding.mesh_axis('experts')!r}")
     return mesh
 
 
-def _whole_leaf_split(path):
-    """The split besides "seq" under which a rank's gradient of the whole
-    leaf at ``path`` is a partial: "heads" for the attention's leaves (they
-    serve the rank's heads: ``wk``/``wv`` kept whole, the q and k norms),
-    "routed" for the router (the MoE's cut tokens), None for a leaf that
-    meets only the residual or the replicated logits (the block norms, the
-    final norm, ``e``, a dense FFN's ``wi``/``wo`` kept whole). A whole leaf
-    this table does not know raises: its gradient may be a partial the
-    fold would miss."""
-    key = path[-1]
-    if "mixer" in path and key in ("wq", "wk", "wv", "wo", "scale"):
-        return "heads"
-    if key == "router":
-        return "routed"
-    if key in ("scale", "e", "wi", "wo"):
-        return None
-    raise NotImplementedError("the train step's gradient fold does not know the whole "
-                              f"leaf {'/'.join(map(str, path))}")
-
-
 def _partial_grads(cfg, params, blocks, batch):
-    """For each leaf of ``params`` (in ``tree_leaves`` order) under rules
-    that keep "batch" off the world: whether this rank's gradient of it is
-    a partial, whose sum over the ranks is the gradient. A cut leaf's
-    (``blocks``) is the rank's own. A whole leaf's is a partial where the
-    rank uses it on its share of the work, and whole where every rank does
-    the same work with it; which one is decided from the splits in effect
-    for this step, not from the leaf's name alone:
-
-    * "seq" splits the residual (D divides the positions): every whole
-      leaf meets the rank's block of positions (the norms, the router,
-      uncut projections; the embedding's lookup and the loss's rows);
-    * the heads split: the attention's whole leaves serve the rank's heads;
-    * the MoE cuts the replicated tokens (``moe.moe_train``): the router
-    (:func:`_whole_leaf_split`, which refuses a whole leaf it does not know).
-
-    Where a split is dropped (D does not divide it) every rank sees the same
-    data, and its gradient is already whole: folding it would multiply it
-    by D."""
-    from .attention import rank_heads
-
-    mesh = sharding.get_mesh()
-    tokens = batch["tokens"]
-    patches = batch.get("patches")
-    s = tokens.shape[1] + (0 if patches is None else patches.shape[1])
-    seq = sharding.seq_range(s) is not None
-    heads = rank_heads(cfg) is not None
-    routed = seq or (sharding.on_world("experts") and (tokens.shape[0] * s) % mesh.size == 0)
-    out = []
-    for (path, _), block in zip(lm.tree_leaves_with_paths(params), blocks):
-        split = None if block is not None else _whole_leaf_split(path)
-        out.append(block is None and (seq or (heads and split == "heads")
-                                      or (routed and split == "routed")))
-    return out
+    """For each leaf of ``params`` (in ``tree_leaves`` order): whether this
+    rank's gradient of it is a partial to fold over the ranks, whose sum is
+    the gradient. A cut leaf's (``blocks``) is the rank's own: used as it
+    is stored, or gathered at use, whose backward reduce-scatters it
+    (``models/lm.gather``). A whole leaf's is a partial where the rank uses
+    it on its share of the work (:func:`_partial`: always where "batch" is
+    on the world; otherwise by the splits in effect for this step, not from
+    the leaf's name alone)."""
+    partial = _partial(cfg, batch["tokens"].shape[0], _seq(batch))
+    return [block is None and partial(path, False)
+            for (path, _), block in zip(lm.tree_leaves_with_paths(params), blocks)]
 
 
 def loss_and_grads(params, cfg, batch):
@@ -230,27 +207,25 @@ def loss_and_grads(params, cfg, batch):
 
     Over a world of ranks (the rules carry this rank's ``Mesh``; see
     :func:`_world_of_training`) every rank gives the global ``batch`` and
-    its cut tree (``shard_params``). Under the batch binding the rank runs
-    its ``B / D`` rows and differentiates its summed loss over the global
-    token count (the ranks' counts folded in rank order, exact); the loss
-    is the ranks' sums folded in rank order over that count, the same on
-    every rank, and every leaf but the experts' is a partial. Under the
-    production rules every rank runs every row and the loss is
-    ``lm.lm_nll``'s, the same bits on every rank; a leaf is a partial
-    where :func:`_partial_grads` says so. A partial's gradient is the
-    ranks' gathered, folded in rank order in float32 and rounded once to
-    the leaf's dtype (never a float ``all_reduce``), leaf by leaf; a cut
-    leaf's (``sharding.param_blocks``) stays the rank's, and a whole one's
-    is the rank's own, the same on every rank."""
+    its cut tree (``shard_params``). With "batch" on the world (the batch
+    binding, FSDP) the rank runs its ``B / D`` rows and differentiates its
+    summed loss over the global token count (the ranks' counts folded in
+    rank order, exact); the loss is the ranks' sums folded in rank order
+    over that count, the same on every rank. Under the production rules
+    every rank runs every row and the loss is ``lm.lm_nll``'s, the same
+    bits on every rank. A whole leaf's gradient is folded where
+    :func:`_partial_grads` says it is a partial: the ranks' gathered,
+    folded in rank order in float32 and rounded once to the leaf's dtype
+    (never a float ``all_reduce``), leaf by leaf; a cut leaf's
+    (:func:`param_blocks`) is the rank's block (a leaf gathered at use
+    gets its block reduce-scattered by the gather's backward), and a whole
+    one's otherwise the rank's own, the same on every rank."""
     mesh = _world_of_training(cfg)
     leaves = lm.tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
         p.grad = None
-    if mesh is None:
-        loss = loss_fn(params, cfg, batch)
-        loss.backward()
-    elif sharding.on_world("batch"):
+    if mesh is not None and sharding.on_world("batch"):
         total, count = _nll(params, cfg, {k: _rank_rows(v) for k, v in batch.items()})
         dev = total.device
         count = ordered_fold(mesh.gather(count.detach())).to(dev)
@@ -263,10 +238,8 @@ def loss_and_grads(params, cfg, batch):
     for p in leaves:
         p.grad = None                     # never accumulated across steps
     if mesh is not None:
-        blocks = sharding.param_blocks(cfg, params, mesh)
-        partial = ([b is None for b in blocks] if sharding.on_world("batch")
-                   else _partial_grads(cfg, params, blocks, batch))
-        for p, fold in zip(leaves, partial):
+        blocks = param_blocks(cfg, params, mesh)
+        for p, fold in zip(leaves, _partial_grads(cfg, params, blocks, batch)):
             if fold:
                 g = grads[id(p)]
                 grads[id(p)] = ordered_fold(mesh.gather(g).to(g.device),
@@ -286,7 +259,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig):
         mesh = sharding.get_mesh()
         params, opt_state, metrics = apply_updates(
             params, grads, opt_state, opt_cfg, mesh=mesh,
-            blocks=None if mesh is None else sharding.param_blocks(cfg, params, mesh))
+            blocks=None if mesh is None else param_blocks(cfg, params, mesh),
+            moment_blocks=None if mesh is None else moment_blocks(cfg, params, mesh))
         return params, opt_state, {"loss": loss, **metrics}
     return train_step
 
@@ -299,13 +273,14 @@ def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, batch):
         sharding.check_step_rules(cfg, "prefill")
         batch = {k: _rank_rows(v) for k, v in batch.items()}
+        seq = _seq(batch)
+        plan = gather_plan(cfg, batch["tokens"].shape[0], seq)
+        params = lm.gather_top(params, plan)
         if cfg.kind == "encdec":
-            memory = ed.encode(params, cfg, batch["frames"])
-            h = ed.decode_train(params, cfg, batch["tokens"], memory)
+            memory = ed.encode(params, cfg, batch["frames"], plan)
+            h = ed.decode_train(params, cfg, batch["tokens"], memory, plan)
             return h[:, -1] @ lm.head_params(params)["e"].to(h.dtype).T
-        patches = batch.get("patches")
-        h = lm.forward(params, cfg, batch["tokens"], extra_embeds=patches)
-        seq = batch["tokens"].shape[1] + (0 if patches is None else patches.shape[1])
+        h = lm.forward(params, cfg, batch["tokens"], batch.get("patches"), plan)
         return lm.prefill_logits(params, cfg, h, seq)
     return prefill_step
 
@@ -316,9 +291,10 @@ def make_decode_step(cfg: ModelConfig):
     def decode_step(params, caches, token, pos):
         sharding.check_step_rules(cfg, "decode")
         token = _rank_rows(token)
+        plan = gather_plan(cfg, token.shape[0], 1)
         if cfg.kind == "encdec":
-            return ed.encdec_decode_step(params, cfg, caches, token, pos)
-        return lm.decode_step(params, cfg, caches, token, pos)
+            return ed.encdec_decode_step(params, cfg, caches, token, pos, plan)
+        return lm.decode_step(params, cfg, caches, token, pos, plan)
     return decode_step
 
 
@@ -329,7 +305,8 @@ def init_cache(cfg: ModelConfig, params, batch, seq_len, frames=None):
     and the caches hold this rank's rows."""
     frames, batch = _rank_rows(frames), len(_rank_rows(range(batch)))
     if cfg.kind == "encdec":
-        return ed.init_encdec_cache(params, cfg, frames, batch, seq_len)
+        return ed.init_encdec_cache(params, cfg, frames, batch, seq_len,
+                                    gather_plan(cfg, batch, 1))
     return lm.init_cache(cfg, batch, seq_len, params["embed"]["e"].device)
 
 
@@ -366,19 +343,13 @@ def input_specs(cfg: ModelConfig, cell: ShapeCell, params=None):
 
 def production_rules(multi_pod: bool, fsdp_mode: str = "full"):
     """The reference's production rule dicts (its 16 x 16 or 2 x 16 x 16
-    mesh). On the port's flat world, ``production_rules(False)`` is
-    ``sharding.PRODUCTION_RULES``: its prefill, decode and train steps run
-    for the attention LMs (:func:`check_rules` refuses the rest)."""
-    batch = ("pod", "data") if multi_pod else ("data",)
-    rules = {"batch": batch, "seq": "model", "kv_seq": "model", "heads": "model",
-             "kv_heads": "model", "ffn": "model", "experts": "model", "vocab": "model",
-             "fsdp": "data", None: None}
-    if fsdp_mode == "fsdp_only":
-        rules.update(heads=None, kv_heads=None, ffn=None)
-    elif fsdp_mode == "dp_full":
-        rules.update(batch=("data", "model"), seq="pod" if multi_pod else None,
-                     kv_seq=None, heads=None, kv_heads=None, ffn=None, vocab=None)
-    return rules
+    mesh; ``sharding.production_rules``). On the port's flat world,
+    ``production_rules(False)`` is ``sharding.PRODUCTION_RULES``: its
+    prefill, decode and train steps run for the attention LMs
+    (:func:`check_rules` refuses the rest), and each ``fsdp_mode``'s rules
+    under a config laid out by it. The same rules on the reference's (D,
+    1) mesh are ``sharding.fsdp_rules(fsdp_mode)``."""
+    return sharding.production_rules(multi_pod, fsdp_mode)
 
 
 def check_rules(rules, cfg=None, kind=None):
@@ -404,27 +375,372 @@ def sanitize(dim, shape, size=None):
     return dim
 
 
+# ---------------------------------------------------------------------------
+# The parameter tree's layout over a world of ranks
+# ---------------------------------------------------------------------------
+
+# The parameter tree's keys whose leaves are stacked over layers (the
+# reference's ``stacked_prefixes``): their leading axis is the layer.
+_STACKED = ("slots", "enc", "dec")
+# The keys a checkpoint or optimizer state puts in front of a parameter
+# path: the checkpoint's halves and ``optim.OptState``'s fields.
+_HOLDERS = ("params", "opt", "step", "mu", "nu", "err")
+
+
+def _leaves_with_roles(tree):
+    """(path, leaf, role) of every leaf of ``tree`` in ``jax.tree.leaves``
+    order (dict keys sorted, lists, tuples and ``NamedTuple`` fields in
+    order, no leaf for None); ``role``: ``sharding.leaf_role``'s."""
+    out = []
+
+    def walk(t, path, parent):
+        if t is None:
+            return
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,), t)
+        elif isinstance(t, (list, tuple)):
+            names = getattr(t, "_fields", range(len(t)))
+            for name, v in zip(names, t):
+                walk(v, path + (name,), None)
+        else:
+            out.append((path, t, sharding.leaf_role(path, parent or {}) if path else None))
+    walk(tree, (), None)
+    return out
+
+
+def _leaf_axes(s: str, shape) -> tuple:
+    """The reference's ``_leaf_spec`` for one unstacked leaf at the path
+    ``s`` ("slots/0/mixer/wq"): the mesh axis ("model", "data" for its FSDP
+    axis, or None) of each dim."""
+    m, f = "model", "data"
+    last, nd = s.rsplit("/", 1)[-1], len(shape)
+    in_ffn = "/ffn/" in s or s.endswith("ffn") or "/shared/" in s
+    if last == "e":
+        ax = (m, f)
+    elif last in ("wq", "wk", "wv"):
+        ax = (f, m, None)                   # a head dim the model axis does not
+    elif last == "wo" and not in_ffn:       # divide takes it on head_dim (below)
+        ax = (m, None, f)
+    elif last == "wi":
+        ax = (m, f, None, None) if nd == 4 else (f, None, m)
+    elif last == "wo":
+        ax = (m, None, f) if nd == 3 else (m, f)
+    elif last in ("router", "wq_a", "wkv_a"):
+        ax = (f, None)
+    elif last == "in_proj":
+        ax = (f, m)
+    elif last == "conv_w":
+        ax = (None, m)
+    elif last in ("conv_b", "a_log", "d_skip", "dt_bias"):
+        ax = (m,)
+    elif last == "out_proj":
+        ax = (m, f)
+    elif last in ("wq_b", "wk_b", "wv_b"):
+        ax = (None, m, None)
+    elif last == "scale":
+        ax = (m,) if "out_norm" in s else (None,)
+    else:
+        ax = ()
+    return (tuple(ax) + (None,) * nd)[:nd]
+
+
+def _ref_spec(cfg, path, whole_shape, sizes) -> tuple:
+    """The reference's ``param_specs`` entry of the (stacked) leaf at
+    ``path`` of ``shape`` on a ("data", "model") mesh of ``sizes``, after its
+    ``sanitize``; with the moments' (``opt_specs`` under "zero1": the first
+    free dim that the "data" axis divides) as a second tuple."""
+    s = "/".join(map(str, path))
+    lead = 1 if path[0] in _STACKED else 0
+    shape = tuple(whole_shape[lead:])
+    size = lambda e: (1 if e is None else sizes["model"] * sizes["data"]  # noqa: E731
+                      if e == "both" else sizes[e])
+    mode = cfg.fsdp_mode
+    expert = ("/ffn/" in s or s.endswith("router")) and len(shape) >= 3
+    if mode in ("fsdp_only", "dp_full") and len(shape) >= 2 and not expert:
+        # fsdp_only_spec: the largest dim both axes divide, else "data"
+        order = sorted(range(len(shape)), key=lambda i: -shape[i])
+        i = next((i for i in order if shape[i] % size("both") == 0), None)
+        e = "both"
+        if i is None:
+            i, e = next((i for i in order if shape[i] % sizes["data"] == 0), None), "data"
+        ax = tuple(e if j == i else None for j in range(len(shape)))
+    else:
+        ax = _leaf_axes(s, shape)
+        if ax[:1] == ("data",) and s.rsplit("/", 1)[-1] in ("wq", "wk", "wv") \
+                and shape[1] % sizes["model"]:
+            ax = ("data", None, "model")    # few KV heads: head_dim takes "model"
+        if mode in ("zero1", "none"):
+            ax = tuple(None if e == "data" else e for e in ax)
+    ax = (None,) * lead + tuple(e if d % size(e) == 0 else None
+                                for e, d in zip(ax, shape))
+    full = tuple(whole_shape)
+    free = next((i for i, e in enumerate(ax) if e is None and full[i] % sizes["data"] == 0),
+                None) if mode == "zero1" else None
+    mom = ax if free is None else tuple("data" if i == free else e for i, e in enumerate(ax))
+    return ax, mom
+
+
+def layout(cfg: ModelConfig, rules=None, size=None) -> dict:
+    """``{path: (store, use, moment, shape)}`` for every leaf of ``cfg``'s
+    whole parameter tree (paths as ``lm.tree_leaves_with_paths`` gives
+    them) under ``rules`` (default: those in effect) over a world of
+    ``size`` (default: the rules' ``Mesh``'s): the dim of the stored leaf
+    that each rank holds a block of, or None (kept whole); the dim it is
+    used cut along (``sharding.leaf_role`` bound to the world), or None
+    (used whole; a leaf stored cut and used whole is gathered at use,
+    :func:`gather_plan`); the dim of its AdamW moments' blocks; and its
+    whole shape.
+
+    Where "fsdp" is on the world (``sharding.FSDP_RULES``, the reference's
+    (D, 1) mesh) and wherever ``cfg.fsdp_mode`` is "fsdp_only" or
+    "dp_full", the stored dim is the reference's ``param_specs``' entry of
+    the world's axis ("data" on the (D, 1) mesh, "model" on the (1, D)
+    one); the moments follow it but under "zero1" (D, 1), where they take
+    the first free dim that D divides. Otherwise (the (1, D) mesh in the
+    modes "full", "zero1" and "none", and the batch binding) a leaf is
+    stored as it is used, by its role, as the port laid it out before
+    FSDP. A split D does not divide is dropped (the reference's
+    ``sanitize``)."""
+    rules = sharding.get_rules() if rules is None else rules
+    mesh = sharding.get_mesh()
+    size = (1 if mesh is None else mesh.size) if size is None else size
+    return _layout(cfg, tuple(sorted((rules or {}).items(), key=lambda kv: str(kv[0]))),
+                   size)
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(cfg, rule_items, d):
+    """:func:`layout` of the rules ``dict(rule_items)``, computed once (a
+    step asks for it several times)."""
+    rules = dict(rule_items)
+    data = sharding.binds(rules, "fsdp")
+    sizes = {"data": d, "model": 1} if data else {"data": 1, "model": d}
+    axis = "data" if data else "model"
+    ref = data or cfg.fsdp_mode in ("fsdp_only", "dp_full")
+    out = {}
+    for path, leaf, role in _leaves_with_roles(init(cfg, None, "meta")):
+        shape = tuple(leaf.shape)
+        use = None
+        if role is not None and sharding.binds(rules, role[0]) and shape[role[1]] % d == 0:
+            use = role[1]
+        if not ref:
+            out[path] = (use, use, use, shape)
+            continue
+        on = [[i for i, e in enumerate(ax) if e in (axis, "both")]
+              for ax in _ref_spec(cfg, path, shape, sizes)]
+        out[path] = (on[0][0] if on[0] else None, use, on[1][0] if on[1] else None, shape)
+    return out
+
+
+def _param_path(path):
+    """``path`` (a leaf's keys in a checkpoint, an optimizer state or a
+    parameter tree) without the holders' keys in front: (the parameter's
+    path, whether the leaf is an AdamW moment)."""
+    i = 0
+    while i < len(path) and path[i] in _HOLDERS:
+        i += 1
+    return tuple(path[i:]), any(k in ("mu", "nu") for k in path[:i])
+
+
+def param_blocks(cfg: ModelConfig, tree, mesh, rules=None) -> list:
+    """For each leaf of ``tree`` (a parameter tree of ``cfg`` as
+    :func:`shard_params` cuts it for this rank, an optimizer state
+    mirroring one as :func:`init_opt` cuts it, or a dict or tuple of them,
+    as a checkpoint holds them) in ``jax.tree.leaves`` order, the block
+    this rank of ``mesh`` holds under ``rules`` (default: the rules in
+    effect): ``(axis, rank, size)``, the ``rank``-th of ``size`` equal
+    blocks along ``axis`` (:func:`layout`: the stored dim, a moment's own
+    under "zero1"), else None (a whole leaf); every leaf None for one
+    process. Under the batch binding only the experts' leaves are cut. The
+    ``blocks`` of ``checkpoint.ckpt.save`` and ``restore`` and of
+    ``optim.apply_updates``; the train step keeps a cut leaf's gradient as
+    the rank's (a leaf gathered at use gets it reduce-scattered)."""
+    rules = sharding.get_rules() if rules is None else rules
+    mesh = check_mesh(mesh)
+    if mesh is None:
+        return [None] * len(_leaves_with_roles(tree))
+    lay = layout(cfg, rules, mesh.size)
+    out = []
+    for path, _, role in _leaves_with_roles(tree):
+        ppath, moment = _param_path(path)
+        if ppath in lay:
+            dim = lay[ppath][2 if moment else 0]
+        else:                   # a subtree (a bare MoE's): its leaves' roles
+            dim = (None if role is None or not sharding.binds(rules, role[0])
+                   or _whole_size(cfg, path, role[0]) % mesh.size else role[1])
+        out.append(None if dim is None else (dim, mesh.rank, mesh.size))
+    return out
+
+
+def _whole_size(cfg, path, name):
+    """The whole extent of a leaf's dim named ``name`` in ``cfg``."""
+    if name == "experts":
+        return cfg.moe.n_experts
+    if name == "vocab":
+        return cfg.vocab
+    if name == "heads":
+        return cfg.n_heads
+    if name == "kv_heads":
+        return cfg.n_kv_heads
+    if "shared" in path:
+        return cfg.moe.n_shared * cfg.moe.d_ff
+    return cfg.first_dense_ff if "block0" in path and cfg.first_dense_ff else cfg.d_ff
+
+
+def moment_blocks(cfg: ModelConfig, params, mesh) -> list:
+    """For each leaf of the parameter tree ``params``, its AdamW moments'
+    block where it is not the leaf's own (``fsdp_mode`` "zero1" on the (D,
+    1) mesh: the leaf whole, its moments cut), else None; under the rules in
+    effect. ``optim.apply_updates(moment_blocks=)``."""
+    mesh = check_mesh(mesh)
+    if mesh is None:
+        return [None] * len(_leaves_with_roles(params))
+    lay = layout(cfg, sharding.get_rules(), mesh.size)
+    out = []
+    for path, _, _ in _leaves_with_roles(params):
+        store, _, mom, _ = lay.get(path, (None, None, None, None))
+        out.append(None if mom == store else (mom, mesh.rank, mesh.size))
+    return out
+
+
+def _whole_leaf_split(path):
+    """The split besides "seq" under which a rank's gradient of the whole
+    leaf at ``path`` is a partial where "batch" is off the world: "heads"
+    for the attention's leaves (they serve the rank's heads: ``wk``/``wv``
+    kept whole, the q and k norms), "routed" for the router (the MoE's cut
+    tokens), None for a leaf that meets only the residual or the
+    replicated logits (the block norms, the final norm, ``e``, a dense
+    FFN's ``wi``/``wo`` kept whole). A whole leaf this table does not know
+    raises: its gradient may be a partial the fold would miss."""
+    key = path[-1]
+    if "mixer" in path and key in ("wq", "wk", "wv", "wo", "scale"):
+        return "heads"
+    if key == "router":
+        return "routed"
+    if key in ("scale", "e", "wi", "wo"):
+        return None
+    raise NotImplementedError("the train step's gradient fold does not know the whole "
+                              f"leaf {'/'.join(map(str, path))}")
+
+
+def _partial(cfg, batch: int, seq: int):
+    """``partial(path, cut)``: whether this rank's gradient of the leaf at
+    ``path``, used whole (``cut`` False) or cut to its block of a whole
+    leaf (True), is a partial whose sum over the ranks is the gradient, in
+    a step of ``batch`` rows of ``seq`` positions under the rules in
+    effect. Where "batch" is on the world every leaf's is (the rank's
+    rows); otherwise (every rank every row) a used-cut leaf's is, and a
+    whole leaf's where the rank uses it on its share of the work, decided
+    from the splits in effect for this step:
+
+    * "seq" splits the residual (D divides the positions): every leaf
+      meets the rank's block of positions;
+    * the heads split: the attention's leaves serve the rank's heads;
+    * the MoE cuts the replicated tokens (``moe.moe_train``): the router
+      (:func:`_whole_leaf_split`, which refuses a leaf it does not know).
+
+    Where a split is dropped (D does not divide it) every rank sees the same
+    data, and its gradient is already whole: folding it would multiply it
+    by D."""
+    mesh = sharding.get_mesh()
+    if mesh is None or mesh.size == 1:
+        return lambda path, cut: False
+    if sharding.on_world("batch"):
+        return lambda path, cut: True
+    seq_split = sharding.seq_range(seq) is not None
+    heads = rank_heads(cfg) is not None
+    routed = seq_split or (sharding.on_world("experts") and (batch * seq) % mesh.size == 0)
+
+    def partial(path, cut):
+        if cut or seq_split:
+            return True
+        split = _whole_leaf_split(path)
+        return (heads and split == "heads") or (routed and split == "routed")
+    return partial
+
+
+def gather_plan(cfg: ModelConfig, batch: int, seq: int):
+    """What a step of ``batch`` rows of ``seq`` positions gathers at use
+    under the rules in effect: a tree nesting as the parameter tree, a
+    stacked leaf's entry for one layer's slice, each leaf ``(dim, n,
+    partial)`` where the rank stores a block of it along ``dim`` and uses
+    it whole (or cut to another block), ``n`` the whole extent, ``partial``
+    whether its gradient is (:func:`_partial`: the backward reduce-scatters
+    it, else keeps the rank's block), else None; None when no leaf is
+    gathered. The steps hand it to the forward (``lm.gather``)."""
+    mesh = sharding.get_mesh()
+    if mesh is None or mesh.size == 1:
+        return None
+    lay = layout(cfg)
+    if all(store == use for store, use, _, _ in lay.values()):
+        return None
+    partial = _partial(cfg, batch, seq)
+    plan = {}
+    for path, (store, use, _, shape) in lay.items():
+        if store is not None and store != use:
+            lead = 1 if path[0] in _STACKED else 0
+            _put(plan, path, (store - lead, shape[store], partial(path, use is not None)))
+    return plan
+
+
+def _put(tree, path, value):
+    """Set ``tree[path]``, making the dicts (and lists, at int keys) on the
+    way."""
+    node = tree
+    for k, nxt in zip(path[:-1], path[1:]):
+        child = [] if isinstance(nxt, int) else {}
+        if isinstance(node, list):
+            while len(node) <= k:
+                node.append(None)
+            node[k] = child if node[k] is None else node[k]
+            node = node[k]
+        else:
+            node = node.setdefault(k, child)
+    if isinstance(node, list):
+        while len(node) <= path[-1]:
+            node.append(None)
+        node[path[-1]] = value
+    else:
+        node[path[-1]] = value
+
+
 def param_specs(cfg: ModelConfig, params):
     """For each leaf of the whole parameter tree (``init``'s, same nesting),
-    the dim split over the world, or None: the expert axis where the rules
-    bind "experts" (``sharding.leaf_role``); under tensor parallelism the
-    heads of ``wq`` and the attention ``wo`` ("heads"), of ``wk``/``wv``
-    ("kv_heads"), the columns of a dense ``wi`` and rows of its ``wo``
-    ("ffn", shared experts too), the rows of the embed and head ``e``
-    ("vocab"); each where the world's size divides it (:func:`sanitize`)."""
-    def walk(t, path, parent):
+    the dim whose blocks the world's ranks store, or None
+    (:func:`layout`): under FSDP (``sharding.FSDP_RULES``, and the
+    "fsdp_only" and "dp_full" layouts on the production rules' world) the
+    reference's ``param_specs`` entry of the world's mesh axis; otherwise
+    each leaf's role (``sharding.leaf_role``): the expert axis where the
+    rules bind "experts", under tensor parallelism the heads of ``wq`` and
+    the attention ``wo`` ("heads"), of ``wk``/``wv`` ("kv_heads"), the
+    columns of a dense ``wi`` and rows of its ``wo`` ("ffn", shared experts
+    too), the rows of the embed and head ``e`` ("vocab"); each where the
+    world's size divides it (:func:`sanitize`)."""
+    lay = layout(cfg)
+    return _specs(params, lambda path: lay[path][0])
+
+
+def _specs(params, dim):
+    def walk(t, path):
         if isinstance(t, dict):
-            return {k: walk(v, path + (k,), t) for k, v in t.items()}
+            return {k: walk(v, path + (k,)) for k, v in t.items()}
         if isinstance(t, list):
-            return [walk(v, path + (i,), None) for i, v in enumerate(t)]
-        role = sharding.leaf_role(path, parent or {})
-        if role is None or t is None or not sharding.on_world(role[0]):
-            return None
-        return sanitize(role[1], t.shape, _world_size(role[0]))
-    return walk(params, (), None)
-def opt_specs(cfg: ModelConfig, pspecs):
-    """The optimizer state's specs: the moments split as the parameters."""
+            return [walk(v, path + (i,)) for i, v in enumerate(t)]
+        return None if t is None else dim(path)
+    return walk(params, ())
+
+
+def opt_specs(cfg: ModelConfig, pspecs, params=None):
+    """The optimizer state's specs: the moments split as the parameters,
+    or under ``fsdp_mode`` "zero1" on the (D, 1) mesh by their own blocks
+    (the reference's ``shard_first_free``; ``params``: the whole tree,
+    default ``init`` on meta)."""
     from ..optim import OptState
+    if cfg.fsdp_mode == "zero1":
+        lay = layout(cfg)
+        params = init(cfg, None, "meta") if params is None else params
+        pspecs = _specs(params, lambda path: lay[path][2])
     return OptState(step=None, mu=pspecs, nu=pspecs, err=None)
 
 
@@ -436,7 +752,9 @@ def _batch_dim(path):
 
 def cache_specs(cfg: ModelConfig, cell: ShapeCell, caches):
     """For each leaf of the whole (global-batch) cache tree, the batch dim
-    where the rules bind "batch" to the world; else for an attention
+    where the rules bind "batch" to the world (FSDP too: decided by
+    whether D divides the batch, where the reference decides from ``b >=
+    16``, which moves its layout only); else for an attention
     cache's k and v the KV-head dim or the position dim by
     ``attention.kv_split`` (decided from the world's size, where the
     reference decides from a constant ``model_size`` of 16, which moves
@@ -478,7 +796,8 @@ def shardings(cfg: ModelConfig, cell: ShapeCell, params=None):
     meta)."""
     params = init(cfg, None, "meta") if params is None else params
     ps = param_specs(cfg, params)
-    return ps, (opt_specs(cfg, ps) if cell.kind == "train" else None), batch_specs(cfg, cell)
+    return (ps, (opt_specs(cfg, ps, params) if cell.kind == "train" else None),
+            batch_specs(cfg, cell))
 
 
 def shard_params(cfg: ModelConfig, params, mesh):
@@ -487,6 +806,22 @@ def shard_params(cfg: ModelConfig, params, mesh):
     whole tree can be freed); every other leaf is the same tensor. Under
     the batch binding it cuts what ``sharding.shard_experts`` cuts."""
     return _cut(params, param_specs(cfg, params), mesh, copy=True)
+
+
+def init_opt(cfg: ModelConfig, params, opt_cfg: OptConfig, mesh=None):
+    """``optim.init_opt_state`` of this rank's tree (``shard_params``'),
+    each moment cut to its own block where it has one (``fsdp_mode``
+    "zero1" on the (D, 1) mesh: :func:`moment_blocks`)."""
+    state = init_opt_state(params, opt_cfg)
+    if mesh is None:
+        return state
+    lay = layout(cfg, size=mesh.size)
+    specs = _specs(params, lambda path: None if lay[path][2] == lay[path][0]
+                   else lay[path][2])
+    if not lm.tree_leaves(specs):
+        return state
+    return state._replace(mu=_cut(state.mu, specs, mesh, copy=True),
+                          nu=_cut(state.nu, specs, mesh, copy=True))
 
 
 def cut(tree, specs, mesh):

@@ -36,6 +36,15 @@ experts, ``sharding.shard_experts``):
   replicated tokens' gradient is whole on every rank). A train step over
   replicated tokens that D does not divide is refused.
 
+Under FSDP (``sharding.FSDP_RULES``) "experts" is bound to an axis of
+size 1, the reference's "model" axis of its (D, 1) mesh: the rank's
+tokens (its rows) are routed over the world (global capacity and prices,
+the reference's ``token_axes``), and the all-to-all runs over a world of
+one, each rank running every expert over its own pairs with the
+capacities of one rank (``cap_send = cf * pairs + 1``, ``cap_e = cf * rt /
+E + 1``: pairs past ``cap_e`` are dropped, as the reference's are there).
+The decode step runs every expert over the rank's rows.
+
 Training runs through the a2a path as the reference's ``jax.grad`` runs
 through its shard_map body: the all-to-alls of the token rows and of the
 expert outputs are ``core.mesh.all_to_all`` (the backward is the same
@@ -60,7 +69,7 @@ import torch.nn.functional as F
 
 from ..core.bucketing import ordered_fold
 from ..core.moe_router import scd_route, scd_route_shmap, topk_route
-from ..core.mesh import all_gather, all_to_all, split
+from ..core.mesh import Mesh, all_gather, all_to_all, split
 from . import sharding
 from .layers import activation, truncnorm
 
@@ -138,8 +147,11 @@ def _moe(p, cfg, x, act, decode):
 
 
 def _expert_world(p, cfg):
-    """The rules' ``Mesh`` where they bind "experts", else None; checks that
-    ``p`` holds this rank's share of the experts."""
+    """(the rules' ``Mesh``, the experts' world) where the rules bind
+    "experts", else None: the experts' world is the same ``Mesh`` where
+    they bind it to the world, else a world of one on its device (an axis
+    of size 1). Checks that ``p`` holds this rank's share of the
+    experts."""
     if sharding.mesh_axis("experts") is None:
         return None
     mesh = sharding.get_mesh()
@@ -147,23 +159,21 @@ def _expert_world(p, cfg):
         raise ValueError("the rules bind 'experts' but carry no Mesh: "
                          "sharding.set_rules(rules, mesh=) with this rank's "
                          "core.mesh.Mesh")
-    if not sharding.on_world("experts"):
-        raise ValueError(f"'experts' must be bound to the world "
-                         f"({sharding.WORLD!r}), got "
-                         f"{sharding.mesh_axis('experts')!r}")
+    experts = mesh if sharding.on_world("experts") else Mesh(0, 1, mesh.device)
     e = cfg.moe.n_experts
-    if p["wi"].shape[0] * mesh.size != e:
+    if p["wi"].shape[0] * experts.size != e:
         raise ValueError(f"this rank holds {p['wi'].shape[0]} of {e} experts; a "
-                         f"world of {mesh.size} holds {e // mesh.size} a rank "
+                         f"world of {experts.size} holds {e // experts.size} a rank "
                          f"(sharding.shard_experts)")
-    return mesh
+    return mesh, experts
 
 
 def moe_decode(p, cfg, x, act="silu"):
     """One-token MoE, dense over the experts. x: (B, 1, D) -> (B, 1, D)."""
-    mesh = _expert_world(p, cfg)
-    if mesh is None:
+    worlds = _expert_world(p, cfg)
+    if worlds is None or worlds[1].size == 1:
         return _moe(p, cfg, x, act, decode=True)
+    mesh = worlds[1]
     b, s, d = x.shape
     rows = sharding.on_world("batch")
     t = x.reshape(b * s, d)
@@ -185,20 +195,21 @@ def moe_train(p, cfg, x, act="silu", replicated=False):
     path, where x is this rank's tokens (cut by batch or by sequence), or
     with ``replicated`` the same tokens on every rank (module
     docstring)."""
-    mesh = _expert_world(p, cfg)
-    if mesh is None:
+    worlds = _expert_world(p, cfg)
+    if worlds is None:
         return _moe(p, cfg, x, act, decode=False)
+    mesh, experts = worlds
     b, s, d = x.shape
     if replicated and mesh.size > 1 and (b * s) % mesh.size == 0:
         # the rank's block of the tokens; the blocks' outputs joined are
         # the same on every rank, so their gradient is whole there
         t = split(mesh, x.reshape(1, b * s, d), 1)
-        return all_gather(mesh, _moe_a2a(p, cfg, t, act, mesh), 1,
+        return all_gather(mesh, _moe_a2a(p, cfg, t, act, mesh, experts), 1,
                           whole=True).reshape(b, s, d)
     if replicated and mesh.size > 1 and torch.is_grad_enabled():
         raise ValueError(f"a train step routes the replicated tokens by block: "
                          f"{b} x {s} tokens do not split over {mesh.size} ranks")
-    return _moe_a2a(p, cfg, x, act, mesh)
+    return _moe_a2a(p, cfg, x, act, mesh, experts)
 
 
 def _exclusive_rank(onehot):
@@ -207,10 +218,13 @@ def _exclusive_rank(onehot):
     return ((torch.cumsum(onehot, 0, dtype=torch.int32) - onehot) * onehot).sum(-1)
 
 
-def _moe_a2a(p, cfg, x, act, mesh):
+def _moe_a2a(p, cfg, x, act, mesh, experts):
     """This rank's tokens -> a2a -> local expert products -> a2a back
-    (the reference's shard_map body, step for step), differentiable."""
-    m, n = cfg.moe, mesh.size
+    (the reference's shard_map body, step for step), differentiable. The
+    tokens are routed over ``mesh`` (every rank's tokens, the reference's
+    ``token_axes``) and exchanged over ``experts`` (its model axis, whose
+    ranks hold the experts; a world of one under FSDP)."""
+    m, n = cfg.moe, experts.size
     b_l, s_l, d = x.shape
     t_l, k = b_l * s_l, m.topk
     xt = x.reshape(t_l, d)
@@ -247,8 +261,8 @@ def _moe_a2a(p, cfg, x, act, mesh):
     send_x[slot] = xt[:, None].expand(t_l, k, d).reshape(pairs, d)
 
     rt = n * cap_send
-    rx = all_to_all(mesh, send_x[:-1].reshape(n, cap_send, d)).reshape(rt, d)
-    rle = mesh.all_to_all(send_le[:-1].reshape(n, cap_send)).reshape(rt).long()
+    rx = all_to_all(experts, send_x[:-1].reshape(n, cap_send, d)).reshape(rt, d)
+    rle = experts.all_to_all(send_le[:-1].reshape(n, cap_send)).reshape(rt).long()
 
     # group by local expert (cap_e rows each), the expert products
     with torch.no_grad():
@@ -268,7 +282,7 @@ def _moe_a2a(p, cfg, x, act, mesh):
     # ungroup, a2a back, combine: a dropped row reads the zero row after
     # the last (the reference's clamped read under ``where``)
     y_r = torch.cat([y_buf, y_buf.new_zeros((1, d))])[r_slot]
-    y_back = all_to_all(mesh, y_r.reshape(n, cap_send, d)).reshape(rt, d)
+    y_back = all_to_all(experts, y_r.reshape(n, cap_send, d)).reshape(rt, d)
     y_pairs = torch.cat([y_back, y_back.new_zeros((1, d))])[slot]
     w_pairs = torch.where(ok, wsel_f, 0.0)
     if _COUNTING[0] and x.device.type != "meta":      # meta (the dry-run): no values

@@ -21,7 +21,7 @@ What runs over the world:
   on its ``B / D`` rows (:func:`rank_rows`), every other weight
   replicated; training runs under :data:`BATCH_RULES` ("batch" and
   "experts" bound), and :func:`map_experts` cuts a tree's expert leaves
-  (:func:`param_blocks` says which leaves are a rank's blocks);
+  (``models/model.param_blocks`` says which leaves are a rank's blocks);
 * tensor and sequence parallelism, the names of :data:`TP_NAMES` -> world
   (the prefill, decode and train steps of the attention LMs, under
   :data:`PRODUCTION_RULES`, the reference's ``production_rules(False)``):
@@ -34,17 +34,30 @@ What runs over the world:
   name off the world or D does not divide it (the reference's
   ``sanitize`` drops such a split). ``models/model.param_specs`` lays the
   parameters out by the same roles (:func:`leaf_role`), and
-  :func:`param_blocks` says, for every leaf of a parameter, optimizer or
-  checkpoint tree, the block this rank holds under the rules in effect
-  (the train step's gradient fold, ``optim.apply_updates``'s norm and the
-  world's checkpoint read it).
+  ``models/model.param_blocks`` says, for every leaf of a parameter,
+  optimizer or checkpoint tree, the block this rank holds under the rules
+  in effect (the train step's gradient fold, ``optim.apply_updates``'s
+  norm and the world's checkpoint read it).
+
+* FSDP, :data:`FSDP_RULES` (``--rules fsdp``): the reference's (D, 1)
+  ("data", "model") mesh, "batch" and "fsdp" on the world and every other
+  name on an axis of size 1 (:data:`UNIT`, its "model" axis). Each rank
+  stores its block of the leaves the reference's ``_leaf_spec`` gives an
+  FSDP entry (``models/model.layout``), runs its ``B / D`` rows, and
+  gathers each block's leaves whole where it uses them (``models/lm.py``,
+  ``core.mesh.all_gather``: the backward reduce-scatters their gradients).
+  ``cfg.fsdp_mode`` picks the reference's layout ("full", "zero1",
+  "none", "fsdp_only", "dp_full": :func:`production_rules`); the same
+  modes run under the production rules on the world as its "model" axis,
+  the (1, D) mesh, where "fsdp_only" and "dp_full" spread the non-expert
+  weights over the world and "zero1" and "none" are the production
+  layout.
 
 The steps refuse what the port has not implemented (:func:`refusal`,
 :func:`check_step_rules`: ``NotImplementedError`` naming
-:data:`_UNPORTED_ITEM`): "fsdp" on the world, the MLA, Mamba2 and
-encoder-decoder archs and the FSDP layouts (``cfg.fsdp_mode``) under a
-name of :data:`TP_NAMES`, and "batch" on the world together with one (a
-2-D world).
+:data:`_UNPORTED_ITEM`): the MLA, Mamba2 and encoder-decoder archs under
+a name of :data:`TP_NAMES`, and "batch" or "fsdp" on the world together
+with such a name ("fsdp" also with "experts": a 2-D world).
 Eager torch has nothing to constrain: :func:`constrain` returns its input,
 and :func:`spec` the tuple of bound names where the reference builds a
 ``PartitionSpec``.
@@ -62,7 +75,8 @@ __all__ = ["DEFAULT_RULES", "WORLD", "TP_NAMES", "set_rules", "get_rules",
            "expert_range", "shard_experts", "map_experts", "BATCH_RULES",
            "PRODUCTION_RULES", "head_range", "kv_head_range", "ffn_range",
            "vocab_range", "seq_range", "world_sum", "RULES", "leaf_role",
-           "param_blocks"]
+           "UNIT", "FSDP_MODES", "FSDP_RULES", "production_rules", "fsdp_rules",
+           "rules_for"]
 
 _state = threading.local()
 
@@ -89,24 +103,72 @@ DEFAULT_RULES = {
 BATCH_RULES = dict(DEFAULT_RULES, batch=WORLD, seq=None, kv_seq=None, heads=None,
                    kv_heads=None, ffn=None, vocab=None)
 
-# The reference's production rules on one pod (``production_rules(False)``
-# of ``src/repro/models/model.py``): "batch" and "fsdp" on its "data" axis,
-# of size 1 in the port's flat world, every other name on the world.
-PRODUCTION_RULES = {"batch": ("data",), "seq": WORLD, "kv_seq": WORLD, "heads": WORLD,
-                    "kv_heads": WORLD, "ffn": WORLD, "experts": WORLD, "vocab": WORLD,
-                    "fsdp": "data", None: None}
+# An axis of size 1 besides the world: under FSDP_RULES the reference's
+# "model" axis of its (D, 1) mesh. A name bound to it shards nothing, but
+# "experts" bound there runs the MoE's all-to-all path over a world of one
+# (``models/moe.py``), as the reference's does over its model axis.
+UNIT = "unit"
+
+# The reference's layout modes (``cfg.fsdp_mode``; :func:`production_rules`).
+FSDP_MODES = ("full", "zero1", "none", "fsdp_only", "dp_full")
+
+
+def production_rules(multi_pod: bool, fsdp_mode: str = "full") -> dict:
+    """The reference's ``production_rules`` (``src/repro/models/model.py``)
+    over its mesh axes "pod", "data" and "model": the port's flat world is
+    its "model" axis (the (1, D) mesh), the other two of size 1."""
+    if fsdp_mode not in FSDP_MODES:
+        raise ValueError(f"fsdp_mode must be one of {FSDP_MODES}, got {fsdp_mode!r}")
+    rules = {"batch": ("pod", "data") if multi_pod else ("data",), "seq": "model",
+             "kv_seq": "model", "heads": "model", "kv_heads": "model", "ffn": "model",
+             "experts": "model", "vocab": "model", "fsdp": "data", None: None}
+    if fsdp_mode == "fsdp_only":
+        rules.update(heads=None, kv_heads=None, ffn=None)
+    elif fsdp_mode == "dp_full":
+        rules.update(batch=("data", "model"), seq="pod" if multi_pod else None,
+                     kv_seq=None, heads=None, kv_heads=None, ffn=None, vocab=None)
+    return rules
+
+
+def fsdp_rules(fsdp_mode: str = "full") -> dict:
+    """``production_rules(False, fsdp_mode)`` on the reference's (D, 1)
+    mesh: its "data" axis is the world, its "model" axis :data:`UNIT`."""
+    on = {"data": WORLD, "model": UNIT}
+    return {k: (tuple(on.get(a, a) for a in v) if isinstance(v, tuple) else on.get(v, v))
+            for k, v in production_rules(False, fsdp_mode).items()}
+
+
+# The reference's production rules on one pod (``production_rules(False)``):
+# "batch" and "fsdp" on its "data" axis, of size 1 in the port's flat world,
+# every other name on the world.
+PRODUCTION_RULES = production_rules(False)
+
+# FSDP over the world (the reference's (D, 1) mesh, "full" mode): "batch"
+# and "fsdp" on the world, tensor parallelism and the experts on UNIT.
+FSDP_RULES = fsdp_rules("full")
 
 # The rule sets a world runs under, by the name the launchers' ``--rules``
-# takes.
-RULES = {"batch": BATCH_RULES, "production": PRODUCTION_RULES}
+# takes (each a function of ``cfg.fsdp_mode``: :func:`rules_for`).
+RULES = {"batch": BATCH_RULES, "production": PRODUCTION_RULES, "fsdp": FSDP_RULES}
 
 # Tensor and sequence parallelism: the prefill, decode and train steps of
 # the attention LMs run with these on the world.
 TP_NAMES = ("seq", "kv_seq", "heads", "kv_heads", "ffn", "vocab")
 _UNPORTED_ITEM = "ROADMAP A10 item 5, second part"
-# The reference's FSDP layouts (``model.param_specs``/``opt_specs`` under
-# ``cfg.fsdp_mode``): refused under tensor parallelism with the label.
-FSDP_MODES = ("fsdp_only", "dp_full", "zero1")
+
+
+def rules_for(name: str, fsdp_mode: str = "full") -> dict:
+    """The rules named ``name`` (a key of :data:`RULES`) for a config laid
+    out by ``fsdp_mode``: the mode's changes to the reference's production
+    rules, on the (1, D) mesh ("production") or the (D, 1) mesh ("fsdp");
+    the batch binding has none."""
+    if name not in RULES:
+        raise ValueError(f"rules must be one of {sorted(RULES)}, got {name!r}")
+    if name == "production":
+        return production_rules(False, fsdp_mode)
+    if name == "fsdp":
+        return fsdp_rules(fsdp_mode)
+    return RULES[name]
 
 
 def set_rules(rules: Optional[dict], mesh=None):
@@ -169,17 +231,17 @@ def binds(rules, name) -> bool:
 
 
 def refusal(rules, cfg=None, kind=None):
-    """Why ``rules`` cannot run a step over the world, or None: "fsdp" on
-    the world (FSDP), "batch" on it together with a name of
-    :data:`TP_NAMES` (a 2-D world), and under a name of :data:`TP_NAMES` an
-    arch whose mixers the port does not cover there (``cfg``: MLA, Mamba2,
-    the encoder-decoder) or a config laid out for FSDP (``cfg.fsdp_mode``
-    in :data:`FSDP_MODES`), whatever the step's ``kind``. Each names
-    :data:`_UNPORTED_ITEM`."""
-    if binds(rules, "fsdp"):
-        return (f"the rules bind 'fsdp' to the world ({WORLD!r}): FSDP is not ported "
-                f"({_UNPORTED_ITEM})")
+    """Why ``rules`` cannot run a step over the world, or None: "batch" or
+    "fsdp" on it together with a name of :data:`TP_NAMES` ("fsdp" also
+    with "experts"), which is a 2-D world (data x model), and under a name
+    of :data:`TP_NAMES` an arch whose mixers the port does not cover there
+    (``cfg``: MLA, Mamba2, the encoder-decoder), whatever the step's
+    ``kind``. Each names :data:`_UNPORTED_ITEM`."""
     tp = [n for n in TP_NAMES if binds(rules, n)]
+    model = tp + (["experts"] if binds(rules, "experts") else [])
+    if binds(rules, "fsdp") and model:
+        return (f"the rules bind 'fsdp' and {model} to the one world axis: a 2-D world "
+                f"(data x model) is not ported ({_UNPORTED_ITEM})")
     if not tp:
         return None
     if binds(rules, "batch"):
@@ -191,9 +253,6 @@ def refusal(rules, cfg=None, kind=None):
         if what:
             return (f"{cfg.name}: {what} under {tp} on the world is not ported "
                     f"({_UNPORTED_ITEM})")
-        if cfg.fsdp_mode in FSDP_MODES:
-            return (f"{cfg.name}: fsdp_mode {cfg.fsdp_mode!r} lays the parameters out "
-                    f"for FSDP, which is not ported ({_UNPORTED_ITEM})")
     return None
 
 
@@ -304,69 +363,6 @@ def leaf_role(path, parent):
     if len(path) >= 2 and path[-2] in ("ffn", "shared"):
         return {"wi": ("ffn", lead + 2), "wo": ("ffn", lead)}.get(key)
     return None
-
-
-def _leaves_with_roles(tree):
-    """(path, leaf, role) of every leaf of ``tree`` in ``jax.tree.leaves``
-    order (dict keys sorted, lists, tuples and ``NamedTuple`` fields in
-    order, no leaf for None)."""
-    out = []
-
-    def walk(t, path, parent):
-        if t is None:
-            return
-        if isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k], path + (k,), t)
-        elif isinstance(t, (list, tuple)):
-            names = getattr(t, "_fields", range(len(t)))
-            for name, v in zip(names, t):
-                walk(v, path + (name,), None)
-        else:
-            out.append((path, t, leaf_role(path, parent or {}) if path else None))
-    walk(tree, (), None)
-    return out
-
-
-def _whole_size(cfg, path, name):
-    """The whole extent of a leaf's dim named ``name`` in ``cfg``."""
-    if name == "experts":
-        return cfg.moe.n_experts
-    if name == "vocab":
-        return cfg.vocab
-    if name == "heads":
-        return cfg.n_heads
-    if name == "kv_heads":
-        return cfg.n_kv_heads
-    if "shared" in path:
-        return cfg.moe.n_shared * cfg.moe.d_ff
-    return cfg.first_dense_ff if "block0" in path and cfg.first_dense_ff else cfg.d_ff
-
-
-def param_blocks(cfg, tree, mesh, rules=None) -> list:
-    """For each leaf of ``tree`` (a parameter tree of ``cfg`` as
-    ``model.shard_params`` cuts it for this rank, an optimizer state
-    mirroring one, or a dict or tuple of them, as a checkpoint holds them)
-    in ``jax.tree.leaves`` order, the block this rank of ``mesh`` holds
-    under ``rules`` (default: the rules in effect): ``(axis, rank, size)``,
-    the ``rank``-th of ``size`` equal blocks along ``axis`` where the rules
-    bind the leaf's role (:func:`leaf_role`) to the world and D divides its
-    whole extent (as ``model.param_specs`` cuts it), else None (a whole
-    leaf); every leaf None for one process. Under the batch binding
-    only the experts' leaves are cut. The ``blocks`` of
-    ``checkpoint.ckpt.save`` and ``restore`` and of
-    ``optim.apply_updates``; the train step keeps a cut leaf's gradient as
-    the rank's."""
-    rules = get_rules() if rules is None else rules
-    mesh = check_mesh(mesh)
-    out = []
-    for path, _, role in _leaves_with_roles(tree):
-        if (mesh is None or role is None or not binds(rules, role[0])
-                or _whole_size(cfg, path, role[0]) % mesh.size):
-            out.append(None)
-        else:
-            out.append((role[1], mesh.rank, mesh.size))
-    return out
 
 
 def map_experts(fn, tree):

@@ -22,7 +22,7 @@ stacked leaf's sum is its period slices' sums added in period order.
 
 Over a world of ranks (``mesh=``, the train step's), every rank holds the
 whole leaves with the same gradients and its own block of each cut leaf
-(``blocks=``, ``models.sharding.param_blocks``: the experts under the
+(``blocks=``, ``models.model.param_blocks``: the experts under the
 batch binding, and under the production rules every leaf the rules split
 over the world). A whole slice's sum of squares is computed locally (the
 same bits on every rank) and counts once; the cut slices' partial sums
@@ -30,7 +30,13 @@ are gathered once a step as one vector and folded in rank order
 (``bucketing.ordered_fold``), as the reference's ``sum`` over the whole
 sharded leaf adds them. With compression a cut leaf's int8 scale is its
 global amax (``Mesh.amax``, exact); the error feedback stays with the
-rank's block. The updates stay elementwise and in place.
+rank's block. The updates stay elementwise and in place. Under FSDP a
+rank's blocks are what it stores (gathered at use; their gradients
+arrive reduce-scattered), and their squares are folded the same way.
+Under "zero1" on the (D, 1) mesh (``moment_blocks=``) a whole leaf's
+moments are the rank's block of them: the rank updates that block of the
+leaf from its block of the whole gradient, then the blocks are gathered
+(``Mesh.all_gather``) so that every rank holds the same bits.
 """
 from __future__ import annotations
 
@@ -149,17 +155,19 @@ def _update_(p, g32, m, v, k):
 
 
 def apply_updates(params, grads, state: OptState, cfg: OptConfig, mesh=None,
-                  blocks=None):
+                  blocks=None, moment_blocks=None):
     """One AdamW step, in place. Returns (params, new_state, metrics), the
     parameters and moments the same tensors, updated. ``mesh``: this
     rank's ``core.mesh.Mesh`` when leaves of ``params`` are the rank's
     blocks, and then ``blocks``: for each leaf, the block it holds or None
-    (``sharding.param_blocks``). Module docstring; every rank makes the
+    (``models.model.param_blocks``); ``moment_blocks``: for each leaf, the
+    block its moments hold where that is not the leaf's, or None
+    (``models.model.moment_blocks``). Module docstring; every rank makes the
     same calls."""
     mesh = check_mesh(mesh)
     if mesh is not None and blocks is None:
         raise TypeError("apply_updates over a world takes the leaves' blocks "
-                        "(blocks=sharding.param_blocks(cfg, params, mesh))")
+                        "(blocks=model.param_blocks(cfg, params, mesh))")
     with torch.no_grad():
         pl = tree_leaves_with_paths(params)
         gl, ml, vl = tree_leaves(grads), tree_leaves(state.mu), tree_leaves(state.nu)
@@ -204,9 +212,24 @@ def apply_updates(params, grads, state: OptState, cfg: OptConfig, mesh=None,
         k = {"scale": scale, "b1": cfg.b1, "b2": cfg.b2, "1-b1": 1 - cfg.b1,
              "1-b2": 1 - cfg.b2, "b1c": b1c, "b2c": b2c, "eps": cfg.eps,
              "wd": cfg.weight_decay, "lr": lr}
-        for (path, p), leaf, m, v in zip(pl, pieces, ml, vl):
-            for piece, pi, mi, vi in zip(leaf, _slices(path, p), _slices(path, m),
+        mbl = moment_blocks or [None] * len(pl)
+        for (path, p), leaf, m, v, mb in zip(pl, pieces, ml, vl, mbl):
+            if mb is None:
+                for piece, pi, mi, vi in zip(leaf, _slices(path, p), _slices(path, m),
+                                             _slices(path, v)):
+                    _update_(pi, piece(), mi, vi, k)
+                continue
+            axis, r, size = mb                # the moments' block of a whole leaf
+            n = p.shape[axis] // size
+            block = p.narrow(axis, r * n, n)
+            if path and path[0] == STACKED and axis == 0:     # a block of periods
+                sel = [lambda pc=pc: pc() for pc in leaf[r * n:(r + 1) * n]]
+            else:
+                a = axis - (1 if path and path[0] == STACKED else 0)
+                sel = [lambda pc=pc: pc().narrow(a, r * n, n) for pc in leaf]
+            for piece, pi, mi, vi in zip(sel, _slices(path, block), _slices(path, m),
                                          _slices(path, v)):
                 _update_(pi, piece(), mi, vi, k)
+            p.copy_(mesh.all_gather(block, axis))
     return params, OptState(step, state.mu, state.nu, state.err), \
         {"grad_norm": gnorm, "lr": lr}

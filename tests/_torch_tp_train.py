@@ -7,7 +7,7 @@ rules="production")`` with its world checkpoint).
 Every rank runs the same cases on the same global NumPy batches, keeps its
 blocks of the carried tree (``model.shard_params``) and runs every row;
 what it holds is gathered and joined along each leaf's block
-(``sharding.param_blocks``), so rank 0 returns the whole trees, with both
+(``model.param_blocks``), so rank 0 returns the whole trees, with both
 ranks' losses and norms beside them to hold the two bitwise. The rank
 processes import this module, which imports no JAX;
 ``tests/test_torch_cuda.py`` runs :func:`port_cases` over a world on the
@@ -70,7 +70,7 @@ def whole(cfg, tree, mesh, r=PROD):
     copies (the steps update the tensors in place), each cut leaf joined
     from the ranks' blocks in rank order."""
     out = []
-    blocks = S.param_blocks(cfg, tree, mesh, rules=r) if mesh is not None else None
+    blocks = M.param_blocks(cfg, tree, mesh, rules=r) if mesh is not None else None
     for i, leaf in enumerate(lm.tree_leaves(tree)):
         t = leaf.detach().cpu().to(torch.float32, copy=True)
         if blocks is not None and blocks[i] is not None:
@@ -112,7 +112,7 @@ def run_case(mesh, tree, arch, r, bs, keep=True):
                 loss, grads = M.loss_and_grads(params, cfg, b)
                 if keep:
                     got["grads"] = whole(cfg, grads, mesh, r)
-                blocks = None if mesh is None else S.param_blocks(cfg, params, mesh)
+                blocks = None if mesh is None else M.param_blocks(cfg, params, mesh)
                 params, state, m = apply_updates(params, grads, state, opt, mesh=mesh,
                                                  blocks=blocks)
                 m["loss"] = loss

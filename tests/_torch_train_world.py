@@ -51,9 +51,9 @@ def batches(case):
 
 
 def blocks(cfg, tree, mesh):
-    """``sharding.param_blocks`` of ``tree`` under the batch binding: the
+    """``model.param_blocks`` of ``tree`` under the batch binding: the
     experts' blocks."""
-    return S.param_blocks(cfg, tree, mesh, rules=S.BATCH_RULES)
+    return M.param_blocks(cfg, tree, mesh, rules=S.BATCH_RULES)
 
 
 def whole(cfg, tree, mesh):

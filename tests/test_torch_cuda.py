@@ -49,8 +49,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-
-from _torch_cuda import cuda_device  # noqa: E402,F401
+from _torch_cuda import cuda_device, one_intra_op_thread  # noqa: E402,F401
 from repro_torch.core import prefetch as tpf  # noqa: E402
 from repro_torch.core import solver as tsolver  # noqa: E402
 from repro_torch.core.bucketing import make_edges  # noqa: E402
@@ -1444,3 +1443,59 @@ def test_tp_train_world_on_card_against_cpu(cuda_device, tp_train_worlds, arch):
             assert not np.any(g)
         else:
             assert np.linalg.norm(g - w) <= 1e-4 * np.linalg.norm(w)
+
+
+FSDP_MODES = ("full", "zero1", "none", "fsdp_only", "dp_full")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", FSDP_MODES)
+def test_fsdp_world_of_one_on_card_equals_cpu(cuda_device, mode):
+    """One train step of smoke moonshot laid out by ``mode`` under FSDP
+    (``sharding.rules_for("fsdp", mode)``) over a world of one in this
+    process on the card against the same on the CPU (float32, TF32 off,
+    the weights drawn on the CPU): the loss and grad norm within rtol 1e-5,
+    atol 1e-5, step 1's gradients within a relative L2 error of 1e-5."""
+    import _torch_fsdp as W
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.models import sharding as S
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tree = W.TW.smoke_trees((W.MOE_ARCH,))[W.MOE_ARCH]
+    got = [W.run_case(Mesh(0, 1, dev), tree, W.MOE_ARCH, mode, S.rules_for("fsdp", mode),
+                      W.batches(W.MOE_ARCH, 1))
+           for dev in (cuda_device, torch.device("cpu"))]
+    card, cpu = got
+    np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(card["grad_norm"], cpu["grad_norm"], rtol=1e-5, atol=1e-5)
+    for g, w in zip(card["grads"], cpu["grads"]):
+        assert np.linalg.norm(g - w) <= 1e-5 * max(np.linalg.norm(w), 1e-30)
+
+
+@pytest.fixture(scope="module")
+def fsdp_worlds():
+    """``tests/_torch_fsdp.card_cases`` (smoke moonshot, one step in each
+    ``fsdp_mode`` under FSDP) over a world of 2 ranks on the card and a
+    world of 2 on the CPU, side by side (None without a card)."""
+    if not torch.cuda.is_available():
+        return None
+    import _torch_fsdp as W
+    from repro_torch.launch.mesh import run_local_world, start_local_world
+    cpu = start_local_world(W.card_cases, 2, device="cpu", timeout=600)
+    try:
+        card = run_local_world(W.card_cases, 2, device="cuda", timeout=600)
+    finally:
+        on_cpu = cpu.wait()
+    return card, on_cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", FSDP_MODES)
+def test_fsdp_world_on_card_against_cpu(cuda_device, fsdp_worlds, mode):
+    """FSDP over a world of 2 ranks sharing the card against a world of 2 on
+    the CPU (smoke moonshot, float32, TF32 off, one step laid out by
+    ``mode``): the loss and grad norm within rtol 1e-5, atol 1e-5, both
+    ranks' bitwise on the card."""
+    card, cpu = (w[mode] for w in fsdp_worlds)
+    np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(card["grad_norm"], cpu["grad_norm"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(card["both"][0], card["both"][1])

@@ -18,8 +18,9 @@ against the reference's parameter counts.
 * paper-KP: the streamed state is the same at N = 10^7 and 10^9 (chunk
   65,536), the resident bytes are 8 N K / D, and the launches a pass
   equal a small host-fed and device-streamed CPU solve's;
-* the refusals (``--fsdp``, "fsdp" on the world, a config laid out for
-  FSDP, a 2-D world, the MLA, Mamba2 and encoder-decoder archs under
+* FSDP's cells (``--rules fsdp``, ``--fsdp``, a config laid out for
+  FSDP) accounted; the refusals (a 2-D world, the MLA, Mamba2 and
+  encoder-decoder archs under
   tensor and sequence parallelism, a world that does not divide the batch
   or the experts), the train cells that the production rules account,
   and the CLI, ``--rules production`` too.
@@ -40,6 +41,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 
 from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
@@ -66,14 +68,6 @@ KERNELS = ("scd_fused_hist", "scd_finalize_hist", "scd_candidates", "bucket_hist
 
 def cell(kind, b=B, s=S):
     return M.ShapeCell(f"smoke_{kind}", s, b, kind)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("arch", registry.names())
@@ -263,24 +257,47 @@ def test_sanitize_drops_a_split_that_does_not_divide():
 @pytest.mark.parametrize("reason,kw", [
     ("not split", dict(world=3)),                           # batch 4, 8 experts
     ("not ported", dict(world=2, rules=dict(sharding.BATCH_RULES, heads="model"))),
-    ("FSDP", dict(world=2, rules=dict(sharding.BATCH_RULES, fsdp="model"))),
+    ("2-D world", dict(world=2, rules=dict(sharding.BATCH_RULES, fsdp="model"))),
     ("not ported", dict(world=2, rules=dict(sharding.PRODUCTION_RULES, batch="model"),
                         kind="train")),
-    ("FSDP", dict(world=2, rules=M.production_rules(True, "fsdp_only"), kind="train",
-                  fsdp_mode="fsdp_only")),
 ])
 def test_refusals_are_skipped_with_the_reason(reason, kw):
     """Skipped with the reason: a batch or expert count that the world does
     not divide, "batch" and a name of ``TP_NAMES`` both on the world (a 2-D
-    world, a prefill and a train cell), "fsdp" on the world, and a config
-    laid out for FSDP (``fsdp_mode``) under the reference's production
-    rules."""
+    world, a prefill and a train cell), and "fsdp" on the world beside
+    "experts" (a 2-D world too: FSDP binds the experts to an axis of size
+    1, ``sharding.FSDP_RULES``)."""
     arch, kw = "moonshot-v1-16b-a3b", dict(kw)
     cfg = registry.get(arch).smoke().replace(fsdp_mode=kw.pop("fsdp_mode", "full"))
     rec = D.account_cell(arch, cell(kw.pop("kind", "prefill"), b=4), cfg=cfg, **kw)
     assert rec["status"] == "skipped" and reason in rec["reason"], rec
     if reason != "not split":
         assert "ROADMAP A10 item 5, second part" in rec["reason"]
+
+
+@pytest.mark.parametrize("rules,mode", [
+    ("fsdp", "full"), ("fsdp", "zero1"),
+    (M.production_rules(True, "fsdp_only"), "fsdp_only"),
+])
+def test_fsdp_layouts_are_accounted(rules, mode):
+    """A train cell under FSDP (the rules the reference's (D, 1) mesh maps
+    to, its "zero1" layout, and ``production_rules(True, "fsdp_only")``
+    with a config laid out by it, which were skipped as unported) is
+    accounted: a rank of 2 holds about half the tree ("full", "fsdp_only")
+    or of AdamW's moments ("zero1"), and sends the block gathers and the
+    gradients' reduce-scatters."""
+    arch = "moonshot-v1-16b-a3b"
+    cfg = registry.get(arch).smoke().replace(fsdp_mode=mode)
+    rules = sharding.rules_for(rules, mode) if isinstance(rules, str) else rules
+    one = D.account_cell(arch, cell("train", b=4), 1, cfg=cfg)
+    two = D.account_cell(arch, cell("train", b=4), 2, cfg=cfg, rules=rules)
+    assert two["status"] == "ok", two.get("error")
+    assert two["fsdp_mode"] == mode
+    held = two["memory"]["opt"] if mode == "zero1" else two["memory"]["params"]
+    assert held < 0.6 * (one["memory"]["opt"] if mode == "zero1" else one["memory"]["params"])
+    for kind in ("all_gather", "gather"):
+        assert two["collectives"]["bytes"][kind] > 0, kind
+    assert two["flops_executed"] > 0 and two["memory"]["fits_80gb"]
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "mamba2-370m", "seamless-m4t-medium"])
@@ -427,8 +444,13 @@ def test_cli_cell_and_fsdp_refusal(tmp_path):
     rec, = json.loads(out.read_text())
     assert rec["status"] == "ok" and rec["flops_executed"] > 0
     assert rec["memory"]["fits_80gb"]
-    with pytest.raises(SystemExit, match="FSDP"):
-        D.main(["--arch", "mamba2-370m", "--shape", "decode_32k", "--fsdp", "full"])
+    # FSDP ran refused before it was ported: now the cell is accounted
+    fsdp = tmp_path / "f.json"
+    assert D.main(["--arch", "mamba2-370m", "--shape", "decode_32k", "--world", "2",
+                   "--rules", "fsdp", "--fsdp", "full", "--out", str(fsdp)]) == 0
+    rec, = json.loads(fsdp.read_text())
+    assert rec["status"] == "ok" and rec["rules"] == "fsdp" and rec["fsdp_mode"] == "full"
+    assert rec["collectives"]["bytes"]["all_gather"] > 0
 
 
 def test_cli_production_rules(tmp_path, capsys):

@@ -14,6 +14,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 
 from repro_torch.launch import env  # noqa: E402
 

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 
 from repro.core import exact as jexact  # noqa: E402
 from repro_torch.core import exact as texact  # noqa: E402

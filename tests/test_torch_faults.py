@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 
 from repro.core import faults as jfaults  # noqa: E402
 from repro.core.types import SolverConfig as JCfg  # noqa: E402

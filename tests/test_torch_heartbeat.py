@@ -30,6 +30,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
+
 from _hypothesis_compat import HAVE_HYPOTHESIS, given, settings, st  # noqa: E402
 
 from repro.core import heartbeat as jheartbeat  # noqa: E402

@@ -9,6 +9,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)

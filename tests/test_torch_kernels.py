@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -213,7 +214,6 @@ def test_chunked_equals_unchunked_bitwise(q):
     assert torch.equal(h, h1) and torch.equal(top, t1)
     for a, c in zip(f, f1):
         assert torch.equal(a, c)
-
 
 
 # The histogram kernels' in-tile order (runs of 32 rows, sub-tiles of 512,

@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 
 from repro.configs import registry as rreg  # noqa: E402
 from repro.launch import serve as R  # noqa: E402
@@ -21,16 +22,6 @@ from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.launch import serve as T  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """Smoke-size tensors gain nothing from threads, and the suite runs six
-    workers on the host's cores: one intra-op thread for this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _queue(mod, case):

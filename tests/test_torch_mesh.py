@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 
@@ -48,16 +49,6 @@ CKPT_CFG = SolverConfig(max_iters=30, kernel_tile=256, checkpoint_every=2)
 # epoch (20 chunks, 4 slots, 5 columns): killed in iteration 6, after the
 # save at iteration 4.
 KILL_AFTER = 1 + 5 * 5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread here too: the ranks run one each, and all of them
-    share this host's cores with the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def assert_same(a, b):

@@ -18,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 jnp = jax.numpy
 
 from repro.configs import registry as rreg  # noqa: E402
@@ -33,16 +34,6 @@ jax.config.update("jax_platform_name", "cpu")
 NAME = "deepseek-v2-236b"
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_REL_L2 = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """Smoke-size tensors gain nothing from threads, and the suite runs six
-    workers on the host's cores: one intra-op thread for this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs():

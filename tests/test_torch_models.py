@@ -20,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 
 from repro.configs import registry as rreg  # noqa: E402
 from repro.models import model as RM  # noqa: E402
@@ -32,15 +33,6 @@ from repro_torch.models.layers import unembed  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """Smoke-size tensors gain nothing from threads, and the suite runs six
-    workers on the host's cores: one intra-op thread for this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 PORTED = ["gemma-2b", "qwen3-4b", "starcoder2-3b", "yi-34b", "internvl2-26b",
           "moonshot-v1-16b-a3b", "mamba2-370m", "jamba-v0.1-52b", "seamless-m4t-medium",

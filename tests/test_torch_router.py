@@ -22,21 +22,13 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 
 from repro.core import moe_router as R  # noqa: E402
 from repro_torch.core import moe_router as T  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """Smoke-size tensors gain nothing from threads, and the suite runs six
-    workers on the host's cores: one intra-op thread for this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 FIELDS = ("combine", "mask", "lam", "load")
 CF = 0.8      # from given probabilities: a capacity that binds at every q

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 
 import _torch_world as W  # noqa: E402
 from repro_torch.core import solver as tsolver  # noqa: E402
@@ -77,16 +78,6 @@ for name, (inst, kw, q) in scen.items():
         out[f"{name}_{f}"] = np.asarray(getattr(res, f))
 np.savez(sys.argv[2], **out)
 """
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread here too: the ranks run one each, and all of them
-    share this host's cores with the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _instances():

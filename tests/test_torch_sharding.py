@@ -9,15 +9,18 @@ worlds (``Mesh`` objects of rank r of D, which no collective is asked of
 here): the expert ranges, the batch rows, the refusals (``E % D``,
 ``B % D``, a mesh that is not a ``Mesh``, "batch" on the world without
 "experts", an expert tree not cut to the rank, and what tensor and
-sequence parallelism does not cover yet: FSDP, the MLA, Mamba2 and
+sequence parallelism does not cover yet: the MLA, Mamba2 and
 encoder-decoder archs, a 2-D world), the production rules' parameter
-layout and blocks, and the collectives at one rank and on a ``DryMesh``.
+layout and blocks, FSDP's rule sets and layouts against the reference's
+``production_rules`` and ``param_specs``, and the collectives at one rank
+and on a ``DryMesh``.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 
 from repro.models import sharding as R  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
@@ -32,7 +35,8 @@ BATCH = dict(S.DEFAULT_RULES, batch="model", seq=None, kv_seq=None, heads=None,
              kv_heads=None, ffn=None, vocab=None)
 RULES = {"none": None, "default": S.DEFAULT_RULES,
          "seq": dict(S.DEFAULT_RULES, batch="data"), "batch": BATCH,
-         "tuple": dict(BATCH, batch=("pod", "model"), experts=("model",))}
+         "tuple": dict(BATCH, batch=("pod", "model"), experts=("model",)),
+         "fsdp": S.FSDP_RULES, "dp_full": S.fsdp_rules("dp_full")}
 NAMES = ["batch", "seq", "kv_seq", "heads", "kv_heads", "ffn", "experts", "vocab",
          "fsdp", "d_model", "state", None, "unknown"]
 
@@ -66,7 +70,7 @@ def test_rules_match_reference(rules):
         assert S.axis_size(name) == R.axis_size(name), name
 
 
-@pytest.mark.parametrize("rules", ["default", "tuple"])
+@pytest.mark.parametrize("rules", ["default", "tuple", "fsdp", "dp_full"])
 def test_axis_size_is_the_world_where_bound_to_it(rules):
     S.set_rules(RULES[rules], mesh=Mesh(1, 4, CPU))
     for name in NAMES:
@@ -119,10 +123,10 @@ def test_unported_bindings_raise(smoke, name):
     """Each name of ``TP_NAMES`` bound alone (with "experts") runs a prefill,
     a decode and a train step, here over a world of one equal to the
     one-process steps (a world of 2: ``tests/test_torch_tp_world.py`` and
-    ``tests/test_torch_tp_train.py``); "fsdp" on the world beside it,
-    "batch" on the world beside it and the MLA, Mamba2 and encoder-decoder
-    archs under it raise ``NotImplementedError`` naming the label of what
-    is not ported, for every step."""
+    ``tests/test_torch_tp_train.py``); "fsdp" or "batch" on the world
+    beside it (a 2-D world) and the MLA, Mamba2 and encoder-decoder archs
+    under it raise ``NotImplementedError`` naming the label of what is not
+    ported, for every step."""
     cfg, params = smoke
     rules = dict(S.PRODUCTION_RULES, **{n: None for n in S.TP_NAMES if n != name})
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 8)))
@@ -174,6 +178,80 @@ def test_production_rules_are_the_reference_s():
     assert S.spec(*NAMES) == tuple(R.spec(*NAMES))
     assert [S.on_world(n) for n in S.TP_NAMES] == [True] * 6
     assert not S.on_world("batch") and S.on_world("experts")
+
+
+FSDP_ARCHS = ["moonshot-v1-16b-a3b", "gemma-2b", "deepseek-v2-236b", "jamba-v0.1-52b",
+              "mamba2-370m", "seamless-m4t-medium"]
+
+
+@pytest.mark.parametrize("mode", S.FSDP_MODES)
+def test_fsdp_rules_are_the_reference_s_on_its_data_axis(mode):
+    """``sharding.fsdp_rules(mode)`` is the reference's ``production_rules(
+    False, mode)`` with its "data" axis the world and its "model" axis of
+    size 1 (:data:`UNIT`); ``rules_for`` gives it, and the production
+    rules by mode on the world as "model"."""
+    from repro.models import model as RM
+    want = RM.production_rules(False, mode)
+    on = {"data": S.WORLD, "model": S.UNIT}
+    rename = lambda v: tuple(on.get(a, a) for a in v) if isinstance(v, tuple) else on.get(v, v)  # noqa: E731
+    assert S.fsdp_rules(mode) == {k: rename(v) for k, v in want.items()}
+    assert S.rules_for("fsdp", mode) == S.fsdp_rules(mode)
+    assert S.rules_for("production", mode) == want == M.production_rules(False, mode)
+    assert S.rules_for("batch", mode) == S.BATCH_RULES
+    assert S.on_world("batch") is False
+    S.set_rules(S.rules_for("fsdp", mode), mesh=Mesh(0, 2, CPU))
+    assert S.on_world("batch") and S.on_world("fsdp") and not S.on_world("experts")
+    assert S.mesh_axis("experts") == S.UNIT and S.refusal(S.get_rules()) is None
+
+
+@pytest.mark.parametrize("arch,mesh,mode", [(a, "dp", m) for a in FSDP_ARCHS
+                                             for m in S.FSDP_MODES]
+                         + [(a, "tp", "dp_full") for a in FSDP_ARCHS]
+                         + [(a, "tp", "fsdp_only") for a in FSDP_ARCHS[:2]])
+def test_fsdp_layouts_are_the_reference_s(monkeypatch, arch, mesh, mode):
+    """Each leaf's stored block (``model.param_specs``) and its moments'
+    (``model.opt_specs``) on a world of 2: the dim that the reference's
+    ``param_specs``/``opt_specs`` give its world axis on a ("data",
+    "model") mesh of (2, 1) ("data" the world, ``rules_for("fsdp", mode)``)
+    or (1, 2) ("model" the world, ``rules_for("production", mode)``), for
+    every arch and mode (on (1, 2) the layouts that spread the weights; its
+    "full", "zero1" and "none" keep the production layout)."""
+    from repro.configs import registry as rreg
+    from repro.models import model as RM
+    sizes = {"pod": 1, "data": 2, "model": 1} if mesh == "dp" else \
+        {"pod": 1, "data": 1, "model": 2}
+    axis = "data" if mesh == "dp" else "model"
+    monkeypatch.setattr(RM, "_axis_sizes", lambda: sizes)
+    rcfg = rreg.get(arch).smoke().replace(fsdp_mode=mode)
+    pshape = jax.eval_shape(lambda k: RM.init(rcfg, k), jax.ShapeDtypeStruct((2,), np.uint32))
+    rps = RM.param_specs(rcfg, pshape)
+    ros = RM.opt_specs(rcfg, rps, pshape).mu
+    is_p = lambda q: isinstance(q, jax.sharding.PartitionSpec)  # noqa: E731
+
+    def dims(specs):
+        return [next((i for i, e in enumerate(sp)
+                      if e == axis or (isinstance(e, tuple) and axis in e)), None)
+                for sp in jax.tree.leaves(specs, is_leaf=is_p)]
+    cfg = registry.get(arch).smoke().replace(fsdp_mode=mode)
+    whole = M.init(cfg, None, "meta")
+    S.set_rules(S.rules_for("fsdp" if mesh == "dp" else "production", mode),
+                mesh=D.DryMesh(0, 2))
+    assert S.refusal(S.get_rules(), cfg) is None
+    ps = M.param_specs(cfg, whole)
+    ms = M.opt_specs(cfg, ps, whole).mu
+    paths = [path for path, _ in lm.tree_leaves_with_paths(whole)]
+
+    def at(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+    got = [at(ps, path) for path in paths]
+    assert got == dims(rps)
+    assert [at(ms, path) for path in paths] == dims(ros)
+    cut = M.shard_params(cfg, whole, D.DryMesh(0, 2))
+    for path, d in zip(paths, got):
+        a, b = at(whole, path), at(cut, path)
+        assert b.shape[d] * 2 == a.shape[d] if d is not None else b.shape == a.shape, path
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "gemma-2b", "starcoder2-3b"])
@@ -294,37 +372,42 @@ def test_moe_over_a_world_refuses_what_it_cannot_run(smoke):
     S.set_rules(BATCH, mesh=Mesh(0, 2, CPU))                # every expert kept
     with pytest.raises(ValueError, match="shard_experts"):
         moe.moe_train(p, cfg, x)
-    S.set_rules(dict(BATCH, experts="data"), mesh=Mesh(0, 1, CPU))
-    with pytest.raises(ValueError, match="bound to the world"):
-        moe.moe_decode(p, cfg, x[:, :1])
+    # "experts" on an axis of size 1 (FSDP's): every expert on each rank, a
+    # world of one for the experts, the decode dense over the rank's rows
+    xr = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 1, cfg.d_model)).astype(np.float32))
+    S.set_rules(dict(BATCH, experts="data"), mesh=Mesh(0, 2, CPU))
+    got = moe.moe_decode(p, cfg, xr)
+    S.set_rules(None)
+    torch.testing.assert_close(got, moe.moe_decode(p, cfg, xr), rtol=0, atol=0)
     S.set_rules(BATCH, mesh=Mesh(0, 1, CPU))                # gradients run through
     moe.moe_train(p, cfg, x.requires_grad_(True)).sum().backward()
     assert x.grad is not None and bool(torch.isfinite(x.grad).all())
 
 
 def test_training_over_a_world_is_refused(smoke):
-    """What a train step over a world still refuses: "fsdp" on the world, a
-    config laid out for FSDP (``fsdp_mode``), "batch" on the world beside a
-    name of ``TP_NAMES`` (a 2-D world) and the MLA, Mamba2 and
+    """What a train step over a world still refuses: "fsdp" on the world
+    beside a name of ``TP_NAMES`` or "experts", and "batch" on the world
+    beside a name of ``TP_NAMES`` (a 2-D world), and the MLA, Mamba2 and
     encoder-decoder archs under the production rules raise
     ``NotImplementedError`` naming ROADMAP A10 item 5's second part, and
-    "batch" on the world needs "experts" there (the batch binding). The
-    production rules' train step, and one with only "experts" on the world
-    (every rank every row), run: over a world of one, the one-process
-    loss (gemma's)."""
+    "batch" on the world needs "experts" bound (the batch binding, FSDP).
+    The production rules' train step, one with only "experts" on the world
+    (every rank every row), and each ``fsdp_mode`` under the production
+    rules and under FSDP (``sharding.rules_for``) run: over a world of one,
+    the one-process loss (gemma's)."""
     cfg, params = smoke
     batch = {"tokens": torch.zeros((2, 8), dtype=torch.long),
              "targets": torch.zeros((2, 8), dtype=torch.long)}
     step = M.make_train_step(cfg, OptConfig())
     for rules in (dict(S.PRODUCTION_RULES, fsdp="model"),
-                  dict(S.PRODUCTION_RULES, batch="model")):
+                  dict(S.PRODUCTION_RULES, batch="model"), dict(BATCH, fsdp="model")):
         S.set_rules(rules, mesh=Mesh(0, 1, CPU))
         with pytest.raises(NotImplementedError, match=LABEL):
             step(params, None, batch)
     S.set_rules(S.PRODUCTION_RULES, mesh=Mesh(0, 2, CPU))
     for other in [registry.get(a).smoke() for a in ("deepseek-v2-236b", "mamba2-370m",
-                                                    "seamless-m4t-medium")] + [
-            cfg.replace(fsdp_mode=mode) for mode in S.FSDP_MODES]:
+                                                    "seamless-m4t-medium")]:
         with pytest.raises(NotImplementedError, match=LABEL):
             M.make_train_step(other, OptConfig())(None, None, batch)
     S.set_rules(dict(BATCH, experts=None), mesh=Mesh(0, 1, CPU))
@@ -338,6 +421,12 @@ def test_training_over_a_world_is_refused(smoke):
         S.set_rules(rules, mesh=Mesh(0, 1, CPU))
         np.testing.assert_allclose(float(M.loss_and_grads(fresh, dense, batch)[0]), want,
                                    rtol=1e-6)
+    for mode in S.FSDP_MODES:                 # the layouts that were refused run
+        laid = dense.replace(fsdp_mode=mode)
+        for name in ("production", "fsdp"):
+            S.set_rules(S.rules_for(name, mode), mesh=Mesh(0, 1, CPU))
+            np.testing.assert_allclose(float(M.loss_and_grads(fresh, laid, batch)[0]),
+                                       want, rtol=1e-6)
     assert S.BATCH_RULES == BATCH
 
 
@@ -381,7 +470,7 @@ def test_expert_axes_name_the_cut_leaves(smoke):
 
     def axes(tree):
         return [None if b is None else b[0]
-                for b in S.param_blocks(cfg, tree, mesh, rules=S.BATCH_RULES)]
+                for b in M.param_blocks(cfg, tree, mesh, rules=S.BATCH_RULES)]
     assert axes(params) == want and 1 in want
     bare = lm.tree_map(lambda a: a[0], params["slots"][0]["ffn"])
     assert axes(bare) == [None, 0, 0]                       # router, wi, wo
@@ -390,9 +479,9 @@ def test_expert_axes_name_the_cut_leaves(smoke):
     seen = S.map_experts(lambda a, ax: ax, {"p": params, "none": None})
     assert seen["none"] is None and seen["p"]["slots"][0]["ffn"]["wo"] == 1
     assert seen["p"]["embed"]["e"] is None
-    blocks = S.param_blocks(cfg, {"params": params}, mesh, rules=S.BATCH_RULES)
+    blocks = M.param_blocks(cfg, {"params": params}, mesh, rules=S.BATCH_RULES)
     assert blocks == [None if ax is None else (ax, 1, 2) for ax in want]
-    assert S.param_blocks(cfg, params, None) == [None] * len(want)     # one process
+    assert M.param_blocks(cfg, params, None) == [None] * len(want)     # one process
 
 
 def test_all_to_all_under_autograd_of_one_rank():

@@ -25,6 +25,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 
 from repro.launch import supervisor as jsupervisor  # noqa: E402

@@ -50,6 +50,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 
 import _torch_tp_train as W  # noqa: E402
 from repro.optim import OptConfig as ROptConfig  # noqa: E402
@@ -132,16 +133,6 @@ with compat.set_mesh(mesh):
 with open(os.path.join(wdir, f"out_{arch}.pkl"), "wb") as f:
     pickle.dump(out, f)
 """
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread here too: the ranks run one each, and all of them
-    share this host's cores with the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -311,7 +302,7 @@ def test_elastic_restore(runs, size):
     for r in range(size):
         mesh = Mesh(r, size, CPU)
         like = _like(cfg, mesh)
-        blocks = S.param_blocks(cfg, like, mesh, rules=W.PROD)
+        blocks = M.param_blocks(cfg, like, mesh, rules=W.PROD)
         per_rank.append(lm.tree_leaves(ckpt.restore(d.parent, W.SAVE_AT, like,
                                                     device_tree=CPU, blocks=blocks)))
     manifest = ckpt._read_manifest(d)["leaves"]

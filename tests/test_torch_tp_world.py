@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 
 import _torch_tp_world as W  # noqa: E402
 from repro_torch.core.mesh import Mesh  # noqa: E402
@@ -86,16 +87,6 @@ with set_mesh(mesh):
         S.set_rules(None)
 np.savez(os.path.join(wdir, "out.npz"), **{k: np.asarray(v) for k, v in out.items()})
 """
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread here too: the ranks run one each, and all of them
-    share this host's cores with the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

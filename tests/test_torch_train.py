@@ -30,6 +30,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 jnp = jax.numpy
 
 from repro.checkpoint import ckpt as rckpt  # noqa: E402
@@ -59,16 +60,6 @@ PORTED = ["gemma-2b", "qwen3-4b", "starcoder2-3b", "yi-34b", "internvl2-26b",
           "moonshot-v1-16b-a3b", "mamba2-370m", "jamba-v0.1-52b", "seamless-m4t-medium",
           "deepseek-v2-236b"]
 GRAD_REL_L2 = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """Smoke-size tensors gain nothing from threads, and the suite runs six
-    workers on the host's cores: one intra-op thread for this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -493,3 +484,40 @@ def test_train_step_config_dataclass_fields_match_reference():
     """``OptConfig``'s fields and defaults equal the reference's."""
     assert dataclasses.asdict(OptConfig()) == dataclasses.asdict(ROptConfig())
     assert OptState._fields == radamw.OptState._fields
+
+
+def _raises(fn):
+    """The exception type ``fn()`` raises, or None."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - the type is what is compared
+        return type(e)
+    return None
+
+
+@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "seamless-m4t-medium"])
+@pytest.mark.parametrize("s", [4, 12, 16, 20])
+def test_loss_refuses_a_text_the_chunk_does_not_divide(name, s):
+    """With ``loss_chunk`` 8, the one-process loss (``lm.lm_nll`` for the
+    LM, ``encdec.encdec_nll`` for the encoder-decoder) raises
+    ``ValueError`` exactly where the reference's ``lm_loss`` (its
+    assertion) and ``encdec_loss`` (its reshape) fail: a text of S
+    positions that ``min(8, S)`` does not divide (12 and 20); elsewhere
+    both return a loss, and the two agree within rtol 1e-5."""
+    rcfg, tcfg, rp = _arch(name)
+    rcfg, tcfg = rcfg.replace(loss_chunk=8), tcfg.replace(loss_chunk=8)
+    g = np.random.default_rng(s)
+    arrs = {"tokens": g.integers(0, tcfg.vocab, (2, s)),
+            "targets": g.integers(0, tcfg.vocab, (2, s))}
+    if tcfg.kind == "encdec":
+        arrs["frames"] = g.standard_normal((2, 8, tcfg.d_model)).astype(np.float32)
+    rb, tb = _both(arrs)
+    rparams = jax.tree.map(jnp.asarray, rp)
+    got = {}
+    ref = _raises(lambda: got.setdefault("ref", float(RM.loss_fn(rparams, rcfg, rb))))
+    port = _raises(lambda: got.setdefault("port", float(TM.loss_fn(_port_params(name), tcfg,
+                                                                  tb))))
+    assert (ref is not None) == (s % min(8, s) != 0), ref
+    assert port is (ValueError if ref is not None else None)
+    if ref is None:
+        np.testing.assert_allclose(got["port"], got["ref"], rtol=1e-5)

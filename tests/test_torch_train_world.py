@@ -47,6 +47,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 
 import _torch_moe_world as MW  # noqa: E402
 import _torch_train_world as W  # noqa: E402
@@ -142,16 +143,6 @@ with open(os.path.join(wdir, f"out_{group[0]}.pkl"), "wb") as f:
 # take most of the file's wall): moonshot's three, deepseek's and the MoE
 # layer's.
 REF_GROUPS = (("moonshot", "moonshot_drop", "moonshot_compress"), ("deepseek", "moe"))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread here too: the ranks run one each, and all of them
-    share this host's cores with the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
+
 from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.launch import env as envmod  # noqa: E402
 from repro_torch.launch.supervisor import (  # noqa: E402

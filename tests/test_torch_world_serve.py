@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 
 import _torch_world as W  # noqa: E402
 from repro_torch.checkpoint import ckpt  # noqa: E402
@@ -43,15 +44,6 @@ FIELDS = ("lam", "tau", "iters", "r", "primal", "dual", "fingerprint", "warm")
 # its save at iteration 2.
 KILL_AFTER = 1 + 8 * 2 + 4
 FAIL_CHUNK = 13                      # slot 3's, so rank 1's
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread here too: the ranks run one each."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def assert_same_generation(a, b):

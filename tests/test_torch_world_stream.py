@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_cuda import one_intra_op_thread  # noqa: E402,F401
 
 import _torch_world as W  # noqa: E402
 from repro.data import synth as jsynth  # noqa: E402
@@ -52,15 +53,6 @@ res = solve_streaming(array_source(kp, int(inp["chunk"])), cfg,
 np.savez(sys.argv[2], **{f: np.asarray(getattr(res, f))
                         for f in ("lam", "iters", "r", "primal", "dual", "tau")})
 """
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread here too: the ranks run one each."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
