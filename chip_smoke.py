@@ -2334,7 +2334,7 @@ def phase_world(torch, np, dev):
     from repro_torch.configs.paper_kp import WORKLOADS
     from repro_torch.core.mesh import Mesh
     from repro_torch.data.synth import banded_host_chunk_source
-    from repro_torch.launch.mesh import WorldError, run_local_world, start_local_world
+    from repro_torch.launch.mesh import WorldError, start_local_world
 
     wl = WORKLOADS["table1"]
     work = ROOT / "build" / "smoke_world"
@@ -2344,10 +2344,32 @@ def phase_world(torch, np, dev):
     tasks = ["host_fed", "streamed_same_bytes", "generated", "sharded", "banded",
              "straggler", "walls"]
 
-    # The world of 4 runs; this process computes the in-process references
-    # beside it.
+    # The world of 4 runs, and beside it the world of 4 that is SIGKILLed
+    # mid-iterate (check 7) and the world of 2 whose rank 1 cannot fetch
+    # (check 8); this process computes the in-process references.
+    import threading
+
+    ck = work / "ckpt"
     t_start = time.time()
     four = start_local_world(world_main, WORLD, (tasks,), timeout=WORLD_TIMEOUT)
+    t0 = time.perf_counter()
+    dying = {"killed": start_local_world(world_killed, WORLD, (str(ck),),
+                                         timeout=WORLD_TIMEOUT),
+             "faulted": start_local_world(world_fault, 2, timeout=WORLD_TIMEOUT)}
+    ends = {name: {} for name in dying}
+
+    def wait_dying(name):
+        # each dying world's end, on its own clock: its error and seconds
+        try:
+            dying[name].wait()
+        except WorldError as e:
+            ends[name]["error"] = e
+        ends[name]["s"] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait_dying, args=(name,), daemon=True)
+               for name in dying]
+    for t in waiters:
+        t.start()
     try:
         src_small, q = table1_source(N_WORLD_SMALL)
         kp_small, _ = sparse_instance(0, N_WORLD_SMALL, wl.k, wl.q, tightness=wl.tightness,
@@ -2365,8 +2387,17 @@ def phase_world(torch, np, dev):
             slots=SLOTS, device=dev)
         plain_small = solve_streaming_host(src_small, SolverConfig(max_iters=40), q=q,
                                            slots=SLOTS, device=dev)
+        for t in waiters:
+            t.join()
     finally:
+        for world in dying.values():
+            world.kill()
         w4 = four.wait()
+    for name, end in ends.items():
+        if "error" not in end:
+            raise SmokeFailure(f"the {name} world finished")
+    fault, fault_s = ends["faulted"]["error"], ends["faulted"]["s"]
+    codes, killed_s = ends["killed"]["error"].returncodes, ends["killed"]["s"]
     walls[WORLD] = world_walls(w4, t_start)
     paths["world4_rank0"] = w4["launches"]
 
@@ -2466,27 +2497,9 @@ def phase_world(torch, np, dev):
          primal=float(st.primal), plain_primal=float(plain_small.primal), **facts)
     check(all(facts.values()), f"world straggler: {facts}")
 
-    # 7. Every rank SIGKILLed mid-iterate; resumed on a world of 2 (which
-    # then times the walls' host-fed solve) and in process: bitwise. The
-    # world whose rank 1 cannot fetch (check 8) dies beside it.
-    ck = work / "ckpt"
-    t0 = time.perf_counter()
-    killed = start_local_world(world_killed, WORLD, (str(ck),), timeout=WORLD_TIMEOUT)
-    try:
-        try:
-            start_local_world(world_fault, 2, timeout=WORLD_TIMEOUT).wait()
-            raise SmokeFailure("the faulted world finished")
-        except WorldError as e:
-            fault = e
-        fault_s = time.perf_counter() - t0
-        try:
-            killed.wait()
-            raise SmokeFailure("the killed world finished")
-        except WorldError as e:
-            codes = e.returncodes
-    finally:
-        killed.kill()
-    killed_s = time.perf_counter() - t0
+    # 7. Every rank SIGKILLed mid-iterate (beside the world of 4); resumed on
+    # a world of 2 (which then times the walls' host-fed solve) and in
+    # process: bitwise.
     step = ckpt.latest_step(ck)
     check(step is not None, "the killed world left no state")
     st0 = ckpt.restore_auto(ck, step)
@@ -2494,13 +2507,16 @@ def phase_world(torch, np, dev):
     for d in ("two", "here"):
         shutil.copytree(ck, work / d)
     t_start = time.time()
-    w2 = run_local_world(world_main, 2, (["resume", "walls"],),
-                         {"resume_dir": str(work / "two")}, timeout=WORLD_TIMEOUT)
+    two = start_local_world(world_main, 2, (["resume", "walls"],),
+                            {"resume_dir": str(work / "two")}, timeout=WORLD_TIMEOUT)
+    try:
+        here = solve_streaming_host(src_small, SolverConfig(
+            max_iters=40, checkpoint_every=WORLD_CKPT_EVERY), q=q, device=dev,
+            resume_from=str(work / "here"))
+    finally:
+        w2 = two.wait()
     walls[2] = world_walls(w2, t_start)
     paths["world2_rank0"] = w2["launches"]
-    here = solve_streaming_host(src_small, SolverConfig(max_iters=40,
-                                                        checkpoint_every=WORLD_CKPT_EVERY),
-                                q=q, device=dev, resume_from=str(work / "here"))
     facts = {"killed_by_sigkill": codes == [-signal.SIGKILL] * WORLD,
              "state_mid_iterate": state == {"phase": 0, "iters": 4, "slots": SLOTS},
              "world2_bitwise": same_stream(w2["resume"]["result"], plain_small),
@@ -2804,12 +2820,43 @@ def phase_world_serving(torch, np, dev):
          world_start_s=w["t_enter"] - t_start, world_wall_s=world_s, **facts)
     check(all(facts.values()), f"world front: {facts}")
 
-    # 4. The killed world refresh, re-driven on 2 ranks: the in-process gen 1.
+    # 4 and 5 side by side: the killed world refresh re-driven on 2 ranks
+    # (the in-process gen 1), and one supervised solve task in a thread
+    # beside it: a world of 4, killed once (its lease holder), respawned on
+    # 2 ranks; its record is the in-process generation 0 (the same cold
+    # solve of the same workload).
+    import threading
+
     root = work / "killed"
     left = ckpt.latest_step(root / "gen_000001" / "ckpt")
-    t0 = time.time()
-    r = run_local_world(serve_world_redrive, 2, (str(root),), timeout=WORLD_TIMEOUT)
-    redrive_s = time.time() - t0
+    task = {"kind": "solve", "spec": _serve_spec().to_json(),
+            "cfg": {"max_iters": 60, "checkpoint_every": SERVE_CKPT_EVERY},
+            "slots": SERVE_SLOTS, "device": "cuda"}
+    sup = Supervisor(work / "supervised", task,
+                     cfg=SupervisorConfig(ttl=2.5, poll=0.05, grace=120.0, max_restarts=3,
+                                          progress_ttl=60.0),
+                     devices=SERVE_WORLD,
+                     chaos=ChaosSchedule(events=(("kill", SUPERVISED_KILL_AT),)))
+    supervised = {}
+
+    def run_supervised():
+        t = time.perf_counter()
+        try:
+            supervised["s"] = sup.run()
+        except BaseException as e:          # raised below, in this thread
+            supervised["error"] = e
+        supervised["wall_s"] = time.perf_counter() - t
+
+    thread = threading.Thread(target=run_supervised, daemon=True)
+    thread.start()
+    try:
+        t0 = time.time()
+        r = run_local_world(serve_world_redrive, 2, (str(root),), timeout=WORLD_TIMEOUT)
+        redrive_s = time.time() - t0
+    finally:
+        thread.join()
+    if "error" in supervised:
+        raise supervised["error"]
     paths["world_serving_redrive_rank0"] = r["launches"]
     rec = r["record"]
     facts = {"killed_by_sigkill": codes == [-signal.SIGKILL] * SERVE_WORLD,
@@ -2822,20 +2869,7 @@ def phase_world_serving(torch, np, dev):
          recover_s=r["wall_s"], **facts)
     check(all(facts.values()), f"world refresh kill: {facts}")
 
-    # 5. One supervised solve task: a world of 4, killed once (its lease
-    # holder), respawned on 2 ranks; its record is the in-process generation
-    # 0 (the same cold solve of the same workload).
-    task = {"kind": "solve", "spec": _serve_spec().to_json(),
-            "cfg": {"max_iters": 60, "checkpoint_every": SERVE_CKPT_EVERY},
-            "slots": SERVE_SLOTS, "device": "cuda"}
-    t0 = time.perf_counter()
-    sup = Supervisor(work / "supervised", task,
-                     cfg=SupervisorConfig(ttl=2.5, poll=0.05, grace=120.0, max_restarts=3,
-                                          progress_ttl=60.0),
-                     devices=SERVE_WORLD,
-                     chaos=ChaosSchedule(events=(("kill", SUPERVISED_KILL_AT),)))
-    s = sup.run()
-    sup_s = time.perf_counter() - t0
+    s, sup_s = supervised["s"], supervised["wall_s"]
     got = ckpt.restore_auto(work / "supervised" / "result", 0) if s["ok"] else {}
     g0 = want[0]
     same = bool(got) and int(got["iters"]) == g0.iters and all(
@@ -3656,10 +3690,35 @@ def _mix_hybrid(torch, np, dev):
     return launches, kern
 
 
+def _mix_batch(torch, np, cfg, dev):
+    """Phase 21's prefill batch for ``cfg`` (and phase 27's): MIX_PREFILL
+    tokens drawn from seed 23 (an encoder-decoder's MIX_FRAMES frames too)."""
+    b, s = MIX_PREFILL
+    batch = {"tokens": torch.tensor(np.random.default_rng(23).integers(0, cfg.vocab, (b, s)),
+                                    device=dev)}
+    if cfg.kind == "encdec":
+        batch["frames"] = _frames(torch, np, cfg, b, MIX_FRAMES, 23, dev)
+    return batch
+
+
+def _decode_steps(torch, M, params, cfg, batch, n_steps, cache_len):
+    """One process's ``n_steps`` decode steps of the batch's first tokens
+    from zero caches of ``cache_len`` (an encoder-decoder's cross K/V of
+    its frames): (n_steps, B, V) float32 logits on the CPU."""
+    caches = M.init_cache(cfg, params, batch["tokens"].shape[0], cache_len,
+                          frames=batch.get("frames"))
+    dstep = M.make_decode_step(cfg)
+    with torch.no_grad():
+        return torch.stack([dstep(params, caches, batch["tokens"][:, t:t + 1], t)[0][:, 0]
+                            .float().cpu() for t in range(n_steps)])
+
+
 def _mix_train(torch, np, dev, name):
     """Phase 21c-d: ``name`` at full width and depth: the prefill, the
     decode step, decode against forward, ``train()`` twice from one seed
-    (bitwise) and, for mamba2, resumed from a checkpoint (bitwise)."""
+    (bitwise) and, for mamba2, resumed from a checkpoint (bitwise).
+    Returns what phase 27 holds its world against: the prefill's logits,
+    MIX_TP_DECODE's decode steps and the first run's losses."""
     from repro_torch.configs import registry
     from repro_torch.launch.train import train
     from repro_torch.models import lm, model as M
@@ -3672,10 +3731,7 @@ def _mix_train(torch, np, dev, name):
     params = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     n_params, param_bytes = _tree_bytes(lm, params)
     b, s = MIX_PREFILL
-    batch = {"tokens": torch.tensor(np.random.default_rng(23).integers(0, cfg.vocab, (b, s)),
-                                    device=dev)}
-    if cfg.kind == "encdec":
-        batch["frames"] = _frames(torch, np, cfg, b, MIX_FRAMES, 23, dev)
+    batch = _mix_batch(torch, np, cfg, dev)
     step = M.make_prefill_step(cfg)
     prefill_s = []
     with torch.no_grad():
@@ -3703,6 +3759,8 @@ def _mix_train(torch, np, dev, name):
          frames=MIX_FRAMES if cfg.kind == "encdec" else None, prefill_s=prefill_s,
          encode_s=encode_s, **walls, peak_gb=peak_serve / 1e9, **facts)
     check(all(facts.values()), f"{name} prefill at full width: {facts}")
+    one = {"logits": logits.float().cpu(),
+           "decode": _decode_steps(torch, M, params, cfg, batch, *MIX_TP_DECODE[name])}
     del logits
     _decode_vs_forward(torch, np, dev, params, cfg, "lm_decode_vs_forward_" + short,
                        batch["tokens"][:LM_DECODE[0], :LM_DECODE[1]], MIX_DECODE_REL[name])
@@ -3758,21 +3816,24 @@ def _mix_train(torch, np, dev, name):
          second_train_wall_s=wall2, peak_gb=peak / 1e9, peak_gb_beside_first_run=peak2 / 1e9,
          resume_wall_s=resume.get("resume_wall_s"), opt=LM_TRAIN_OPT, **facts)
     check(all(facts.values()), f"{name} training at full width: {facts}")
+    one["losses"] = [r["loss"] for r in hist]
+    return one
 
 
 def phase_lm_mixers(torch, np, dev):
     """The other mixers (phase 21): jamba's hybrid prefill through the SCD
     router at full width and 16 layers, mamba2-370m and seamless-m4t-medium
-    at full width and depth, and the three smoke configs against the CPU."""
+    at full width and depth, and the three smoke configs against the CPU.
+    Returns the kernels' path and timings, and mamba2's and seamless's
+    one-process results that phase 27 reuses."""
     t_phase = time.perf_counter()
     launches, kern = _mix_hybrid(torch, np, dev)
-    for name in (MIX_SSM, MIX_ENCDEC):
-        _mix_train(torch, np, dev, name)
+    ones = {name: _mix_train(torch, np, dev, name) for name in (MIX_SSM, MIX_ENCDEC)}
     _lm_smoke_vs_cpu(torch, np, dev, MIX_SMOKE, tag="lm_mixers_smoke_card_vs_cpu",
                      tol=MIX_SMOKE_TOL)
     _lm_train_smoke_vs_cpu(torch, np, dev, MIX_SMOKE, tag="lm_mixers_train_card_vs_cpu")
     emit("lm_mixers_wall", seconds=time.perf_counter() - t_phase)
-    return {"lm_prefill_hybrid": launches}, kern
+    return {"lm_prefill_hybrid": launches}, kern, ones
 
 
 # --------------------------------------------------------------------------
@@ -4044,11 +4105,12 @@ def _world_smoke(torch, np, mesh, dev):
 
 
 def _world_train_full(torch, mesh, dev, cfg=None, rules="batch", keep=False,
-                      steps=WORLD_TRAIN_STEPS):
+                      steps=WORLD_TRAIN_STEPS, batch_shape=LM_TRAIN_BATCH):
     """Phase 23b on a rank of the world of 2 (and phase 25 with ``cfg`` under
     the production rules): ``train(mesh=, rules=)`` of moonshot at phase
-    20's config (or ``cfg``) and batch for ``steps`` - 1 steps (phase 26:
-    under FSDP) from the seed, then its last step by hand under the same
+    20's config (or ``cfg``) and batch (or ``batch_shape``: phase 27) for
+    ``steps`` - 1 steps (phase 26: under FSDP) from the seed, then its last
+    step by hand under the same
     rules (the step
     ``train`` runs, on its batch), the card's peak reset right before it:
     the losses and grad norms (and whether both ranks' are bitwise equal),
@@ -4076,11 +4138,11 @@ def _world_train_full(torch, mesh, dev, cfg=None, rules="batch", keep=False,
     hist = []
     t0 = time.perf_counter()
     params, opt, _ = train(cfg, opt_cfg, steps - 1, seed=0,
-                           batch_shape=LM_TRAIN_BATCH, log_every=0, device=dev, mesh=mesh,
+                           batch_shape=batch_shape, log_every=0, device=dev, mesh=mesh,
                            history=hist, rules=rules)
     peak_train = torch.cuda.max_memory_allocated(dev)
     launches = dict(ops.LAUNCHES)
-    batch = lm_batch(cfg, LM_TRAIN_BATCH, steps - 1, seed=0, device=dev)
+    batch = lm_batch(cfg, batch_shape, steps - 1, seed=0, device=dev)
     step = M.make_train_step(cfg, opt_cfg)
     sharding.set_rules(sharding.rules_for(rules, cfg.fsdp_mode), mesh=mesh)
     try:
@@ -4451,20 +4513,79 @@ def _tp_rank(v, n_steps):
             "decode_step_ms": rest[6:6 + n_steps]}
 
 
+def _tp_arch(torch, mesh, dev, cfg, batch, n_steps, cache_len, again=True):
+    """One arch of phases 24 and 27 on a rank: the whole tree drawn from the
+    seed and cut to the rank's blocks (``model.shard_params``), then under
+    the production rules a prefill of ``batch`` (counted: launches, bytes
+    sent, peak), with ``again`` a second one (timed), ``n_steps`` decode
+    steps into caches of ``cache_len`` (an encoder-decoder's cross K/V of
+    the batch's frames), and one decode step at the cache's last position
+    (the dry-run's decode cell). Rank 0 gets the logits, whether both
+    ranks' are bitwise equal, and every rank's measurements. The ranks
+    draw their trees one after the other."""
+    from repro_torch.launch.dryrun import nbytes
+    from repro_torch.models import model as M, sharding
+
+    toks, frames = batch["tokens"], batch.get("frames")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sharding.set_rules(sharding.PRODUCTION_RULES, mesh=mesh)
+    try:
+        # one rank after the other draws the whole tree and keeps its
+        # blocks: jamba's period (26 GB) whole on both ranks at once, beside
+        # their blocks, would nearly fill the card
+        for r in range(mesh.size):
+            if r == mesh.rank:
+                params = M.shard_params(cfg, M.init(
+                    cfg, torch.Generator(device=dev).manual_seed(0), dev), mesh)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            mesh.barrier()
+        step, dstep = M.make_prefill_step(cfg), M.make_decode_step(cfg)
+        with torch.no_grad():
+            c0 = mesh.comm_s
+            logits, prefill_s, prefill = _tp_step(torch, mesh, dev,
+                                                  lambda: step(params, batch))
+            prefill_comm_s = mesh.comm_s - c0
+            prefill["held"] = nbytes([params, batch])
+            again_s = _tp_step(torch, mesh, dev, lambda: step(params, batch))[1] if again \
+                else 0.0
+            caches = M.init_cache(cfg, params, toks.shape[0], cache_len, frames=frames)
+            dec, walls = [], []
+            c0 = mesh.comm_s
+            for t in range(n_steps):
+                lg, wall, _ = _tp_step(
+                    torch, mesh, dev, lambda t=t: dstep(params, caches, toks[:, t:t + 1], t))
+                dec.append(lg[0][:, 0].float().cpu())
+                walls.append(wall * 1e3)
+            decode_comm_s = mesh.comm_s - c0
+            token = toks[:, :1].clone()
+            _, last_s, decode = _tp_step(
+                torch, mesh, dev, lambda: dstep(params, caches, token, cache_len - 1))
+            decode["held"] = nbytes([params, caches, token])
+    finally:
+        sharding.set_rules(None)
+    logits, dec = logits.float().cpu(), torch.stack(dec)
+    both = mesh.gather(torch.cat([logits.flatten(), dec.flatten()]))
+    mine = [*_tp_numbers(prefill), *_tp_numbers(decode), prefill_s, again_s,
+            prefill_comm_s, decode_comm_s, last_s * 1e3,
+            torch.cuda.memory_allocated(dev) / 1e9, *walls]
+    del params, caches
+    ranks = [_tp_rank(v.tolist(), n_steps)
+             for v in mesh.gather(torch.tensor(mine, dtype=torch.float64))]
+    ranks[mesh.rank]["prefill"]["launches"] = prefill["launches"]
+    ranks[mesh.rank]["decode"]["launches"] = decode["launches"]
+    return {"logits": logits, "decode": dec, "ranks": ranks,
+            "ranks_bitwise": bool(torch.equal(both[0], both[1]))}
+
+
 def tp_lm_main(mesh):
     """Phase 24 on every rank of a world of 2 sharing the card: for each arch
-    of TP_ARCHS the whole tree drawn from the seed (phase 23's and the
-    one-process run's weights), cut to the rank's blocks
-    (``model.shard_params``), then under the production rules a prefill
-    (counted: launches, bytes sent, peak), a second one (timed), the
-    decode steps, and one decode step at the cache's last position (the
-    dry-run's decode cell). Rank 0 returns the logits, whether both ranks'
-    are bitwise equal, and every rank's measurements."""
+    of TP_ARCHS, :func:`_tp_arch` (phase 23's and the one-process run's
+    weights and tokens)."""
     import numpy as np
     import torch
     from repro_torch.configs import registry
-    from repro_torch.launch.dryrun import nbytes
-    from repro_torch.models import model as M, sharding
 
     dev = mesh.device
     check(dev.type == "cuda", f"rank {mesh.rank} runs on {dev}")
@@ -4473,51 +4594,7 @@ def tp_lm_main(mesh):
     for arch, layers in TP_ARCHS.items():
         cfg = registry.get(arch).replace(n_layers=layers)
         toks = torch.tensor(toks_np % cfg.vocab, device=dev)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        sharding.set_rules(sharding.PRODUCTION_RULES, mesh=mesh)
-        try:
-            params = M.shard_params(cfg, M.init(cfg, torch.Generator(device=dev).manual_seed(0),
-                                                dev), mesh)
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            step, dstep = M.make_prefill_step(cfg), M.make_decode_step(cfg)
-            n_steps, cache_len = TP_DECODE[arch]
-            with torch.no_grad():
-                batch = {"tokens": toks}
-                c0 = mesh.comm_s
-                logits, prefill_s, prefill = _tp_step(torch, mesh, dev,
-                                                      lambda: step(params, batch))
-                prefill_comm_s = mesh.comm_s - c0
-                prefill["held"] = nbytes([params, batch])
-                _, again_s, _ = _tp_step(torch, mesh, dev, lambda: step(params, batch))
-                caches = M.init_cache(cfg, params, toks.shape[0], cache_len)
-                dec, walls = [], []
-                c0 = mesh.comm_s
-                for t in range(n_steps):
-                    lg, wall, _ = _tp_step(
-                        torch, mesh, dev, lambda t=t: dstep(params, caches, toks[:, t:t + 1], t))
-                    dec.append(lg[0][:, 0].float().cpu())
-                    walls.append(wall * 1e3)
-                decode_comm_s = mesh.comm_s - c0
-                token = toks[:, :1].clone()
-                _, last_s, decode = _tp_step(
-                    torch, mesh, dev, lambda: dstep(params, caches, token, cache_len - 1))
-                decode["held"] = nbytes([params, caches, token])
-        finally:
-            sharding.set_rules(None)
-        logits, dec = logits.float().cpu(), torch.stack(dec)
-        both = mesh.gather(torch.cat([logits.flatten(), dec.flatten()]))
-        mine = [*_tp_numbers(prefill), *_tp_numbers(decode), prefill_s, again_s,
-                prefill_comm_s, decode_comm_s, last_s * 1e3,
-                torch.cuda.memory_allocated(dev) / 1e9, *walls]
-        del params, caches
-        ranks = [_tp_rank(v.tolist(), n_steps)
-                 for v in mesh.gather(torch.tensor(mine, dtype=torch.float64))]
-        ranks[mesh.rank]["prefill"]["launches"] = prefill["launches"]
-        ranks[mesh.rank]["decode"]["launches"] = decode["launches"]
-        out[arch] = {"logits": logits, "decode": dec, "ranks": ranks,
-                     "ranks_bitwise": bool(torch.equal(both[0], both[1]))}
+        out[arch] = _tp_arch(torch, mesh, dev, cfg, {"tokens": toks}, *TP_DECODE[arch])
     return out
 
 
@@ -5181,10 +5258,254 @@ def _fsdp_checks(torch, np, one_run, w, recs, cpu_smoke, world_s):
     return {"lm_train_fsdp": t["launches"]}
 
 
+# --------------------------------------------------------------------------
+# Phase 27: MLA, Mamba2 and the encoder-decoder under tensor and sequence
+# parallelism (sharding.PRODUCTION_RULES) in the world of 2 of phases
+# 24-26, at full width: mamba2-370m and seamless-m4t-medium uncut (served
+# and trained 2 steps), jamba-v0.1-52b at one period and deepseek-v2-236b
+# at block0 and 2 MoE layers (served; their routers at a rank's 2,048
+# tokens, K = 16 and 160), each against one process on the card; then
+# deepseek's and jamba's smoke train steps on the card world against a CPU
+# world (neither trains at full width on one card).
+# --------------------------------------------------------------------------
+
+MIX_TP = {MIX_SSM: 48, MIX_ENCDEC: 12, MIX_HYBRID: 8, MLA_ARCH: 2}    # arch: layers
+# Decode steps and cache length: deepseek's latent cache split by position,
+# 2 a rank, so steps 2 and 3 write rank 1's block, empty before; seamless's
+# of 2,048, the decode cell to which the dry-run gives phase 21's 1,024
+# frames (model._frames_len); mamba2's state has no positions; jamba's KV
+# heads split.
+MIX_TP_DECODE = {MIX_SSM: (4, 256), MIX_ENCDEC: (4, 2 * MIX_FRAMES), MIX_HYBRID: (4, 256),
+                 MLA_ARCH: (4, 4)}
+MIX_TP_TRAIN = (MIX_SSM, MIX_ENCDEC)    # at phase 21's batches and settings
+MIX_TP_STEPS = 2
+MIX_TP_SMOKE = (MLA_ARCH, MIX_HYBRID)
+MIX_TP_SMOKE_RUN = dict(batch=(4, 64), seed=3, opt=dict(lr=1e-3, warmup=2))
+MIX_TP_TIMEOUT = 300
+# Against one process on the card in bf16: phase 24's bar, jamba's phase
+# 21's (its top-2 of 16 experts flips where two affinities sit within the
+# bf16 rounding: ROADMAP C).
+MIX_TP_REL = {MIX_SSM: TP_REL, MIX_ENCDEC: TP_REL, MIX_HYBRID: 0.3, MLA_ARCH: TP_REL}
+MIX_TP_LOSS_RTOL = 1e-2
+MIX_TP_PEAK_REL = TP_PEAK_REL
+MIX_TP_SMOKE_TOL = FSDP_SMOKE_TOL
+# A rank's tokens under "seq": its block of the prefill's 4 x 1,024.
+MIX_TP_ROUTER_ROWS = MIX_PREFILL[0] * MIX_PREFILL[1] // 2
+MIX_TP_PATHS = {MIX_HYBRID: "lm_prefill_hybrid_tp", MLA_ARCH: "lm_prefill_mla_tp"}
+
+
+def _mix_tp_cfg(arch):
+    from repro_torch.configs import registry
+    return registry.get(arch).replace(n_layers=MIX_TP[arch])
+
+
+def _mix_tp_one(torch, np, dev, arch):
+    """Phase 27's one-process run of ``arch`` at its MIX_TP depth on the card
+    (jamba's and deepseek's: phases 21 and 22 run other depths): the
+    prefill's logits and MIX_TP_DECODE's decode steps from the seed; the
+    weights freed after."""
+    from repro_torch.models import model as M
+
+    cfg = _mix_tp_cfg(arch)
+    torch.cuda.empty_cache()
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = _mix_batch(torch, np, cfg, dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = M.make_prefill_step(cfg)(params, batch).float().cpu()
+        prefill_s = time.perf_counter() - t0
+    dec = _decode_steps(torch, M, params, cfg, batch, *MIX_TP_DECODE[arch])
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"logits": logits, "decode": dec, "prefill_s": prefill_s}
+
+
+def _mix_smoke_steps(mesh):
+    """Phase 27c on every rank of a world of 2 (on the card, or on the CPU
+    beside it): one train step of smoke deepseek and jamba under the
+    production rules, float32, TF32 off, from weights drawn on the CPU;
+    rank 0 returns each arch's loss and grad norm and whether both ranks'
+    are bitwise."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.synth import lm_batch
+    from repro_torch.models import lm, model as M, sharding
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    c, dev, out = MIX_TP_SMOKE_RUN, mesh.device, {}
+    for arch in MIX_TP_SMOKE:
+        cfg, opt = registry.get(arch).smoke(), OptConfig(**c["opt"])
+        params = lm.tree_map(lambda t: t.to(dev), M.init(
+            cfg, torch.Generator().manual_seed(c["seed"]), device="cpu"))
+        batch = {k: v.to(dev) for k, v in lm_batch(cfg, c["batch"], 0, seed=c["seed"],
+                                                    device="cpu").items()}
+        sharding.set_rules(sharding.PRODUCTION_RULES, mesh=mesh)
+        try:
+            params = M.shard_params(cfg, params, mesh)
+            _, _, m = M.make_train_step(cfg, opt)(params, init_opt_state(params, opt), batch)
+        finally:
+            sharding.set_rules(None)
+        mine = torch.tensor([float(m["loss"]), float(m["grad_norm"])], dtype=torch.float64)
+        both = mesh.gather(mine)
+        out[arch] = {"loss": float(mine[0]), "grad_norm": float(mine[1]),
+                     "ranks_bitwise": bool(torch.equal(both[0], both[1]))}
+    return out
+
+
+def cpu_smoke_steps(mesh):
+    """Phases 26c and 27c on a CPU world of 2 beside the card's."""
+    return {"fsdp": _fsdp_smoke_steps(mesh), "mix": _mix_smoke_steps(mesh)}
+
+
+def mix_tp_main(mesh):
+    """Phase 27 on every rank of the world of 2 that ran phases 24-26: for
+    each arch of MIX_TP, :func:`_tp_arch` at phase 21's batch; mamba2's and
+    seamless's MIX_TP_STEPS train steps under the production rules at phase
+    21's batches (``_world_train_full``, its last step measured); the smoke
+    train steps (:func:`_mix_smoke_steps`)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev, out = mesh.device, {}
+    for arch in MIX_TP:
+        cfg = _mix_tp_cfg(arch)
+        t0 = time.perf_counter()
+        out[arch] = _tp_arch(torch, mesh, dev, cfg, _mix_batch(torch, np, cfg, dev),
+                             *MIX_TP_DECODE[arch], again=False)
+        out[arch]["wall_s"] = time.perf_counter() - t0
+    for arch in MIX_TP_TRAIN:
+        t0 = time.perf_counter()
+        run = _world_train_full(torch, mesh, dev, cfg=_mix_tp_cfg(arch), rules="production",
+                                steps=MIX_TP_STEPS, batch_shape=MIX_TRAIN_BATCH[arch])
+        run["rank_steps"] = _tp_train_rank_numbers(torch, mesh, run["last_step"])
+        run["phase_s"] = time.perf_counter() - t0
+        out["train_" + arch] = run
+    t0 = time.perf_counter()
+    out["smoke"] = _mix_smoke_steps(mesh)
+    out["smoke_s"] = time.perf_counter() - t0
+    return out
+
+
+def _mix_tp_dry():
+    """Phase 27's dry-run accounts: each arch's prefill and decode cells,
+    mamba2's and seamless's train cells."""
+    from repro_torch.models import sharding
+
+    recs = {}
+    for arch in MIX_TP:
+        cfg = _mix_tp_cfg(arch)
+        # an encoder-decoder's cell splits its positions into frames and
+        # tokens, half each (model._frames_len): phase 21's 1,024 of each
+        b, s = MIX_PREFILL[0], MIX_PREFILL[1] + (MIX_FRAMES if cfg.kind == "encdec" else 0)
+        recs[arch] = {kind: _dry_cell(arch, kind, b, s if kind == "prefill"
+                                      else MIX_TP_DECODE[arch][1], world=2, cfg=cfg,
+                                      rules=sharding.PRODUCTION_RULES)
+                      for kind in ("prefill", "decode")}
+        if arch in MIX_TP_TRAIN:
+            recs[arch]["train"] = _dry_cell(arch, "train", *MIX_TRAIN_BATCH[arch], world=2,
+                                            cfg=_mix_tp_cfg(arch),
+                                            rules=sharding.PRODUCTION_RULES)
+    return recs
+
+
+def _mix_tp_checks(torch, np, ones, w, recs, cpu_smoke, world_s):
+    """Phase 27's checks of the world's results ``w`` (``mix_tp_main``'s)
+    against the one-process runs ``ones``, the dry-run's accounts ``recs``
+    and the CPU world's smoke steps; returns the kernels' paths."""
+    paths = {}
+    for arch in MIX_TP:
+        cfg, one, got = _mix_tp_cfg(arch), ones[arch], w[arch]
+        n_steps, cache_len = MIX_TP_DECODE[arch]
+        rel_p = _rel_l2(torch, got["logits"], one["logits"])
+        rel_d = _rel_l2(torch, got["decode"], one["decode"])
+        r0 = got["ranks"][0]
+        routed = {name: 0 for name in r0["prefill"]["launches"]}
+        if cfg.moe.n_experts:
+            moe_layers = cfg.ffn_pattern.count("moe") * cfg.n_periods
+            routed.update(scd_fused_hist=cfg.moe.scd_iters * moe_layers,
+                          adjusted_topc=moe_layers)
+        together = sum(max(r["prefill"]["raw_peak"], r["decode"]["raw_peak"])
+                       for r in got["ranks"]) / 1e9
+        facts = {"finite": bool(torch.isfinite(got["logits"]).all()
+                                and torch.isfinite(got["decode"]).all()),
+                 "shapes": tuple(got["logits"].shape) == tuple(one["logits"].shape)
+                 and tuple(got["decode"].shape) == tuple(one["decode"].shape),
+                 "ranks_bitwise": got["ranks_bitwise"],
+                 "launches_as_routed": r0["prefill"]["launches"] == routed,
+                 "prefill_rel_l2_within": float(rel_p.max()) <= MIX_TP_REL[arch],
+                 "decode_rel_l2_within": float(rel_d.max()) <= MIX_TP_REL[arch],
+                 "peaks_together_under_80gb": together < 80.0}
+        emit(f"lm_tp_mix_{arch}", arch=arch, layers=cfg.n_layers, world=2, rules="production",
+             batch=MIX_PREFILL[0], seq=MIX_PREFILL[1],
+             frames=MIX_FRAMES if cfg.kind == "encdec" else None, decode_steps=n_steps,
+             cache_len=cache_len, wall_s=got["wall_s"], world_wall_s=world_s,
+             ranks=[{k: v for k, v in r.items() if k not in ("prefill", "decode")}
+                    for r in got["ranks"]],
+             one_process_prefill_s=one.get("prefill_s"), rank0_launches=r0["prefill"]["launches"],
+             prefill_rel_l2_max=float(rel_p.max()), prefill_rel_l2_median=float(rel_p.median()),
+             decode_rel_l2_max=float(rel_d.max()), decode_rel_l2_median=float(rel_d.median()),
+             bound=MIX_TP_REL[arch], prefill_peaks_together_gb=together, **facts)
+        check(all(facts.values()), f"{arch} under the production rules: {facts}")
+        for r, mine in enumerate(got["ranks"]):
+            for kind in ("prefill", "decode"):
+                m = mine[kind]
+                _dry_vs_card(f"{arch}_{cfg.n_layers}_layers_tp_world2_rank{r}_{kind}",
+                             recs[arch][kind], m["launches"] if r == 0 else None, m["held"],
+                             m["rise"], m["raw_peak"], comm=m["comm"], bar=MIX_TP_PEAK_REL)
+        if arch in MIX_TP_PATHS:
+            paths[MIX_TP_PATHS[arch]] = r0["prefill"]["launches"]
+
+    for arch in MIX_TP_TRAIN:
+        t, cfg = w["train_" + arch], _mix_tp_cfg(arch)
+        one = ones[arch]["losses"][:MIX_TP_STEPS]
+        rel = [abs(a - b) / abs(b) for a, b in zip(t["losses"], one)]
+        together = sum(r["peak_gb"] for r in t["ranks"])
+        facts = {"finite": all(np.isfinite(t["losses"])) and all(np.isfinite(t["grad_norms"])),
+                 "ranks_bitwise": t["ranks_bitwise"],
+                 "losses_within_one_process": len(rel) == MIX_TP_STEPS
+                 and max(rel) <= MIX_TP_LOSS_RTOL,
+                 "peaks_together_under_80gb": together < 80.0}
+        emit(f"lm_train_tp_mix_{arch}", arch=arch, layers=cfg.n_layers, world=2,
+             rules="production", batch=MIX_TRAIN_BATCH[arch], steps=MIX_TP_STEPS,
+             opt=LM_TRAIN_OPT, losses=t["losses"], one_process_losses=one, loss_rel=rel,
+             loss_rtol=MIX_TP_LOSS_RTOL, grad_norms=t["grad_norms"],
+             step_wall_s=t["step_wall_s"], train_wall_s=t["train_wall_s"],
+             rank0_comm_s_by_kind=t["comm_s_by_kind"], ranks=t["ranks"],
+             peak_gb_together=together, phase_s=t["phase_s"], **facts)
+        check(all(facts.values()), f"{arch} trained under the production rules: {facts}")
+        for r, m in enumerate(t["rank_steps"]):
+            _dry_vs_card(f"{arch}_train_{cfg.n_layers}_layers_tp_world2_rank{r}",
+                         recs[arch]["train"], t["last_step"]["launches"] if r == 0 else None,
+                         m["held"], m["rise"], m["raw_peak"], comm=m["comm"],
+                         bar=MIX_TP_PEAK_REL)
+
+    rows, ok = [], True
+    for arch in MIX_TP_SMOKE:
+        card, cpu = w["smoke"][arch], cpu_smoke[arch]
+        good = (card["ranks_bitwise"]
+                and abs(card["loss"] - cpu["loss"]) <= MIX_TP_SMOKE_TOL * (1 + abs(cpu["loss"]))
+                and abs(card["grad_norm"] - cpu["grad_norm"])
+                <= MIX_TP_SMOKE_TOL * (1 + abs(cpu["grad_norm"])))
+        ok = ok and good
+        rows.append({"arch": arch, "card": card, "cpu": cpu, "within": good})
+    emit("lm_train_tp_mix_smoke", config="smoke", world=2, rules="production",
+         tol=MIX_TP_SMOKE_TOL, archs=rows, wall_s=w["smoke_s"], world_wall_s=world_s)
+    check(ok, f"the smoke configs' train steps under the production rules, card against "
+              f"CPU: {rows}")
+    return paths
+
+
 def tp_main(mesh, killed_dir):
-    """Phases 24, 25 and 26 on every rank of one world of 2 (one world's
-    start for all three): ``tp_lm_main``, ``tp_train_main``, then
-    ``fsdp_main``; rank 0 returns them and the seconds of each."""
+    """Phases 24, 25, 26 and 27 on every rank of one world of 2 (one world's
+    start for all four): ``tp_lm_main``, ``tp_train_main``, ``fsdp_main``,
+    then ``mix_tp_main``; rank 0 returns them and the seconds of each."""
     t0 = time.perf_counter()
     out = {"tp": tp_lm_main(mesh)}
     out["tp_s"] = time.perf_counter() - t0
@@ -5193,16 +5514,21 @@ def tp_main(mesh, killed_dir):
     t1 = time.perf_counter()
     out["fsdp"] = fsdp_main(mesh)
     out["fsdp_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["mix"] = mix_tp_main(mesh)
+    out["mix_s"] = time.perf_counter() - t1
     return out
 
 
-def phase_lm_tp_both(torch, np, dev, one_moonshot, train_losses, killed):
-    """Phases 24, 25 and 26 as ``main`` runs them: the one-process runs on
-    the card, the killed smoke world (started before phase 23) joined, then
-    one world of 2 runs :func:`tp_main` while this process accounts the
-    dry-run's cells and a CPU world of 2 runs phase 26's smoke steps; then
-    each phase's checks. Returns the kernels' paths, the routers' timings
-    and the world's seconds."""
+def phase_lm_tp_both(torch, np, dev, one_moonshot, train_losses, killed, ones21):
+    """Phases 24, 25, 26 and 27 as ``main`` runs them: the one-process runs
+    on the card (phase 27's: ``ones21``, mamba2's and seamless's from phase
+    21, and jamba's and deepseek's at their depth here) and the routers'
+    kernels at a rank's tokens, the killed smoke world (started before
+    phase 23) joined, then one world of 2 runs :func:`tp_main` while this
+    process accounts the dry-run's cells and a CPU world of 2 runs phases
+    26's and 27's smoke steps; then each phase's checks. Returns the
+    kernels' paths, the routers' timings and the world's seconds."""
     from repro_torch.configs import registry
     from repro_torch.launch.mesh import start_local_world
 
@@ -5215,13 +5541,22 @@ def phase_lm_tp_both(torch, np, dev, one_moonshot, train_losses, killed):
         router26 = _lm_router(torch, np, dev, registry.get(LM_ARCH),
                               tag="lm_train_fsdp_router", n=FSDP_ROUTER_ROWS)
         one26 = _fsdp_one_process(torch, dev)
+        # 27a: the routers' kernels at a rank's tokens, K = 16 and 160, and
+        # the one-process runs at phase 27's depths
+        routers27 = {arch: _lm_router(torch, np, dev, _mix_tp_cfg(arch),
+                                      tag=f"lm_tp_router_{MIX_TP_PATHS[arch]}",
+                                      n=MIX_TP_ROUTER_ROWS) for arch in MIX_TP_PATHS}
+        ones27 = {**{arch: _mix_tp_one(torch, np, dev, arch) for arch in MIX_TP
+                     if arch not in ones21}, **ones21}
     finally:
         smoke = _join_tp_train_killed(killed)
     t0 = time.perf_counter()
     world = start_local_world(tp_main, 2, (str(TP_TRAIN_DIR / "ckpt"),),
-                              timeout=TP_TIMEOUT + TP_TRAIN_TIMEOUT + FSDP_TIMEOUT)
-    cpu = start_local_world(_fsdp_smoke_steps, 2, device="cpu", timeout=FSDP_TIMEOUT)
+                              timeout=TP_TIMEOUT + TP_TRAIN_TIMEOUT + FSDP_TIMEOUT
+                              + MIX_TP_TIMEOUT)
+    cpu = start_local_world(cpu_smoke_steps, 2, device="cpu", timeout=FSDP_TIMEOUT)
     recs24, recs25, recs26 = _tp_dry(), _tp_train_dry(), _fsdp_dry()
+    recs27 = _mix_tp_dry()
     cpu_smoke = cpu.wait()
     w = world.wait()
     world_s = time.perf_counter() - t0
@@ -5229,10 +5564,14 @@ def phase_lm_tp_both(torch, np, dev, one_moonshot, train_losses, killed):
     emit("lm_tp_wall", seconds=w["tp_s"], world_wall_s=world_s)
     paths.update(_tp_train_checks(torch, np, ones25, w["train"], recs25, smoke, w["train_s"]))
     emit("lm_train_tp_wall", seconds=w["train_s"], world_wall_s=world_s)
-    paths.update(_fsdp_checks(torch, np, one26, w["fsdp"], recs26, cpu_smoke, world_s))
-    emit("lm_train_fsdp_wall", seconds=w["fsdp_s"], world_wall_s=world_s,
-         phases_24_26_s=time.perf_counter() - t_phase)
-    return paths, router, router26, world_s
+    paths.update(_fsdp_checks(torch, np, one26, w["fsdp"], recs26, cpu_smoke["fsdp"],
+                              world_s))
+    emit("lm_train_fsdp_wall", seconds=w["fsdp_s"], world_wall_s=world_s)
+    paths.update(_mix_tp_checks(torch, np, ones27, w["mix"], recs27, cpu_smoke["mix"],
+                                world_s))
+    emit("lm_tp_mix_wall", seconds=w["mix_s"], world_wall_s=world_s,
+         phases_24_27_s=time.perf_counter() - t_phase)
+    return paths, router, router26, routers27, world_s
 
 
 def main():
@@ -5288,7 +5627,7 @@ def main():
     try:
         train_paths, train_losses = phase_lm_training(torch, np, dev)
         paths.update(train_paths)
-        mix_paths, mix_kern = phase_lm_mixers(torch, np, dev)
+        mix_paths, mix_kern, ones21 = phase_lm_mixers(torch, np, dev)
         paths.update(mix_paths)
     except BaseException:
         stop_lm_train_cli(cli)
@@ -5304,12 +5643,15 @@ def main():
     world_paths, one_moonshot = phase_lm_world(torch, np, dev, train_losses)
     paths.update(world_paths)
     t_tp = time.perf_counter()
-    tp_paths, tp_router, fsdp_router, tp_world_s = phase_lm_tp_both(
-        torch, np, dev, one_moonshot, train_losses, killed)
+    tp_paths, tp_router, fsdp_router, mix_routers, tp_world_s = phase_lm_tp_both(
+        torch, np, dev, one_moonshot, train_losses, killed, ones21)
     kern["scd_fused_hist"]["router_shape_tp"] = tp_router["scd_fused_hist"]
     kern["adjusted_topc"]["router_shape_tp"] = tp_router["adjusted_topc"]
     kern["scd_fused_hist"]["router_shape_fsdp"] = fsdp_router["scd_fused_hist"]
     kern["adjusted_topc"]["router_shape_fsdp"] = fsdp_router["adjusted_topc"]
+    for arch, k in ((MIX_HYBRID, "k16"), (MLA_ARCH, "k160")):
+        for name in ("scd_fused_hist", "adjusted_topc"):
+            kern[name][f"router_shape_tp_{k}"] = mix_routers[arch][name]
     paths.update(tp_paths)
     tp_s = time.perf_counter() - t_tp
 

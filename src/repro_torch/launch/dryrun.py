@@ -27,9 +27,9 @@ card: that is what it is, not a fallback. Over a world of D > 1 the rank
 runs under ``sharding.BATCH_RULES`` (its B / D rows, its E / D experts),
 as ``launch/train.py`` and the serving worlds run, or with ``--rules
 production`` under ``sharding.PRODUCTION_RULES`` (tensor and sequence
-parallelism: its blocks of the heads, FFN columns, vocab, experts and KV
-cache, every row; the prefill, decode and train cells of the attention
-LMs, the other archs skipped with the refusal), or with ``--rules fsdp``
+parallelism: its blocks of the heads, FFN columns, vocab, experts and
+caches, every row; the prefill, decode and train cells of every arch), or
+with ``--rules fsdp``
 under ``sharding.FSDP_RULES`` (FSDP: its rows and its stored blocks,
 each block's leaves gathered at use and their gradients reduce-scattered,
 the recompute's gathers counted too; every arch); ``--fsdp MODE`` lays
@@ -299,7 +299,7 @@ def world_skip(cfg, cell, world, rules):
     or None: a refused binding (``model.check_rules``), a batch (where
     "batch" is on the world) or an expert count (where "experts" is) that
     the world does not divide."""
-    M.check_rules(rules, cfg, cell.kind)
+    M.check_rules(rules)
     if world > 1 and sharding.binds(rules, "batch") and cell.global_batch % world:
         return f"global batch {cell.global_batch} does not split over {world} ranks"
     if (world > 1 and cfg.moe.n_experts and sharding.binds(rules, "experts")

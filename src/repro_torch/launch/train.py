@@ -24,7 +24,7 @@ other leaves replicated and their gradients folded in rank order
 (``models/model.loss_and_grads``); with ``--rules production`` under the
 reference's production rules (``sharding.PRODUCTION_RULES``: tensor and
 sequence parallelism, every rank every row, its blocks of the heads, FFN
-columns, vocab rows and experts; the attention LMs); with ``--rules fsdp``
+columns, vocab rows and experts; every arch); with ``--rules fsdp``
 under FSDP (``sharding.FSDP_RULES``: the reference's (D, 1) mesh, each
 rank its rows and its stored blocks, gathered block by block at use, every
 arch). ``--fsdp MODE`` lays the config out by the reference's

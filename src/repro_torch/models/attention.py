@@ -17,7 +17,7 @@ compressed cache directly, so a token's cache is ``kv_lora + rope_hd``
 values whatever the head count.
 
 Over a world of ranks under tensor and sequence parallelism
-(``models/sharding.py``; GQA, MQA and MHA only):
+(``models/sharding.py``):
 
 * :func:`attention` takes this rank's block of the sequence where "seq"
   splits it and all-gathers the sequence on entry. Where "heads" (or
@@ -38,7 +38,16 @@ Over a world of ranks under tensor and sequence parallelism
   gives each head's partial maximum, sum of weights and weighted values
   over its positions, and the partials are combined under the exact
   maximum (``Mesh.amax``) and folded in rank order. A rank whose positions
-  are all still empty gives a zero sum and no maximum.
+  are all still empty gives a zero sum and no maximum;
+* cross attention (:func:`_cross_world`) runs the rank's heads against the
+  encoder's memory, which the encoder joins whole on every rank;
+* MLA (:func:`mla_attention`, :func:`decode_mla`) runs the projections to
+  its latents (``wq_a``, ``wkv_a`` and their norms, replicated) whole on
+  every rank over the joined sequence, then the rank's heads of ``wq_b``,
+  ``wk_b``, ``wv_b`` and ``wo`` ("heads", :func:`mla_heads`). Its headless
+  latent cache is split by positions where "kv_seq" is on the world
+  (:func:`mla_split`, as the reference's ``cache_specs`` splits it):
+  flash-decoding through the absorbed scores.
 """
 from __future__ import annotations
 
@@ -201,19 +210,50 @@ def attention(p, cfg, x, positions, causal=True, kv=None, kv_pos=None):
     the whole sequence's and ``x`` is this rank's block of it where "seq"
     splits it; the output is the same block (module docstring)."""
     mesh = sharding.get_mesh()
-    if kv is None and mesh is not None and mesh.size > 1:
-        return _attention_world(p, cfg, x, positions, causal)
-    if kv is None:
-        q, k, v = _qkv(p, cfg, x, positions)
-        kv_pos = positions
-    else:
-        q, k, v = _proj(x, p["wq"]), _proj(kv, p["wk"]), _proj(kv, p["wv"])
-        if cfg.qk_norm:
-            q = rms_norm(p["qnorm"], q, cfg.norm_eps)
-            k = rms_norm(p["knorm"], k, cfg.norm_eps)
-    out = _chunked_attention(q, k, v, positions, kv_pos, cfg.attn_chunk,
+    if mesh is not None and mesh.size > 1:
+        if kv is None:
+            return _attention_world(p, cfg, x, positions, causal)
+        return _cross_world(p, cfg, x, positions, kv, kv_pos, causal)
+    if kv is not None:
+        return _cross(p, cfg, x, kv, positions, kv_pos, causal)
+    q, k, v = _qkv(p, cfg, x, positions)
+    out = _chunked_attention(q, k, v, positions, positions, cfg.attn_chunk,
                              causal, cfg.window)
     return _out(out, p["wo"])
+
+
+def _cross(p, cfg, x, kv, q_pos, kv_pos, causal, heads=None):
+    """Cross attention of the queries of ``x`` at ``q_pos`` to the memory
+    ``kv``, of every head or of the rank's ``heads`` (``rank_heads``'s:
+    its q heads against the KV heads they read)."""
+    wq, wk, wv, wo = ((p["wq"], p["wk"], p["wv"], p["wo"]) if heads is None
+                      else _rank_weights(p, cfg, heads))
+    q, k, v = _proj(x, wq), _proj(kv, wk), _proj(kv, wv)
+    if cfg.qk_norm:
+        q = rms_norm(p["qnorm"], q, cfg.norm_eps)
+        k = rms_norm(p["knorm"], k, cfg.norm_eps)
+    if heads is not None:
+        k, v = _grouped(k, cfg, heads), _grouped(v, cfg, heads)
+    out = _chunked_attention(q, k, v, q_pos, kv_pos, cfg.attn_chunk, causal, cfg.window)
+    return _out(out, wo)
+
+
+def _cross_world(p, cfg, x, positions, kv, kv_pos, causal):
+    """:func:`attention`'s cross attention over the rules' world: ``kv``
+    the encoder's memory whole on every rank (``encdec.encode`` joins it),
+    ``x`` the rank's block of the decoder's sequence where "seq" splits
+    it. The rank's heads (q and the KV heads they read) over the joined
+    sequence, the ``wo`` partial reduce-scattered (folded whole without
+    "seq"); without split heads every head for the rank's queries."""
+    mesh = sharding.get_mesh()
+    seq = sharding.seq_range(len(positions))
+    heads = rank_heads(cfg)
+    if heads is None:
+        q_pos = positions if seq is None else positions[seq[0]:seq[1]]
+        return _cross(p, cfg, x, kv, q_pos, kv_pos, causal)
+    xf = all_gather(mesh, x, 1) if seq is not None else copy_in(mesh, x)
+    part = _cross(p, cfg, xf, kv, positions, kv_pos, causal, heads)
+    return sharding.world_sum(part) if seq is None else reduce_scatter(mesh, part, 1)
 
 
 def _attention_world(p, cfg, x, positions, causal=True):
@@ -256,6 +296,14 @@ def kv_split(cfg, seq_len):
     block = sharding.kv_head_range(cfg.n_kv_heads)
     if block is not None:
         return ("heads", *block)
+    return mla_split(seq_len)
+
+
+def mla_split(seq_len):
+    """``("seq", lo, hi)``: this rank's positions of a cache of ``seq_len``
+    where "kv_seq" is on a world of D > 1 (D must divide ``seq_len``), else
+    None: MLA's headless latent cache, and an attention cache whose KV heads
+    do not split (:func:`kv_split`)."""
     mesh = sharding.get_mesh()
     if mesh is None or mesh.size == 1 or not sharding.on_world("kv_seq"):
         return None
@@ -409,61 +457,183 @@ def init_mla(gen, cfg, device, periods=None):
     }
 
 
-def _mla_qc(p, cfg, x, positions):
-    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope), c_kv (B, S, kv_lora),
-    k_rope (B, S, rope)), both ropes rotated."""
+def mla_heads(cfg):
+    """``(lo, hi)``: the MLA heads this rank runs where "heads" splits them
+    over the rules' world (``sharding.head_range``), else None."""
+    return sharding.head_range(cfg.n_heads)
+
+
+def _mla_weights(p, cfg, heads):
+    """(wq_b, wk_b, wv_b, wo) of the heads ``heads`` (all of them: None)."""
+    if heads is None:
+        return p["wq_b"], p["wk_b"], p["wv_b"], p["wo"]
+    h = cfg.n_heads
+    return (*(rank_block(p[k], 1, heads, h) for k in ("wq_b", "wk_b", "wv_b")),
+            rank_block(p["wo"], 0, heads, h))
+
+
+def _mla_q(p, cfg, x, positions, wq_b):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope)) of the heads of
+    ``wq_b``, the rope rotated; ``wq_a`` and its norm whole."""
     m = cfg.mla
     ql = rms_norm(p["q_norm"], x @ p["wq_a"].to(x.dtype), cfg.norm_eps)
-    q_nope, q_rope = _proj(ql, p["wq_b"]).split([m.nope_head_dim, m.rope_head_dim], -1)
-    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    q_nope, q_rope = _proj(ql, wq_b).split([m.nope_head_dim, m.rope_head_dim], -1)
+    return q_nope, rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_kv(p, cfg, x, positions):
+    """(c_kv (B, S, kv_lora), k_rope (B, S, rope)), the rope rotated."""
+    m = cfg.mla
     c_kv, k_rope = (x @ p["wkv_a"].to(x.dtype)).split([m.kv_lora, m.rope_head_dim], -1)
     c_kv = rms_norm(p["kv_norm"], c_kv, cfg.norm_eps)
     # the headless shared rope key, through a singleton head axis
     k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
-    return q_nope, q_rope, c_kv, k_rope
+    return c_kv, k_rope
 
 
-def mla_attention(p, cfg, x, positions):
-    """Prefill and training MLA: k and v decompressed per head, the chunked
-    softmax at the q/k head dim (scale (nope + rope)^-0.5)."""
+def _mla_core(p, cfg, xq, xkv, q_pos, positions, weights):
+    """MLA's queries of ``xq`` at ``q_pos`` against the keys and values of
+    ``xkv`` at ``positions``, through ``weights`` (:func:`_mla_weights`'s,
+    of some heads): k and v decompressed per head, the chunked softmax at
+    the q/k head dim (scale (nope + rope)^-0.5), ``wo``'s product."""
     m = cfg.mla
-    q_nope, q_rope, c_kv, k_rope = _mla_qc(p, cfg, x, positions)
-    k_nope, v = _proj(c_kv, p["wk_b"]), _proj(c_kv, p["wv_b"])
-    k_rope_h = k_rope[:, :, None, :].expand(-1, -1, cfg.n_heads, -1)
+    wq_b, wk_b, wv_b, wo = weights
+    q_nope, q_rope = _mla_q(p, cfg, xq, q_pos, wq_b)
+    c_kv, k_rope = _mla_kv(p, cfg, xkv, positions)
+    k_nope, v = _proj(c_kv, wk_b), _proj(c_kv, wv_b)
+    k_rope_h = k_rope[:, :, None, :].expand(-1, -1, wk_b.shape[1], -1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_h], dim=-1)
     # v padded to the q/k head dim for the shared chunked softmax, sliced after
     out = _chunked_attention(q, k, F.pad(v, (0, q.shape[-1] - v.shape[-1])),
-                             positions, positions, cfg.attn_chunk, True, cfg.window)
-    return _out(out[..., :m.v_head_dim], p["wo"])
+                             q_pos, positions, cfg.attn_chunk, True, cfg.window)
+    return _out(out[..., :m.v_head_dim], wo)
+
+
+def mla_attention(p, cfg, x, positions):
+    """Prefill and training MLA (:func:`_mla_core`). Over a world under
+    tensor and sequence parallelism, ``positions`` are the whole
+    sequence's and ``x`` this rank's block of it where "seq" splits it
+    (the output is the same block): the joined sequence through the
+    replicated ``wq_a``/``wkv_a`` and their norms, then the rank's heads of
+    ``wq_b``/``wk_b``/``wv_b``/``wo``, whose partial is reduce-scattered
+    (folded whole without "seq"), as :func:`_attention_world` does; without
+    split heads every head for the rank's positions' queries."""
+    mesh = sharding.get_mesh()
+    seq = sharding.seq_range(len(positions))
+    heads = mla_heads(cfg)
+    if seq is None and heads is None:
+        return _mla_core(p, cfg, x, x, positions, positions, _mla_weights(p, cfg, None))
+    xf = all_gather(mesh, x, 1) if seq is not None else copy_in(mesh, x)
+    if heads is None:
+        q_pos = positions[seq[0]:seq[1]]
+        return _mla_core(p, cfg, x, xf, q_pos, positions, _mla_weights(p, cfg, None))
+    part = _mla_core(p, cfg, xf, xf, positions, positions, _mla_weights(p, cfg, heads))
+    return sharding.world_sum(part) if seq is None else reduce_scatter(mesh, part, 1)
 
 
 def init_mla_cache(cfg, batch, seq_len, dtype, device, periods=None):
+    """Zero ``c_kv`` and ``k_rope`` caches (B, S, *), this rank's block of
+    the positions over a world where "kv_seq" is on it (:func:`mla_split`)."""
     m = cfg.mla
-    lead = (batch, seq_len) if periods is None else (periods, batch, seq_len)
+    split = mla_split(seq_len)
+    s = seq_len if split is None else split[2] - split[1]
+    lead = (batch, s) if periods is None else (periods, batch, s)
     return {"c_kv": torch.zeros((*lead, m.kv_lora), dtype=dtype, device=device),
             "k_rope": torch.zeros((*lead, m.rope_head_dim), dtype=dtype, device=device)}
+
+
+def _mla_absorbed_q(p, cfg, x, positions, heads):
+    """The step's absorbed queries of the heads ``heads``: (q_abs (B, H_r,
+    kv_lora), q_rope (B, H_r, rope)), ``W_uk`` absorbed into q."""
+    wq_b, wk_b, _, _ = _mla_weights(p, cfg, heads)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, wq_b)
+    # (H, B, nope) @ (H, nope, L) -> (B, H, L)
+    q_abs = (q_nope[:, 0].transpose(0, 1) @ wk_b.to(x.dtype).permute(1, 2, 0)).transpose(0, 1)
+    return q_abs, q_rope[:, 0]
+
+
+def _mla_out(p, cfg, ctx, heads, dtype):
+    """``W_uv`` and ``wo`` of the heads ``heads`` on ``ctx`` (B, H_r, L)."""
+    _, _, wv_b, wo = _mla_weights(p, cfg, heads)
+    # W_uv: (H, B, L) @ (H, L, v) -> (B, H, v)
+    o = (ctx.transpose(0, 1) @ wv_b.to(dtype).transpose(0, 1)).transpose(0, 1)
+    return _out(o[:, None], wo)
 
 
 def decode_mla(p, cfg, x, cache, pos):
     """Absorbed-form MLA decode. x: (B, 1, D); pos: int, the cache index.
     Writes the step's c_kv and k_rope into ``cache`` in place; scores and
-    values go through the compressed cache. Returns (out, cache)."""
+    values go through the compressed cache. Returns (out, cache).
+
+    Over a world ``cache`` is this rank's (:func:`mla_split`) and x the
+    same on every rank: where the heads split, the rank's heads run
+    against a whole cache that every rank writes and the ``wo`` partials
+    are folded; over a block of positions it runs flash-decoding as
+    :func:`_decode_flash` does (:func:`_decode_mla_flash`)."""
     m = cfg.mla
+    mesh = sharding.get_mesh()
+    heads = mla_heads(cfg)
+    if mesh is not None and mesh.size > 1 and \
+            mla_split(cache["c_kv"].shape[-2] * mesh.size) is not None:
+        return _decode_mla_flash(p, cfg, x, cache, pos, heads, mesh)
     positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
-    q_nope, q_rope, c_kv, k_rope = _mla_qc(p, cfg, x, positions)
+    q_abs, q_rope = _mla_absorbed_q(p, cfg, x, positions, heads)
+    c_kv, k_rope = _mla_kv(p, cfg, x, positions)
     cache["c_kv"][:, pos] = c_kv[:, 0]
     cache["k_rope"][:, pos] = k_rope[:, 0]
     ckv = cache["c_kv"]                                   # (B, S, L)
-    # W_uk absorbed into q: (H, B, nope) @ (H, nope, L) -> (B, H, L)
-    wk = p["wk_b"].to(x.dtype).permute(1, 2, 0)
-    q_abs = (q_nope[:, 0].transpose(0, 1) @ wk).transpose(0, 1)
     s_c = q_abs @ ckv.transpose(1, 2)                     # (B, H, S)
-    s_r = q_rope[:, 0] @ cache["k_rope"].transpose(1, 2)
+    s_r = q_rope @ cache["k_rope"].transpose(1, 2)
     s = (s_c + s_r) * (m.nope_head_dim + m.rope_head_dim) ** -0.5
     kv_pos = torch.arange(ckv.shape[1], device=x.device)
     w = torch.softmax(torch.where(kv_pos <= pos, s.float(), NEG_INF), dim=-1)
     ctx = w.to(x.dtype) @ ckv                             # (B, H, L)
-    # W_uv: (H, B, L) @ (H, L, v) -> (B, H, v)
-    o = (ctx.transpose(0, 1) @ p["wv_b"].to(x.dtype).transpose(0, 1)).transpose(0, 1)
-    return _out(o[:, None], p["wo"]), cache
+    out = _mla_out(p, cfg, ctx, heads, x.dtype)
+    return (out if heads is None else sharding.world_sum(out)), cache
+
+
+def _decode_mla_flash(p, cfg, x, cache, pos, heads, mesh):
+    """:func:`decode_mla` over the world with the latent cache split by
+    positions: only the rank that owns ``pos`` writes the step's latent;
+    the absorbed queries are gathered over the heads where they split; each
+    rank gives each head's partial maximum, sum of weights and weighted
+    latent over its positions; the partials are combined under the exact
+    maximum (``Mesh.amax``), reduce-scattered to the rank's heads (folded
+    whole without split heads) in rank order, and ``W_uv`` and ``wo`` of
+    the rank's heads run on the result, their partials folded."""
+    m = cfg.mla
+    b, s_r, _ = cache["c_kv"].shape
+    lo = mesh.rank * s_r
+    positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+    if lo <= pos < lo + s_r:                                # this rank owns pos
+        c_kv, k_rope = _mla_kv(p, cfg, x, positions)
+        cache["c_kv"][:, pos - lo] = c_kv[:, 0]
+        cache["k_rope"][:, pos - lo] = k_rope[:, 0]
+    q_abs, q_rope = _mla_absorbed_q(p, cfg, x, positions, heads)
+    if heads is not None:                                   # every head's
+        q_abs, q_rope = mesh.all_gather(q_abs, 1), mesh.all_gather(q_rope, 1)
+    h = q_abs.shape[1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    if lo <= pos:
+        ckv = cache["c_kv"]
+        s_ = ((q_abs @ ckv.transpose(1, 2) + q_rope @ cache["k_rope"].transpose(1, 2))
+              * (m.nope_head_dim + m.rope_head_dim) ** -0.5)
+        kv_pos = lo + torch.arange(s_r, device=x.device)
+        s_ = torch.where(kv_pos <= pos, s_.float(), float("-inf"))
+        m_r = s_.amax(-1)                                   # (B, H)
+        w = torch.exp(s_ - m_r[..., None])                  # masked: exactly 0
+        l_r = w.sum(-1)
+        ctx_r = (w.to(ckv.dtype) @ ckv).float()             # (B, H, L)
+    else:                                                   # no position yet
+        m_r = torch.full((b, h), float("-inf"), **f32)
+        l_r = torch.zeros((b, h), **f32)
+        ctx_r = torch.zeros((b, h, m.kv_lora), **f32)
+    mx = mesh.amax(m_r).to(x.device)                        # finite: the owner's
+    scale = torch.where(torch.isinf(m_r), 0.0, torch.exp(m_r - mx))
+    l_r, ctx_r = l_r * scale, ctx_r * scale[..., None]
+    if heads is None:
+        ctx = sharding.world_sum(ctx_r) / sharding.world_sum(l_r)[..., None]
+        return _mla_out(p, cfg, ctx.to(x.dtype), None, x.dtype), cache
+    ctx = mesh.reduce_scatter(ctx_r, 1) / mesh.reduce_scatter(l_r, 1)[..., None]
+    return sharding.world_sum(_mla_out(p, cfg, ctx.to(x.dtype), heads, x.dtype)), cache

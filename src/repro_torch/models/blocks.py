@@ -13,11 +13,13 @@ a prefill stays split by sequence between blocks where "seq" splits it
 (Megatron-style): the attention and a dense FFN split by "ffn" all-gather
 it on entry and reduce-scatter their row-parallel partials back to the
 rank's block (without "seq" they fold them whole); the MoE routes the
-rank's block through its all-to-all path. A decode step's x is the same
-on every rank, and the partials are folded whole. The collectives are
-``core.mesh``'s autograd functions (a replicated h enters the rank's FFN
-columns through ``copy_in``), so the train step's backward runs through
-them.
+rank's block through its all-to-all path; MLA and Mamba2 all-gather the
+sequence and reduce-scatter their partials as the attention does
+(``attention.mla_attention``, ``mamba2.mamba_mixer``). A decode step's x
+is the same on every rank, and the partials are folded whole. The
+collectives are ``core.mesh``'s autograd functions (a replicated h enters
+the rank's FFN columns through ``copy_in``), so the train step's backward
+runs through them.
 """
 from __future__ import annotations
 
@@ -57,7 +59,7 @@ def init_block(gen, cfg, slot: str, ffn: str, device, periods=None):
     return p
 
 
-def _dense(p, cfg, h, d_ff, seq_split):
+def dense_ffn(p, cfg, h, d_ff, seq_split=False):
     """A dense FFN of ``d_ff`` columns; over a world where "ffn" splits
     them, column- then row-parallel, its partials reduce-scattered to the
     rank's sequence block (``seq_split``) or folded whole."""
@@ -75,7 +77,7 @@ def _apply_ffn(p, cfg, x, ffn, decode=False, seq_split=False):
         return x
     h = rms_norm(p["norm2"], x, cfg.norm_eps)
     if ffn == "dense":
-        out = _dense(p["ffn"], cfg, h, cfg.d_ff, seq_split)
+        out = dense_ffn(p["ffn"], cfg, h, cfg.d_ff, seq_split)
     else:
         if decode:
             out = moe_decode(p["ffn"], cfg, h, cfg.act)
@@ -83,8 +85,8 @@ def _apply_ffn(p, cfg, x, ffn, decode=False, seq_split=False):
             out = moe_train(p["ffn"], cfg, h, cfg.act, replicated=not seq_split and (
                 sharding.get_mesh() is not None and not sharding.on_world("batch")))
         if "shared" in p:
-            out = out + _dense(p["shared"], cfg, h, cfg.moe.n_shared * cfg.moe.d_ff,
-                               seq_split)
+            out = out + dense_ffn(p["shared"], cfg, h, cfg.moe.n_shared * cfg.moe.d_ff,
+                                  seq_split)
     return x + out
 
 
@@ -98,7 +100,7 @@ def block_apply(p, cfg, x, positions, slot: str, ffn: str):
     elif kind == "mla":
         mx = mla_attention(p["mixer"], cfg, h, positions)
     else:
-        mx = mamba_mixer(p["mixer"], cfg, h)
+        mx = mamba_mixer(p["mixer"], cfg, h, len(positions))
     return _apply_ffn(p, cfg, x + mx, ffn,
                       seq_split=sharding.seq_range(len(positions)) is not None)
 

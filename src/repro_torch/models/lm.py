@@ -370,13 +370,20 @@ def lm_nll(params, cfg, tokens, targets, mask=None, extra_embeds=None, plan=None
     npre = 0 if extra_embeds is None else extra_embeds.shape[1]
     params = gather_top(params, plan)
     h = forward(params, cfg, tokens, extra_embeds, plan)
-    e = head_params(params)["e"]
+    return nll_of(head_params(params)["e"], h, cfg, targets, mask, npre, cfg.logit_softcap)
+
+
+def nll_of(e, h, cfg, targets, mask=None, npre=0, softcap=0.0):
+    """(summed CE, token count) of the final hidden states ``h`` (B, npre +
+    S, D; over a world the rank's block of the positions where "seq" splits
+    them) against the head ``e`` (the rank's vocab rows where "vocab"
+    splits it), the first ``npre`` positions (patches) out of the loss:
+    :func:`lm_nll`'s tail, which ``encdec.encdec_nll`` shares."""
     mesh = sharding.get_mesh()
-    seq = sharding.seq_range(tokens.shape[1] + npre)
+    seq = sharding.seq_range(targets.shape[1] + npre)
     vocab = sharding.vocab_range(cfg.vocab)
     if mesh is None or mesh.size == 1 or (seq is None and vocab is None):
-        return chunked_nll(e, h[:, npre:], targets, mask, cfg.loss_chunk,
-                           cfg.logit_softcap)
+        return chunked_nll(e, h[:, npre:], targets, mask, cfg.loss_chunk, softcap)
     if vocab is None:                                       # the rank's positions
         lo, hi = seq
         a, b = max(lo, npre) - npre, hi - npre              # its text positions
@@ -385,13 +392,13 @@ def lm_nll(params, cfg, tokens, targets, mask=None, extra_embeds=None, plan=None
             return fold_sum(mesh, zero), fold_sum(mesh, zero.detach())
         total, count = chunked_nll(e, h[:, a + npre - lo:], targets[:, a:b],
                                    None if mask is None else mask[:, a:b],
-                                   cfg.loss_chunk, cfg.logit_softcap)
+                                   cfg.loss_chunk, softcap)
         return fold_sum(mesh, total), fold_sum(mesh, count)
     # every position on every rank: the gradient of a block is reduce-
     # scattered back; a replicated h enters the rank's vocab block
     h = all_gather(mesh, h, 1) if seq is not None else copy_in(mesh, h)
     return chunked_nll(rank_block(e, 0, vocab, cfg.vocab), h[:, npre:], targets, mask,
-                       cfg.loss_chunk, cfg.logit_softcap, vocab_block=(mesh, vocab[0]))
+                       cfg.loss_chunk, softcap, vocab_block=(mesh, vocab[0]))
 
 
 def lm_loss(params, cfg, tokens, targets, mask=None, extra_embeds=None):

@@ -38,13 +38,14 @@ all-to-all, the replicated leaves' gradients folded in rank order;
 production rules (``sharding.PRODUCTION_RULES``: tensor and sequence
 parallelism, "batch" off the world) each rank keeps its block of every
 leaf that :func:`param_specs` splits (:func:`shard_params`) and every rank
-runs every row: the prefill and decode steps of the attention LMs return
-the whole (B, V) logits, the same bits on every rank, and ``init_cache``
-builds the rank's block of each KV cache; the train step runs every row
-on every rank through the backward of those collectives
-(:func:`loss_and_grads`: the vocab-parallel loss, each partial leaf's
-gradient folded in rank order; ``optim.apply_updates(mesh=, blocks=)``:
-the global norm over the cut leaves). Under FSDP (``sharding.FSDP_RULES``,
+runs every row: the prefill and decode steps of every arch return the
+whole (B, V) logits, the same bits on every rank, and ``init_cache``
+builds the rank's block of each cache (:func:`cache_specs`); the train
+step runs every row on every rank through the backward of those
+collectives (:func:`loss_and_grads`: the vocab-parallel loss, each
+partial leaf's gradient folded in rank order;
+``optim.apply_updates(mesh=, blocks=)``: the global norm over the cut
+leaves). Under FSDP (``sharding.FSDP_RULES``,
 the reference's (D, 1) mesh, and the layouts of ``cfg.fsdp_mode``) each
 rank stores its blocks of the leaves the reference's ``param_specs`` puts
 on the world (:func:`param_specs`, :func:`shard_params`; under "zero1" the
@@ -67,7 +68,8 @@ from ..core.solver import resolve_device
 from ..optim import OptConfig, apply_updates, init_opt_state
 from . import encdec as ed
 from . import lm, sharding
-from .attention import rank_heads
+from .attention import mla_heads, rank_heads
+from .mamba2 import ssm_heads
 from .config import ModelConfig
 
 
@@ -148,10 +150,16 @@ def _seq(batch):
     return batch["tokens"].shape[1] + (0 if patches is None else patches.shape[1])
 
 
+def _frames(batch):
+    """The encoder's positions of an encoder-decoder's ``batch``, else None."""
+    frames = batch.get("frames")
+    return None if frames is None else frames.shape[1]
+
+
 def _nll(params, cfg, batch):
     """(summed next-token cross-entropy, token count) of ``batch``, each
     stored block gathered at use (:func:`gather_plan`)."""
-    plan = gather_plan(cfg, batch["tokens"].shape[0], _seq(batch))
+    plan = gather_plan(cfg, batch["tokens"].shape[0], _seq(batch), _frames(batch))
     if cfg.kind == "encdec":
         return ed.encdec_nll(params, cfg, batch["frames"], batch["tokens"],
                              batch["targets"], plan=plan)
@@ -177,7 +185,7 @@ def _world_of_training(cfg):
     mesh = sharding.get_mesh()
     if mesh is None:
         return None
-    sharding.check_step_rules(cfg, "train")
+    sharding.check_step_rules()
     if sharding.on_world("batch") and sharding.mesh_axis("experts") is None:
         raise ValueError("a train step with 'batch' on the world runs under the batch "
                          "binding or FSDP: 'batch' and 'experts' bound, experts to the "
@@ -196,7 +204,7 @@ def _partial_grads(cfg, params, blocks, batch):
     it on its share of the work (:func:`_partial`: always where "batch" is
     on the world; otherwise by the splits in effect for this step, not from
     the leaf's name alone)."""
-    partial = _partial(cfg, batch["tokens"].shape[0], _seq(batch))
+    partial = _partial(cfg, batch["tokens"].shape[0], _seq(batch), _frames(batch))
     return [block is None and partial(path, False)
             for (path, _), block in zip(lm.tree_leaves_with_paths(params), blocks)]
 
@@ -271,15 +279,13 @@ def make_prefill_step(cfg: ModelConfig):
     teacher-forced over the tokens)."""
 
     def prefill_step(params, batch):
-        sharding.check_step_rules(cfg, "prefill")
+        sharding.check_step_rules()
         batch = {k: _rank_rows(v) for k, v in batch.items()}
         seq = _seq(batch)
-        plan = gather_plan(cfg, batch["tokens"].shape[0], seq)
+        plan = gather_plan(cfg, batch["tokens"].shape[0], seq, _frames(batch))
         params = lm.gather_top(params, plan)
         if cfg.kind == "encdec":
-            memory = ed.encode(params, cfg, batch["frames"], plan)
-            h = ed.decode_train(params, cfg, batch["tokens"], memory, plan)
-            return h[:, -1] @ lm.head_params(params)["e"].to(h.dtype).T
+            return ed.encdec_prefill(params, cfg, batch["frames"], batch["tokens"], plan)
         h = lm.forward(params, cfg, batch["tokens"], batch.get("patches"), plan)
         return lm.prefill_logits(params, cfg, h, seq)
     return prefill_step
@@ -289,7 +295,7 @@ def make_decode_step(cfg: ModelConfig):
     """decode_step(params, caches, token, pos) -> (logits (B, 1, V), caches)."""
 
     def decode_step(params, caches, token, pos):
-        sharding.check_step_rules(cfg, "decode")
+        sharding.check_step_rules()
         token = _rank_rows(token)
         plan = gather_plan(cfg, token.shape[0], 1)
         if cfg.kind == "encdec":
@@ -345,18 +351,16 @@ def production_rules(multi_pod: bool, fsdp_mode: str = "full"):
     """The reference's production rule dicts (its 16 x 16 or 2 x 16 x 16
     mesh; ``sharding.production_rules``). On the port's flat world,
     ``production_rules(False)`` is ``sharding.PRODUCTION_RULES``: its
-    prefill, decode and train steps run for the attention LMs
-    (:func:`check_rules` refuses the rest), and each ``fsdp_mode``'s rules
-    under a config laid out by it. The same rules on the reference's (D,
-    1) mesh are ``sharding.fsdp_rules(fsdp_mode)``."""
+    prefill, decode and train steps run for every arch, and each
+    ``fsdp_mode``'s rules under a config laid out by it. The same rules on
+    the reference's (D, 1) mesh are ``sharding.fsdp_rules(fsdp_mode)``."""
     return sharding.production_rules(multi_pod, fsdp_mode)
 
 
-def check_rules(rules, cfg=None, kind=None):
+def check_rules(rules):
     """Raise ``NotImplementedError`` (as ``sharding.check_step_rules``) where
-    ``rules`` cannot run a ``kind`` step of ``cfg`` over the world
-    (``sharding.refusal``)."""
-    why = sharding.refusal(rules, cfg, kind)
+    ``rules`` cannot run a step over the world (``sharding.refusal``)."""
+    why = sharding.refusal(rules)
     if why:
         raise NotImplementedError(why)
 
@@ -379,9 +383,6 @@ def sanitize(dim, shape, size=None):
 # The parameter tree's layout over a world of ranks
 # ---------------------------------------------------------------------------
 
-# The parameter tree's keys whose leaves are stacked over layers (the
-# reference's ``stacked_prefixes``): their leading axis is the layer.
-_STACKED = ("slots", "enc", "dec")
 # The keys a checkpoint or optimizer state puts in front of a parameter
 # path: the checkpoint's halves and ``optim.OptState``'s fields.
 _HOLDERS = ("params", "opt", "step", "mu", "nu", "err")
@@ -451,7 +452,7 @@ def _ref_spec(cfg, path, whole_shape, sizes) -> tuple:
     ``sanitize``; with the moments' (``opt_specs`` under "zero1": the first
     free dim that the "data" axis divides) as a second tuple."""
     s = "/".join(map(str, path))
-    lead = 1 if path[0] in _STACKED else 0
+    lead = 1 if path[0] in sharding.STACKS else 0
     shape = tuple(whole_shape[lead:])
     size = lambda e: (1 if e is None else sizes["model"] * sizes["data"]  # noqa: E731
                       if e == "both" else sizes[e])
@@ -501,7 +502,15 @@ def layout(cfg: ModelConfig, rules=None, size=None) -> dict:
     modes "full", "zero1" and "none", and the batch binding) a leaf is
     stored as it is used, by its role, as the port laid it out before
     FSDP. A split D does not divide is dropped (the reference's
-    ``sanitize``)."""
+    ``sanitize``; Mamba2's inner width by its SSD heads, :func:`_extent`).
+
+    Mamba2's fused leaves (``in_proj``: [z | x | B | C | dt]; ``conv_w``,
+    ``conv_b``: [x | B | C]) have no role there: every rank stores them
+    whole and slices its heads' columns of z, x and dt and all of B and C
+    at use (``models/mamba2.py``: with one group every head reads the one
+    B and C), where the reference splits the fused dim evenly across the
+    pieces; their gradients are folded as partials (:func:`_whole_leaf_split`).
+    A layout-only difference."""
     rules = sharding.get_rules() if rules is None else rules
     mesh = sharding.get_mesh()
     size = (1 if mesh is None else mesh.size) if size is None else size
@@ -522,7 +531,8 @@ def _layout(cfg, rule_items, d):
     for path, leaf, role in _leaves_with_roles(init(cfg, None, "meta")):
         shape = tuple(leaf.shape)
         use = None
-        if role is not None and sharding.binds(rules, role[0]) and shape[role[1]] % d == 0:
+        if role is not None and sharding.binds(rules, role[0]) and \
+                _extent(cfg, path, shape, role[1]) % d == 0:
             use = role[1]
         if not ref:
             out[path] = (use, use, use, shape)
@@ -531,6 +541,16 @@ def _layout(cfg, rule_items, d):
               for ax in _ref_spec(cfg, path, shape, sizes)]
         out[path] = (on[0][0] if on[0] else None, use, on[1][0] if on[1] else None, shape)
     return out
+
+
+def _extent(cfg, path, shape, dim):
+    """The count that the world must divide for the leaf at ``path`` to split
+    along ``dim``: the dim's length, but Mamba2's SSD heads for its inner
+    width (``out_norm``, ``out_proj``'s rows), which a rank holds whole
+    heads of (``mamba2.ssm_heads``)."""
+    if "mixer" in path and (path[-1] == "out_proj" or "out_norm" in path):
+        return cfg.mamba.n_heads(cfg.d_model)
+    return shape[dim]
 
 
 def _param_path(path):
@@ -604,17 +624,32 @@ def moment_blocks(cfg: ModelConfig, params, mesh) -> list:
     return out
 
 
+# Mamba2's leaves (``models/mamba2.init_mamba``; its gated norm's scale
+# sits under "out_norm").
+_SSM_LEAVES = ("in_proj", "conv_w", "conv_b", "a_log", "d_skip", "dt_bias", "out_proj")
+
+
 def _whole_leaf_split(path):
     """The split besides "seq" under which a rank's gradient of the whole
     leaf at ``path`` is a partial where "batch" is off the world: "heads"
     for the attention's leaves (they serve the rank's heads: ``wk``/``wv``
-    kept whole, the q and k norms), "routed" for the router (the MoE's cut
-    tokens), None for a leaf that meets only the residual or the
-    replicated logits (the block norms, the final norm, ``e``, a dense
-    FFN's ``wi``/``wo`` kept whole). A whole leaf this table does not know
-    raises: its gradient may be a partial the fold would miss."""
+    kept whole, the q and k norms, MLA's ``wq_a``, ``wkv_a`` and their
+    norms, which feed every head, the encoder-decoder's self and cross
+    attention), "ssm" for Mamba2's (its ``in_proj`` and conv, kept whole,
+    serve the rank's SSD heads: their columns of z, x and dt take only the
+    rank's gradient, exact zeros elsewhere, and the B and C columns a
+    partial, so the fold adds exactly the partial part), "routed" for the
+    router (the MoE's cut tokens), None for a leaf that meets only the
+    residual or the replicated logits (the block norms, the final norm,
+    ``e``, a dense FFN's ``wi``/``wo`` kept whole). A whole leaf this table
+    does not know raises: its gradient may be a partial the fold would
+    miss."""
     key = path[-1]
-    if "mixer" in path and key in ("wq", "wk", "wv", "wo", "scale"):
+    mixer = any(k in sharding.MIXERS for k in path)
+    if mixer and (key in _SSM_LEAVES or "out_norm" in path):
+        return "ssm"
+    if mixer and key in ("wq", "wk", "wv", "wo", "scale", "wq_a", "wkv_a", "wq_b", "wk_b",
+                         "wv_b"):
         return "heads"
     if key == "router":
         return "routed"
@@ -624,19 +659,23 @@ def _whole_leaf_split(path):
                               f"leaf {'/'.join(map(str, path))}")
 
 
-def _partial(cfg, batch: int, seq: int):
+def _partial(cfg, batch: int, seq: int, frames: Optional[int] = None):
     """``partial(path, cut)``: whether this rank's gradient of the leaf at
     ``path``, used whole (``cut`` False) or cut to its block of a whole
     leaf (True), is a partial whose sum over the ranks is the gradient, in
-    a step of ``batch`` rows of ``seq`` positions under the rules in
-    effect. Where "batch" is on the world every leaf's is (the rank's
-    rows); otherwise (every rank every row) a used-cut leaf's is, and a
-    whole leaf's where the rank uses it on its share of the work, decided
-    from the splits in effect for this step:
+    a step of ``batch`` rows of ``seq`` positions (an encoder-decoder's
+    decoder; ``frames``: its encoder's) under the rules in effect. Where
+    "batch" is on the world every leaf's is (the rank's rows); otherwise
+    (every rank every row) a used-cut leaf's is, and a whole leaf's where
+    the rank uses it on its share of the work, decided from the splits in
+    effect for this step:
 
-    * "seq" splits the residual (D divides the positions): every leaf
-      meets the rank's block of positions;
-    * the heads split: the attention's leaves serve the rank's heads;
+    * "seq" splits the residual (D divides the positions; the encoder's
+      leaves by its frames): every leaf meets the rank's block of
+      positions;
+    * the heads split: the attention's leaves serve the rank's heads (MLA's
+      by "heads", GQA's by :func:`attention.rank_heads`), Mamba2's its SSD
+      heads (``mamba2.ssm_heads``);
     * the MoE cuts the replicated tokens (``moe.moe_train``): the router
       (:func:`_whole_leaf_split`, which refuses a leaf it does not know).
 
@@ -649,19 +688,23 @@ def _partial(cfg, batch: int, seq: int):
     if sharding.on_world("batch"):
         return lambda path, cut: True
     seq_split = sharding.seq_range(seq) is not None
-    heads = rank_heads(cfg) is not None
+    enc_split = frames is not None and sharding.seq_range(frames) is not None
+    heads = (mla_heads(cfg) if cfg.use_mla else rank_heads(cfg)) is not None
+    ssm = "mamba" in cfg.pattern and ssm_heads(cfg) is not None
     routed = seq_split or (sharding.on_world("experts") and (batch * seq) % mesh.size == 0)
 
     def partial(path, cut):
-        if cut or seq_split:
+        if cut or (enc_split if path[0] in ("enc", "enc_norm") else seq_split):
             return True
         split = _whole_leaf_split(path)
-        return (heads and split == "heads") or (routed and split == "routed")
+        return ((heads and split == "heads") or (ssm and split == "ssm")
+                or (routed and split == "routed"))
     return partial
 
 
-def gather_plan(cfg: ModelConfig, batch: int, seq: int):
-    """What a step of ``batch`` rows of ``seq`` positions gathers at use
+def gather_plan(cfg: ModelConfig, batch: int, seq: int, frames: Optional[int] = None):
+    """What a step of ``batch`` rows of ``seq`` positions (and ``frames``
+    encoder positions) gathers at use
     under the rules in effect: a tree nesting as the parameter tree, a
     stacked leaf's entry for one layer's slice, each leaf ``(dim, n,
     partial)`` where the rank stores a block of it along ``dim`` and uses
@@ -675,11 +718,11 @@ def gather_plan(cfg: ModelConfig, batch: int, seq: int):
     lay = layout(cfg)
     if all(store == use for store, use, _, _ in lay.values()):
         return None
-    partial = _partial(cfg, batch, seq)
+    partial = _partial(cfg, batch, seq, frames)
     plan = {}
     for path, (store, use, _, shape) in lay.items():
         if store is not None and store != use:
-            lead = 1 if path[0] in _STACKED else 0
+            lead = 1 if path[0] in sharding.STACKS else 0
             _put(plan, path, (store - lead, shape[store], partial(path, use is not None)))
     return plan
 
@@ -754,12 +797,19 @@ def cache_specs(cfg: ModelConfig, cell: ShapeCell, caches):
     """For each leaf of the whole (global-batch) cache tree, the batch dim
     where the rules bind "batch" to the world (FSDP too: decided by
     whether D divides the batch, where the reference decides from ``b >=
-    16``, which moves its layout only); else for an attention
-    cache's k and v the KV-head dim or the position dim by
-    ``attention.kv_split`` (decided from the world's size, where the
-    reference decides from a constant ``model_size`` of 16, which moves
-    its layout only); else None."""
-    from .attention import kv_split
+    16``, which moves its layout only); else the dim that the rank holds a
+    block of: for an attention cache's k and v the KV-head dim or the
+    position dim by ``attention.kv_split`` (decided from the world's size,
+    where the reference decides from a constant ``model_size`` of 16,
+    which moves its layout only); for an encoder-decoder's cross k and v
+    the KV-head dim where the rank's heads split (``attention.rank_heads``);
+    for MLA's ``c_kv`` and ``k_rope`` the position dim where "kv_seq" is on
+    the world (``attention.mla_split``); for Mamba2's SSM state the head
+    dim where its SSD heads split; else None. Mamba2's conv window holds
+    the rank's x channels and all of B and C (``mamba2.init_mamba_cache``),
+    which is no block of the whole window: None, where the reference splits
+    its channels evenly (a layout-only difference)."""
+    from .attention import kv_split, mla_split
     size = _world_size("batch")
 
     def walk(t, path):
@@ -767,11 +817,19 @@ def cache_specs(cfg: ModelConfig, cell: ShapeCell, caches):
             return {k: walk(v, path + (k,)) for k, v in t.items()}
         if isinstance(t, list):
             return [walk(v, path + (i,)) for i, v in enumerate(t)]
-        dim = _batch_dim(path)
-        if size > 1 or path[-1] not in ("k", "v"):
+        dim, key = _batch_dim(path), path[-1]
+        if size > 1:
             return sanitize(dim, t.shape, size)
-        split = kv_split(cfg, t.shape[dim + 1])
-        return None if split is None else dim + (2 if split[0] == "heads" else 1)
+        if key in ("k", "v") and path[0] == "cross":
+            return None if rank_heads(cfg) is None else dim + 2
+        if key in ("k", "v"):
+            split = kv_split(cfg, t.shape[dim + 1])
+            return None if split is None else dim + (2 if split[0] == "heads" else 1)
+        if key in ("c_kv", "k_rope"):
+            return None if mla_split(t.shape[dim + 1]) is None else dim + 1
+        if key == "ssm":
+            return None if ssm_heads(cfg) is None else dim + 1
+        return None
     return walk(caches, ())
 
 

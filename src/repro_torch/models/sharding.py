@@ -23,13 +23,15 @@ What runs over the world:
   "experts" bound), and :func:`map_experts` cuts a tree's expert leaves
   (``models/model.param_blocks`` says which leaves are a rank's blocks);
 * tensor and sequence parallelism, the names of :data:`TP_NAMES` -> world
-  (the prefill, decode and train steps of the attention LMs, under
+  (the prefill, decode and train steps of every arch, under
   :data:`PRODUCTION_RULES`, the reference's ``production_rules(False)``):
   "heads" and "kv_heads" the attention heads (:func:`head_range`,
-  :func:`kv_head_range`), "ffn" the dense FFN's columns (:func:`ffn_range`),
-  "vocab" the embedding and head rows (:func:`vocab_range`), "seq" the
-  residual stream between blocks (:func:`seq_range`, Megatron-style), and
-  "kv_seq" the decode cache's positions where the KV heads do not split.
+  :func:`kv_head_range`; MLA's heads and Mamba2's SSD heads by "heads"),
+  "ffn" the dense FFN's columns (:func:`ffn_range`), "vocab" the
+  embedding and head rows (:func:`vocab_range`), "seq" the residual
+  stream between blocks (:func:`seq_range`, Megatron-style; an encoder's
+  frames too), and "kv_seq" the decode cache's positions where the KV
+  heads do not split (MLA's headless latent cache always).
   Each helper gives this rank's block, or None where the rules leave the
   name off the world or D does not divide it (the reference's
   ``sanitize`` drops such a split). ``models/model.param_specs`` lays the
@@ -55,9 +57,8 @@ What runs over the world:
 
 The steps refuse what the port has not implemented (:func:`refusal`,
 :func:`check_step_rules`: ``NotImplementedError`` naming
-:data:`_UNPORTED_ITEM`): the MLA, Mamba2 and encoder-decoder archs under
-a name of :data:`TP_NAMES`, and "batch" or "fsdp" on the world together
-with such a name ("fsdp" also with "experts": a 2-D world).
+:data:`_UNPORTED_ITEM`): "batch" or "fsdp" on the world together with a
+name of :data:`TP_NAMES` ("fsdp" also with "experts": a 2-D world).
 Eager torch has nothing to constrain: :func:`constrain` returns its input,
 and :func:`spec` the tuple of bound names where the reference builds a
 ``PartitionSpec``.
@@ -76,7 +77,7 @@ __all__ = ["DEFAULT_RULES", "WORLD", "TP_NAMES", "set_rules", "get_rules",
            "PRODUCTION_RULES", "head_range", "kv_head_range", "ffn_range",
            "vocab_range", "seq_range", "world_sum", "RULES", "leaf_role",
            "UNIT", "FSDP_MODES", "FSDP_RULES", "production_rules", "fsdp_rules",
-           "rules_for"]
+           "rules_for", "MIXERS", "STACKS"]
 
 _state = threading.local()
 
@@ -152,7 +153,7 @@ FSDP_RULES = fsdp_rules("full")
 RULES = {"batch": BATCH_RULES, "production": PRODUCTION_RULES, "fsdp": FSDP_RULES}
 
 # Tensor and sequence parallelism: the prefill, decode and train steps of
-# the attention LMs run with these on the world.
+# every arch run with these on the world.
 TP_NAMES = ("seq", "kv_seq", "heads", "kv_heads", "ffn", "vocab")
 _UNPORTED_ITEM = "ROADMAP A10 item 5, second part"
 
@@ -230,36 +231,26 @@ def binds(rules, name) -> bool:
     return WORLD in (ax if isinstance(ax, tuple) else (ax,))
 
 
-def refusal(rules, cfg=None, kind=None):
+def refusal(rules):
     """Why ``rules`` cannot run a step over the world, or None: "batch" or
     "fsdp" on it together with a name of :data:`TP_NAMES` ("fsdp" also
-    with "experts"), which is a 2-D world (data x model), and under a name
-    of :data:`TP_NAMES` an arch whose mixers the port does not cover there
-    (``cfg``: MLA, Mamba2, the encoder-decoder), whatever the step's
-    ``kind``. Each names :data:`_UNPORTED_ITEM`."""
+    with "experts"), which is a 2-D world (data x model). Each names
+    :data:`_UNPORTED_ITEM`."""
     tp = [n for n in TP_NAMES if binds(rules, n)]
     model = tp + (["experts"] if binds(rules, "experts") else [])
     if binds(rules, "fsdp") and model:
         return (f"the rules bind 'fsdp' and {model} to the one world axis: a 2-D world "
                 f"(data x model) is not ported ({_UNPORTED_ITEM})")
-    if not tp:
-        return None
-    if binds(rules, "batch"):
+    if tp and binds(rules, "batch"):
         return (f"the rules bind 'batch' and {tp} to the one world axis: a 2-D world "
                 f"(data x model) is not ported ({_UNPORTED_ITEM})")
-    if cfg is not None:
-        what = ("the encoder-decoder" if cfg.kind == "encdec" else "MLA" if cfg.use_mla
-                else "Mamba2" if "mamba" in cfg.pattern else None)
-        if what:
-            return (f"{cfg.name}: {what} under {tp} on the world is not ported "
-                    f"({_UNPORTED_ITEM})")
     return None
 
 
-def check_step_rules(cfg=None, kind=None):
+def check_step_rules():
     """Raise ``NotImplementedError`` with :func:`refusal`'s reason where the
     rules in effect refuse the step."""
-    why = refusal(get_rules(), cfg, kind)
+    why = refusal(get_rules())
     if why:
         raise NotImplementedError(why)
 
@@ -341,25 +332,46 @@ def _expert_axis(parent: dict, key):
     return None
 
 
+# The parents of an attention's leaves: a block's "mixer" (GQA, MQA, MLA;
+# Mamba2's leaves sit there too) and the encoder-decoder's "attn", "self"
+# and "cross"; and the parameter tree's keys whose leaves are stacked over
+# layers (the reference's ``stacked_prefixes``: their leading axis is the
+# layer).
+MIXERS = ("mixer", "attn", "self", "cross")
+STACKS = ("slots", "enc", "dec")
+
+
 def leaf_role(path, parent):
     """(logical name, dim) of a parameter leaf's split by the reference's
-    ``_leaf_spec`` roles, the dim of the stored leaf (its period axis first
-    under "slots"); None: kept whole (the router, the norms). ``path`` is
-    the leaf's keys from the root of a parameter tree, or of a tree that
-    holds one (a checkpoint's ``{"params", "opt"}``, an optimizer state's
-    moments); ``parent`` the dict that holds the leaf. ``wk``/``wv`` split
-    on their KV heads where D divides them and are otherwise kept whole:
-    the reference splits their head dim there, which moves its layout
-    only."""
-    key, lead = path[-1], 1 if "slots" in path else 0
+    ``_leaf_spec`` roles, the dim of the stored leaf (its layer axis first
+    under "slots", "enc" and "dec"); None: kept whole (the router, the
+    norms, MLA's ``wq_a``/``wkv_a``, Mamba2's fused ``in_proj`` and its
+    conv). ``path`` is the leaf's keys from the root of a parameter tree,
+    or of a tree that holds one (a checkpoint's ``{"params", "opt"}``, an
+    optimizer state's moments); ``parent`` the dict that holds the leaf.
+    ``wk``/``wv`` split on their KV heads where D divides them and are
+    otherwise kept whole: the reference splits their head dim there, which
+    moves its layout only. Mamba2's per-head leaves and its inner width
+    (``out_norm``, ``out_proj``'s rows) split by its SSD heads ("heads");
+    its ``in_proj`` ([z | x | B | C | dt]) and conv ([x | B | C]) stay
+    whole, and each rank slices its heads' columns and all of B and C at
+    use, where the reference splits the fused dim evenly: a layout-only
+    difference (``models/mamba2.py``)."""
+    key, lead = path[-1], 1 if any(k in STACKS for k in path) else 0
     ax = _expert_axis(parent, key)
     if ax is not None:
         return "experts", ax
     if key == "e":
         return "vocab", 0
-    if len(path) >= 2 and path[-2] == "mixer":
+    if len(path) >= 3 and path[-2] == "out_norm" and path[-3] == "mixer":
+        return "heads", lead
+    if len(path) >= 2 and path[-2] in MIXERS:
         return {"wq": ("heads", lead + 1), "wk": ("kv_heads", lead + 1),
-                "wv": ("kv_heads", lead + 1), "wo": ("heads", lead)}.get(key)
+                "wv": ("kv_heads", lead + 1), "wo": ("heads", lead),
+                "wq_b": ("heads", lead + 1), "wk_b": ("heads", lead + 1),
+                "wv_b": ("heads", lead + 1), "a_log": ("heads", lead),
+                "d_skip": ("heads", lead), "dt_bias": ("heads", lead),
+                "out_proj": ("heads", lead)}.get(key)
     if len(path) >= 2 and path[-2] in ("ffn", "shared"):
         return {"wi": ("ffn", lead + 2), "wo": ("ffn", lead)}.get(key)
     return None

@@ -43,7 +43,11 @@ and two runs from one seed bitwise on the card. The MoE forward over a
 world of two ranks on the card (``models/sharding.py``, the a2a path,
 ``scd_route_shmap``, the steps under the batch binding) against a world of
 two on the CPU, and training over it (the train step under the batch
-binding, ``train(mesh=)`` saved and resumed bitwise on the card).
+binding, ``train(mesh=)`` saved and resumed bitwise on the card). Tensor
+and sequence parallelism over a world of two on the card against one on
+the CPU: moonshot's and gemma's steps, and deepseek's, mamba2's, jamba's
+and seamless's (MLA, Mamba2, the hybrid, the encoder-decoder: prefill,
+decode and train steps, also over a world of one in process).
 """
 import numpy as np
 import pytest
@@ -1443,6 +1447,77 @@ def test_tp_train_world_on_card_against_cpu(cuda_device, tp_train_worlds, arch):
             assert not np.any(g)
         else:
             assert np.linalg.norm(g - w) <= 1e-4 * np.linalg.norm(w)
+
+
+MIXER_ARCHS = ("deepseek-v2-236b", "mamba2-370m", "jamba-v0.1-52b", "seamless-m4t-medium")
+# jamba's 8 layers of smoke logits: phase 21's card-vs-CPU bar for them.
+MIXER_ATOL = {"jamba-v0.1-52b": 1e-4}
+
+
+def _mixers_close(card, cpu, arch):
+    """The card's prefill and decode logits within rtol 1e-4 (atol 4e-5 and
+    1e-5; jamba 1e-4) of the CPU's, finite; the losses and grad norms
+    within rtol 1e-5, atol 1e-5."""
+    for what, atol in (("prefill", 4e-5), ("decode", 1e-5)):
+        got, want = card[what], cpu[what]
+        assert got.shape == want.shape and np.isfinite(got).all(), what
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=MIXER_ATOL.get(arch, atol),
+                                   err_msg=what)
+    np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(card["grad_norm"], cpu["grad_norm"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def tp_mixer_worlds():
+    """``tests/_torch_tp_mixers.port_cases`` (deepseek's, mamba2's, jamba's
+    and seamless's smoke prefill, 6 decode steps and 2 train steps under
+    the production rules) over a world of 2 ranks on the card and a world
+    of 2 on the CPU, side by side (None without a card)."""
+    if not torch.cuda.is_available():
+        return None
+    import _torch_tp_mixers as W
+    from repro_torch.launch.mesh import run_local_world, start_local_world
+    cpu = start_local_world(W.port_cases, 2, device="cpu", timeout=600)
+    try:
+        card = run_local_world(W.port_cases, 2, device="cuda", timeout=600)
+    finally:
+        on_cpu = cpu.wait()
+    return card, on_cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MIXER_ARCHS)
+def test_tp_mixers_world_on_card_against_cpu(cuda_device, tp_mixer_worlds, arch):
+    """MLA, Mamba2, the hybrid and the encoder-decoder under tensor and
+    sequence parallelism over a world of 2 ranks sharing the card against a
+    world of 2 on the CPU (smoke weights, float32, TF32 off):
+    :func:`_mixers_close`, and both ranks' losses and norms bitwise on the
+    card."""
+    card, cpu = (w[arch] for w in tp_mixer_worlds)
+    _mixers_close(card, cpu, arch)
+    np.testing.assert_array_equal(card["both"][0], card["both"][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MIXER_ARCHS)
+def test_tp_mixers_world_of_one_on_card_equals_cpu(cuda_device, arch):
+    """The same steps under the production rules over a world of one in this
+    process, on the card against the CPU: :func:`_mixers_close`."""
+    import _torch_tp_mixers as W
+    from repro_torch.core.carry import params_from_reference
+    from repro_torch.core.mesh import Mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, bs = W.smoke_cfg(arch), W.batches(arch)
+    tree = W.smoke_trees((arch,))[arch]
+    got = []
+    for dev in (cuda_device, torch.device("cpu")):
+        mesh = Mesh(0, 1, dev)
+        pre, dec = W.run_steps(mesh, params_from_reference(tree, cfg, dev), cfg,
+                               W._on(bs[0], dev))
+        t = W.run_train(mesh, params_from_reference(tree, cfg, dev), cfg, bs)
+        got.append({"prefill": pre, "decode": dec, "loss": t["loss"],
+                    "grad_norm": t["grad_norm"]})
+    _mixers_close(*got, arch)
 
 
 FSDP_MODES = ("full", "zero1", "none", "fsdp_only", "dp_full")

@@ -9,8 +9,9 @@ worlds (``Mesh`` objects of rank r of D, which no collective is asked of
 here): the expert ranges, the batch rows, the refusals (``E % D``,
 ``B % D``, a mesh that is not a ``Mesh``, "batch" on the world without
 "experts", an expert tree not cut to the rank, and what tensor and
-sequence parallelism does not cover yet: the MLA, Mamba2 and
-encoder-decoder archs, a 2-D world), the production rules' parameter
+sequence parallelism does not cover yet: a 2-D world), the MLA, Mamba2
+and encoder-decoder archs' steps over a world of one under each name
+alone against one process, the production rules' parameter
 layout and blocks, FSDP's rule sets and layouts against the reference's
 ``production_rules`` and ``param_specs``, and the collectives at one rank
 and on a ``DryMesh``.
@@ -118,15 +119,54 @@ def test_batch_rows_and_their_refusal(smoke):
 LABEL = "ROADMAP A10 item 5, second part"
 
 
+# The archs whose mixers (MLA, Mamba2, the encoder-decoder) run under
+# tensor and sequence parallelism since they left the refusals.
+MIXER_ARCHS = ("deepseek-v2-236b", "mamba2-370m", "seamless-m4t-medium")
+
+
+def _mixer_steps(arch, rules):
+    """``arch``'s smoke prefill logits, one decode step's logits and one
+    train step's loss and gradients from the seeded weights, under
+    ``rules`` over a world of one (None: one process, no rules). "experts"
+    is left off the world: the MoE's world path routes without the
+    router's projection (``tests/test_torch_tp_mixers.py`` holds deepseek's
+    against the reference's mesh)."""
+    cfg = registry.get(arch).smoke()
+    rules = None if rules is None else dict(rules, experts=None)
+    params = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    g = np.random.default_rng(1)
+    toks = torch.from_numpy(g.integers(0, cfg.vocab, (2, 8)))
+    frames = (torch.from_numpy(g.standard_normal((2, 8, cfg.d_model)).astype(np.float32))
+              if cfg.kind == "encdec" else None)
+    batch = {"tokens": toks, **({} if frames is None else {"frames": frames})}
+    S.set_rules(rules, mesh=None if rules is None else Mesh(0, 1, CPU))
+    try:
+        with torch.no_grad():
+            prefill = M.make_prefill_step(cfg)(params, batch)
+            caches = M.init_cache(cfg, params, 2, 16, frames=frames)
+            decode = M.make_decode_step(cfg)(params, caches, toks[:, :1], 0)[0]
+        loss, grads = M.loss_and_grads(params, cfg, dict(batch, targets=toks))
+    finally:
+        S.set_rules(None)
+    return [prefill, decode, loss, *lm.tree_leaves(grads)]
+
+
+def _same_steps(got, want, arch):
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=f"{arch} {i}")
+
+
 @pytest.mark.parametrize("name", S.TP_NAMES)
 def test_unported_bindings_raise(smoke, name):
     """Each name of ``TP_NAMES`` bound alone (with "experts") runs a prefill,
     a decode and a train step, here over a world of one equal to the
-    one-process steps (a world of 2: ``tests/test_torch_tp_world.py`` and
-    ``tests/test_torch_tp_train.py``); "fsdp" or "batch" on the world
-    beside it (a 2-D world) and the MLA, Mamba2 and encoder-decoder archs
-    under it raise ``NotImplementedError`` naming the label of what is not
-    ported, for every step."""
+    one-process steps (a world of 2: ``tests/test_torch_tp_world.py``,
+    ``tests/test_torch_tp_train.py`` and ``tests/test_torch_tp_mixers.py``),
+    the MLA, Mamba2 and encoder-decoder archs too; "fsdp" or "batch" on
+    the world beside it (a 2-D world) raise ``NotImplementedError`` naming
+    the label of what is not ported, for every step."""
     cfg, params = smoke
     rules = dict(S.PRODUCTION_RULES, **{n: None for n in S.TP_NAMES if n != name})
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 8)))
@@ -159,15 +199,8 @@ def test_unported_bindings_raise(smoke, name):
             M.make_prefill_step(cfg)(params, {"tokens": toks})
         with pytest.raises(NotImplementedError, match=LABEL):
             M.make_train_step(cfg, OptConfig())(params, None, batch)
-    S.set_rules(rules, mesh=Mesh(0, 1, CPU))
-    for arch in ("deepseek-v2-236b", "mamba2-370m", "seamless-m4t-medium"):
-        other = registry.get(arch).smoke()
-        with pytest.raises(NotImplementedError, match=LABEL):
-            M.make_prefill_step(other)(None, {"tokens": toks})
-        with pytest.raises(NotImplementedError, match=LABEL):
-            M.make_decode_step(other)(None, None, toks[:, :1], 0)
-        with pytest.raises(NotImplementedError, match=LABEL):
-            M.make_train_step(other, OptConfig())(None, None, batch)
+    for arch in MIXER_ARCHS:
+        _same_steps(_mixer_steps(arch, rules), _mixer_steps(arch, None), arch)
 
 
 def test_production_rules_are_the_reference_s():
@@ -236,7 +269,7 @@ def test_fsdp_layouts_are_the_reference_s(monkeypatch, arch, mesh, mode):
     whole = M.init(cfg, None, "meta")
     S.set_rules(S.rules_for("fsdp" if mesh == "dp" else "production", mode),
                 mesh=D.DryMesh(0, 2))
-    assert S.refusal(S.get_rules(), cfg) is None
+    assert S.refusal(S.get_rules()) is None
     ps = M.param_specs(cfg, whole)
     ms = M.opt_specs(cfg, ps, whole).mu
     paths = [path for path, _ in lm.tree_leaves_with_paths(whole)]
@@ -388,14 +421,15 @@ def test_moe_over_a_world_refuses_what_it_cannot_run(smoke):
 def test_training_over_a_world_is_refused(smoke):
     """What a train step over a world still refuses: "fsdp" on the world
     beside a name of ``TP_NAMES`` or "experts", and "batch" on the world
-    beside a name of ``TP_NAMES`` (a 2-D world), and the MLA, Mamba2 and
-    encoder-decoder archs under the production rules raise
+    beside a name of ``TP_NAMES`` (a 2-D world) raise
     ``NotImplementedError`` naming ROADMAP A10 item 5's second part, and
     "batch" on the world needs "experts" bound (the batch binding, FSDP).
-    The production rules' train step, one with only "experts" on the world
-    (every rank every row), and each ``fsdp_mode`` under the production
-    rules and under FSDP (``sharding.rules_for``) run: over a world of one,
-    the one-process loss (gemma's)."""
+    The production rules' steps of the MLA, Mamba2 and encoder-decoder
+    archs run: over a world of one, the one-process logits, loss and
+    gradients. The production rules' train step, one with only "experts"
+    on the world (every rank every row), and each ``fsdp_mode`` under the
+    production rules and under FSDP (``sharding.rules_for``) run: over a
+    world of one, the one-process loss (gemma's)."""
     cfg, params = smoke
     batch = {"tokens": torch.zeros((2, 8), dtype=torch.long),
              "targets": torch.zeros((2, 8), dtype=torch.long)}
@@ -405,11 +439,8 @@ def test_training_over_a_world_is_refused(smoke):
         S.set_rules(rules, mesh=Mesh(0, 1, CPU))
         with pytest.raises(NotImplementedError, match=LABEL):
             step(params, None, batch)
-    S.set_rules(S.PRODUCTION_RULES, mesh=Mesh(0, 2, CPU))
-    for other in [registry.get(a).smoke() for a in ("deepseek-v2-236b", "mamba2-370m",
-                                                    "seamless-m4t-medium")]:
-        with pytest.raises(NotImplementedError, match=LABEL):
-            M.make_train_step(other, OptConfig())(None, None, batch)
+    for arch in MIXER_ARCHS:
+        _same_steps(_mixer_steps(arch, S.PRODUCTION_RULES), _mixer_steps(arch, None), arch)
     S.set_rules(dict(BATCH, experts=None), mesh=Mesh(0, 1, CPU))
     with pytest.raises(ValueError, match="batch binding"):
         step(params, None, batch)

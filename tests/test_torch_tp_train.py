@@ -371,16 +371,22 @@ def test_cli_trains_under_the_production_rules(runs):
 
 def test_the_gradient_fold_knows_every_whole_leaf():
     """``model._whole_leaf_split`` classifies every leaf of the attention
-    archs (the attention's leaves by the heads, the router by the routed
-    tokens, the rest by the residual) and refuses a leaf it does not know,
-    such as a router bias or a mixer leaf outside the table."""
+    archs and of the MLA, Mamba2, hybrid and encoder-decoder archs (the
+    attention's leaves by the heads, MLA's ``wq_a``/``wkv_a`` and norms
+    too, the encoder-decoder's self and cross attention too; Mamba2's by
+    its SSD heads, its whole ``in_proj`` and conv included; the router by
+    the routed tokens; the rest by the residual) and refuses a leaf it does
+    not know, such as a router bias or a mixer leaf outside the table."""
     from repro_torch.configs import registry
-    for arch in ("gemma-2b", "moonshot-v1-16b-a3b", "qwen3-4b", "yi-34b"):
+    ssm = ("in_proj", "conv_w", "conv_b", "a_log", "d_skip", "dt_bias", "out_proj")
+    for arch in ("gemma-2b", "moonshot-v1-16b-a3b", "qwen3-4b", "yi-34b", "deepseek-v2-236b",
+                 "mamba2-370m", "jamba-v0.1-52b", "seamless-m4t-medium"):
         params = M.init(registry.get(arch).smoke(), None, "meta")
         for path, _ in lm.tree_leaves_with_paths(params):
             split = M._whole_leaf_split(path)
-            want = ("heads" if "mixer" in path else "routed" if path[-1] == "router"
-                    else None)
+            attn = any(k in path for k in ("mixer", "attn", "self", "cross"))
+            want = ("ssm" if attn and (path[-1] in ssm or "out_norm" in path)
+                    else "heads" if attn else "routed" if path[-1] == "router" else None)
             assert split == want, (arch, path)
     for path in (("slots", 0, "ffn", "router_bias"), ("slots", 0, "mixer", "sinks")):
         with pytest.raises(NotImplementedError, match="does not know the whole leaf"):
